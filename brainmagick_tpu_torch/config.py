@@ -1,4 +1,4 @@
-"""Configuration of the serving slice.
+"""Configuration of the serving and training slices.
 
 The fields the port reads, with the names, defaults and ``clip_conv``
 preset of ``brainmagick_tpu.config``, copied so that the port runs on a
@@ -34,7 +34,15 @@ SIMPLECONV_DEFAULTS: tp.Dict[str, tp.Any] = dict(
 
 @dataclass
 class OptimConfig:
+    name: str = "adam"
+    lr: float = 3e-4
+    beta2: float = 0.999
+    epochs: int = 40
+    batch_size: int = 32
     loss: str = "l1"
+    max_batches: tp.Optional[int] = None
+    svd: float = 0.
+    negatives: tp.Optional[int] = None
 
 
 @dataclass
@@ -43,6 +51,8 @@ class ClipConfig:
     pool: bool = False
     tmin: tp.Optional[float] = None
     tmax: tp.Optional[float] = None
+    tmin_train: tp.Optional[float] = None
+    tmax_train: tp.Optional[float] = None
     center: bool = False
     compute_dtype: tp.Optional[str] = None
 
@@ -92,6 +102,9 @@ def apply_preset(cfg: MainConfig, name: str) -> MainConfig:
         complex_out=True, glu=2, glu_context=1, merger=True,
         initial_linear=270, gelu=True, merger_pos_dim=2048)
     cfg.optim.loss = "clip"
+    cfg.optim.epochs = 200
+    cfg.optim.max_batches = 1200
+    cfg.optim.batch_size = 256
     cfg.norm.clip = True
     cfg.task.type = "decode"
     cfg.task.offset_meg_ms = 150

@@ -6,6 +6,14 @@ state-dict key, and the port's submodules carry exactly those names, so
 replaying the rules (with no key prefix) and undoing each leaf's layout
 transform gives the port's state dict.
 
+Those rules refuse ``fused_conv_bn`` targets, so for a fused model the
+port walks its own encoder (``conv_sequence_rules``): flax's
+``FusedConvBN_{n}`` holds the conv kernel and the BatchNorm scale, bias
+and running statistics of a fused layer, and flax's ``Conv_{i}`` counter
+skips fused layers, so the GLU convs behind them are renumbered. The
+rules above the encoder (merger, initial linear, subject layers, head)
+do not depend on the flag and come from ``simpleconv_rules``.
+
 The JAX package's convert module needs only numpy at import time; it is
 imported here when a JAX tree is loaded, which only a host with JAX
 produces.
@@ -66,6 +74,84 @@ def load_by_rules(module: nn.Module, rules: tp.Sequence[tuple],
     module.load_state_dict(state, strict=True)
 
 
+def conv_sequence_rules(seq: nn.Module, tprefix: str,
+                        fprefix: tp.Tuple[str, ...]) -> tp.List[tuple]:
+    """Rules for a port ``ConvSequence`` (fused layers or not), walking
+    flax's ``Conv_{i}``, ``BatchNorm_{j}`` and ``FusedConvBN_{n}``
+    counters as ``brainmagick_tpu.models.common.ConvSequence`` creates
+    them."""
+    rules: tp.List[tuple] = []
+    counters = {"Conv": 0, "BatchNorm": 0, "FusedConvBN": 0}
+
+    def name(kind: str) -> str:
+        counters[kind] += 1
+        return f"{kind}_{counters[kind] - 1}"
+
+    for k, (layer, glu) in enumerate(zip(seq.sequence, seq.glus)):
+        pos = next(i for i, m in enumerate(layer) if isinstance(m, nn.Conv1d))
+        conv_key = f"{tprefix}sequence.{k}.{pos}"
+        bn_key = f"{tprefix}sequence.{k}.{pos + 1}"
+        if seq.fused[k]:
+            f = fprefix + (name("FusedConvBN"),)
+            rules += [(f"{conv_key}.weight", f + ("kernel",), "conv_w",
+                       "params"),
+                      (f"{bn_key}.weight", f + ("scale",), "copy", "params"),
+                      (f"{bn_key}.bias", f + ("bias",), "copy", "params"),
+                      (f"{bn_key}.running_mean", f + ("mean",), "copy",
+                       "batch_stats"),
+                      (f"{bn_key}.running_var", f + ("var",), "copy",
+                       "batch_stats")]
+        else:
+            f = fprefix + (name("Conv"),)
+            rules.append((f"{conv_key}.weight", f + ("kernel",), "conv_w",
+                          "params"))
+            rules.append((f"{conv_key}.bias", f + ("bias",), "copy",
+                          "params"))
+            if pos + 1 < len(layer) and isinstance(layer[pos + 1],
+                                                   nn.BatchNorm1d):
+                f = fprefix + (name("BatchNorm"),)
+                rules += [(f"{bn_key}.weight", f + ("scale",), "copy",
+                           "params"),
+                          (f"{bn_key}.bias", f + ("bias",), "copy", "params"),
+                          (f"{bn_key}.running_mean", f + ("mean",), "copy",
+                           "batch_stats"),
+                          (f"{bn_key}.running_var", f + ("var",), "copy",
+                           "batch_stats")]
+        if glu is not None:
+            f = fprefix + (name("Conv"),)
+            rules.append((f"{tprefix}glus.{k}.0.weight", f + ("kernel",),
+                          "conv_w", "params"))
+            rules.append((f"{tprefix}glus.{k}.0.bias", f + ("bias",), "copy",
+                          "params"))
+    return rules
+
+
+class _AsUnfused:
+    """A model's attributes as ``simpleconv_rules`` reads them, with
+    ``fused_conv_bn`` off (the rules outside the encoder do not depend on
+    it)."""
+
+    def __init__(self, model: nn.Module) -> None:
+        self._model = model
+
+    def __getattr__(self, name: str) -> tp.Any:
+        return False if name == "fused_conv_bn" else getattr(self._model,
+                                                             name)
+
+
+def simpleconv_rules(model: nn.Module) -> tp.List[tuple]:
+    """Rules for a port SimpleConv, with or without ``fused_conv_bn``."""
+    from brainmagick_tpu.convert import simpleconv_rules as jax_rules
+
+    if not model.fused_conv_bn:
+        return jax_rules(model, tprefix="")
+    rules = [r for r in jax_rules(_AsUnfused(model), tprefix="")
+             if not r[0].startswith("encoders.")]
+    return rules + conv_sequence_rules(model.encoders["meg"],
+                                       "encoders.meg.",
+                                       ("model", "encoder_meg"))
+
+
 def load_jax_params(model: nn.Module, params: Mapping,
                     batch_stats: Mapping) -> None:
     """Load the JAX solver's ``params`` and ``batch_stats`` trees
@@ -73,7 +159,4 @@ def load_jax_params(model: nn.Module, params: Mapping,
     ``jax.device_get(solver.state[...])`` gives them) into a port
     SimpleConv, by the rules ``simpleconv_rules`` derives from the port
     model's own attributes."""
-    from brainmagick_tpu.convert import simpleconv_rules
-
-    load_by_rules(model, simpleconv_rules(model, tprefix=""), params,
-                  batch_stats)
+    load_by_rules(model, simpleconv_rules(model), params, batch_stats)

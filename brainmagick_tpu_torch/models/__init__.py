@@ -1,4 +1,4 @@
-"""Brain-decoding models (torch, [B, C, T] layout, inference)."""
+"""Brain-decoding models (torch, [B, C, T] layout)."""
 
 from __future__ import annotations
 

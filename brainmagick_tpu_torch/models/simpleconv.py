@@ -1,4 +1,4 @@
-"""SimpleConv, the paper's brain decoder (inference, unfused head).
+"""SimpleConv, the paper's brain decoder (unfused head).
 
 Port of ``brainmagick_tpu/models/simpleconv.py``. Forward pipeline:
 ChannelMerger spatial attention -> initial 1x1 conv stack -> per-subject
@@ -12,8 +12,11 @@ as attributes of the same names, so ``brainmagick_tpu.convert
 those names are submodules here, because the reference key layout puts
 weights under them: ``merger``, ``initial_linear`` and ``subject_layers``
 hold the module when the option is on and None when it is off (the rules
-only test them for truth). Options outside the serving slice raise
-NotImplementedError naming the option.
+only test them for truth). Options outside the ported slices raise
+NotImplementedError naming the option. In train mode the merger's dropout
+disk is drawn from the `generator` passed to ``forward``, and
+``fused_conv_bn`` runs the encoder's conv + BatchNorm layers through
+``ops.conv_bn.conv_stats``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ _SUPPORTED = dict(concatenate=False, post_skip=False, scale=None,
                   merger_per_subject=False, dropout=0.,
                   subsample_meg_channels=0, dtype=None, output_dtype=None,
                   output_layout="bct", bn_conv_bias=True, conv_impl="conv",
-                  fused_conv_bn=False, fused_head=False)
+                  fused_head=False)
 
 
 class SimpleConv(nn.Module):
@@ -75,8 +78,7 @@ class SimpleConv(nn.Module):
                      subsample_meg_channels=subsample_meg_channels,
                      dtype=dtype, output_dtype=output_dtype,
                      output_layout=output_layout, bn_conv_bias=bn_conv_bias,
-                     conv_impl=conv_impl, fused_conv_bn=fused_conv_bn,
-                     fused_head=fused_head)
+                     conv_impl=conv_impl, fused_head=fused_head)
         for name, value in given.items():
             if value != _SUPPORTED[name]:
                 raise NotImplementedError(f"simpleconv.{name}={value!r}")
@@ -103,6 +105,9 @@ class SimpleConv(nn.Module):
         self.merger_pos_dim = merger_pos_dim
         self.initial_depth = initial_depth
         self.subject_layers_dim = subject_layers_dim
+        self.merger_dropout = merger_dropout
+        self.merger_penalty = merger_penalty
+        self.fused_conv_bn = fused_conv_bn
         for name, value in given.items():
             setattr(self, name, value)
 
@@ -111,8 +116,9 @@ class SimpleConv(nn.Module):
         self.merger = None
         if merger:
             # merger_dropout and merger_penalty act only in training
-            self.merger = ChannelMerger(merger_channels,
-                                        pos_dim=merger_pos_dim)
+            self.merger = ChannelMerger(
+                merger_channels, pos_dim=merger_pos_dim,
+                dropout=merger_dropout, usage_penalty=merger_penalty)
             chin = merger_channels
         self.initial_linear = None
         if initial_linear:
@@ -142,7 +148,7 @@ class SimpleConv(nn.Module):
             groups=groups, batch_norm=batch_norm,
             dropout_input=dropout_input, skip=skip,
             activation_on_last=use_final, glu=glu, glu_context=glu_context,
-            glu_glu=glu_glu, activation=act)})
+            glu_glu=glu_glu, activation=act, fused_conv_bn=fused_conv_bn)})
 
         final_channels = sizes[-1]
         self.final: tp.Optional[nn.Module] = None
@@ -169,19 +175,31 @@ class SimpleConv(nn.Module):
                 subject_index: torch.Tensor, positions: torch.Tensor,
                 pos_emb: tp.Optional[torch.Tensor] = None,
                 rec_index: tp.Optional[torch.Tensor] = None,
-                rec_positions: tp.Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                rec_positions: tp.Optional[torch.Tensor] = None,
+                generator: tp.Optional[torch.Generator] = None,
+                with_penalty: bool = False):
         """inputs {'meg': [B, C, T]}, subject_index [B], positions
-        [B, C, 2]; pos_emb/rec_index/rec_positions as in ChannelMerger.
-        Returns [B, out_channels, T] fp32."""
+        [B, C, 2]; pos_emb/rec_index/rec_positions, and the dropout's
+        generator, as in ChannelMerger.attention.
+        Returns [B, out_channels, T] fp32, or with `with_penalty` that and
+        the train-mode merger usage penalty (a scalar, 0 in eval)."""
         if self.training:
-            raise NotImplementedError("train=True (the port serves only)")
+            for name in ("conv_dropout", "dropout_input"):
+                if getattr(self, name):
+                    # nn.Dropout draws from torch's global generator
+                    raise NotImplementedError(
+                        f"simpleconv.{name}={getattr(self, name)!r} in "
+                        f"train mode")
         meg = inputs["meg"]
         length = meg.shape[-1]
+        penalty = torch.zeros((), device=meg.device)
         if self.merger is not None:
-            meg = self.merger(meg, positions, pos_emb=pos_emb,
-                              rec_index=rec_index,
-                              rec_positions=rec_positions)
+            weights = self.merger.attention(
+                positions, pos_emb=pos_emb, rec_index=rec_index,
+                rec_positions=rec_positions, generator=generator)
+            meg = torch.einsum("bct,boc->bot", meg, weights)
+            if self.training and self.merger_penalty > 0:
+                penalty = self.merger.penalty(weights)
         if self.initial_linear is not None:
             meg = self.initial_linear(meg)
         if self.subject_layers is not None:
@@ -189,4 +207,5 @@ class SimpleConv(nn.Module):
         x = self.encoders["meg"](meg)
         if self.final is not None:
             x = self.final(x)
-        return x[..., :length]
+        x = x[..., :length]
+        return (x, penalty) if with_penalty else x

@@ -32,6 +32,10 @@ SIGNATURES = {
     # (a, b, is_bf16, workspace, out, M, N, K, splits, k_chunk, stream)
     "bm_nt_matmul": ((_P, _P, ctypes.c_int, _P, _P, _I64, _I64, _I64,
                       ctypes.c_int, _I64, _P), ctypes.c_int),
+    # (x, w, is_bf16, y, workspace, s, ss, B, C, T, O, k, dilation, stream)
+    "bm_conv_stats": ((_P, _P, ctypes.c_int, _P, _P, _P, _P, _I64, _I64,
+                       _I64, _I64, ctypes.c_int, ctypes.c_int, _P),
+                      ctypes.c_int),
 }
 
 

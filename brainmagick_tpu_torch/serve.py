@@ -18,22 +18,13 @@ from __future__ import annotations
 
 import typing as tp
 
-import numpy as np
 import torch
 
 from .convert import load_jax_params
 from .dataset import to_device
-from .losses import ClipLoss, retrieval_scores
+from .losses import retrieval_scores
 from .models import build_model
-from .models.common import fourier_emb
-from .solver import Solver
-
-
-def _on(value: tp.Any, device: torch.device) -> torch.Tensor:
-    """A tensor, or a numpy / JAX array, as a tensor on `device`."""
-    if not isinstance(value, torch.Tensor):
-        value = torch.from_numpy(np.array(value))
-    return value.to(device)
+from .solver import Solver, _on, prepare_norm_arrays
 
 
 class Server:
@@ -56,21 +47,9 @@ class Server:
                                  n_subjects, self.device, generator)
         if params is not None:
             load_jax_params(self.model, params, batch_stats or {})
-        na = {name: _on(value, self.device)
-              for name, value in norm_arrays.items() if value is not None}
-        if self.model.merger is not None and "pos_emb" not in na:
-            # per-recording merger embeddings, as Solver._pos_emb_table
-            na["pos_emb"] = fourier_emb(na["rec_positions"],
-                                        self.model.merger_pos_dim)
-        self.solver = Solver(args, self.model, na)
-        self.clip: tp.Optional[ClipLoss] = None
-        if args.optim.loss == "clip":
-            c = args.clip
-            self.clip = ClipLoss(
-                linear=c.linear, pool=c.pool, center=c.center, tmin=c.tmin,
-                tmax=c.tmax, dset_tmin=args.dset.tmin,
-                dset_sample_rate=args.dset.sample_rate,
-                compute_dtype=c.compute_dtype)
+        self.solver = Solver(args, self.model, prepare_norm_arrays(
+            self.model, norm_arrays, self.device))
+        self.clip = self.solver.clip_loss
 
     @torch.no_grad()
     def forward_batch(self, batch: tp.Any):
@@ -80,8 +59,8 @@ class Server:
         arrays = to_device(batch, self.device)
         pad_weight = torch.ones(arrays["meg"].shape[0], dtype=torch.float32,
                                 device=self.device)
-        estimate, output, mask, keep = self.solver._forward(arrays,
-                                                            pad_weight)
+        estimate, output, mask, keep, _ = self.solver._forward(arrays,
+                                                               pad_weight)
         return estimate, output, mask, keep > 0.5
 
     @torch.no_grad()

@@ -279,7 +279,7 @@ def test_bridge_consumes_every_leaf():
 
 @pytest.mark.parametrize("option", [
     dict(dual_path=1), dict(n_fft=4), dict(conv_impl="dots"),
-    dict(fused_conv_bn=True), dict(fused_head=True),
+    dict(fused_head=True),
     dict(bn_conv_bias=False), dict(rewrite=True), dict(post_skip=True),
     dict(scale=0.1), dict(concatenate=True), dict(subject_dim=4),
     dict(merger_per_subject=True), dict(dtype="bfloat16")], ids=str)
@@ -305,11 +305,21 @@ def test_build_model_seeded_and_eval_only():
         assert torch.equal(pa, pb), name
     assert not torch.equal(a.merger.heads, c.merger.heads)
     assert not a.training
+    # train mode runs; its merger dropout disk needs a generator or centre
     meg, rec_positions, rec_index, subjects = _tiny_inputs()
     a.train()
-    with pytest.raises(NotImplementedError, match="train"):
+    with pytest.raises(ValueError, match="generator"):
         a({"meg": _t(meg)}, _t(subjects).long(),
           _t(rec_positions[rec_index]))
+    out = a({"meg": _t(meg)}, _t(subjects).long(),
+            _t(rec_positions[rec_index]),
+            generator=torch.Generator().manual_seed(0))
+    assert out.shape == (3, 8, 40) and torch.isfinite(out).all()
+    args.simpleconv.update(conv_dropout=0.1)
+    with pytest.raises(NotImplementedError, match="conv_dropout"):
+        make().train()({"meg": _t(meg)}, _t(subjects).long(),
+                       _t(rec_positions[rec_index]))
+    args.simpleconv.update(conv_dropout=0.)
     args.task.type = "encode"
     with pytest.raises(NotImplementedError, match="encode"):
         make()

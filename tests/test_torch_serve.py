@@ -192,12 +192,16 @@ def _run(*cmd, **extra_env):
 
 
 def test_import_hygiene_and_copied_constants():
-    """Importing the port loads no jax, flax, pandas or JAX-package
-    module; the constants it copies equal their originals."""
+    """Importing the port (its serving and training entry points and the
+    conv_stats op) loads no jax, flax, pandas or JAX-package module; the
+    constants it copies equal their originals, and so do the config
+    fields the train step reads."""
     proc = _run("-c", (
         "import sys\n"
         "import brainmagick_tpu_torch, brainmagick_tpu_torch.serve\n"
         "import brainmagick_tpu_torch.ops, brainmagick_tpu_torch.config\n"
+        "import brainmagick_tpu_torch.train\n"
+        "import brainmagick_tpu_torch.ops.conv_bn\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "    ('jax', 'jaxlib', 'flax', 'pandas', 'brainmagick_tpu'))\n"
         "print(bad)\n"
@@ -208,6 +212,17 @@ def test_import_hygiene_and_copied_constants():
         INVALID_POSITION as PORT_INVALID
     assert PORT_INVALID == INVALID_POSITION
     assert dataset.ARRAY_FIELDS == SegmentBatch.ARRAY_FIELDS
+    for preset in (None, "clip_conv"):
+        port, original = config.MainConfig(), jconfig.MainConfig()
+        if preset:
+            config.apply_preset(port, preset)
+            jconfig.apply_preset(original, preset)
+        for name in ("name", "lr", "beta2", "batch_size", "epochs",
+                     "max_batches", "negatives", "svd"):
+            assert getattr(port.optim, name) == getattr(original.optim,
+                                                        name), name
+        for name in ("tmin_train", "tmax_train"):
+            assert getattr(port.clip, name) == getattr(original.clip, name)
 
 
 def test_chip_smoke_refuses_without_a_card():
