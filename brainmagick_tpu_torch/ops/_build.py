@@ -1,10 +1,13 @@
 """Build the package's CUDA sources into one shared library at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` file for Hopper (``sm_90a``) into
+``nvcc`` compiles every ``csrc/*.cu`` file for Hopper (``sm_90a``), one
+process per source, all started together, and links the objects into
 ``_build/libbm_kernels_<hash>.so``; the hash covers the sources and the
 flags, so an edited source builds a new library. The sources expose a
 plain C interface (no PyTorch headers), so a build takes seconds, and the
-library is loaded with ``ctypes``. Each exported function returns the
+library is loaded with ``ctypes``. It links only the CUDA runtime:
+``cuTensorMapEncodeTiled``, which lives in ``libcuda``, is looked up
+through the runtime. Each exported function returns the
 ``cudaError_t`` of its launches; the Python wrappers raise when it is not
 0.
 """
@@ -23,15 +26,17 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 #: C signature of each exported function: (argtypes, restype)
 SIGNATURES = {
-    # (a, b, is_bf16, workspace, out, M, N, K, splits, k_chunk, stream)
-    "bm_nt_matmul": ((_P, _P, ctypes.c_int, _P, _P, _I64, _I64, _I64,
-                      ctypes.c_int, _I64, _P), ctypes.c_int),
+    # (a, b, is_bf16, a_split, workspace, out, M, N, K, width, splits,
+    #  k_chunk, stream)
+    "bm_nt_matmul": ((_P, _P, ctypes.c_int, _P, _P, _P, _I64, _I64, _I64,
+                      ctypes.c_int, ctypes.c_int, _I64, _P), ctypes.c_int),
     # (x, w, is_bf16, y, workspace, s, ss, B, C, T, O, k, dilation, stream)
     "bm_conv_stats": ((_P, _P, ctypes.c_int, _P, _P, _P, _P, _I64, _I64,
                        _I64, _I64, ctypes.c_int, ctypes.c_int, _P),
@@ -60,7 +65,7 @@ def _sources() -> list:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -75,15 +80,41 @@ def build() -> tuple:
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.tmp.{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    nvcc = _nvcc()
+    objects, procs = [], []
+    for src in _sources():
+        obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objects.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = ""
+    try:
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0:
+                raise KernelBuildError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                    f"{out}")
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)]
+        linked = subprocess.run(cmd, capture_output=True, text=True)
+        log += linked.stdout + linked.stderr
+        if linked.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed ({linked.returncode}): {' '.join(cmd)}\n"
+                f"{linked.stdout}\n{linked.stderr}")
+        # atomic: a concurrent build never sees half a file
+        os.replace(tmp, path)
+    finally:
+        for _, proc in procs:  # a failed build stops the other compiles
+            proc.kill()
+            proc.wait()
+        for obj in objects:
+            obj.unlink(missing_ok=True)
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
-    return path, proc.stdout + proc.stderr
+    return path, log
 
 
 @functools.cache

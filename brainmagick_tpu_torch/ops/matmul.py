@@ -3,22 +3,32 @@
 Port of ``brainmagick_tpu/ops/pallas_matmul.py``: ``nt_matmul(a, b)``
 computes ``[M, K] x [N, K] -> [M, N]`` in fp32 with fp32 accumulation,
 over fp32, bf16 or mixed operands (``a`` is cast to ``b.dtype``). On a
-CUDA tensor it launches the hand-written split-K GEMM of
-``csrc/nt_matmul.cu`` (the design note is in that file); on a CPU tensor
-it runs the plain version, ``_reference_impl``.
+CUDA tensor it launches the hand-written TMA + ``wgmma`` GEMM of
+``csrc/nt_matmul.cu`` (bf16 as it is, fp32 as 3xTF32; the design note is
+in that file); on a CPU tensor it runs the plain version,
+``_reference_impl``.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
-#: output tile of the CUDA kernel (BM = BN) and its K step
-_TILE = 64
-_BK = 32
-#: blocks in flight per SM that the split-K factor aims for
-_BLOCKS_PER_SM = 4
+#: bank rows per CTA (two warpgroups of 64) and the prediction tile widths
+#: by operand size: fp32 (3xTF32, two accumulators) stops at 128
+BANK_ROWS = 128
+WIDTHS = {4: (8, 64, 128), 2: (8, 64, 128, 256)}
+#: bytes of K per pipeline stage: one 128-byte swizzle row
+STEP_BYTES = 128
+#: what one more split costs a CTA (pipeline fill, partial tile store and
+#: its re-read by the split sum), in K steps
+_SPLIT_COST = 4
+#: TMA needs 16-byte aligned rows
+_ALIGN_BYTES = 16
 
 
 def _reference_impl(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -27,14 +37,44 @@ def _reference_impl(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float().T
 
 
-def split_k(m: int, n: int, k: int, n_sms: int) -> tuple:
-    """(splits, k_chunk): split K so that about `_BLOCKS_PER_SM` blocks
-    per SM are in flight; k_chunk is a multiple of the K step."""
-    tiles = -(-m // _TILE) * -(-n // _TILE)
-    k_steps = max(1, -(-k // _BK))
-    splits = max(1, min(k_steps, -(-_BLOCKS_PER_SM * n_sms // tiles)))
-    k_chunk = -(-k_steps // splits) * _BK
-    return -(-k // k_chunk) if k else 1, k_chunk
+@functools.lru_cache(maxsize=256)
+def plan_tiles(m: int, n: int, k: int, n_sms: int, elem_bytes: int
+               ) -> tuple:
+    """(width, bank_rows, splits, k_chunk) of the CUDA kernel for
+    [m, k] x [n, k] operands of `elem_bytes` bytes.
+
+    width is the smallest prediction tile that covers m (the widest, and
+    a grid over m, above that). The K split minimizes waves x (K steps
+    per split + _SPLIT_COST) over at most 8 waves of one CTA per SM, so
+    the CTAs fill the SMs in whole waves; k_chunk is a whole number of K
+    steps, and every split gets at least one."""
+    widths = WIDTHS[elem_bytes]
+    width = next((w for w in widths if w >= m), widths[-1])
+    bk = STEP_BYTES // elem_bytes
+    tiles = -(-n // BANK_ROWS) * -(-m // width)
+    k_steps = max(1, -(-k // bk))
+
+    def cost(s: int) -> int:
+        return -(-tiles * s // n_sms) * (-(-k_steps // s) + _SPLIT_COST)
+
+    most = max(1, min(k_steps, -(-8 * n_sms // tiles)))
+    splits = min(range(1, most + 1), key=cost)
+    per_split = -(-k_steps // splits)
+    return width, BANK_ROWS, -(-k_steps // per_split), per_split * bk
+
+
+def tma_operand(x: torch.Tensor) -> torch.Tensor:
+    """`x` [rows, K] as TMA can load it: rows of a multiple of 16 bytes
+    from a 16-byte aligned base. Pads K with zero columns (which add
+    nothing to the product) or copies a misaligned view; returns `x`
+    itself when it already qualifies."""
+    multiple = _ALIGN_BYTES // x.element_size()
+    pad = -x.shape[1] % multiple
+    if pad:
+        return F.pad(x, (0, pad))
+    if x.data_ptr() % _ALIGN_BYTES:
+        return x.clone()
+    return x
 
 
 def nt_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -56,21 +96,25 @@ def nt_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"nt_matmul runs on cpu or cuda, not {a.device}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("nt_matmul needs contiguous operands")
-    m, k = a.shape
-    n = b.shape[0]
+    m, n = a.shape[0], b.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    if m == 0 or n == 0:
+    if m == 0 or n == 0 or a.shape[1] == 0:
         return out.zero_()
+    a, b = tma_operand(a), tma_operand(b)
+    k = a.shape[1]
+    bf16 = b.dtype == torch.bfloat16
     n_sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    splits, k_chunk = split_k(m, n, k, n_sms)
+    width, _, splits, k_chunk = plan_tiles(m, n, k, n_sms, b.element_size())
+    a_split = (a if bf16 else
+               torch.empty((2, m, k), dtype=torch.float32, device=a.device))
     workspace = (torch.empty((splits, m, n), dtype=torch.float32,
                              device=a.device) if splits > 1 else out)
     lib = _build.library()
     with torch.cuda.device(a.device):
         status = lib.bm_nt_matmul(
-            a.data_ptr(), b.data_ptr(), int(b.dtype == torch.bfloat16),
-            workspace.data_ptr(), out.data_ptr(), m, n, k, splits, k_chunk,
-            torch.cuda.current_stream(a.device).cuda_stream)
+            a.data_ptr(), b.data_ptr(), int(bf16), a_split.data_ptr(),
+            workspace.data_ptr(), out.data_ptr(), m, n, k, width, splits,
+            k_chunk, torch.cuda.current_stream(a.device).cuda_stream)
     _build.check_status("nt_matmul", status)
     nt_matmul.launches += 1
     return out

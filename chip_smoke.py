@@ -17,8 +17,10 @@ exits non-zero and prints no result:
 4. the serving slice at the clip_conv preset's full width (273 sensors,
    361 samples, 1024 features, random seeded weights): four requests
    through Server.forward_batch and Server.probabilities against a bank of
-   2048 candidates, with each kernel's launch count over those requests,
-   and the smallest request held against the same server on the CPU;
+   2048 candidates, the largest one again warm (fp32 scoring, then bf16
+   scoring as clip.compute_dtype = "bfloat16" sets it, against the bank
+   stored in bf16), each kernel's launch count over all of it, and the
+   smallest request held against the same server on the CPU;
 5. the training slice at the same width with simpleconv.fused_conv_bn:
    five Adam steps of Trainer.step at B=256 on one seeded batch (finite
    losses that fall, conv_stats launched once per encoder layer per step,
@@ -76,8 +78,6 @@ TRAIN_B, TRAIN_STEPS, HELD_B = 256, 5, 8
 #: CPU sum in other orders): loss relative, each gradient's max error over
 #: its max magnitude, running statistics allclose rtol = atol
 STEP_TOL = 1e-4
-#: the kernels each path must launch
-SERVE_KERNELS = ("normalize_clamp_peak", "nt_matmul")
 HELD_LEAVES = ("merger.heads", "subject_layers.weights",
                "encoders.meg.sequence.0.0.weight",
                "encoders.meg.sequence.9.1.weight",
@@ -89,7 +89,11 @@ PROBS_TOL = 1e-5
 STEADY_RUNS = 5
 #: shapes beyond the serving path's that each kernel is also checked at
 RAGGED_NORM = ((1, 1, 1), (2, 3, 5), (3, 200, 61))
-RAGGED_MATMUL = ((1, 1, 1), (3, 5, 7), (65, 130, 33), (100, 70, 1000))
+#: nt_matmul: every edge of the tile plan (M past each prediction width, N
+#: past a bank tile, K within, at and past a K step, aligned and not)
+RAGGED_M = (1, 7, 9, 65, 255, 257)
+RAGGED_N = (1, 129, 2047)
+RAGGED_K = (1, 7, 33, 1000, 4099)
 
 
 def card() -> str:
@@ -159,58 +163,86 @@ def check_normalize(device: torch.device) -> dict:
                 max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
+def _matmul_error(a, b, got) -> tuple:
+    """(max|kernel - plain|, max of it over |a_m| |b_n|)."""
+    from brainmagick_tpu_torch.ops import matmul
+
+    diff = (got - matmul._reference_impl(a, b)).abs()
+    scale = a.float().norm(dim=1)[:, None] * b.float().norm(dim=1)[None, :]
+    return diff.max().item(), (diff / scale).max().item()
+
+
 def check_nt_matmul(device: torch.device) -> dict:
-    """nt_matmul at M in {1, 256}, N 2048, K 351,232 on fp32 and bf16
-    operands against the plain version (fp32 accumulation, TF32 off)."""
+    """nt_matmul against the plain version (fp32 accumulation, TF32 off):
+    ragged shapes over fp32, bf16 and mixed operands, then M in {1, 256},
+    N 2048, K 351,232 on fp32 and bf16 operands, each called twice (the
+    same bits both times) and timed."""
     from brainmagick_tpu_torch.ops import matmul
 
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
-    # ragged shapes: partial tiles in M, N and K, and K shorter than a step
-    for rows, cols, depth in RAGGED_MATMUL:
-        for dtype in (torch.float32, torch.bfloat16):
-            a = torch.randn((rows, depth), generator=gen, device=device)
-            b = torch.randn((cols, depth), generator=gen, device=device)
-            a, b = a.to(dtype), b.to(dtype)
-            diff = (matmul.nt_matmul(a, b) - matmul._reference_impl(a, b))
-            scale = (a.float().norm(dim=1)[:, None]
-                     * b.float().norm(dim=1)[None, :])
-            if not (diff.abs() / scale).max().item() <= MATMUL_TOL:
-                raise AssertionError(f"nt_matmul {(rows, cols, depth)} "
-                                     f"{dtype} differs from plain")
+    pairs = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+             (torch.float32, torch.bfloat16))
+    worst = {}
+    for rows in RAGGED_M:
+        for cols in RAGGED_N:
+            for depth in RAGGED_K:
+                for a_type, b_type in pairs:
+                    a = torch.randn((rows, depth), generator=gen,
+                                    device=device).to(a_type)
+                    b = torch.randn((cols, depth), generator=gen,
+                                    device=device).to(b_type)
+                    _, rel_err = _matmul_error(a.to(b_type), b,
+                                               matmul.nt_matmul(a, b))
+                    key = " x ".join(str(t).split(".")[-1]
+                                     for t in (a_type, b_type))
+                    worst[key] = max(worst.get(key, 0.), rel_err)
+                    if not rel_err <= MATMUL_TOL:
+                        raise AssertionError(
+                            f"nt_matmul {(rows, cols, depth)} {key}: "
+                            f"max|diff|/(|a||b|) {rel_err} > {MATMUL_TOL}")
+    print(f"nt_matmul ragged: {len(RAGGED_M) * len(RAGGED_N) * len(RAGGED_K)}"
+          f" shapes x {len(pairs)} operand types, worst max|diff|/(|a||b|) "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (tol {MATMUL_TOL})")
+
     m, n = REQUESTS[0], N_CANDIDATES
     a32 = torch.randn((m, SCORE_K), generator=gen, device=device)
     b32 = torch.randn((n, SCORE_K), generator=gen, device=device)
-    summary = {}
+    summary, shapes = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         a_all, b = a32.to(dtype), b32.to(dtype)
+        name = str(dtype).split(".")[-1]
         for rows in (1, m):
             a = a_all[:rows]
             got = matmul.nt_matmul(a, b)
-            want = matmul._reference_impl(a, b)
+            again = matmul.nt_matmul(a, b)
             torch.cuda.synchronize()
-            scale = (a.float().norm(dim=1)[:, None]
-                     * b.float().norm(dim=1)[None, :])
-            abs_err = (got - want).abs().max().item()
-            rel_err = ((got - want).abs() / scale).max().item()
+            abs_err, rel_err = _matmul_error(a, b, got)
             if not rel_err <= MATMUL_TOL:
                 raise AssertionError(
-                    f"nt_matmul {dtype} M={rows}: max|diff|/(|a||b|) "
+                    f"nt_matmul {name} M={rows}: max|diff|/(|a||b|) "
                     f"{rel_err} > {MATMUL_TOL}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"nt_matmul {name} M={rows}: two calls "
+                                     f"differ")
             ms = median_ms(lambda: matmul.nt_matmul(a, b))
             plain_ms = median_ms(lambda: matmul._reference_impl(a, b))
             tflops = 2 * rows * n * SCORE_K / 1e9
             print(f"nt_matmul [{rows}, {SCORE_K}] x [{n}, {SCORE_K}]^T "
-                  f"{str(dtype).split('.')[-1]}: max|diff| {abs_err:.3e}, "
-                  f"max|diff|/(|a||b|) {rel_err:.3e}; kernel {ms:.3f} ms "
+                  f"{name}: max|diff| {abs_err:.3e}, max|diff|/(|a||b|) "
+                  f"{rel_err:.3e}, two calls bit-equal; kernel {ms:.3f} ms "
                   f"({tflops / ms:.2f} TFLOP/s), plain {plain_ms:.3f} ms "
                   f"({tflops / plain_ms:.2f} TFLOP/s)")
             if dtype == torch.float32 and rows == m:
                 summary = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+            else:
+                shapes[f"{rows}x{n}x{SCORE_K} {name}"] = dict(
+                    ms=ms, plain_ms=plain_ms, max_abs_err=abs_err)
         del a_all, b
     return dict(name="nt_matmul", route="cuda",
                 source="brainmagick_tpu_torch/csrc/nt_matmul.cu",
                 replaces="brainmagick_tpu/ops/pallas_matmul.py:53",
-                **summary)
+                **summary, other_shapes=shapes)
 
 
 def _conv_case(shape, dtype, device, gen):
@@ -372,9 +404,22 @@ def make_request(rng: np.random.RandomState, batch: int,
         positions=rec_positions[rec])
 
 
+def _check_probs(probs: torch.Tensor, b: int, what: str) -> None:
+    if probs.shape != (b, N_CANDIDATES):
+        raise AssertionError(f"{what}: probabilities {tuple(probs.shape)}")
+    if not torch.isfinite(probs).all():
+        raise AssertionError(f"{what}: non-finite probabilities")
+    row_err = (probs.sum(dim=1) - 1).abs().max().item()
+    if row_err > PROBS_TOL:
+        raise AssertionError(f"{what}: probability rows off 1 by {row_err}")
+
+
 def run_slice(device: torch.device, card_name: str):
-    """The serving slice; returns its kernel launch counts and its first
-    B=256 request (the train slice's batch)."""
+    """The serving slice: four requests, then the largest one warm (its
+    forward and fp32 scoring, then its scoring with clip.compute_dtype
+    bfloat16 against the bank stored in bf16). Returns the kernel launch
+    counts over all of it and the first B=256 request (the train slice's
+    batch)."""
     from brainmagick_tpu_torch import ops
 
     server, rec_positions = build_server(device)
@@ -384,6 +429,7 @@ def run_slice(device: torch.device, card_name: str):
     t_out = T - server.solver._offsets()[0]
     bank = torch.randn((N_CANDIDATES, F, t_out), generator=gen,
                        device=device)
+    bank_bf16 = bank.to(torch.bfloat16)
     torch.cuda.synchronize()
 
     ops.reset_launch_counts()
@@ -401,26 +447,61 @@ def run_slice(device: torch.device, card_name: str):
             raise AssertionError(f"estimate {tuple(estimate.shape)}, output "
                                  f"{tuple(output.shape)}; want "
                                  f"{(b, F, t_out)}")
-        if probs.shape != (b, N_CANDIDATES):
-            raise AssertionError(f"probabilities {tuple(probs.shape)}")
-        for name, t in (("estimate", estimate), ("output", output),
-                        ("probabilities", probs)):
+        for name, t in (("estimate", estimate), ("output", output)):
             if not torch.isfinite(t).all():
                 raise AssertionError(f"non-finite {name} at B={b}")
-        row_err = (probs.sum(dim=1) - 1).abs().max().item()
-        if row_err > PROBS_TOL or not keep.all() or mask.shape != (
-                b, 1, t_out):
-            raise AssertionError(f"B={b}: probability rows off 1 by "
-                                 f"{row_err}, keep {keep.tolist()[:8]}")
+        _check_probs(probs, b, f"B={b}")
+        if not keep.all() or mask.shape != (b, 1, t_out):
+            raise AssertionError(f"B={b}: keep {keep.tolist()[:8]}, mask "
+                                 f"{tuple(mask.shape)}")
         print(f"request B={b}: forward {(t1 - t0) * 1e3:.2f} ms, scoring "
               f"against {N_CANDIDATES} candidates {(t2 - t1) * 1e3:.2f} ms "
               f"(host clock, synchronized; {card_name})")
         results.append((batch, estimate, probs))
+
+    # each request above was its batch size's first call (cuDNN picks its
+    # algorithms then); the steady state of the largest one, warm
+    batch = requests[0]
+    forward_ms, scoring_ms = [], []
+    for _ in range(STEADY_RUNS):
+        t0 = time.perf_counter()
+        estimate, _, _, _ = server.forward_batch(batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        probs = server.probabilities(estimate, bank)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        forward_ms.append((t1 - t0) * 1e3)
+        scoring_ms.append((t2 - t1) * 1e3)
+    b = len(batch.meg)
+    print(f"warm B={b} over {STEADY_RUNS} runs: forward median "
+          f"{statistics.median(forward_ms):.2f} ms, scoring median "
+          f"{statistics.median(scoring_ms):.2f} ms ({card_name})")
+    # the same estimate scored with bf16 operands (clip_conv_tpu's
+    # clip.compute_dtype) against the bank already stored in bf16
+    server.clip.compute_dtype = torch.bfloat16
+    bf16_ms = []
+    for _ in range(STEADY_RUNS):
+        t0 = time.perf_counter()
+        probs_bf16 = server.probabilities(estimate, bank_bf16)
+        torch.cuda.synchronize()
+        bf16_ms.append((time.perf_counter() - t0) * 1e3)
+    server.clip.compute_dtype = None
+    _check_probs(probs_bf16, b, f"B={b} bf16 scoring")
+    print(f"warm B={b} scoring with clip.compute_dtype bfloat16 over "
+          f"{STEADY_RUNS} runs: median {statistics.median(bf16_ms):.2f} ms; "
+          f"max|p_bf16 - p_fp32| {(probs_bf16 - probs).abs().max().item():.3e}"
+          f" ({card_name})")
+
     launches = {k.__name__: k.launches for k in ops.KERNELS}
-    print(f"kernel launches over the {len(REQUESTS)} requests: {launches}")
-    for name in SERVE_KERNELS:
-        if launches[name] == 0:
-            raise AssertionError(f"the serving path never launched {name}")
+    print(f"kernel launches over the {len(REQUESTS)} requests and the warm "
+          f"runs: {launches}")
+    want = dict(normalize_clamp_peak=len(REQUESTS) + STEADY_RUNS,
+                nt_matmul=len(REQUESTS) + 2 * STEADY_RUNS)
+    for name, count in want.items():
+        if launches[name] != count:
+            raise AssertionError(f"the serving path launched {name} "
+                                 f"{launches[name]} times, want {count}")
 
     # the smallest request, held against the same server on the CPU
     batch, estimate, _ = results[-1]
@@ -440,24 +521,6 @@ def run_slice(device: torch.device, card_name: str):
     print(f"B=1 against the CPU: estimate max|diff| {est_err:.3e} "
           f"(rtol=atol={REFERENCE_TOL}), probabilities over 64 candidates "
           f"max|diff| {probs_err:.3e} (atol {PROBS_TOL})")
-
-    # each request above was its batch size's first call (cuDNN picks its
-    # algorithms then); the steady state of the largest one, warm
-    batch = requests[0]
-    forward_ms, scoring_ms = [], []
-    for _ in range(STEADY_RUNS):
-        t0 = time.perf_counter()
-        estimate, _, _, _ = server.forward_batch(batch)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        server.probabilities(estimate, bank)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        forward_ms.append((t1 - t0) * 1e3)
-        scoring_ms.append((t2 - t1) * 1e3)
-    print(f"warm B={len(batch.meg)} over {STEADY_RUNS} runs: forward median "
-          f"{statistics.median(forward_ms):.2f} ms, scoring median "
-          f"{statistics.median(scoring_ms):.2f} ms ({card_name})")
     return launches, requests[0]
 
 

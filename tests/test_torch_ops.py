@@ -101,17 +101,122 @@ def test_nt_matmul_untiled_shape():
         matmul.nt_matmul(torch.zeros(2, 3), torch.zeros(4, 5))
 
 
-@pytest.mark.parametrize("M,N,K", [(256, 2048, 351_232), (1, 2048, 351_232),
-                                   (3, 5, 7), (64, 64, 32), (1, 1, 0)])
-def test_split_k_covers_k(M, N, K):
-    """The CUDA kernel's K split: whole K steps, every k covered once, and
-    at least the target blocks per SM where K allows it."""
-    splits, k_chunk = matmul.split_k(M, N, K, n_sms=132)
-    assert k_chunk % matmul._BK == 0 and splits >= 1
+@pytest.mark.parametrize("elem_bytes", [4, 2], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("K", [0, 7, 351_232])
+@pytest.mark.parametrize("N", [1, 2048])
+@pytest.mark.parametrize("M", [1, 7, 8, 9, 65, 256, 257, 1000])
+def test_plan_tiles_covers_m_and_k(M, N, K, elem_bytes):
+    """The CUDA kernel's tile plan: the smallest prediction width that
+    covers M (a grid of the widest tiles above that: 128 in fp32, 256 in
+    bf16), whole K steps with every k covered once, and at the scoring
+    shape at least one CTA per SM of the card's 132."""
+    width, bank_rows, splits, k_chunk = matmul.plan_tiles(M, N, K, 132,
+                                                          elem_bytes)
+    widths = matmul.WIDTHS[elem_bytes]
+    assert width in widths and bank_rows == matmul.BANK_ROWS
+    if M <= widths[-1]:
+        assert width >= M and all(w < M for w in widths if w < width)
+    else:
+        assert width == widths[-1]
+    m_tiles = -(-M // width)
+    assert (m_tiles - 1) * width < M <= m_tiles * width
+    bk = matmul.STEP_BYTES // elem_bytes
+    assert k_chunk % bk == 0 and splits >= 1
     assert splits * k_chunk >= K and (splits - 1) * k_chunk < max(K, 1)
-    tiles = -(-M // 64) * -(-N // 64)
-    if K >= matmul._BK * 4 * 132:
-        assert tiles * splits >= 4 * 132
+    ctas = -(-N // bank_rows) * m_tiles * splits
+    if K == 351_232 and N == 2048 and M in (1, 256):
+        assert ctas >= 132
+
+
+def _round_tf32(x: np.ndarray, truncate: bool = False) -> np.ndarray:
+    """cvt.rna.tf32.f32 on float32 values by integer ops: keep 10 mantissa
+    bits, rounding half away from zero (or truncating)."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    if not truncate:
+        bits = bits + np.uint32(0x1000)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32x3(a: np.ndarray, b: np.ndarray, truncate: bool = False
+            ) -> np.ndarray:
+    """The card's fp32 nt_matmul arithmetic: each operand split as
+    hi = tf32(x), lo = tf32(x - hi), and a_lo b_hi + a_hi b_lo + a_hi b_hi
+    (the products of tf32 values are exact; summed here in fp64)."""
+    def split(x):
+        hi = _round_tf32(x, truncate)
+        lo = _round_tf32(x - hi, truncate)
+        return hi.astype(np.float64), lo.astype(np.float64)
+
+    (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
+    return a_lo @ b_hi.T + a_hi @ b_lo.T + a_hi @ b_hi.T
+
+
+def _tf32x3_case(name):
+    rng = np.random.RandomState(7)
+    k = 351_232 if name.startswith("K351232") else 4096
+    rows = (2, 3) if k > 4096 else (4, 6)
+    a, b = (rng.randn(r, k) for r in rows)
+    if "one_sign" in name:
+        a, b = np.abs(a), np.abs(b)
+    if "range" in name:  # magnitudes spread over 2^-8 .. 2^8
+        a, b = (x * 2.0 ** rng.uniform(-8, 8, x.shape) for x in (a, b))
+    return a.astype(np.float32), b.astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["normal", "one_sign", "range_2_16",
+                                  "K351232", "K351232_one_sign"])
+def test_tf32x3_split_is_fp32_accurate(name):
+    """3xTF32 with round-to-nearest splits stays within MATMUL_TOL = 1e-6
+    of |a_m||b_n| of the exact product and of the JAX function (its
+    fp32 XLA dot on the CPU). Max error over |a||b| measured here, rna
+    split / truncating split: normal 2.1e-9 / 9.7e-9, one sign 3.1e-9 /
+    1.8e-7, 2^16 range 3.2e-9 / 1.4e-8, K = 351,232 1.6e-10 / 9.5e-10,
+    K = 351,232 one sign 2.4e-10 / 1.8e-7: truncation's errors share a
+    sign, so they add up on one-sign data. At K = 351,232 on one-sign
+    data the JAX function's own fp32 accumulation is ~3e-5 off the exact
+    product, so that case is held to the exact product only."""
+    a, b = _tf32x3_case(name)
+    scale = (np.linalg.norm(a.astype(np.float64), axis=1)[:, None]
+             * np.linalg.norm(b.astype(np.float64), axis=1)[None, :])
+    exact = a.astype(np.float64) @ b.astype(np.float64).T
+    model = _tf32x3(a, b)
+    assert (np.abs(model - exact) / scale).max() <= 1e-6
+    if name != "K351232_one_sign":
+        want = np.asarray(pallas_matmul.nt_matmul(jnp.asarray(a),
+                                                  jnp.asarray(b)))
+        assert (np.abs(model - want) / scale).max() <= 1e-6
+    if "one_sign" in name:
+        truncated = _tf32x3(a, b, truncate=True)
+        assert (np.abs(model - exact).max()
+                < np.abs(truncated - exact).max())
+
+
+@pytest.mark.parametrize("dtype,K", [(torch.float32, 1), (torch.float32, 7),
+                                     (torch.float32, 4099),
+                                     (torch.bfloat16, 7),
+                                     (torch.bfloat16, 1001)])
+def test_tma_operand_zero_pads_unaligned_k(dtype, K):
+    """The wrapper's zero-padding of K to 16-byte rows (K % 4 for fp32,
+    K % 8 for bf16): the padded operands give the same plain product."""
+    a, b = (torch.from_numpy(x).to(dtype) for x in _matmul_operands(5, K, 3))
+    pa, pb = matmul.tma_operand(a), matmul.tma_operand(b)
+    multiple = 16 // a.element_size()
+    for x, px in ((a, pa), (b, pb)):
+        assert px.shape == (x.shape[0], K + (-K % multiple))
+        assert px.shape[1] % multiple == 0 and px.data_ptr() % 16 == 0
+        assert torch.equal(px[:, :K], x) and not px[:, K:].any()
+    torch.testing.assert_close(matmul._reference_impl(pa, pb),
+                               matmul._reference_impl(a, b), rtol=1e-6,
+                               atol=1e-5)
+
+
+def test_tma_operand_keeps_or_copies_aligned_k():
+    x = torch.zeros(5, 8)
+    assert matmul.tma_operand(x) is x
+    shifted = torch.arange(41, dtype=torch.float32)[1:].view(5, 8)
+    assert shifted.data_ptr() % 16 != 0
+    copied = matmul.tma_operand(shifted)
+    assert copied.data_ptr() % 16 == 0 and torch.equal(copied, shifted)
 
 
 def _clip_pair(kw):
