@@ -1,22 +1,22 @@
 """Weight bridge: JAX SimpleConv parameter trees -> the port's modules.
 
-The reverse half of ``brainmagick_tpu/convert.py``. Its
-``simpleconv_rules`` walk maps every flax leaf to a reference ``bm``
-state-dict key, and the port's submodules carry exactly those names, so
-replaying the rules (with no key prefix) and undoing each leaf's layout
-transform gives the port's state dict.
+The reverse half of ``brainmagick_tpu/convert.py``, with its own copy of
+the rules: each rule ``(state-dict key, flax path, transform,
+collection)`` maps one flax leaf to one of the port's weights, and
+``_untransform`` undoes the leaf's layout transform. The port's
+submodules carry the reference ``bm`` state-dict names, so the rules need
+no key prefix. ``simpleconv_rules`` walks the port model's own attributes
+and modules: the merger, the initial 1x1 convs, the subject layers and
+the head as the JAX package's ``simpleconv_rules`` names them, and the
+encoder through ``conv_sequence_rules``, which also walks
+``fused_conv_bn`` layers (flax's ``FusedConvBN_{n}`` holds the conv
+kernel and the BatchNorm scale, bias and running statistics of a fused
+layer, and flax's ``Conv_{i}`` counter skips fused layers, so the GLU
+convs behind them are renumbered). The tests hold these rules to the JAX
+package's.
 
-Those rules refuse ``fused_conv_bn`` targets, so for a fused model the
-port walks its own encoder (``conv_sequence_rules``): flax's
-``FusedConvBN_{n}`` holds the conv kernel and the BatchNorm scale, bias
-and running statistics of a fused layer, and flax's ``Conv_{i}`` counter
-skips fused layers, so the GLU convs behind them are renumbered. The
-rules above the encoder (merger, initial linear, subject layers, head)
-do not depend on the flag and come from ``simpleconv_rules``.
-
-The JAX package's convert module needs only numpy at import time; it is
-imported here when a JAX tree is loaded, which only a host with JAX
-produces.
+The module imports nothing of the JAX package: a JAX tree arrives as
+nested dicts of numpy arrays.
 """
 
 from __future__ import annotations
@@ -47,14 +47,27 @@ def _get(tree: Mapping, path: tp.Tuple[str, ...]) -> np.ndarray:
     return np.asarray(node, dtype=np.float32)
 
 
+def _untransform(kind: str, value: np.ndarray) -> np.ndarray:
+    """A flax leaf in the port's layout: Conv1d weights [O, I/g, k] from
+    flax's [k, I/g, O]; ConvTranspose1d weights [I, O, k] from flax's
+    spatially flipped [k, I, O]."""
+    if kind == "copy":
+        return value
+    if kind == "conv_w":
+        return np.transpose(value, (2, 1, 0))
+    if kind == "convT_w":
+        return np.transpose(np.flip(value, axis=0), (1, 2, 0)).copy()
+    if kind == "convT_w_as_conv":
+        return np.transpose(value, (1, 2, 0))
+    raise ValueError(f"cannot invert transform {kind}")
+
+
 def load_by_rules(module: nn.Module, rules: tp.Sequence[tuple],
                   params: Mapping, batch_stats: Mapping) -> None:
-    """Load flax trees into `module` by ``brainmagick_tpu.convert`` rules
-    ``(state_dict key, flax path, transform, collection)``. Every leaf of
-    both trees must be consumed: a leaf no rule reads, or one a rule needs
-    and the trees lack, raises."""
-    from brainmagick_tpu.convert import _untransform
-
+    """Load flax trees into `module` by rules ``(state_dict key, flax
+    path, transform, collection)``. Every leaf of both trees must be
+    consumed: a leaf no rule reads, or one a rule needs and the trees
+    lack, raises."""
     trees = {"params": params, "batch_stats": batch_stats}
     unused = {coll: set(_leaf_paths(tree)) for coll, tree in trees.items()}
     state: tp.Dict[str, torch.Tensor] = {}
@@ -126,30 +139,45 @@ def conv_sequence_rules(seq: nn.Module, tprefix: str,
     return rules
 
 
-class _AsUnfused:
-    """A model's attributes as ``simpleconv_rules`` reads them, with
-    ``fused_conv_bn`` off (the rules outside the encoder do not depend on
-    it)."""
-
-    def __init__(self, model: nn.Module) -> None:
-        self._model = model
-
-    def __getattr__(self, name: str) -> tp.Any:
-        return False if name == "fused_conv_bn" else getattr(self._model,
-                                                             name)
-
-
 def simpleconv_rules(model: nn.Module) -> tp.List[tuple]:
-    """Rules for a port SimpleConv, with or without ``fused_conv_bn``."""
-    from brainmagick_tpu.convert import simpleconv_rules as jax_rules
+    """Rules for a port SimpleConv, with or without ``fused_conv_bn``:
+    the walk of ``brainmagick_tpu.convert.simpleconv_rules`` over the
+    options the port supports, under flax's top-level ``model`` scope."""
+    f = ("model",)
+    rules: tp.List[tuple] = []
+    conv_n = 0                      # flax's top-level nn.Conv counter
 
-    if not model.fused_conv_bn:
-        return jax_rules(model, tprefix="")
-    rules = [r for r in jax_rules(_AsUnfused(model), tprefix="")
-             if not r[0].startswith("encoders.")]
-    return rules + conv_sequence_rules(model.encoders["meg"],
-                                       "encoders.meg.",
-                                       ("model", "encoder_meg"))
+    def conv(tkey: str) -> None:
+        nonlocal conv_n
+        rules.extend([(f"{tkey}.weight", f + (f"Conv_{conv_n}", "kernel"),
+                       "conv_w", "params"),
+                      (f"{tkey}.bias", f + (f"Conv_{conv_n}", "bias"),
+                       "copy", "params")])
+        conv_n += 1
+
+    if model.merger is not None:
+        rules.append(("merger.heads", f + ("ChannelMerger_0", "heads"),
+                      "copy", "params"))
+    if model.initial_linear is not None:
+        # the convs sit at 2 d, an activation between them
+        for d in range(model.initial_depth):
+            conv(f"initial_linear.{2 * d}")
+    if model.subject_layers is not None:
+        rules.append(("subject_layers.weights",
+                      f + ("SubjectLayers_0", "weights"), "copy", "params"))
+    rules += conv_sequence_rules(model.encoders["meg"], "encoders.meg.",
+                                 f + ("encoder_meg",))
+    transposed = f + ("ConvTranspose_0",)
+    if model.linear_out:
+        rules += [("final.weight", transposed + ("kernel",), "convT_w",
+                   "params"),
+                  ("final.bias", transposed + ("bias",), "copy", "params")]
+    elif model.complex_out:
+        conv("final.0")
+        rules += [("final.2.weight", transposed + ("kernel",), "convT_w",
+                   "params"),
+                  ("final.2.bias", transposed + ("bias",), "copy", "params")]
+    return rules
 
 
 def load_jax_params(model: nn.Module, params: Mapping,

@@ -2,8 +2,9 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` file for Hopper (``sm_90a``), one
 process per source, all started together, and links the objects into
-``_build/libbm_kernels_<hash>.so``; the hash covers the sources and the
-flags, so an edited source builds a new library. The sources expose a
+``_build/libbm_kernels_<hash>.so``; the hash covers the sources, the
+headers they share (``csrc/*.cuh``) and the flags, so an edited source or
+header builds a new library. The sources expose a
 plain C interface (no PyTorch headers), so a build takes seconds, and the
 library is loaded with ``ctypes``. It links only the CUDA runtime:
 ``cuTensorMapEncodeTiled``, which lives in ``libcuda``, is looked up
@@ -37,10 +38,16 @@ SIGNATURES = {
     #  k_chunk, stream)
     "bm_nt_matmul": ((_P, _P, ctypes.c_int, _P, _P, _P, _I64, _I64, _I64,
                       ctypes.c_int, ctypes.c_int, _I64, _P), ctypes.c_int),
-    # (x, w, is_bf16, y, workspace, s, ss, B, C, T, O, k, dilation, stream)
-    "bm_conv_stats": ((_P, _P, ctypes.c_int, _P, _P, _P, _P, _I64, _I64,
-                       _I64, _I64, ctypes.c_int, ctypes.c_int, _P),
-                      ctypes.c_int),
+    # (x, w_split, y, workspace, s, ss, B, C, T, T4, O, k, dilation,
+    #  width, stages, stream)
+    "bm_conv_stats_tc": ((_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                          _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, _P), ctypes.c_int),
+    # (x, w, y, workspace, s, ss, B, C, T, O, k, dilation, stream)
+    "bm_conv_stats_bf16": ((_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                            ctypes.c_int, ctypes.c_int, _P), ctypes.c_int),
+    # (x, hi, lo, count4, stream)
+    "bm_split_tf32": ((_P, _P, _P, _I64, _P), ctypes.c_int),
 }
 
 
@@ -66,7 +73,7 @@ def _sources() -> list:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libbm_kernels_{digest.hexdigest()[:16]}.so"

@@ -17,9 +17,14 @@ would cost two transposes of the [B, T, C] activation (~112 MB each at the
 paper shape) per layer per step. The tests transpose when they compare
 with JAX.
 
-On a CUDA tensor the forward launches the hand-written kernel of
-``csrc/conv_stats.cu`` (design note there); on a CPU tensor it runs the
-plain version, ``_reference_impl``. The backward mirrors the JAX custom
+On a CUDA tensor the forward launches a hand-written kernel of
+``csrc/conv_stats.cu`` (design note there), chosen by dtype alone: fp32
+runs on the tensor cores as three TF32 products (route "tc": TMA-fed
+``wgmma``, the time tiles as the A operand, the weights split once per
+call into hi and lo TF32 halves as the K-major B operand, see
+``split_weights``), bf16 on the SIMT cores
+(route "simt"). On a CPU tensor it runs the plain version,
+``_reference_impl``. The backward mirrors the JAX custom
 VJP (``_conv_stats_bwd``), which is plain XLA there and plain torch here:
 fold the cotangents of s and ss into dY = dy + ds + 2 y dss in fp32, cast
 to x.dtype, then dx is the transposed conv of dY and dw the weight
@@ -28,17 +33,26 @@ gradient (cuDNN on the card).
 
 from __future__ import annotations
 
+import functools
 import typing as tp
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from .matmul import tma_operand
 
-#: time steps per block of the CUDA kernel (one workspace column tile)
+#: time steps per block of both CUDA kernels (one workspace column tile)
 _BT = 128
-#: kernel widths the CUDA kernel is built for
+#: kernel widths the kernels are built for
 _KERNEL_WIDTHS = (1, 3, 5, 7)
+#: tensor-core route: output-channel tile widths (the wgmma N side),
+#: input channels per K step, the x box's time steps, shared memory
+TC_WIDTHS = (8, 64, 128, 160)
+TC_CHANNELS = 32
+_X_BOX_STEPS = _BT + 8
+_SMEM_LIMIT = 232_448          # 227 KB per block
+_MAX_STAGES = 8
 
 
 def _reference_impl(x: torch.Tensor, w: torch.Tensor, dilation: int
@@ -50,9 +64,88 @@ def _reference_impl(x: torch.Tensor, w: torch.Tensor, dilation: int
     return y32.to(x.dtype), y32.sum(dim=(0, 2)), (y32 * y32).sum(dim=(0, 2))
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on fp32 values by integer ops: keep 10
+    mantissa bits, rounding half away from zero (finite values)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_weights(w: torch.Tensor) -> torch.Tensor:
+    """w [O, C, k] fp32 -> [2 k, O, C4] fp32, the tensor-core route's B
+    operand: taps j < k hold hi = rna_tf32(w[:, :, j]), taps k + j hold
+    lo = rna_tf32(w - hi), each [O, C] with C contiguous (K-major) and
+    zero-padded to C4 = C rounded up to 4 (TMA's 16-byte rows).
+
+    One copy rearranges w into [k, O, C4]; on a CUDA tensor the split is
+    then ``split_tf32`` of ``csrc/sm90.cuh`` (one launch), on a CPU tensor
+    its plain version, ``round_tf32``."""
+    taps = F.pad(w.permute(2, 0, 1), (0, -w.shape[1] % 4)).contiguous()
+    if taps.device.type == "cpu":
+        hi = round_tf32(taps)
+        return torch.cat([hi, round_tf32(taps - hi)])
+    out = torch.empty((2 * taps.shape[0],) + taps.shape[1:],
+                      dtype=torch.float32, device=taps.device)
+    with torch.cuda.device(taps.device):
+        status = _build.library().bm_split_tf32(
+            taps.data_ptr(), out.data_ptr(), out[taps.shape[0]:].data_ptr(),
+            taps.numel() // 4,
+            torch.cuda.current_stream(taps.device).cuda_stream)
+    _build.check_status("split_tf32", status)
+    return out
+
+
+def tc_operands(x: torch.Tensor, w: torch.Tensor
+                ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core route's operands: x [B, C, T] as [B, C, T4] with
+    T4 = T rounded up to 4 (zero columns, a copy only when T % 4 != 0 or
+    x is misaligned), and the split weights [2 k, O, C4]."""
+    batch, channels, times = x.shape
+    x4 = tma_operand(x.view(batch * channels, times))
+    return x4.view(batch, channels, -1), split_weights(w)
+
+
+@functools.lru_cache(maxsize=64)
+def plan_tc(out_channels: int) -> tp.Tuple[int, int, int]:
+    """(width, stages, shared memory bytes) of the tensor-core kernel.
+
+    width is the smallest of TC_WIDTHS that covers `out_channels`, the
+    widest (160: two tiles at the paper's 320) above that. A stage
+    holds the x box [32 channels][136 steps] and the weights' hi and lo
+    tiles [width][32]; the ring takes as many stages as fit in 227 KB
+    beside 1024 bytes of alignment slack, 16 bytes of barriers a stage
+    and the epilogue's [2][8 warps][width] sums, at most 8."""
+    width = next((w for w in TC_WIDTHS if w >= out_channels), TC_WIDTHS[-1])
+    stage = TC_CHANNELS * 4 * (_X_BOX_STEPS + 2 * width)
+    sums = 2 * 8 * width * 4
+    stages = min(_MAX_STAGES, (_SMEM_LIMIT - 1024 - sums) // (stage + 16))
+    return width, stages, 1024 + stages * (stage + 16) + sums
+
+
+def _tc_kernel(x4: torch.Tensor, w_split: torch.Tensor, y: torch.Tensor,
+               s: torch.Tensor, ss: torch.Tensor, dilation: int) -> None:
+    """The tensor-core kernel (and its column sums) alone, on the operands
+    ``tc_operands`` gives, into y [B, O, T], s and ss [O]."""
+    batch, channels, times4 = x4.shape
+    _, out_channels, times = y.shape
+    width, stages, _ = plan_tc(out_channels)
+    # the per-tile partial sums [2, column tiles, O]
+    workspace = torch.empty(2 * batch * -(-times // _BT) * out_channels,
+                            dtype=torch.float32, device=x4.device)
+    with torch.cuda.device(x4.device):
+        status = _build.library().bm_conv_stats_tc(
+            x4.data_ptr(), w_split.data_ptr(), y.data_ptr(),
+            workspace.data_ptr(), s.data_ptr(), ss.data_ptr(), batch,
+            channels, times, times4, out_channels, w_split.shape[0] // 2,
+            dilation, width, stages,
+            torch.cuda.current_stream(x4.device).cuda_stream)
+    _build.check_status("conv_stats", status)
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor, dilation: int
             ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The CUDA kernel on contiguous fp32 or bf16 operands of one type."""
+    """A CUDA kernel on contiguous fp32 or bf16 operands of one type:
+    fp32 on the tensor cores, bf16 on the SIMT cores."""
     if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
         raise TypeError(f"conv_stats takes fp32 or bf16 operands of one "
                         f"type, got {x.dtype} and {w.dtype}")
@@ -63,27 +156,36 @@ def _launch(x: torch.Tensor, w: torch.Tensor, dilation: int
     if k not in _KERNEL_WIDTHS:
         raise ValueError(f"the conv_stats kernel takes k in "
                          f"{_KERNEL_WIDTHS}, got {k}")
+    if dilation < 1:
+        raise ValueError(f"conv_stats needs dilation >= 1, got {dilation}")
     y = torch.empty((batch, out_channels, times), dtype=x.dtype,
                     device=x.device)
     s = torch.zeros(out_channels, dtype=torch.float32, device=x.device)
     ss = torch.zeros_like(s)
     if batch == 0 or times == 0 or out_channels == 0:
         return y, s, ss
-    # the weights transposed to [C k, O rounded up to 4] fp32, then the
-    # per-tile partial sums [2, column tiles, O]
-    n_cols = batch * -(-times // _BT)
-    workspace = torch.empty(channels * k * -(-out_channels // 4) * 4
-                            + 2 * n_cols * out_channels,
-                            dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        status = lib.bm_conv_stats(
-            x.data_ptr(), w.data_ptr(), int(x.dtype == torch.bfloat16),
-            y.data_ptr(), workspace.data_ptr(), s.data_ptr(), ss.data_ptr(),
-            batch, channels, times, out_channels, k, dilation,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check_status("conv_stats", status)
+    if channels == 0:
+        return y.zero_(), s, ss
+    if x.dtype == torch.float32:
+        route = "tc"
+        _tc_kernel(*tc_operands(x, w), y, s, ss, dilation)
+    else:
+        route = "simt"
+        # the transposed weights [C k, O rounded up to 4], then the
+        # per-tile partial sums [2, column tiles, O]
+        workspace = torch.empty(
+            channels * k * -(-out_channels // 4) * 4
+            + 2 * batch * -(-times // _BT) * out_channels,
+            dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            status = _build.library().bm_conv_stats_bf16(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                workspace.data_ptr(), s.data_ptr(), ss.data_ptr(), batch,
+                channels, times, out_channels, k, dilation,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check_status("conv_stats", status)
     conv_stats.launches += 1
+    conv_stats.launches_by_route[route] += 1
     return y, s, ss
 
 
@@ -143,8 +245,10 @@ def conv_stats(x: torch.Tensor, w: torch.Tensor, dilation: int = 1
     return _ConvStats.apply(x.contiguous(), w.contiguous(), int(dilation))
 
 
-#: kernel launches since the last reset (the CPU path does not count)
+#: kernel launches since the last reset (the CPU path does not count), in
+#: all and by route
 conv_stats.launches = 0
+conv_stats.launches_by_route = {"tc": 0, "simt": 0}
 
 
 def batch_mean_var(s: torch.Tensor, ss: torch.Tensor, n: int

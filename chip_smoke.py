@@ -13,7 +13,11 @@ exits non-zero and prints no result:
    Triton kernel, timed as set-up;
 3. each kernel against its plain PyTorch version on the card, at a few
    ragged shapes and at the shapes its path gives it, with the median time
-   of both at the latter (conv_stats forward and backward, TF32 off);
+   of both at the latter, of one PyTorch call that computes the same
+   function where there is one, and the least time the card could take
+   (conv_stats forward and backward, TF32 off; its fp32 forward on the
+   tensor cores at every edge of that route and at every encoder layer
+   shape, two calls bit-equal);
 4. the serving slice at the clip_conv preset's full width (273 sensors,
    361 samples, 1024 features, random seeded weights): four requests
    through Server.forward_batch and Server.probabilities against a bank of
@@ -24,8 +28,9 @@ exits non-zero and prints no result:
 5. the training slice at the same width with simpleconv.fused_conv_bn:
    five Adam steps of Trainer.step at B=256 on one seeded batch (finite
    losses that fall, conv_stats launched once per encoder layer per step,
-   normalize once per step), the warm step's time and peak memory, and a
-   B=8 step held against the same trainer on the CPU.
+   every launch on its fp32 tensor-core route, normalize once per step),
+   the warm step's time and peak memory, and a B=8 step held against the
+   same trainer on the CPU.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it raises at once.
@@ -64,15 +69,26 @@ CONV_TOL = 1e-5
 #: CONV_TOL), and the kernel's backward rounds dY to bf16 where the plain
 #: version's fp32 autograd does not (2^-7 of the bound)
 CONV_GRAD_TOL_BF16 = 2 ** -7
-#: (B, C, O, T, dilation) checked in fp32 and bf16: partial tiles in every
-#: dimension, and the widest halo at a short T
-RAGGED_CONV = ((1, 1, 1, 1, 1), (2, 3, 5, 7, 2), (2, 17, 33, 130, 4),
-               (3, 270, 320, 37, 16))
+#: (B, C, O, T, dilation, k) checked in fp32 and bf16: partial tiles in
+#: every dimension, and the widest halo at a short T
+RAGGED_CONV = ((1, 1, 1, 1, 1, 3), (2, 3, 5, 7, 2, 3), (2, 17, 33, 130, 4, 3),
+               (3, 270, 320, 37, 16, 3))
+#: fp32 only, the other edges of the tensor-core route: k in {1, 5, 7},
+#: T % 4 == 0, B=1, O not a multiple of its tile width (200 in tiles of
+#: 160, 72 in one of 128), and a tap's x box wholly outside the sequence
+#: (k=7, d=64, T=37)
+RAGGED_CONV_TC = ((1, 40, 200, 128, 1, 1), (2, 64, 72, 259, 2, 5),
+                  (1, 32, 160, 36, 8, 7), (2, 24, 48, 37, 64, 7))
 #: the encoder's layers at the paper shape: C=320 at each dilation, and the
 #: first layer's C=270
-PAPER_CONV = tuple((REQUESTS[0], 320, 320, T - 18, d)
+PAPER_CONV = tuple((REQUESTS[0], 320, 320, T - 18, d, 3)
                    for d in (1, 2, 4, 8, 16)) + ((REQUESTS[0], 270, 320,
-                                                  T - 18, 1),)
+                                                  T - 18, 1, 3),)
+#: the H100's peaks (NVIDIA's data sheet, SXM part, dense): memory bytes/s,
+#: TF32 and bf16 tensor-core FLOP/s. An fp32 product on the tensor cores
+#: takes three TF32 products (3xTF32), so its bound counts three.
+HBM_BYTES_PER_S = 3.35e12
+TF32_FLOPS, BF16_FLOPS = 495e12, 989e12
 TRAIN_B, TRAIN_STEPS, HELD_B = 256, 5, 8
 #: the B=8 step on the card against the CPU (fp32, TF32 off; cuDNN and the
 #: CPU sum in other orders): loss relative, each gradient's max error over
@@ -102,6 +118,16 @@ def card() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def bound(n_bytes: float, flops: float = 0., rate: float = TF32_FLOPS
+          ) -> tuple:
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of `n_bytes` over its memory rate and `flops` over `rate`."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / rate * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
 
 
 def median_ms(fn, runs: int = 10, warmup: int = 2) -> float:
@@ -153,14 +179,20 @@ def check_normalize(device: torch.device) -> dict:
                                                      LIMIT))
     plain_ms = median_ms(lambda: norm._reference_impl(meg, center, scale,
                                                       LIMIT, True))
-    gbytes = 2 * meg.numel() * 4 / 1e9
+    # meg read and written once, center and scale read, peak written
+    n_bytes = 4 * (2 * meg.numel() + center.numel() + scale.numel() + B)
+    bound_ms, bound_by = bound(n_bytes)
+    gbytes = n_bytes / 1e9
     print(f"normalize_clamp_peak [{B}, {C}, {T}] fp32: max|diff| {err} "
           f"(exact); kernel {ms:.4f} ms ({gbytes / ms * 1e3:.1f} GB/s), "
-          f"plain {plain_ms:.4f} ms ({gbytes / plain_ms * 1e3:.1f} GB/s)")
+          f"plain {plain_ms:.4f} ms ({gbytes / plain_ms * 1e3:.1f} GB/s), "
+          f"bound {bound_ms:.4f} ms ({bound_by}); no single PyTorch call "
+          f"computes it")
     return dict(name="normalize_clamp_peak", route="triton",
                 source="brainmagick_tpu_torch/ops/norm.py",
                 replaces="brainmagick_tpu/ops/pallas_norm.py:51",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def _matmul_error(a, b, got) -> tuple:
@@ -227,17 +259,38 @@ def check_nt_matmul(device: torch.device) -> dict:
                                      f"differ")
             ms = median_ms(lambda: matmul.nt_matmul(a, b))
             plain_ms = median_ms(lambda: matmul._reference_impl(a, b))
-            tflops = 2 * rows * n * SCORE_K / 1e9
+            # one cuBLAS call computes the same function: torch.mm, on
+            # bf16 operands with out_dtype=float32 (fp32 accumulation and
+            # output, where a plain bf16 mm rounds its output to bf16)
+            out_dtype = ({} if dtype == torch.float32
+                         else dict(out_dtype=torch.float32))
+
+            def library():
+                return torch.mm(a, b.T, **out_dtype)
+
+            _, library_err = _matmul_error(a, b, library())
+            library_ms = median_ms(library)
+            flop = 2 * rows * n * SCORE_K
+            bound_ms, bound_by = bound(
+                a.element_size() * (rows + n) * SCORE_K + 4 * rows * n,
+                *((3 * flop, TF32_FLOPS) if dtype == torch.float32
+                  else (flop, BF16_FLOPS)))
             print(f"nt_matmul [{rows}, {SCORE_K}] x [{n}, {SCORE_K}]^T "
                   f"{name}: max|diff| {abs_err:.3e}, max|diff|/(|a||b|) "
                   f"{rel_err:.3e}, two calls bit-equal; kernel {ms:.3f} ms "
-                  f"({tflops / ms:.2f} TFLOP/s), plain {plain_ms:.3f} ms "
-                  f"({tflops / plain_ms:.2f} TFLOP/s)")
+                  f"({flop / 1e9 / ms:.2f} TFLOP/s), plain {plain_ms:.3f} "
+                  f"ms ({flop / 1e9 / plain_ms:.2f} TFLOP/s), torch.mm"
+                  f"{'' if dtype == torch.float32 else ' out_dtype fp32'} "
+                  f"{library_ms:.3f} ms (max|diff|/(|a||b|) "
+                  f"{library_err:.3e}), bound {bound_ms:.3f} ms "
+                  f"({bound_by})")
+            timed = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         max_abs_err=abs_err)
             if dtype == torch.float32 and rows == m:
-                summary = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+                summary = timed
             else:
-                shapes[f"{rows}x{n}x{SCORE_K} {name}"] = dict(
-                    ms=ms, plain_ms=plain_ms, max_abs_err=abs_err)
+                shapes[f"{rows}x{n}x{SCORE_K} {name}"] = timed
         del a_all, b
     return dict(name="nt_matmul", route="cuda",
                 source="brainmagick_tpu_torch/csrc/nt_matmul.cu",
@@ -247,12 +300,12 @@ def check_nt_matmul(device: torch.device) -> dict:
 
 def _conv_case(shape, dtype, device, gen):
     """Seeded conv_stats operands and backward cotangents at (B, C, O, T,
-    d): x [B, C, T], w [O, C, 3] (LeCun scale), G for y, a and b for s
+    d, k): x [B, C, T], w [O, C, k] (LeCun scale), G for y, a and b for s
     and ss."""
-    B, Cin, O, Tc, _ = shape
+    B, Cin, O, Tc, _, k = shape
     x = torch.randn((B, Cin, Tc), generator=gen, device=device).to(dtype)
-    w = (torch.randn((O, Cin, 3), generator=gen, device=device)
-         / (3 * Cin) ** 0.5).to(dtype)
+    w = (torch.randn((O, Cin, k), generator=gen, device=device)
+         / (k * Cin) ** 0.5).to(dtype)
     cot = (torch.randn((B, O, Tc), generator=gen, device=device).to(dtype),
            torch.randn(O, generator=gen, device=device),
            torch.randn(O, generator=gen, device=device) * 0.1)
@@ -293,20 +346,38 @@ def _conv_errors(x, w, d, cot, got, want, got_grads, want_grads):
         abs_y=(got[0].float() - y_ref).abs().max().item())
 
 
+def _conv_bound(shape) -> tuple:
+    """(bound_ms, bound_by) of the fp32 forward at (B, C, O, T, d, k):
+    x, w read and y, s, ss written once; 2 B T C O k fp32 operations as
+    three TF32 products each."""
+    B, Cin, O, Tc, _, k = shape
+    return bound(4 * (B * Cin * Tc + O * Cin * k + B * O * Tc + 2 * O),
+                 3 * 2 * B * Tc * Cin * O * k)
+
+
 def check_conv_stats(device: torch.device) -> dict:
     """conv_stats forward (y, s, ss) and backward (dx, dw through autograd)
     against its plain version's autograd: ragged shapes in fp32 and bf16,
-    the encoder's paper shapes in fp32; then the median times of both,
-    forward and forward + backward, at [256, 320, 343]."""
-    from brainmagick_tpu_torch.ops import conv_bn
+    the tensor-core route's other edges and the encoder's paper shapes in
+    fp32, two fp32 calls bit-equal at [256, 320, 343]; then at every
+    paper shape the weight split on the card bit-equal to its plain
+    version, and the median times of the forward through its wrapper, of
+    its parts alone (the tensor-core kernel with its column sums, the
+    zero-padding of T to a multiple of 4, the weight split), of its plain
+    version (cuDNN conv + the two sums) and of cuDNN's conv alone (y only:
+    no single PyTorch call computes the sums with it); and the forward +
+    backward at [256, 320, 343]."""
+    import torch.nn.functional as fn
+
+    from brainmagick_tpu_torch.ops import conv_bn, matmul
 
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     cases = [(shape, dtype) for shape in RAGGED_CONV
              for dtype in (torch.float32, torch.bfloat16)]
-    cases += [(shape, torch.float32) for shape in PAPER_CONV]
+    cases += [(shape, torch.float32) for shape in RAGGED_CONV_TC + PAPER_CONV]
     summary = {}
     for shape, dtype in cases:
-        d = shape[-1]
+        d = shape[4]
         x, w, cot = _conv_case(shape, dtype, device, gen)
         got = conv_bn.conv_stats(x, w, d)
         want = conv_bn._reference_impl(x, w, d)
@@ -328,26 +399,60 @@ def check_conv_stats(device: torch.device) -> dict:
                                      f"error {errors[key]} > {limit}")
         if shape == PAPER_CONV[0]:
             summary["max_abs_err"] = errors["abs_y"]
+            again = conv_bn.conv_stats(x, w, d)
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"conv_stats {shape}: two calls differ")
+            print(f"conv_stats {shape} fp32: two calls bit-equal")
         del x, w, cot, got, want, got_grads, want_grads
 
-    B, Cin, O, Tc, d = PAPER_CONV[0]
+    shapes = {}
+    for shape in PAPER_CONV:
+        B, Cin, O, Tc, d, k = shape
+        x, w, _ = _conv_case(shape, torch.float32, device, gen)
+        # the weight split on the card against its plain version
+        w_split = conv_bn.split_weights(w)
+        if not torch.equal(w_split.cpu(), conv_bn.split_weights(w.cpu())):
+            raise AssertionError(f"split_weights {tuple(w.shape)} differs "
+                                 f"from its plain version")
+        x4 = matmul.tma_operand(x.view(B * Cin, Tc)).view(B, Cin, -1)
+        y, s, ss = conv_bn.conv_stats(x, w, d)
+        ms = median_ms(lambda: conv_bn.conv_stats(x, w, d))
+        kernel_ms = median_ms(lambda: conv_bn._tc_kernel(x4, w_split, y, s,
+                                                         ss, d))
+        pad_ms = median_ms(lambda: matmul.tma_operand(x.view(B * Cin, Tc)))
+        split_ms = median_ms(lambda: conv_bn.split_weights(w))
+        plain_ms = median_ms(lambda: conv_bn._reference_impl(x, w, d))
+        library_ms = median_ms(lambda: fn.conv1d(x, w, padding=(k // 2) * d,
+                                                 dilation=d))
+        bound_ms, bound_by = _conv_bound(shape)
+        gflop = 2 * B * Tc * Cin * O * k / 1e9
+        print(f"conv_stats [{B}, {Cin}, {Tc}] x [{O}, {Cin}, {k}] d={d} fp32 "
+              f"forward: through its wrapper {ms:.3f} ms ({gflop / ms:.1f} "
+              f"TFLOP/s) = the kernel and its column sums {kernel_ms:.3f} "
+              f"ms + the pad of T to {Tc + -Tc % 4} {pad_ms:.3f} ms + the "
+              f"weight split {split_ms:.3f} ms (each timed alone); plain "
+              f"{plain_ms:.3f} ms, cuDNN conv alone {library_ms:.3f} ms, "
+              f"bound {bound_ms:.3f} ms ({bound_by})")
+        shapes[f"{B}x{Cin}x{Tc} O{O} k{k} d{d}"] = dict(
+            ms=ms, kernel_ms=kernel_ms, pad_ms=pad_ms, split_ms=split_ms,
+            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+            bound_by=bound_by)
+        del x, w, w_split, x4, y, s, ss
+
+    B, Cin, O, Tc, d, k = PAPER_CONV[0]
     x, w, cot = _conv_case(PAPER_CONV[0], torch.float32, device, gen)
-    gflop = 2 * B * Cin * O * Tc * 3 / 1e9
-    times = {}
-    for label, fn in (("kernel", conv_bn.conv_stats),
-                      ("plain", conv_bn._reference_impl)):
-        times[label] = (median_ms(lambda: fn(x, w, d)),
-                        median_ms(lambda: _conv_grads(fn, x, w, d, cot)))
-    (ms, ms_bwd), (plain_ms, plain_bwd) = times["kernel"], times["plain"]
-    print(f"conv_stats [{B}, {Cin}, {Tc}] x [{O}, {Cin}, 3] d={d} fp32 "
-          f"forward: kernel {ms:.3f} ms ({gflop / ms:.1f} TFLOP/s), plain "
-          f"{plain_ms:.3f} ms ({gflop / plain_ms:.1f} TFLOP/s); forward + "
-          f"backward: kernel {ms_bwd:.3f} ms, plain {plain_bwd:.3f} ms")
+    ms_bwd = median_ms(lambda: _conv_grads(conv_bn.conv_stats, x, w, d, cot))
+    plain_bwd = median_ms(lambda: _conv_grads(conv_bn._reference_impl, x, w,
+                                              d, cot))
+    print(f"conv_stats [{B}, {Cin}, {Tc}] x [{O}, {Cin}, {k}] d={d} fp32 "
+          f"forward + backward: kernel {ms_bwd:.3f} ms, plain "
+          f"{plain_bwd:.3f} ms")
+    head = shapes.pop(f"{B}x{Cin}x{Tc} O{O} k{k} d{d}")
     return dict(name="conv_stats", route="cuda",
                 source="brainmagick_tpu_torch/csrc/conv_stats.cu",
                 replaces="brainmagick_tpu/ops/pallas_conv_bn.py:89",
-                ms=ms, plain_ms=plain_ms, fwd_bwd_ms=ms_bwd,
-                plain_fwd_bwd_ms=plain_bwd, **summary)
+                **head, fwd_bwd_ms=ms_bwd, plain_fwd_bwd_ms=plain_bwd,
+                **summary, other_shapes=shapes)
 
 
 def seeded_arrays():
@@ -542,7 +647,7 @@ def build_trainer(device):
 def run_train(device: torch.device, card_name: str, batch) -> dict:
     """TRAIN_STEPS Adam steps of Trainer.step on one B=256 batch, then a
     B=8 step held against the same trainer on the CPU. Returns the kernel
-    launch counts over the TRAIN_STEPS steps."""
+    launch counts over the TRAIN_STEPS steps, and conv_stats' by route."""
     from brainmagick_tpu_torch import dataset, ops
 
     trainer = build_trainer(device)
@@ -562,6 +667,7 @@ def run_train(device: torch.device, card_name: str, batch) -> dict:
         if {metrics["keep"].item(), metrics["count"].item()} != {TRAIN_B}:
             raise AssertionError(f"keep/count {metrics}")
     launches = {k.__name__: k.launches for k in ops.KERNELS}
+    routes = dict(ops.conv_stats.launches_by_route)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"train B={TRAIN_B}: losses {losses}; step times "
           f"{[round(t, 2) for t in step_ms]} ms (host clock, synchronized, "
@@ -569,7 +675,7 @@ def run_train(device: torch.device, card_name: str, batch) -> dict:
     print(f"train warm step median over steps 2-{TRAIN_STEPS}: "
           f"{statistics.median(step_ms[1:]):.2f} ms; peak device memory "
           f"{peak_gb:.2f} GB; kernel launches over the {TRAIN_STEPS} steps: "
-          f"{launches}")
+          f"{launches}, conv_stats by route {routes}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train losses {losses}: want finite, and the "
                              f"last below the first")
@@ -579,6 +685,9 @@ def run_train(device: torch.device, card_name: str, batch) -> dict:
         if launches[name] != count:
             raise AssertionError(f"train path launched {name} "
                                  f"{launches[name]} times, want {count}")
+    if routes != {"tc": n_fused * TRAIN_STEPS, "simt": 0}:
+        raise AssertionError(f"fp32 train steps ran conv_stats by route "
+                             f"{routes}, want every launch on 'tc'")
     del trainer, metrics
     torch.cuda.empty_cache()
 
@@ -612,7 +721,7 @@ def run_train(device: torch.device, card_name: str, batch) -> dict:
     for key, value in errors.items():
         if not value <= STEP_TOL:
             raise AssertionError(f"card vs CPU train step: {key} {value}")
-    return launches
+    return launches, routes
 
 
 def main() -> None:
@@ -654,12 +763,14 @@ def main() -> None:
     kernels = [check_normalize(device), check_nt_matmul(device),
                check_conv_stats(device)]
     serve_launches, batch = run_slice(device, card_name)
-    train_launches = run_train(device, card_name, batch)
+    train_launches, train_routes = run_train(device, card_name, batch)
     for entry in kernels:
         by_path = dict(serve=serve_launches[entry["name"]],
                        train=train_launches[entry["name"]])
         entry["launches"] = by_path["serve"] + by_path["train"]
         entry["launches_by_path"] = by_path
+        if entry["name"] == "conv_stats":
+            entry["train_launches_by_route"] = train_routes
     print(card_name)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,113 @@
+"""The port's weight bridge (brainmagick_tpu_torch.convert) against the JAX
+package's rules, and the port's import rule: no module of the port and no
+line of chip_smoke.py imports the JAX package, at top level or inside a
+function."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from brainmagick_tpu import convert as jconvert
+from brainmagick_tpu.models.simpleconv import SimpleConv as JaxSimpleConv
+from brainmagick_tpu_torch import convert
+from brainmagick_tpu_torch.models.simpleconv import SimpleConv
+
+REPO = Path(__file__).resolve().parent.parent
+
+#: a small SimpleConv with every option of the bridge on
+BASE = dict(hidden={"meg": 24}, depth=3, kernel_size=3, dilation_period=2,
+            skip=True, glu=2, glu_context=1, merger=True,
+            merger_channels=16, merger_pos_dim=32, initial_linear=16,
+            gelu=True, batch_norm=True, subject_layers=True, subject_dim=0,
+            complex_out=True)
+
+OPTIONS = [dict(), dict(merger=False), dict(initial_linear=0),
+           dict(initial_depth=2, initial_nonlin=True),
+           dict(subject_layers=False),
+           dict(subject_layers_dim="hidden"),
+           dict(complex_out=False, linear_out=True),
+           dict(complex_out=False), dict(glu=0), dict(glu=1, glu_glu=False),
+           dict(merger=False, initial_linear=0, subject_layers=False,
+                complex_out=False, batch_norm=False, glu=0),
+           dict(groups=2, dropout_input=0.1, conv_dropout=0.1)]
+
+
+def _pair(fused=False, **overrides):
+    kw = dict(in_channels={"meg": 20}, out_channels=8, n_subjects=2,
+              **{**BASE, **overrides})
+    return (JaxSimpleConv(**kw),
+            SimpleConv(**kw, fused_conv_bn=fused))
+
+
+@pytest.mark.parametrize("overrides", OPTIONS, ids=str)
+def test_rules_equal_the_jax_packages(overrides):
+    """Unfused, the port's own rules are the JAX package's rules for the
+    same architecture, and they name exactly the port's weights."""
+    jmodel, port = _pair(**overrides)
+    rules = convert.simpleconv_rules(port)
+    assert sorted(rules) == sorted(jconvert.simpleconv_rules(jmodel,
+                                                             tprefix=""))
+    assert {r[0] for r in rules} == {
+        k for k in port.state_dict() if not k.endswith("num_batches_tracked")}
+
+
+@pytest.mark.parametrize("overrides", OPTIONS[:9], ids=str)
+def test_fused_rules_unchanged(overrides):
+    """Fused, the rules above the encoder are the JAX package's for the
+    unfused model, and the encoder's come from the port's own walk."""
+    jmodel, port = _pair(fused=True, **overrides)
+    want = [r for r in jconvert.simpleconv_rules(jmodel, tprefix="")
+            if not r[0].startswith("encoders.")]
+    want += convert.conv_sequence_rules(port.encoders["meg"],
+                                        "encoders.meg.",
+                                        ("model", "encoder_meg"))
+    assert any(r[1][2].startswith("FusedConvBN_") for r in want)
+    assert sorted(convert.simpleconv_rules(port)) == sorted(want)
+
+
+@pytest.mark.parametrize("kind", ["copy", "conv_w", "convT_w",
+                                  "convT_w_as_conv"])
+def test_untransform_equals_the_jax_packages(kind):
+    value = np.arange(24, dtype=np.float32).reshape(2, 3, 4)
+    np.testing.assert_array_equal(convert._untransform(kind, value),
+                                  jconvert._untransform(kind, value))
+    with pytest.raises(ValueError):
+        convert._untransform("bn_mean_fold_bias", value)
+
+
+def _imports_of_the_jax_package(source: str) -> list:
+    """(line, module) of every import of brainmagick_tpu or a submodule of
+    it, anywhere in `source`, function bodies included."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [(node.lineno, name) for name in names
+                  if name.split(".")[0] == "brainmagick_tpu"]
+    return found
+
+
+def test_the_import_scan_sees_function_bodies():
+    source = ("import os\n"
+              "import brainmagick_tpu_torch.ops\n"
+              "from . import convert\n"
+              "def f():\n"
+              "    from brainmagick_tpu.convert import _untransform\n"
+              "    import numpy, brainmagick_tpu.ops as ops\n")
+    assert _imports_of_the_jax_package(source) == [
+        (5, "brainmagick_tpu.convert"), (6, "brainmagick_tpu.ops")]
+
+
+def test_no_import_of_the_jax_package():
+    files = sorted((REPO / "brainmagick_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    bad = {str(f.relative_to(REPO)): hits for f in files
+           if (hits := _imports_of_the_jax_package(f.read_text()))}
+    assert not bad
