@@ -48,6 +48,12 @@ SIGNATURES = {
                             ctypes.c_int, ctypes.c_int, _P), ctypes.c_int),
     # (x, hi, lo, count4, stream)
     "bm_split_tf32": ((_P, _P, _P, _I64, _P), ctypes.c_int),
+    # (meg, is_bf16, center, scale, rec, out, peak, B, C, T, R, limit, clip,
+    #  rows, magic, shift, stream)
+    "bm_normalize_clamp_peak": ((_P, ctypes.c_int, _P, _P, _P, _P, _P, _I64,
+                                 _I64, _I64, _I64, ctypes.c_float,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+                                 ctypes.c_int, _P), ctypes.c_int),
 }
 
 

@@ -44,8 +44,9 @@ from .matmul import tma_operand
 
 #: time steps per block of both CUDA kernels (one workspace column tile)
 _BT = 128
-#: kernel widths the kernels are built for
-_KERNEL_WIDTHS = (1, 3, 5, 7)
+#: kernel widths the bf16 SIMT kernel is built for (the fp32 tensor-core
+#: kernel takes any odd k)
+_SIMT_WIDTHS = (1, 3, 5, 7)
 #: tensor-core route: output-channel tile widths (the wgmma N side),
 #: input channels per K step, the x box's time steps, shared memory
 TC_WIDTHS = (8, 64, 128, 160)
@@ -142,6 +143,24 @@ def _tc_kernel(x4: torch.Tensor, w_split: torch.Tensor, y: torch.Tensor,
     _build.check_status("conv_stats", status)
 
 
+def _check_route(dtype: torch.dtype, k: int) -> str:
+    """The route of a `dtype` operand ("tc" for fp32, "simt" for bf16),
+    after checking that it takes width `k`: the tensor-core kernel reads k
+    at run time and takes any odd k, the SIMT kernel is built for
+    _SIMT_WIDTHS only."""
+    if dtype == torch.float32:
+        if k < 1 or k % 2 == 0:
+            raise ValueError(f"conv_stats' fp32 route (tensor cores) takes "
+                             f"an odd k >= 1, got {k}")
+        return "tc"
+    if dtype == torch.bfloat16:
+        if k not in _SIMT_WIDTHS:
+            raise ValueError(f"conv_stats' bf16 route (SIMT) takes k in "
+                             f"{_SIMT_WIDTHS}, got {k}")
+        return "simt"
+    raise TypeError(f"conv_stats takes fp32 or bf16, got {dtype}")
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor, dilation: int
             ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A CUDA kernel on contiguous fp32 or bf16 operands of one type:
@@ -153,9 +172,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, dilation: int
         raise ValueError("conv_stats needs contiguous operands")
     batch, channels, times = x.shape
     out_channels, _, k = w.shape
-    if k not in _KERNEL_WIDTHS:
-        raise ValueError(f"the conv_stats kernel takes k in "
-                         f"{_KERNEL_WIDTHS}, got {k}")
+    route = _check_route(x.dtype, k)
     if dilation < 1:
         raise ValueError(f"conv_stats needs dilation >= 1, got {dilation}")
     y = torch.empty((batch, out_channels, times), dtype=x.dtype,
@@ -166,11 +183,9 @@ def _launch(x: torch.Tensor, w: torch.Tensor, dilation: int
         return y, s, ss
     if channels == 0:
         return y.zero_(), s, ss
-    if x.dtype == torch.float32:
-        route = "tc"
+    if route == "tc":
         _tc_kernel(*tc_operands(x, w), y, s, ss, dilation)
     else:
-        route = "simt"
         # the transposed weights [C k, O rounded up to 4], then the
         # per-tile partial sums [2, column tiles, O]
         workspace = torch.empty(

@@ -2,110 +2,147 @@
 
 Port of ``brainmagick_tpu/ops/pallas_norm.py``: for each sample b,
 
-    out[b]  = clip((meg[b] - center[b]) / scale[b], -limit, limit)
-    peak[b] = max_{c,t} |(meg[b] - center[b]) / scale[b]|   (pre-clamp)
+    out[b]  = clip((meg[b] - center[r(b)]) / scale[r(b)], -limit, limit)
+    peak[b] = max_{c,t} |(meg[b] - center[r(b)]) / scale[r(b)]|  (pre-clamp)
 
-with ``center``/``scale`` already gathered per sample. On a CUDA tensor
-it launches a hand-written Triton kernel; on a CPU tensor it runs the
+With ``rec=None``, ``center``/``scale`` are already gathered per sample
+([B, C], the JAX function's contract, r(b) = b). With ``rec`` [B] int64
+they are the recordings' [R, C] tables and r(b) = rec[b], the gather that
+``Solver._forward`` made before the call, taken with JAX's rule for an
+index out of range (``gather_index``). ``meg`` is fp32 or bf16 (the bf16
+wire format, upcast exactly); ``out`` and ``peak`` are fp32. A NaN
+propagates as in the JAX function: the row's peak is NaN and the element
+stays NaN through the clamp; an inf gives an inf peak and is clamped to
+±limit.
+
+On a CUDA tensor it launches the hand-written kernel of
+``csrc/normalize.cu`` (design note there); on a CPU tensor it runs the
 plain version, ``_reference_impl``.
-
-Kernel note. The Pallas kernel (``pallas_norm.py:_kernel``) took one
-whole [1, C, T] row per sequential grid step. On the H100 the op is bound
-by device-memory bandwidth: one fp32 read and one write of the batch,
-2 x 101 MB at B=256, C=273, T=361, against 3.35 TB/s (about 60 us). So
-the Triton kernel cuts each row into blocks of 4096 elements and launches
-a 2D grid (row, block): many independent programs keep enough loads in
-flight at any B, including B=1. Each program reduces its block's |normed|
-with ``tl.max`` and folds it into ``peak[b]`` with ``tl.atomic_max``
-(exact on non-negative floats, any order). The division is IEEE-rounded
-(``div_rn``), so out and peak equal the plain version bit for bit.
-Triton's launcher raises on a failed launch.
 """
 
 from __future__ import annotations
 
-import functools
+import typing as tp
 
 import torch
 
-_BLOCK = 4096
-_NUM_WARPS = 8
+from . import _build
+
+#: the types meg may have (fp32, and the bf16 wire format)
+INPUT_TYPES = (torch.float32, torch.bfloat16)
+#: (b, c) rows a block takes at most (its shared center and scale)
+MAX_ROWS = 64
+#: elements a block aims at, at least and at most
+_MIN_BLOCK, _MAX_BLOCK = 1024, 8192
+#: blocks of 256 threads the H100 holds at once: 132 SMs x 8
+_RESIDENT_BLOCKS = 132 * 8
+
+
+def gather_index(rec: torch.Tensor, rows: int) -> torch.Tensor:
+    """JAX's rule for ``table[rec]`` (``Solver._forward``'s gather): a
+    negative index counts from the end, then every index is clamped into
+    [0, rows), so no index reads outside the table."""
+    return torch.where(rec < 0, rec + rows, rec).clamp(0, rows - 1)
 
 
 def _reference_impl(meg: torch.Tensor, center: torch.Tensor,
-                    scale: torch.Tensor, limit: float, clip: bool):
-    normed = (meg - center[:, :, None]) / scale[:, :, None]
+                    scale: torch.Tensor, limit: float, clip: bool,
+                    rec: tp.Optional[torch.Tensor] = None):
+    if rec is not None:
+        index = gather_index(rec, center.shape[0])
+        center, scale = center[index], scale[index]
+    normed = (meg.float() - center[:, :, None]) / scale[:, :, None]
     peak = normed.abs().amax(dim=(1, 2))
     if clip:
         normed = normed.clamp(-limit, limit)
     return normed, peak
 
 
-@functools.cache
-def _kernel():
-    """Compile-on-first-use Triton kernel (triton is imported here, not
-    at module import, so CPU-only hosts can import this module)."""
-    import triton
-    import triton.language as tl
+def divider(d: int) -> tp.Tuple[int, int]:
+    """(magic, shift) with n // d == (n * magic) >> shift for every 0 <= n
+    < 2^31 (Granlund and Montgomery: magic = ceil(2^(31 + l) / d), l =
+    ceil(log2 d), so magic d - 2^(31 + l) < d <= 2^l); magic < 2^32."""
+    if not 1 <= d < 2 ** 31:
+        raise ValueError(f"divider needs 1 <= d < 2^31, got {d}")
+    shift = 31 + (d - 1).bit_length()
+    return -(-(1 << shift) // d), shift
 
-    @triton.jit
-    def normalize_kernel(meg_ptr, center_ptr, scale_ptr, out_ptr, peak_ptr,
-                         n_channels, n_times, limit,
-                         CLIP: tl.constexpr, BLOCK: tl.constexpr):
-        b = tl.program_id(0)
-        row_len = n_channels * n_times
-        offs = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
-        inside = offs < row_len
-        row = b.to(tl.int64) * row_len
-        x = tl.load(meg_ptr + row + offs, mask=inside, other=0.0)
-        chan = b * n_channels + offs // n_times
-        center = tl.load(center_ptr + chan, mask=inside, other=0.0)
-        scale = tl.load(scale_ptr + chan, mask=inside, other=1.0)
-        normed = tl.math.div_rn(x - center, scale)
-        block_peak = tl.max(tl.where(inside, tl.abs(normed), 0.0), axis=0)
-        tl.atomic_max(peak_ptr + b, block_peak)
-        if CLIP:
-            normed = tl.minimum(tl.maximum(normed, -limit), limit)
-        tl.store(out_ptr + row + offs, normed, mask=inside)
 
-    return normalize_kernel
+def plan_rows(batch: int, channels: int, times: int) -> int:
+    """(b, c) rows per block: blocks of _MIN_BLOCK to _MAX_BLOCK elements,
+    as many as the card holds at once when the batch is small, the rows
+    of a sample spread evenly over its blocks; at most MAX_ROWS."""
+    target = min(_MAX_BLOCK, max(_MIN_BLOCK, batch * channels * times
+                                 // _RESIDENT_BLOCKS))
+    blocks = -(-channels * times // target)
+    return max(1, min(MAX_ROWS, -(-channels // blocks)))
+
+
+def _kernel(meg: torch.Tensor, center: torch.Tensor, scale: torch.Tensor,
+            rec: tp.Optional[torch.Tensor], out: torch.Tensor,
+            peak: torch.Tensor, limit: float, clip: bool) -> None:
+    """The kernel alone (with its zeroing of peak) on checked operands,
+    into out [B, C, T] and peak [B] fp32."""
+    batch, channels, times = meg.shape
+    magic, shift = divider(times)
+    with torch.cuda.device(meg.device):
+        status = _build.library().bm_normalize_clamp_peak(
+            meg.data_ptr(), int(meg.dtype == torch.bfloat16),
+            center.data_ptr(), scale.data_ptr(),
+            None if rec is None else rec.data_ptr(), out.data_ptr(),
+            peak.data_ptr(), batch, channels, times, center.shape[0],
+            float(limit), int(clip), plan_rows(batch, channels, times),
+            magic, shift, torch.cuda.current_stream(meg.device).cuda_stream)
+    _build.check_status("normalize_clamp_peak", status)
 
 
 def normalize_clamp_peak(meg: torch.Tensor, center: torch.Tensor,
                          scale: torch.Tensor, limit: float,
-                         clip: bool = True):
-    """meg [B, C, T] fp32, center/scale [B, C] fp32 (gathered per sample)
-    -> (normalized, clamped when `clip`, [B, C, T]; pre-clamp peak [B])."""
-    if meg.dim() != 3 or center.shape != meg.shape[:2] \
-            or scale.shape != meg.shape[:2]:
+                         clip: bool = True,
+                         rec: tp.Optional[torch.Tensor] = None):
+    """meg [B, C, T] fp32 or bf16; center/scale fp32, [B, C] with `rec`
+    None, else [R, C] tables gathered through rec [B] int64 -> (out fp32
+    [B, C, T], clamped when `clip`; pre-clamp peak [B] fp32)."""
+    tables = center.shape[:1] if rec is None else (rec.shape[0],)
+    if meg.dim() != 3 or center.dim() != 2 or scale.shape != center.shape \
+            or center.shape[1] != meg.shape[1] or tables != meg.shape[:1]:
         raise ValueError(
             f"normalize_clamp_peak needs meg [B, C, T] and center/scale "
-            f"[B, C], got {tuple(meg.shape)}, {tuple(center.shape)}, "
-            f"{tuple(scale.shape)}")
-    for t in (meg, center, scale):
-        if t.dtype != torch.float32:
-            raise TypeError(f"normalize_clamp_peak takes fp32, got {t.dtype}")
+            f"[B, C] (or [R, C] with rec [B]), got {tuple(meg.shape)}, "
+            f"{tuple(center.shape)}, {tuple(scale.shape)}, rec "
+            f"{None if rec is None else tuple(rec.shape)}")
+    if meg.dtype not in INPUT_TYPES or center.dtype != torch.float32 \
+            or scale.dtype != torch.float32:
+        raise TypeError(f"normalize_clamp_peak takes fp32 or bf16 meg and "
+                        f"fp32 center/scale, got {meg.dtype}, {center.dtype}"
+                        f", {scale.dtype}")
+    operands = (meg, center, scale)
+    if rec is not None:
+        if rec.dtype != torch.int64 or rec.dim() != 1:
+            raise TypeError(f"rec must be int64 [B], got {rec.dtype} "
+                            f"{tuple(rec.shape)}")
+        if center.shape[0] == 0 and rec.shape[0] > 0:
+            raise ValueError("rec indexes empty tables")
+        operands += (rec,)
+    for t in operands:
         if t.device != meg.device:
             raise ValueError(f"tensors on {meg.device} and {t.device}")
     if meg.device.type == "cpu":
-        return _reference_impl(meg, center, scale, limit, clip)
+        return _reference_impl(meg, center, scale, limit, clip, rec)
     if meg.device.type != "cuda":
         raise ValueError(f"normalize_clamp_peak runs on cpu or cuda, not "
                          f"{meg.device}")
-    if not all(t.is_contiguous() for t in (meg, center, scale)):
+    if not all(t.is_contiguous() for t in operands):
         raise ValueError("normalize_clamp_peak needs contiguous tensors")
     batch, channels, times = meg.shape
-    out = torch.empty_like(meg)
-    # |x| >= 0, so 0 is the identity of the atomic max
-    peak = torch.zeros(batch, dtype=torch.float32, device=meg.device)
-    row_len = channels * times
-    if batch == 0 or row_len == 0:
-        return out, peak
-    grid = (batch, -(-row_len // _BLOCK))
-    with torch.cuda.device(meg.device):
-        _kernel()[grid](meg, center, scale, out, peak, channels, times,
-                        float(limit), CLIP=bool(clip), BLOCK=_BLOCK,
-                        num_warps=_NUM_WARPS)
+    if channels * times >= 2 ** 31:
+        raise ValueError(f"normalize_clamp_peak takes C T < 2^31 elements "
+                         f"a sample, got {channels} x {times}")
+    out = torch.empty(meg.shape, dtype=torch.float32, device=meg.device)
+    peak = torch.empty(batch, dtype=torch.float32, device=meg.device)
+    if batch == 0 or channels * times == 0:
+        return out, peak.zero_()
+    _kernel(meg, center, scale, rec, out, peak, limit, clip)
     normalize_clamp_peak.launches += 1
     return out, peak
 

@@ -11,7 +11,8 @@ arrays on one device and answers both calls directly:
     probs = server.probabilities(estimate, candidates)      # [B, N]
 
 On a CUDA device both calls run the hand-written kernels
-(``ops.norm.normalize_clamp_peak``, ``ops.matmul.nt_matmul``).
+(``ops.norm.normalize_clamp_peak``, ``ops.matmul.nt_matmul``), and both
+run in fp32 with TF32 off (``precision.exact_fp32``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from .convert import load_jax_params
 from .dataset import to_device
 from .losses import retrieval_scores
 from .models import build_model
+from .precision import exact_fp32
 from .solver import Solver, _on, prepare_norm_arrays
 
 
@@ -52,6 +54,7 @@ class Server:
         self.clip = self.solver.clip_loss
 
     @torch.no_grad()
+    @exact_fp32()
     def forward_batch(self, batch: tp.Any):
         """A batch with the ``dataset.ARRAY_FIELDS`` arrays -> (estimate
         [B, F, T'], output [B, F, T'], mask [B, 1, T'], keep [B] bool),
@@ -64,6 +67,7 @@ class Server:
         return estimate, output, mask, keep > 0.5
 
     @torch.no_grad()
+    @exact_fp32()
     def probabilities(self, estimates: torch.Tensor,
                       candidates: torch.Tensor,
                       inv_norms: tp.Optional[torch.Tensor] = None

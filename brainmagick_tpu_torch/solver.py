@@ -21,7 +21,8 @@ import torch
 
 from .losses import ClipLoss, masked_l1, masked_l2
 from .models.common import fourier_emb
-from .ops.norm import normalize_clamp_peak
+from .ops.norm import INPUT_TYPES, normalize_clamp_peak
+from .precision import exact_fp32
 
 
 def _on(value: tp.Any, device: torch.device) -> torch.Tensor:
@@ -114,14 +115,17 @@ class Solver:
         otherwise."""
         args = self.args
         na = self.norm_arrays
-        meg = arrays["meg"].float()
+        meg = arrays["meg"]
+        if meg.dtype not in INPUT_TYPES:
+            meg = meg.float()
         features = arrays["features"].float()
         rec = arrays["recording_index"]
 
+        # the kernel gathers the recordings' rows and upcasts bf16 itself
         limit_scale = args.norm.max_scale
         meg, peak = normalize_clamp_peak(
-            meg, na["meg_center"][rec], na["meg_scale"][rec], limit_scale,
-            clip=args.norm.clip)
+            meg, na["meg_center"], na["meg_scale"], limit_scale,
+            clip=args.norm.clip, rec=rec)
         features = (features - na["feat_center"][None, :, None]) \
             / na["feat_scale"][None, :, None]
         if args.norm.clip:
@@ -170,6 +174,7 @@ class Solver:
             loss = loss + penalty
         return loss, keep
 
+    @exact_fp32()
     def step(self, arrays: tp.Mapping[str, torch.Tensor],
              pad_weight: torch.Tensor, train: bool
              ) -> tp.Dict[str, torch.Tensor]:
@@ -177,7 +182,8 @@ class Solver:
         backward and an optimizer update (BatchNorm running statistics
         move during the forward); without, the eval-mode loss and no
         update. Returns device scalars {"loss", "keep", "count"}; after a
-        training step each parameter's ``.grad`` holds its gradient."""
+        training step each parameter's ``.grad`` holds its gradient. All
+        of it runs with TF32 off (``precision.exact_fp32``)."""
         if train:
             if self.optimizer is None:
                 raise ValueError("a training step needs an optimizer")

@@ -8,16 +8,21 @@ Phases, each printing its lines; any failed check raises, so the script
 exits non-zero and prints no result:
 
 1. card and environment: the card's name and power limit (nvidia-smi),
-   torch/CUDA/triton versions; TF32 is turned off so fp32 means fp32;
-2. build: the CUDA kernels from brainmagick_tpu_torch/csrc (nvcc) and the
-   Triton kernel, timed as set-up;
+   torch/CUDA versions, and torch's TF32 flags as they are: the script
+   leaves them at torch's defaults, since the entry points turn TF32 off
+   themselves (precision.exact_fp32), and checks at the end that they are
+   unchanged;
+2. build: the CUDA kernels from brainmagick_tpu_torch/csrc (nvcc), timed
+   as set-up;
 3. each kernel against its plain PyTorch version on the card, at a few
    ragged shapes and at the shapes its path gives it, with the median time
    of both at the latter, of one PyTorch call that computes the same
-   function where there is one, and the least time the card could take
-   (conv_stats forward and backward, TF32 off; its fp32 forward on the
-   tensor cores at every edge of that route and at every encoder layer
-   shape, two calls bit-equal);
+   function where there is one, and the least time the card could take,
+   all inside precision.exact_fp32 so that plain versions and library
+   calls are fp32 (normalize bit-equal with NaN and inf, bf16 meg and rec
+   tables, its stage's device activities in torch.profiler; conv_stats forward and backward; its fp32 forward on the
+   tensor cores at every edge of that route, k = 9 and 11 included, and
+   at every encoder layer shape, two calls bit-equal);
 4. the serving slice at the clip_conv preset's full width (273 sensors,
    361 samples, 1024 features, random seeded weights): four requests
    through Server.forward_batch and Server.probabilities against a bank of
@@ -75,10 +80,12 @@ RAGGED_CONV = ((1, 1, 1, 1, 1, 3), (2, 3, 5, 7, 2, 3), (2, 17, 33, 130, 4, 3),
                (3, 270, 320, 37, 16, 3))
 #: fp32 only, the other edges of the tensor-core route: k in {1, 5, 7},
 #: T % 4 == 0, B=1, O not a multiple of its tile width (200 in tiles of
-#: 160, 72 in one of 128), and a tap's x box wholly outside the sequence
-#: (k=7, d=64, T=37)
+#: 160, 72 in one of 128), a tap's x box wholly outside the sequence
+#: (k=7, d=64, T=37), and the widths only this route takes (k=9 at d=1,
+#: k=11 at d=4)
 RAGGED_CONV_TC = ((1, 40, 200, 128, 1, 1), (2, 64, 72, 259, 2, 5),
-                  (1, 32, 160, 36, 8, 7), (2, 24, 48, 37, 64, 7))
+                  (1, 32, 160, 36, 8, 7), (2, 24, 48, 37, 64, 7),
+                  (2, 48, 64, 101, 1, 9), (2, 40, 72, 203, 4, 11))
 #: the encoder's layers at the paper shape: C=320 at each dilation, and the
 #: first layer's C=270
 PAPER_CONV = tuple((REQUESTS[0], 320, 320, T - 18, d, 3)
@@ -103,13 +110,24 @@ HELD_LEAVES = ("merger.heads", "subject_layers.weights",
 REFERENCE_TOL = 1e-4
 PROBS_TOL = 1e-5
 STEADY_RUNS = 5
-#: shapes beyond the serving path's that each kernel is also checked at
-RAGGED_NORM = ((1, 1, 1), (2, 3, 5), (3, 200, 61))
+#: normalize_clamp_peak beyond the path's shape: B=1, samples shorter and
+#: longer than a block, B C T not a multiple of 4 (fp32's vector) nor of 8
+#: (bf16's), a (b, c) row longer than the largest block
+RAGGED_NORM = ((1, 1, 1), (2, 3, 5), (3, 200, 61), (3, 5, 7), (2, 1, 9001))
+#: recordings whose [R, C] tables the normalize checks gather from
+NORM_RECORDINGS = 4
 #: nt_matmul: every edge of the tile plan (M past each prediction width, N
 #: past a bank tile, K within, at and past a K step, aligned and not)
 RAGGED_M = (1, 7, 9, 65, 255, 257)
 RAGGED_N = (1, 129, 2047)
 RAGGED_K = (1, 7, 33, 1000, 4099)
+
+
+def tf32_flags() -> dict:
+    return {"torch.backends.cuda.matmul.allow_tf32":
+            torch.backends.cuda.matmul.allow_tf32,
+            "torch.backends.cudnn.allow_tf32":
+            torch.backends.cudnn.allow_tf32}
 
 
 def card() -> str:
@@ -146,53 +164,181 @@ def median_ms(fn, runs: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_us(event) -> float:
+    """A torch.profiler event's own device time in µs (the attribute's
+    name differs across torch versions)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, name):
+            return getattr(event, name)
+    return 0.
+
+
+def device_rows(fn, calls: int = 5) -> list:
+    """The device activities of one call of `fn` in torch.profiler, over
+    `calls` calls after a warm one: (name, launches, µs) per call, the
+    longest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count / calls, device_us(e) / calls)
+            for e in prof.key_averages() if device_us(e) > 0
+            and e.device_type != torch.autograd.DeviceType.CPU]
+    return sorted(rows, key=lambda row: -row[2])
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal bits, NaN where `want` has NaN (any NaN)."""
+    nan = want.isnan()
+    return got.shape == want.shape and torch.equal(got.isnan(), nan) and \
+        torch.equal(got.masked_fill(nan, 0).view(torch.int32),
+                    want.masked_fill(nan, 0).view(torch.int32))
+
+
+def _norm_case(shape, dtype, device, gen, misaligned=False, nan=False):
+    """Seeded normalize operands at [B, C, T]: meg (x 30, so some samples
+    peak past LIMIT) in `dtype`, starting one element past a 16-byte
+    boundary when `misaligned`; NORM_RECORDINGS recordings' center and
+    scale tables; rec [B] with indices past both ends of the tables. With
+    `nan`, sample 0 holds a NaN, a +inf and a -inf and the last sample a
+    +inf."""
+    batch, channels, times = shape
+    meg = (torch.randn(shape, generator=gen, device=device) * 30).to(dtype)
+    if misaligned:
+        buf = torch.empty(meg.numel() + 1, dtype=dtype, device=device)
+        meg = buf[1:].view(shape).copy_(meg)
+    if nan:
+        first, last = meg[0].view(-1), meg[-1].view(-1)
+        first[first.numel() // 2] = float("-inf")
+        first[-1] = float("inf")
+        first[0] = float("nan")
+        last[last.numel() // 3] = float("inf")
+    center = torch.randn((NORM_RECORDINGS, channels), generator=gen,
+                         device=device)
+    scale = 0.5 + torch.rand((NORM_RECORDINGS, channels), generator=gen,
+                             device=device)
+    rec = torch.randint(-2, NORM_RECORDINGS + 2, (batch,), generator=gen,
+                        device=device)
+    return meg, center, scale, rec
+
+
 def check_normalize(device: torch.device) -> dict:
-    """normalize_clamp_peak at [256, 273, 361] fp32, limit 20: out and
-    peak must equal the plain version exactly (IEEE division in both)."""
+    """normalize_clamp_peak against its plain version, bit for bit (NaN
+    where it has NaN): the ragged shapes and [256, 273, 361], fp32 and
+    bf16 meg, aligned and not, with and without NaN and inf, clip True and
+    False, with rec into [4, C] tables and with the tables gathered first
+    (rec=None). Then at [256, 273, 361], limit 20, rec into four
+    recordings' tables as the serving path gives them: the median time
+    through the wrapper, of the kernel alone on prepared out and peak, of
+    the old stage (the upcast, the two gathers, then the kernel on the
+    gathered tables) and of the plain version, on fp32 and bf16 meg, each
+    with its bound, and the device activities of the stage and of the old
+    stage in torch.profiler."""
     from brainmagick_tpu_torch.ops import norm
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    B = REQUESTS[0]
-    meg = torch.randn((B, C, T), generator=gen, device=device) * 30
-    center = torch.randn((B, C), generator=gen, device=device)
-    scale = 0.5 + torch.rand((B, C), generator=gen, device=device)
-    # ragged shapes (B=1, rows shorter and longer than one block) first
-    for shape in RAGGED_NORM:
-        for clip in (True, False):
-            x = meg[:shape[0], :shape[1], :shape[2]].contiguous()
-            c, s = (t[:shape[0], :shape[1]].contiguous()
-                    for t in (center, scale))
-            got = norm.normalize_clamp_peak(x, c, s, LIMIT, clip=clip)
-            want = norm._reference_impl(x, c, s, LIMIT, clip)
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                raise AssertionError(f"normalize_clamp_peak {shape} "
-                                     f"clip={clip} differs from plain")
-    out, peak = norm.normalize_clamp_peak(meg, center, scale, LIMIT)
-    out_ref, peak_ref = norm._reference_impl(meg, center, scale, LIMIT, True)
-    torch.cuda.synchronize()
-    err = max((out - out_ref).abs().max().item(),
-              (peak - peak_ref).abs().max().item())
-    if err != 0 or not (peak > LIMIT).any():
-        raise AssertionError(f"normalize_clamp_peak differs from the plain "
-                             f"version by {err} (exact match required)")
-    ms = median_ms(lambda: norm.normalize_clamp_peak(meg, center, scale,
-                                                     LIMIT))
-    plain_ms = median_ms(lambda: norm._reference_impl(meg, center, scale,
-                                                      LIMIT, True))
-    # meg read and written once, center and scale read, peak written
-    n_bytes = 4 * (2 * meg.numel() + center.numel() + scale.numel() + B)
-    bound_ms, bound_by = bound(n_bytes)
-    gbytes = n_bytes / 1e9
-    print(f"normalize_clamp_peak [{B}, {C}, {T}] fp32: max|diff| {err} "
-          f"(exact); kernel {ms:.4f} ms ({gbytes / ms * 1e3:.1f} GB/s), "
-          f"plain {plain_ms:.4f} ms ({gbytes / plain_ms * 1e3:.1f} GB/s), "
-          f"bound {bound_ms:.4f} ms ({bound_by}); no single PyTorch call "
-          f"computes it")
-    return dict(name="normalize_clamp_peak", route="triton",
-                source="brainmagick_tpu_torch/ops/norm.py",
+    full = (REQUESTS[0], C, T)
+    calls, err = 0, None
+    for shape in RAGGED_NORM + (full,):
+        for dtype in (torch.float32, torch.bfloat16):
+            for misaligned in (False, True):
+                for nan in (False, True):
+                    meg, center, scale, rec = _norm_case(
+                        shape, dtype, device, gen, misaligned, nan)
+                    index = norm.gather_index(rec, NORM_RECORDINGS)
+                    gathered = (center[index].contiguous(),
+                                scale[index].contiguous())
+                    for clip in (True, False):
+                        for tables, kw in (((center, scale), dict(rec=rec)),
+                                           (gathered, {})):
+                            got = norm.normalize_clamp_peak(
+                                meg, *tables, LIMIT, clip=clip, **kw)
+                            want = norm._reference_impl(
+                                meg, *tables, LIMIT, clip, kw.get("rec"))
+                            calls += 1
+                            if not all(map(_same_bits, got, want)):
+                                raise AssertionError(
+                                    f"normalize_clamp_peak {shape} {dtype} "
+                                    f"misaligned={misaligned} nan={nan} "
+                                    f"clip={clip} rec={bool(kw)} differs "
+                                    f"from plain")
+                            if (shape, dtype, misaligned, nan, clip) == (
+                                    full, torch.float32, False, False, True):
+                                if not (want[1] > LIMIT).any():
+                                    raise AssertionError("no peak past the "
+                                                         "limit")
+                                err = max((g - w).abs().max().item()
+                                          for g, w in zip(got, want))
+                    del meg, center, scale, rec, gathered, got, want
+    print(f"normalize_clamp_peak: {calls} calls bit-equal to plain (NaN "
+          f"where it has NaN) over {len(RAGGED_NORM) + 1} shapes x fp32/bf16"
+          f" x aligned/not x with/without NaN and inf x clip True/False x "
+          f"rec/gathered tables")
+
+    meg, center, scale, _ = _norm_case(full, torch.float32, device, gen)
+    rec = torch.arange(full[0], device=device) % NORM_RECORDINGS
+    out = torch.empty(full, dtype=torch.float32, device=device)
+    peak = torch.empty(full[0], dtype=torch.float32, device=device)
+    timed = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = meg.to(dtype)
+        name = str(dtype).split(".")[-1]
+
+        def stage():
+            return norm.normalize_clamp_peak(x, center, scale, LIMIT,
+                                             rec=rec)
+
+        def old_stage():
+            return norm.normalize_clamp_peak(x.float(), center[rec],
+                                             scale[rec], LIMIT)
+
+        ms = median_ms(stage)
+        kernel_ms = median_ms(lambda: norm._kernel(x, center, scale, rec,
+                                                   out, peak, LIMIT, True))
+        old_ms = median_ms(old_stage)
+        plain_ms = median_ms(lambda: norm._reference_impl(
+            x, center, scale, LIMIT, True, rec))
+        # meg read and out written once, the tables and rec read, peak
+        # written
+        n_bytes = (x.element_size() * x.numel() + 4 * x.numel()
+                   + 2 * center.numel() * 4 + 8 * rec.numel()
+                   + 4 * full[0])
+        bound_ms, bound_by = bound(n_bytes)
+        gbytes = n_bytes / 1e9
+        print(f"normalize_clamp_peak {list(full)} {name} meg, rec into "
+              f"[{NORM_RECORDINGS}, {C}] tables: through its wrapper "
+              f"{ms:.4f} ms ({gbytes / ms * 1e3:.1f} GB/s), the kernel "
+              f"alone {kernel_ms:.4f} ms ({gbytes / kernel_ms * 1e3:.1f} "
+              f"GB/s), the old stage (upcast, two gathers, kernel) "
+              f"{old_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); no single PyTorch call "
+              f"computes it")
+        device_ms = {}
+        for label, fn in (("stage", stage), ("old stage", old_stage)):
+            rows = device_rows(fn)
+            device_ms[label] = sum(us for _, _, us in rows) / 1e3
+            print(f"normalize {name} meg, the {label} in torch.profiler: "
+                  f"{device_ms[label]:.4f} ms of device time per call in "
+                  f"{sum(n for _, n, _ in rows):g} activities")
+            for key, count, us in rows:
+                print(f"  {us:9.2f} us  {count:g}x  {key[:100]}")
+        timed[name] = dict(ms=ms, kernel_ms=kernel_ms, old_stage_ms=old_ms,
+                           device_ms=device_ms["stage"],
+                           old_stage_device_ms=device_ms["old stage"],
+                           plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None)
+        del x
+    return dict(name="normalize_clamp_peak", route="cuda",
+                source="brainmagick_tpu_torch/csrc/normalize.cu",
                 replaces="brainmagick_tpu/ops/pallas_norm.py:51",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                max_abs_err=err, **timed["float32"],
+                other_shapes={f"{'x'.join(map(str, full))} bfloat16":
+                              timed["bfloat16"]})
 
 
 def _matmul_error(a, b, got) -> tuple:
@@ -727,22 +873,17 @@ def run_train(device: torch.device, card_name: str, batch) -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
-    from brainmagick_tpu_torch.ops import _build, normalize_clamp_peak
+    from brainmagick_tpu_torch.ops import _build
+    from brainmagick_tpu_torch.precision import exact_fp32
 
     device = torch.device("cuda", 0)
     card_name = card()
     print(card_name)
-    try:
-        import triton
-        triton_version = triton.__version__
-    except ImportError:
-        triton_version = "missing"
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, triton "
-          f"{triton_version}, {torch.cuda.get_device_name(0)}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
-          "torch.backends.cudnn.allow_tf32 = False")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+    defaults = tf32_flags()
+    print(f"torch's TF32 defaults, left as they are (the entry points turn "
+          f"TF32 off themselves): {defaults}")
 
     t0 = time.perf_counter()
     path, log = _build.build()
@@ -753,17 +894,15 @@ def main() -> None:
     for line in log.splitlines():
         if "ptxas" in line:
             print(f"  {line.strip()}")
-    t0 = time.perf_counter()
-    row = torch.ones((1, 1), device=device)
-    normalize_clamp_peak(row[:, :, None].contiguous(), row, row, LIMIT)
-    torch.cuda.synchronize()
-    print(f"compiled the Triton kernel of brainmagick_tpu_torch/ops/norm.py "
-          f"in {time.perf_counter() - t0:.1f} s")
 
-    kernels = [check_normalize(device), check_nt_matmul(device),
-               check_conv_stats(device)]
+    with exact_fp32():
+        kernels = [check_normalize(device), check_nt_matmul(device),
+                   check_conv_stats(device)]
     serve_launches, batch = run_slice(device, card_name)
     train_launches, train_routes = run_train(device, card_name, batch)
+    if tf32_flags() != defaults:
+        raise AssertionError(f"TF32 flags {tf32_flags()} after the run, "
+                             f"{defaults} before it")
     for entry in kernels:
         by_path = dict(serve=serve_launches[entry["name"]],
                        train=train_launches[entry["name"]])

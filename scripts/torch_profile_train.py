@@ -10,7 +10,8 @@ chip_smoke.TRAIN_B = 256, moves the batch to the card once, times WARM
 Solver.step calls on those resident arrays (host clock, synchronized),
 then profiles STEPS more with torch.profiler and prints the device time
 per step of the ROWS largest kernels, with the device's busy share of the
-host time. TF32 is off, as in chip_smoke.py. Without a CUDA device it
+host time. Solver.step turns TF32 off itself (precision.exact_fp32), so
+the script leaves torch's flags as they are. Without a CUDA device it
 exits 1.
 """
 
@@ -30,13 +31,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 WARM, STEPS, ROWS = 5, 3, 25
 
 
-def _device_us(event) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(event, name):
-            return getattr(event, name)
-    return 0.
-
-
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("the profile needs a CUDA device; none is visible")
@@ -45,8 +39,6 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     device = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     print(chip_smoke.card())
     trainer = chip_smoke.build_trainer(device)
     norm_arrays, _ = chip_smoke.seeded_arrays()
@@ -72,8 +64,9 @@ def main() -> None:
         for _ in range(STEPS):
             step()
     profiled_ms = (time.perf_counter() - t0) * 1e3 / STEPS
-    kernels = [(e.key, _device_us(e) / 1e3 / STEPS, e.count)
-               for e in prof.key_averages() if _device_us(e) > 0
+    device_us = chip_smoke.device_us
+    kernels = [(e.key, device_us(e) / 1e3 / STEPS, e.count)
+               for e in prof.key_averages() if device_us(e) > 0
                and e.device_type != torch.autograd.DeviceType.CPU]
     kernels.sort(key=lambda k: -k[1])
     device_ms = sum(ms for _, ms, _ in kernels)

@@ -49,9 +49,11 @@ def _loss(y, s, ss, lib):
             + lib.sum(lib.sqrt(ss + 1.0)))
 
 
-#: (B, C, O, T, k, dilation): self_test's shape, ragged shapes, k = 5
+#: (B, C, O, T, k, dilation): self_test's shape, ragged shapes, k = 5, and
+#: k = 9 and 11 (the fp32 tensor-core route takes any odd k)
 SHAPES = [(3, 24, 16, 37, 3, 4), (1, 1, 1, 1, 3, 1), (2, 3, 5, 7, 3, 2),
-          (2, 17, 33, 30, 3, 16), (2, 6, 4, 11, 5, 1)]
+          (2, 17, 33, 30, 3, 16), (2, 6, 4, 11, 5, 1), (2, 6, 5, 23, 9, 1),
+          (2, 7, 4, 41, 11, 4)]
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
@@ -128,8 +130,9 @@ def test_conv_stats_bf16_and_errors():
     with pytest.raises(ValueError, match=r"\[B, C, T\]"):
         conv_bn.conv_stats(torch.zeros(1, 2, 3), torch.zeros(4, 3, 3))
     # the kernel's launcher checks what it takes before touching the card
-    with pytest.raises(ValueError, match="k in"):
-        conv_bn._launch(torch.zeros(1, 2, 3), torch.zeros(4, 2, 9), 1)
+    with pytest.raises(ValueError, match="bf16 route.*k in"):
+        conv_bn._launch(torch.zeros(1, 2, 3).bfloat16(),
+                        torch.zeros(4, 2, 9).bfloat16(), 1)
     with pytest.raises(TypeError, match="fp32 or bf16"):
         conv_bn._launch(torch.zeros(1, 2, 3).half(), torch.zeros(4, 2, 3), 1)
 

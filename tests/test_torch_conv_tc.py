@@ -83,7 +83,7 @@ def _bounds(x, w, dilation):
 @pytest.mark.parametrize("one_sign", [False, True], ids=["normal",
                                                          "one_sign"])
 @pytest.mark.parametrize("dilation", [1, 4, 16])
-@pytest.mark.parametrize("k", [1, 3, 5, 7])
+@pytest.mark.parametrize("k", [1, 3, 5, 7, 9, 11])
 def test_kernel_model_matches_jax(k, dilation, one_sign):
     """The model of the tensor-core route, on the operands the wrapper
     builds (T = 37 padded to 40; C = 40 in two channel blocks, the second
@@ -195,19 +195,39 @@ def test_tc_operands_pad_time_only_when_needed(times):
 
 def test_launch_refuses_what_the_kernels_do_not_take():
     """The wrapper raises before it builds or touches anything: other
-    types, mixed types, non-contiguous operands, widths outside
-    {1, 3, 5, 7} and dilation < 1."""
+    types, mixed types, non-contiguous operands, widths the dtype's route
+    does not take (bf16 outside {1, 3, 5, 7}, an even fp32 width) and
+    dilation < 1."""
     x, w = torch.zeros(1, 2, 5), torch.zeros(4, 2, 3)
     cases = [((x.half(), w.half(), 1), TypeError, "fp32 or bf16"),
              ((x, w.bfloat16(), 1), TypeError, "one type"),
              ((x.transpose(1, 2).contiguous().transpose(1, 2), w, 1),
               ValueError, "contiguous"),
-             ((x, torch.zeros(4, 2, 9), 1), ValueError, "k in"),
-             ((x, torch.zeros(4, 2, 2), 1), ValueError, "k in"),
+             ((x.bfloat16(), torch.zeros(4, 2, 9).bfloat16(), 1),
+              ValueError, r"bf16 route \(SIMT\) takes k in"),
+             ((x, torch.zeros(4, 2, 2), 1), ValueError,
+              r"fp32 route \(tensor cores\) takes an odd k"),
              ((x, w, 0), ValueError, "dilation")]
     for args, error, match in cases:
         with pytest.raises(error, match=match):
             conv_bn._launch(*args)
+
+
+def test_check_route_by_dtype():
+    """fp32 goes to the tensor cores at any odd k, 9 and 11 included; bf16
+    to the SIMT kernel, which refuses a width it is not built for and
+    says which route refused it."""
+    for k in (1, 3, 9, 11, 31):
+        assert conv_bn._check_route(torch.float32, k) == "tc"
+    for k in (1, 3, 5, 7):
+        assert conv_bn._check_route(torch.bfloat16, k) == "simt"
+    with pytest.raises(ValueError, match=r"bf16 route \(SIMT\).*got 9"):
+        conv_bn._check_route(torch.bfloat16, 9)
+    for k in (0, 2, -1):
+        with pytest.raises(ValueError, match="fp32 route"):
+            conv_bn._check_route(torch.float32, k)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        conv_bn._check_route(torch.float16, 3)
 
 
 def test_route_counts_reset_with_the_launch_counts():

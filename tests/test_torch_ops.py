@@ -57,6 +57,24 @@ def test_normalize_clamp_peak_rejects_bad_inputs():
     with pytest.raises(ValueError):  # neither cpu nor cuda: no plain path
         norm.normalize_clamp_peak(meg.to("meta"), center.to("meta"),
                                   center.to("meta"), 1.0)
+    # rec [B] int64 into [R, C] tables
+    tables, rec = torch.zeros(5, 3), torch.tensor([0, 4])
+    cases = [((meg, tables, tables, 1.0), ValueError, r"\[R, C\] with rec"),
+             ((meg, tables, tables[:, :2], 1.0, True, rec), ValueError,
+              "center/scale"),
+             ((meg, tables, tables, 1.0, True, rec[:1]), ValueError, "rec"),
+             ((meg, tables, tables, 1.0, True, rec.int()), TypeError,
+              "int64"),
+             ((meg.half(), tables, tables, 1.0, True, rec), TypeError,
+              "fp32 or bf16"),
+             ((meg, tables[:0], tables[:0], 1.0, True, rec), ValueError,
+              "empty tables")]
+    for args, error, match in cases:
+        with pytest.raises(error, match=match):
+            norm.normalize_clamp_peak(*args)
+    out, peak = norm.normalize_clamp_peak(meg, tables, tables + 1, 1.0,
+                                          rec=rec)
+    assert out.shape == meg.shape and peak.shape == (2,)
     assert norm.normalize_clamp_peak.launches == 0  # CPU path never counts
 
 
