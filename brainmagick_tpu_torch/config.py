@@ -1,4 +1,4 @@
-"""Configuration of the serving and training slices.
+"""Configuration of the serving, training and evaluation slices.
 
 The fields the port reads, with the names, defaults and ``clip_conv``
 preset of ``brainmagick_tpu.config``, copied so that the port runs on a
@@ -58,9 +58,23 @@ class ClipConfig:
 
 
 @dataclass
+class TestEvalConfig:
+    wer_negatives: int = 10_000
+    wer_topx: int = 10
+    wer_random: bool = False
+    pool_int8: bool = False
+
+
+@dataclass
+class DsetTestOverride:
+    tmin: tp.Optional[float] = None
+
+
+@dataclass
 class DsetConfig:
     tmin: float = -0.5
     sample_rate: int = 120
+    test: DsetTestOverride = field(default_factory=DsetTestOverride)
 
 
 @dataclass
@@ -80,12 +94,14 @@ class TaskConfig:
 
 @dataclass
 class MainConfig:
+    seed: int = 2036
     model_name: str = "simpleconv"
     feature_model_name: tp.Optional[str] = None
     simpleconv: tp.Dict[str, tp.Any] = field(
         default_factory=lambda: copy.deepcopy(SIMPLECONV_DEFAULTS))
     optim: OptimConfig = field(default_factory=OptimConfig)
     clip: ClipConfig = field(default_factory=ClipConfig)
+    test: TestEvalConfig = field(default_factory=TestEvalConfig)
     dset: DsetConfig = field(default_factory=DsetConfig)
     norm: NormConfig = field(default_factory=NormConfig)
     task: TaskConfig = field(default_factory=TaskConfig)

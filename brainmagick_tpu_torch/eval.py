@@ -1,0 +1,276 @@
+"""Offline segment-retrieval evaluation: the paper's top-k segment accuracy.
+
+Port of ``brainmagick_tpu/eval.py`` on one device, over batches the
+caller gives (the port has no data loader yet). Each batch carries the
+``dataset.ARRAY_FIELDS`` arrays, ``event_lists`` (per row, the events of
+its segment, the first of which marks the segment's start; each has
+``kind``, ``start`` and ``duration``, a word also ``word``,
+``word_index`` and ``word_sequence``), a ``study`` name, and optionally
+``word_hash`` [B, T] and ``pad_weight`` [B]:
+
+    data = load_test_data(server, batches)
+    probs = build_probs(server, data["preds"], data["trues"])
+    acc = accuracy_from_probs(probs, data["segment_hashes"],
+                              data["trues_segment_hashes"], topk=1)
+    run_eval(server, batches, output_dir)     # all of it, to files
+
+The forwards run through ``Server.forward_batch`` and the scoring through
+``losses.streamed_scores`` (``nt_matmul`` on a CUDA device), inside
+``precision.exact_fp32``. The probabilities are a softmax on the host, as
+in the JAX package.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import csv
+import hashlib
+import logging
+import os
+import typing as tp
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .losses import ClipLoss, refuse_int8_pool, streamed_scores
+from .precision import exact_fp32
+
+logger = logging.getLogger(__name__)
+
+
+def _stable_hash(s: str) -> int:
+    return int.from_bytes(hashlib.sha1(s.encode()).digest()[:8], "little",
+                          signed=True)
+
+
+def stable_word_hash(word: str) -> int:
+    """A copy of ``brainmagick_tpu.features.basic.stable_word_hash``
+    (that module imports jax)."""
+    norm = word.lower().strip(".")
+    return int.from_bytes(
+        hashlib.sha1(norm.encode()).digest()[:8], "little", signed=True)
+
+
+def _get_extra_info(batch: tp.Any, sample_rate: float):
+    """Per-sample word index and sequence hash tracks [B, 2, T], word
+    strings [B, T] and segment strings [B], from the batch's event lists
+    (``event_lists[k][0].start`` is row k's segment start)."""
+    B, _, n_times = batch.features.shape
+    data = np.full((B, 2, n_times), -1.0, dtype=np.float64)
+    words = np.full((B, n_times), "", dtype="<U30")
+    word_segs = []
+    if B != len(batch.event_lists):
+        raise ValueError(f"{len(batch.event_lists)} event lists for {B} "
+                         f"rows")
+    for k, events in enumerate(batch.event_lists):
+        segment = ""
+        start = events[0].start
+        for event in events:
+            if event.kind == "word":
+                estart = max(0, int(sample_rate * (event.start - start)))
+                estop = min(n_times, int(sample_rate * (event.start - start)
+                                         + sample_rate * event.duration))
+                data[k, 0, estart:estop] = event.word_index
+                if not event.word_sequence:
+                    raise RuntimeError("Could not get the word sequence.")
+                data[k, 1, estart:estop] = _stable_hash(event.word_sequence)
+                if estop > estart:
+                    words[k, estart:estop] = event.word
+                    segment += " " + event.word
+        word_segs.append(segment.strip())
+    return data, words, np.array(word_segs)
+
+
+def check_index(args: tp.Any) -> int:
+    """The sample of the segment's event: 2 past -tmin (``dset.test.tmin``,
+    else ``dset.tmin``)."""
+    tmin = args.dset.test.tmin
+    if tmin is None:
+        tmin = args.dset.tmin
+    return int((-tmin) * args.dset.sample_rate) + 2
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+@torch.no_grad()
+def load_test_data(server: tp.Any, batches: tp.Iterable[tp.Any]
+                   ) -> tp.Dict[str, np.ndarray]:
+    """Predictions, the candidates deduplicated on their segment hash (the
+    hash of the sequence hash and the word index), and per-prediction
+    metadata, as numpy arrays."""
+    args = server.args
+    check_at = check_index(args)
+    outs: tp.Dict[str, list] = defaultdict(list)
+    seen_segment_hashes: set = set()
+    for batch in batches:
+        extra_info, word_str, word_segs_str = _get_extra_info(
+            batch, args.dset.sample_rate)
+        preds, trues, _, keep_t = server.forward_batch(
+            batch, getattr(batch, "pad_weight", None))
+        keep = _host(keep_t)
+        if not keep.any():
+            continue
+        if getattr(batch, "word_hash", None) is not None:
+            word_hash = np.asarray(batch.word_hash)
+        else:
+            word_hash = np.vectorize(stable_word_hash)(word_str)
+        word_hash = word_hash[keep]
+        wh = word_hash[:, check_at]
+        if check_at > 0:
+            wh = np.where(wh == 0, word_hash[:, check_at - 1], wh)
+        wh = np.where(wh == 0, word_hash[:, check_at + 1], wh)
+        wi = extra_info[keep, 0][:, check_at]
+        si = extra_info[keep, 1][:, check_at]
+        ws = word_str[keep][:, check_at]
+        wseg = word_segs_str[keep]
+
+        segment_hashes = np.array([
+            _stable_hash(f"{int(s)}_{int(w)}")
+            for s, w in zip(si, wi)], dtype=np.int64)
+        # a candidate per segment: its first prediction's output
+        mask = []
+        for h in segment_hashes:
+            if h in seen_segment_hashes:
+                mask.append(False)
+            else:
+                seen_segment_hashes.add(h)
+                mask.append(True)
+        mask = np.array(mask, dtype=bool)
+
+        outs["preds"].append(_host(preds[keep_t]))
+        outs["segment_hashes"].append(segment_hashes)
+        outs["trues"].append(_host(
+            trues[keep_t][torch.from_numpy(mask).to(trues.device)]))
+        outs["trues_segment_hashes"].append(segment_hashes[mask])
+        outs["word_hashes"].append(wh.astype(np.int64))
+        outs["word_indices"].append(wi.astype(np.int64))
+        outs["seq_indices"].append(si.astype(np.int64))
+        outs["word_strings"].append(ws)
+        outs["word_segment_strings"].append(wseg)
+        outs["subject_id"].append(
+            np.asarray(batch.subject_index)[keep].astype(np.int64))
+        outs["recording_id"].append(
+            np.asarray(batch.recording_index)[keep].astype(np.int64))
+        outs["study"].append(np.array([batch.study] * int(keep.sum())))
+    return {k: np.concatenate(v, 0) for k, v in outs.items()}
+
+
+@torch.no_grad()
+@exact_fp32()
+def build_probs(server: tp.Any, preds: np.ndarray, trues: np.ndarray,
+                batch_size: int = 2048, tmin: tp.Optional[float] = None,
+                tmax: tp.Optional[float] = None,
+                stats: tp.Optional[tp.Dict[str, int]] = None) -> np.ndarray:
+    """[N_pred, N_true] probabilities: the CLIP scores of each prediction
+    against every candidate, streamed through the server's device in
+    chunks of `batch_size` predictions and candidate blocks of 2048
+    (``losses.streamed_scores``, which fills `stats`), then a softmax over
+    each row on the host. `tmin`/`tmax` trim both sides to that window
+    (seconds relative to the event)."""
+    dset_args = server.args.dset
+    trim_min = trim_max = None
+    if tmin is not None:
+        trim_min = int((tmin - dset_args.tmin) * dset_args.sample_rate)
+    if tmax is not None:
+        trim_max = int((tmax - dset_args.tmin) * dset_args.sample_rate)
+    preds = preds[..., trim_min:trim_max]
+    trues = trues[..., trim_min:trim_max]
+
+    clip = server.clip
+    if clip is None:
+        clip = ClipLoss(dset_tmin=dset_args.tmin,
+                        dset_sample_rate=dset_args.sample_rate)
+    refuse_int8_pool(server.args, clip)
+    scores = streamed_scores(clip, preds, trues, server.device,
+                             chunk=batch_size, stats=stats)
+    scores -= scores.max(axis=1, keepdims=True)
+    np.exp(scores, out=scores)
+    scores /= scores.sum(axis=1, keepdims=True)
+    return scores
+
+
+def accuracy_from_probs(probs: np.ndarray, target_labels: np.ndarray,
+                        vocab_labels: np.ndarray, topk: int = 10) -> float:
+    """Top-k accuracy of label retrieval."""
+    assert len(target_labels) == len(probs)
+    assert len(vocab_labels) == probs.shape[1]
+    k = min(topk, probs.shape[1])
+    idx = np.argpartition(probs, -k, axis=1)[:, -k:]
+    labels = vocab_labels[idx]
+    return float((labels == target_labels[:, None]).any(axis=1).mean())
+
+
+@contextlib.contextmanager
+def _write_and_rename(path: Path, mode: str = "wb"):
+    """Write to a temporary name beside `path`, then rename onto it."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, mode, newline=None if "b" in mode else "") as f:
+        yield f
+    os.replace(tmp, path)
+
+
+def _write_csv(path: Path, header: tp.Sequence[str],
+               rows: tp.Iterable[tp.Sequence[tp.Any]]) -> None:
+    """A CSV file as pandas' ``to_csv`` writes it."""
+    with _write_and_rename(path, "w") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow(header)
+        writer.writerows(rows)
+
+
+METADATA_KEYS = ("segment_hashes", "word_hashes", "word_indices",
+                 "seq_indices", "word_segment_strings", "word_strings",
+                 "subject_id", "recording_id", "study")
+
+
+@exact_fp32()
+def run_eval(server: tp.Any, batches: tp.Iterable[tp.Any],
+             output_dir: tp.Union[str, Path], n_negatives: int = 20_000,
+             probs_batch_size: int = 2048,
+             stats: tp.Optional[tp.Dict[str, int]] = None
+             ) -> tp.Dict[int, float]:
+    """The whole offline evaluation. Writes probs_segment.npy,
+    vocab_segment.npy, metadata.csv, acc.csv and negative_stats.csv into
+    `output_dir` (the CSV files as the JAX package's pandas writes them)
+    and returns the top-1, 5 and 10 segment accuracies."""
+    output_dir = Path(output_dir)
+    output_dir.mkdir(exist_ok=True, parents=True)
+    data = load_test_data(server, batches)
+    logger.info("Loaded %d predictions, %d candidate segments",
+                len(data["preds"]), len(data["trues"]))
+    probs_segment = build_probs(server, data["preds"], data["trues"],
+                                batch_size=probs_batch_size, stats=stats)
+    vocab_segment = data["trues_segment_hashes"]
+    segment_hashes = data["segment_hashes"]
+
+    with _write_and_rename(output_dir / "probs_segment.npy") as f:
+        np.save(f, probs_segment)
+    with _write_and_rename(output_dir / "vocab_segment.npy") as f:
+        np.save(f, vocab_segment)
+    _write_csv(output_dir / "metadata.csv", ("",) + METADATA_KEYS,
+               ([i] + [data[k][i] for k in METADATA_KEYS]
+                for i in range(len(segment_hashes))))
+
+    acc = {}
+    for k in (1, 5, 10):
+        acc[k] = accuracy_from_probs(probs_segment, segment_hashes,
+                                     vocab_segment, topk=k)
+        logger.info("Top-%d segment acc: %.2f%%", k, 100 * acc[k])
+    _write_csv(output_dir / "acc.csv", ("topk", "acc_segment"), acc.items())
+
+    stats_rows = {
+        "n_test_samples": len(data["word_hashes"]),
+        "n_test_vocab": len(np.unique(data["word_hashes"])),
+        "n_test_segments": len(np.unique(segment_hashes)),
+        "n_neg_samples": len(data["word_hashes"][:n_negatives]),
+        "n_neg_segments": len(np.unique(segment_hashes[:n_negatives])),
+    }
+    for key, val in stats_rows.items():
+        logger.info("%s: %d", key, val)
+    _write_csv(output_dir / "negative_stats.csv", ("", "0"),
+               stats_rows.items())
+    return acc

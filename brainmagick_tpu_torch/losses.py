@@ -5,13 +5,17 @@ Port of ``brainmagick_tpu/losses.py``: the masked L1/L2 losses, and
 [N, F, T] with the candidate norms folded in and, as a loss, takes the
 weighted cross-entropy of each estimate against its own candidate.
 ``retrieval_scores`` is the no-grad fast path that contracts the
-flattened [B, F*T] x [N, F*T] operands through the ``nt_matmul`` kernel.
+flattened [B, F*T] x [N, F*T] operands through the ``nt_matmul`` kernel;
+``streamed_scores`` runs it over a candidate pool streamed to the device
+in blocks (``candidate_blocks``, ``iter_device_groups``,
+``EstimateCache``), as the offline evaluation and WER do.
 """
 
 from __future__ import annotations
 
 import typing as tp
 
+import numpy as np
 import torch
 
 from .ops.matmul import nt_matmul
@@ -104,9 +108,11 @@ class ClipLoss:
         return (estimates[..., trim_min:trim_max],
                 candidates[..., trim_min:trim_max])
 
-    def get_scores(self, estimates: torch.Tensor, candidates: torch.Tensor,
-                   train: bool = False) -> torch.Tensor:
-        """[B, F, T] x [N, F, T] -> [B, N] candidate-norm-scaled scores."""
+    def _flat_operands(self, estimates: torch.Tensor,
+                       candidates: torch.Tensor, train: bool
+                       ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        """The trimmed, pooled, centered and compute-dtype cast operands,
+        flattened to [B, F*T'] and [N, F*T'] in fp32."""
         estimates, candidates = self.trim_samples(estimates, candidates,
                                                   train)
         if self.pool:
@@ -121,9 +127,23 @@ class ClipLoss:
             candidates = candidates.to(self.compute_dtype)
         # norms and the contraction in fp32 (a bf16 operand upcasts
         # exactly); matches the JAX einsum's fp32 accumulation
-        e2 = estimates.reshape(estimates.shape[0], -1).float()
-        c2 = candidates.reshape(candidates.shape[0], -1).float()
+        return (estimates.reshape(estimates.shape[0], -1).float(),
+                candidates.reshape(candidates.shape[0], -1).float())
+
+    def get_scores(self, estimates: torch.Tensor, candidates: torch.Tensor,
+                   train: bool = False) -> torch.Tensor:
+        """[B, F, T] x [N, F, T] -> [B, N] candidate-norm-scaled scores."""
+        e2, c2 = self._flat_operands(estimates, candidates, train)
         return (e2 @ c2.T) * block_inv_norms(c2)[None, :]
+
+    def own_scores(self, estimates: torch.Tensor,
+                   outputs: torch.Tensor) -> torch.Tensor:
+        """[B, F, T] x [B, F, T] -> [B]: each estimate's score against its
+        own output, the diagonal of ``get_scores(estimates, outputs)``
+        without the [B, B] product (the JAX package maps ``get_scores``
+        over the row pairs)."""
+        e2, o2 = self._flat_operands(estimates, outputs, False)
+        return (e2 * o2).sum(dim=1) * block_inv_norms(o2)
 
     def get_probabilities(self, estimates: torch.Tensor,
                           candidates: torch.Tensor) -> torch.Tensor:
@@ -162,6 +182,24 @@ class ClipLoss:
         return -(diag * w).sum() / w.sum().clamp(min=1.0)
 
 
+def int8_retrieval_ok(clip: ClipLoss) -> bool:
+    """Whether `clip` is the fast-path configuration (no projection,
+    pooling, centering or trim window): the one where
+    ``retrieval_scores`` contracts the flattened operands, and the one
+    the JAX package scores an int8 pool in."""
+    return not (clip.linear or clip.pool or clip.center
+                or clip.tmin is not None or clip.tmax is not None)
+
+
+def refuse_int8_pool(args: tp.Any, clip: ClipLoss) -> None:
+    """Raise where the JAX package would score an int8-quantized pool
+    (``test.pool_int8`` on a fast-path configuration)."""
+    if getattr(args.test, "pool_int8", False) and int8_retrieval_ok(clip):
+        raise NotImplementedError(
+            "test.pool_int8=True: int8 candidate pools are not ported "
+            "(ROADMAP.md, queue 1 item 10)")
+
+
 def retrieval_scores(clip: ClipLoss, estimates: torch.Tensor,
                      candidates: torch.Tensor,
                      inv_norms: tp.Optional[torch.Tensor] = None
@@ -171,8 +209,7 @@ def retrieval_scores(clip: ClipLoss, estimates: torch.Tensor,
     run by ``nt_matmul``. A trim/transform configuration goes through
     ``clip.get_scores``. `inv_norms` are precomputed candidate inverse
     norms (``block_inv_norms``) for the fast path."""
-    if (clip.pool or clip.center or clip.tmin is not None
-            or clip.tmax is not None):
+    if not int8_retrieval_ok(clip):
         if inv_norms is not None:
             raise ValueError("precomputed norms apply to the fast path only")
         return clip.get_scores(estimates, candidates)
@@ -185,3 +222,172 @@ def retrieval_scores(clip: ClipLoss, estimates: torch.Tensor,
     if inv_norms is None:
         inv_norms = block_inv_norms(c2)
     return nt_matmul(e2, c2) * inv_norms[None, :]
+
+
+#: candidates per block in the evaluation's streamed scoring
+CANDIDATE_BLOCK = 2048
+
+
+def candidate_blocks(pool: tp.Any, compute_dtype: tp.Optional[torch.dtype],
+                     block_size: int = CANDIDATE_BLOCK, pin: bool = False
+                     ) -> tp.List[torch.Tensor]:
+    """Host-side candidate blocks of `block_size` rows in the score compute
+    dtype (the pool's own dtype when None).
+
+    On the host on purpose: the whole pool need not fit on the card (20k
+    wav2vec-width candidates are 28 GB in fp32), so callers move a bounded
+    group at a time (``iter_device_groups``). A bf16 compute dtype halves
+    both the stream and the resident group, and the norms use the same
+    cast values, so the scores equal an in-call cast. With `pin` the
+    blocks are views of one page-locked buffer, which a copy to the card
+    reads asynchronously.
+
+    The JAX function zero-pads the tail block to keep its jitted shapes
+    fixed and slices the padded columns off the scores; ``nt_matmul``
+    takes any N, so the tail block here is left short, with the same
+    scores."""
+    src = pool if isinstance(pool, torch.Tensor) else torch.as_tensor(
+        np.asarray(pool))
+    host = torch.empty(src.shape, dtype=compute_dtype or src.dtype,
+                       pin_memory=pin)
+    host.copy_(src)
+    return list(host.split(block_size))
+
+
+def iter_device_groups(blocks: tp.Sequence[torch.Tensor],
+                       device: tp.Union[str, torch.device],
+                       budget_bytes: int = 4 << 30
+                       ) -> tp.Iterator[tp.Tuple[int, tp.List[torch.Tensor]]]:
+    """Yield (first block index, [blocks on `device`]) groups of candidate
+    blocks whose size together stays under `budget_bytes`; the caller
+    drops each group before the next iteration.
+
+    The next group's copy is issued before the current group is yielded,
+    and the group is halved so that both fit the budget (when every block
+    fits in one group there is nothing to overlap and the full budget
+    applies), as in the JAX function's default. On a CUDA device the
+    copies run on a side stream from the pinned blocks
+    (``candidate_blocks(pin=True)``, which the caller keeps alive): the
+    scoring stream waits on a group's copy before it gets the group, and
+    each block is marked as used by that stream, so that its memory is not
+    handed to the next copy before the scoring that reads it is done."""
+    if not blocks:
+        return
+    per = max(blocks[0].nbytes, 1)
+    group = max(1, int(budget_bytes // per))
+    if len(blocks) > group:
+        group = max(1, int(budget_bytes // 2 // per))
+    device = torch.device(device)
+    side = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def put(i: int):
+        part = blocks[i:i + group]
+        if side is None:
+            return [b.to(device) for b in part], None
+        with torch.cuda.stream(side):
+            moved = [b.to(device, non_blocking=True) for b in part]
+        done = torch.cuda.Event()
+        done.record(side)
+        return moved, done
+
+    def take(pending) -> tp.List[torch.Tensor]:
+        moved, done = pending
+        if done is not None:
+            scoring = torch.cuda.current_stream(device)
+            scoring.wait_event(done)
+            for block in moved:
+                block.record_stream(scoring)
+        return moved
+
+    starts = list(range(0, len(blocks), group))
+    nxt = None
+    for j, i in enumerate(starts):
+        cur = take(nxt if nxt is not None else put(i))
+        nxt = put(starts[j + 1]) if j + 1 < len(starts) else None
+        yield i, cur
+        del cur
+
+
+def commit_rows(rows: tp.Any, device: torch.device) -> torch.Tensor:
+    """Estimate or prediction rows (numpy or a tensor) on `device`."""
+    return torch.as_tensor(rows).to(device)
+
+
+class EstimateCache:
+    """Per-chunk prepared estimate rows for streamed retrieval scoring
+    (``wer.get_wer``, ``eval.build_probs``).
+
+    The scoring loops run candidate groups outer and estimate chunks
+    inner. Preparing a chunk (its copy to the device and its cast to the
+    compute dtype) inside the scoring call would pay it once per candidate
+    block; this cache prepares a chunk once and keeps the prepared rows
+    across groups while they fit `budget_bytes`. Over the budget a chunk
+    is prepared once per (group, chunk) and not kept, as in the JAX
+    package. `commits` and `committed_bytes` count the copies."""
+
+    def __init__(self, clip: ClipLoss, device: torch.device,
+                 budget_bytes: int = 2 << 30) -> None:
+        self.device = torch.device(device)
+        self.budget = int(budget_bytes)
+        self._cache: tp.Dict[int, torch.Tensor] = {}
+        self._bytes = 0
+        self.commits = self.committed_bytes = 0
+        self._dtype = clip.compute_dtype if int8_retrieval_ok(clip) else None
+
+    def get(self, lo: int, make_chunk: tp.Callable[[], tp.Any]
+            ) -> torch.Tensor:
+        hit = self._cache.get(lo)
+        if hit is not None:
+            return hit
+        rows = commit_rows(make_chunk(), self.device)
+        self.commits += 1
+        self.committed_bytes += rows.nbytes
+        prepared = rows.to(self._dtype) if self._dtype is not None else rows
+        if self._bytes + prepared.nbytes <= self.budget:
+            self._cache[lo] = prepared
+            self._bytes += prepared.nbytes
+        return prepared
+
+
+def streamed_scores(clip: ClipLoss, rows: tp.Any, pool: tp.Any,
+                    device: torch.device, chunk: int = 2048,
+                    stats: tp.Optional[tp.Dict[str, int]] = None
+                    ) -> np.ndarray:
+    """[len(rows), len(pool)] fp32 retrieval scores on the host: the pool
+    streamed to `device` in blocks of CANDIDATE_BLOCK and in groups, every
+    chunk of `chunk` rows scored against each block of a group before the
+    next group lands, as ``wer.get_wer`` and ``eval.build_probs`` do in
+    the JAX package. Chunks are not padded to `chunk` rows (the JAX loops
+    pad them only to keep jitted shapes fixed; each row's scores are its
+    own).
+
+    `stats`, when given, gains the counts of the transfers: ``groups``,
+    ``pool_bytes`` (the pool's host-to-device bytes), ``commits`` and
+    ``commit_bytes`` (the chunks')."""
+    n = len(rows)
+    scores = np.empty((n, len(pool)), dtype=np.float32)
+    fast = int8_retrieval_ok(clip)
+    host_blocks = candidate_blocks(pool, clip.compute_dtype, CANDIDATE_BLOCK,
+                                   pin=device.type == "cuda")
+    cache = EstimateCache(clip, device)
+    groups = pool_bytes = 0
+    for g0, dev_group in iter_device_groups(host_blocks, device):
+        groups += 1
+        pool_bytes += sum(block.nbytes for block in dev_group)
+        # candidate norms once per transferred block, not per chunk
+        norms = [block_inv_norms(b) if fast else None for b in dev_group]
+        for lo in range(0, n, chunk):
+            est = cache.get(lo, lambda: rows[lo:lo + chunk])
+            # index into the group: no loop variable keeps a block alive
+            # while the next group lands
+            for bi in range(len(dev_group)):
+                c0 = (g0 + bi) * CANDIDATE_BLOCK
+                s = retrieval_scores(clip, est, dev_group[bi], norms[bi])
+                scores[lo:lo + len(est), c0:c0 + s.shape[1]] = s.cpu().numpy()
+        del dev_group, norms
+    if stats is not None:
+        for key, value in (("groups", groups), ("pool_bytes", pool_bytes),
+                           ("commits", cache.commits),
+                           ("commit_bytes", cache.committed_bytes)):
+            stats[key] = stats.get(key, 0) + value
+    return scores

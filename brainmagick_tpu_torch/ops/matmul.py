@@ -29,6 +29,12 @@ STEP_BYTES = 128
 _SPLIT_COST = 4
 #: TMA needs 16-byte aligned rows
 _ALIGN_BYTES = 16
+#: bf16 K steps one split may take. The tensor core's fp32 accumulator over
+#: a bf16 chain drifts with the chain's length (on an H100 at 2048 x 2048 x
+#: 351,232, random operands: 3.9e-6 of |a||b| in one chain, as cuBLAS's
+#: torch.mm; 4.6e-7 over 8 splits, 2.6e-7 over 16), so a longer K is split
+#: at least this finely. fp32 starts a fresh accumulator every K step.
+MAX_BF16_STEPS = 512
 
 
 def _reference_impl(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -46,8 +52,9 @@ def plan_tiles(m: int, n: int, k: int, n_sms: int, elem_bytes: int
     width is the smallest prediction tile that covers m (the widest, and
     a grid over m, above that). The K split minimizes waves x (K steps
     per split + _SPLIT_COST) over at most 8 waves of one CTA per SM, so
-    the CTAs fill the SMs in whole waves; k_chunk is a whole number of K
-    steps, and every split gets at least one."""
+    the CTAs fill the SMs in whole waves, and over no fewer splits than
+    keep a bf16 split within MAX_BF16_STEPS; k_chunk is a whole number of
+    K steps, and every split gets at least one."""
     widths = WIDTHS[elem_bytes]
     width = next((w for w in widths if w >= m), widths[-1])
     bk = STEP_BYTES // elem_bytes
@@ -57,8 +64,9 @@ def plan_tiles(m: int, n: int, k: int, n_sms: int, elem_bytes: int
     def cost(s: int) -> int:
         return -(-tiles * s // n_sms) * (-(-k_steps // s) + _SPLIT_COST)
 
-    most = max(1, min(k_steps, -(-8 * n_sms // tiles)))
-    splits = min(range(1, most + 1), key=cost)
+    least = -(-k_steps // MAX_BF16_STEPS) if elem_bytes == 2 else 1
+    most = max(least, min(k_steps, -(-8 * n_sms // tiles)))
+    splits = min(range(least, most + 1), key=cost)
     per_split = -(-k_steps // splits)
     return width, BANK_ROWS, -(-k_steps // per_split), per_split * bk
 

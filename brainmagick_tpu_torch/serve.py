@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import typing as tp
 
+import numpy as np
 import torch
 
 from .convert import load_jax_params
@@ -44,6 +45,7 @@ class Server:
                  norm_arrays: tp.Mapping[str, tp.Any],
                  device: tp.Union[str, torch.device],
                  generator: tp.Optional[torch.Generator] = None) -> None:
+        self.args = args
         self.device = torch.device(device)
         self.model = build_model(args, meg_channels, out_channels,
                                  n_subjects, self.device, generator)
@@ -55,13 +57,20 @@ class Server:
 
     @torch.no_grad()
     @exact_fp32()
-    def forward_batch(self, batch: tp.Any):
+    def forward_batch(self, batch: tp.Any,
+                      pad_weight: tp.Optional[tp.Any] = None):
         """A batch with the ``dataset.ARRAY_FIELDS`` arrays -> (estimate
         [B, F, T'], output [B, F, T'], mask [B, 1, T'], keep [B] bool),
-        tensors on the server's device."""
+        tensors on the server's device. `pad_weight` [B] (ones when None)
+        is 0 for the rows a loader adds to fill its last batch; those rows
+        are not kept."""
         arrays = to_device(batch, self.device)
-        pad_weight = torch.ones(arrays["meg"].shape[0], dtype=torch.float32,
-                                device=self.device)
+        if pad_weight is None:
+            pad_weight = torch.ones(arrays["meg"].shape[0],
+                                    dtype=torch.float32, device=self.device)
+        else:
+            pad_weight = _on(np.asarray(pad_weight, dtype=np.float32),
+                             self.device)
         estimate, output, mask, keep, _ = self.solver._forward(arrays,
                                                                pad_weight)
         return estimate, output, mask, keep > 0.5

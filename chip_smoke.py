@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving and training paths on one CUDA card.
+"""Drive the PyTorch port's serving, training and evaluation paths on one
+CUDA card.
 
 Run from the repository root, with no arguments:
 
@@ -35,7 +36,16 @@ exits non-zero and prints no result:
    losses that fall, conv_stats launched once per encoder layer per step,
    every launch on its fp32 tensor-core route, normalize once per step),
    the warm step's time and peak memory, and a B=8 step held against the
-   same trainer on the CPU.
+   same trainer on the CPU;
+6. the offline evaluation at the same width: nine seeded B=256 batches
+   (2,304 predictions, one word event each, over 2,150 segments; rows of
+   one segment share its features) through eval.load_test_data, a
+   profiled eval.build_probs, eval.run_eval with fp32 and with bf16
+   scoring and once with the outputs as the predictions (top-1 must be
+   1), wer.get_wer, and again with the outputs as the estimates (wer must
+   be 0); each pass's wall time, transfers and peak memory, the launch
+   counts the loops imply, and 64 predictions x 300 candidates of
+   build_probs held against the same call on the CPU.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it raises at once.
@@ -44,10 +54,13 @@ The line before the last is the kernels' JSON summary; the last line is
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
+import tempfile
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -121,6 +134,19 @@ NORM_RECORDINGS = 4
 RAGGED_M = (1, 7, 9, 65, 255, 257)
 RAGGED_N = (1, 129, 2047)
 RAGGED_K = (1, 7, 33, 1000, 4099)
+#: the evaluation phase: EVAL_BATCHES batches of REQUESTS[0] rows over
+#: EVAL_SEGMENTS (sequence, word index) segments of EVAL_SEQUENCES stories
+#: and EVAL_WORDS words; the rows past EVAL_SEGMENTS repeat segments
+EVAL_BATCHES, EVAL_SEGMENTS = 9, 2150
+EVAL_SEQUENCES, EVAL_WORDS = 8, 499
+#: prediction rows per scoring call and candidates per block (the eval
+#: and WER defaults), the scoring shape's M and N
+EVAL_CHUNK = 2048
+#: a word event's length, s
+WORD_SECONDS = 0.3
+#: the card's build_probs against the CPU's on this many predictions and
+#: candidates
+HELD_PREDS, HELD_CANDIDATES = 64, 300
 
 
 def tf32_flags() -> dict:
@@ -186,6 +212,12 @@ def device_rows(fn, calls: int = 5) -> list:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    return device_activities(prof, calls)
+
+
+def device_activities(prof, calls: int = 1) -> list:
+    """A finished torch.profiler's device activities per call: (name,
+    launches, µs), the longest first."""
     rows = [(e.key, e.count / calls, device_us(e) / calls)
             for e in prof.key_averages() if device_us(e) > 0
             and e.device_type != torch.autograd.DeviceType.CPU]
@@ -352,9 +384,12 @@ def _matmul_error(a, b, got) -> tuple:
 
 def check_nt_matmul(device: torch.device) -> dict:
     """nt_matmul against the plain version (fp32 accumulation, TF32 off):
-    ragged shapes over fp32, bf16 and mixed operands, then M in {1, 256},
-    N 2048, K 351,232 on fp32 and bf16 operands, each called twice (the
-    same bits both times) and timed."""
+    ragged shapes over fp32, bf16 and mixed operands, then M in {1, 256,
+    2048} (a request, the serving batch, the evaluation's chunk), N 2048,
+    K 351,232 on fp32 and bf16 operands, each called twice (the same bits
+    both times) and timed; at M = 2048 in fp32, the device activities of a
+    call in torch.profiler (the split of the predictions into TF32 hi/lo,
+    the tiles, the split sum)."""
     from brainmagick_tpu_torch.ops import matmul
 
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
@@ -384,13 +419,13 @@ def check_nt_matmul(device: torch.device) -> dict:
           + f" (tol {MATMUL_TOL})")
 
     m, n = REQUESTS[0], N_CANDIDATES
-    a32 = torch.randn((m, SCORE_K), generator=gen, device=device)
+    a32 = torch.randn((EVAL_CHUNK, SCORE_K), generator=gen, device=device)
     b32 = torch.randn((n, SCORE_K), generator=gen, device=device)
     summary, shapes = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         a_all, b = a32.to(dtype), b32.to(dtype)
         name = str(dtype).split(".")[-1]
-        for rows in (1, m):
+        for rows in (1, m, EVAL_CHUNK):
             a = a_all[:rows]
             got = matmul.nt_matmul(a, b)
             again = matmul.nt_matmul(a, b)
@@ -433,6 +468,20 @@ def check_nt_matmul(device: torch.device) -> dict:
             timed = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
                          max_abs_err=abs_err)
+            if rows == EVAL_CHUNK and dtype == torch.float32:
+                activities = device_rows(lambda: matmul.nt_matmul(a, b), 3)
+                device_ms = sum(us for _, _, us in activities) / 1e3
+                split_ms = sum(us for key, _, us in activities
+                               if "split_tf32" in key) / 1e3
+                print(f"nt_matmul [{rows}, {SCORE_K}] x [{n}, {SCORE_K}]^T "
+                      f"{name} in torch.profiler: {device_ms:.3f} ms of "
+                      f"device time per call, of which the hi/lo split of "
+                      f"the predictions {split_ms:.3f} ms "
+                      f"({100 * split_ms / device_ms:.1f}%)")
+                for key, count, us in activities:
+                    print(f"  {us:9.2f} us  {count:g}x  {key[:100]}")
+                timed.update(device_ms=device_ms, split_ms=split_ms,
+                             split_share=split_ms / device_ms)
             if dtype == torch.float32 and rows == m:
                 summary = timed
             else:
@@ -870,6 +919,216 @@ def run_train(device: torch.device, card_name: str, batch) -> dict:
     return launches, routes
 
 
+def make_eval_batches(device, args, rec_positions: np.ndarray) -> list:
+    """EVAL_BATCHES seeded batches of REQUESTS[0] rows, as eval and wer take
+    them: each row hears one word of one of EVAL_SEGMENTS segments (every
+    segment at least once, the rest drawn again, the rows shuffled), and
+    rows of one segment share its features. A row's events are a marker at
+    the window's start and the word, -dset.tmin later; its word_hash holds
+    the word's hash over the word's samples. The arrays are drawn on the
+    card from a seed."""
+    from brainmagick_tpu_torch.eval import stable_word_hash
+
+    n = EVAL_BATCHES * REQUESTS[0]
+    rng = np.random.RandomState(SEED + 5)
+    segment = np.concatenate([np.arange(EVAL_SEGMENTS), rng.randint(
+        0, EVAL_SEGMENTS, n - EVAL_SEGMENTS)])
+    rng.shuffle(segment)
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    features = torch.randn((EVAL_SEGMENTS, F, T), generator=gen,
+                           device=device).cpu().numpy()
+    meg = (torch.randn((n, C, T), generator=gen, device=device)
+           * 5).cpu().numpy()
+    tmin, rate = args.dset.tmin, args.dset.sample_rate
+    onset_sample = int(-tmin * rate)
+    word_samples = int(WORD_SECONDS * rate)
+    batches = []
+    for lo in range(0, n, REQUESTS[0]):
+        rows = np.arange(lo, lo + REQUESTS[0])
+        rec = rows % N_RECORDINGS
+        event_lists, word_hash = [], np.zeros((len(rows), T), np.int64)
+        for k, s in enumerate(segment[rows]):
+            word_index, story = divmod(int(s), EVAL_SEQUENCES)
+            onset = 10.0 + 0.5 * word_index
+            word = f"word{int(s) % EVAL_WORDS}"
+            event_lists.append([
+                types.SimpleNamespace(kind="segment", start=onset + tmin,
+                                      duration=T / rate),
+                types.SimpleNamespace(kind="word", start=onset,
+                                      duration=WORD_SECONDS, word=word,
+                                      word_index=word_index,
+                                      word_sequence=f"story {story}")])
+            word_hash[k, onset_sample:onset_sample + word_samples] = \
+                stable_word_hash(word)
+        batches.append(types.SimpleNamespace(
+            meg=meg[rows], features=features[segment[rows]],
+            features_mask=np.ones((len(rows), 1, T), dtype=bool),
+            subject_index=rec.astype(np.int32),
+            recording_index=rec.astype(np.int32),
+            positions=rec_positions[rec], event_lists=event_lists,
+            study="seeded", word_hash=word_hash))
+    return batches
+
+
+class OutputsAsEstimates:
+    """A server whose estimates are its outputs: the identity pass, whose
+    every prediction must retrieve its own segment."""
+
+    def __init__(self, server) -> None:
+        self.server = server
+
+    def __getattr__(self, name):
+        return getattr(self.server, name)
+
+    def forward_batch(self, batch, pad_weight=None):
+        _, output, mask, keep = self.server.forward_batch(batch, pad_weight)
+        return output, output, mask, keep
+
+
+def scoring_calls(n_rows: int, n_candidates: int) -> int:
+    """nt_matmul launches of one streamed scoring: chunks x blocks."""
+    return math.ceil(n_rows / EVAL_CHUNK) * math.ceil(n_candidates
+                                                      / EVAL_CHUNK)
+
+
+def _check_eval_probs(probs: np.ndarray, shape: tuple, what: str) -> None:
+    if probs.shape != shape:
+        raise AssertionError(f"{what}: probabilities {probs.shape}, want "
+                             f"{shape}")
+    if not np.isfinite(probs).all():
+        raise AssertionError(f"{what}: non-finite probabilities")
+    row_err = float(np.abs(probs.sum(axis=1, dtype=np.float64) - 1).max())
+    if row_err > PROBS_TOL:
+        raise AssertionError(f"{what}: probability rows off 1 by {row_err}")
+
+
+def run_eval_phase(device: torch.device, card_name: str) -> dict:
+    """The offline evaluation at full width (see the module docstring).
+    Returns the kernel launch counts over the phase."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from brainmagick_tpu_torch import eval as port_eval
+    from brainmagick_tpu_torch import ops, wer
+
+    server, rec_positions = build_server(device)
+    batches = make_eval_batches(device, server.args, rec_positions)
+    n_preds = EVAL_BATCHES * REQUESTS[0]
+    t_out = T - server.solver._offsets()[0]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    want = dict(normalize_clamp_peak=0, nt_matmul=0)
+    times, transfers, peaks = {}, {}, {}
+
+    def timed(name, fn, forwards=True, scorings=()):
+        """fn() timed by the host clock (synchronized), with its transfer
+        counts (a `stats` dict it fills) and peak device memory; the
+        launches it implies join `want`."""
+        stats = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = fn(stats)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        transfers[name] = stats
+        want["normalize_clamp_peak"] += EVAL_BATCHES if forwards else 0
+        want["nt_matmul"] += sum(scoring_calls(*s) for s in scorings)
+        print(f"eval {name}: {times[name]:.2f} s (host clock, synchronized), "
+              f"peak device memory {peaks[name]:.2f} GB, transfers {stats} "
+              f"({card_name})")
+        return result
+
+    data = timed("load_test_data", lambda _: port_eval.load_test_data(
+        server, batches))
+    n_cands = len(data["trues"])
+    if (data["preds"].shape != (n_preds, F, t_out)
+            or data["trues"].shape != (EVAL_SEGMENTS, F, t_out)
+            or len(np.unique(data["segment_hashes"])) != EVAL_SEGMENTS):
+        raise AssertionError(f"load_test_data: preds {data['preds'].shape}, "
+                             f"trues {data['trues'].shape}")
+    for key in ("preds", "trues"):
+        if not np.isfinite(data[key]).all():
+            raise AssertionError(f"load_test_data: non-finite {key}")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        probs = timed("build_probs fp32, profiled",
+                      lambda stats: port_eval.build_probs(
+                          server, data["preds"], data["trues"],
+                          stats=stats),
+                      forwards=False, scorings=[(n_preds, n_cands)])
+    _check_eval_probs(probs, (n_preds, n_cands), "build_probs")
+    if transfers["build_probs fp32, profiled"]["groups"] != 2:
+        raise AssertionError("fp32 candidates: want two device groups")
+    activities = device_activities(prof)
+    device_ms = sum(us for _, _, us in activities) / 1e3
+    gemm_ms = sum(us for key, _, us in activities
+                  if any(part in key for part in
+                         ("nt_matmul_tiles", "split_tf32", "sum_splits"))
+                  ) / 1e3
+    print(f"build_probs fp32 in torch.profiler: {device_ms:.2f} ms of device "
+          f"time, nt_matmul's kernels {gemm_ms:.2f} ms "
+          f"({100 * gemm_ms / device_ms:.1f}% of the device time, "
+          f"{100 * gemm_ms / 1e3 / times['build_probs fp32, profiled']:.1f}%"
+          f" of the call's wall time)")
+    for key, count, us in activities[:12]:
+        print(f"  {us / 1e3:9.3f} ms  {count:g}x  {key[:100]}")
+    del probs
+
+    accs = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for name, who, dtype in (
+                ("fp32", server, None), ("bf16", server, torch.bfloat16),
+                ("identity", OutputsAsEstimates(server), None)):
+            server.clip.compute_dtype = dtype
+            accs[name] = timed(
+                f"run_eval {name}", lambda stats: port_eval.run_eval(
+                    who, batches, out_dir, stats=stats),
+                scorings=[(n_preds, n_cands)])
+            server.clip.compute_dtype = None
+            _check_eval_probs(np.load(Path(out_dir) / "probs_segment.npy"),
+                              (n_preds, n_cands), f"run_eval {name}")
+            print(f"run_eval {name}: top-1/5/10 {accs[name]}")
+    if accs["identity"][1] != 1.0:
+        raise AssertionError(f"identity pass: top-1 {accs['identity'][1]}")
+
+    n_fixed = min(n_preds, server.args.test.wer_negatives) - 1
+    metrics = {}
+    for name, who in (("", server), (" identity", OutputsAsEstimates(server))):
+        metrics[name] = timed(f"get_wer{name}", lambda stats: wer.get_wer(
+            who, batches, stats=stats), scorings=[(n_preds, n_fixed)])
+        print(f"get_wer{name}: {metrics[name]}")
+    if not 0 <= metrics[""]["wer"] <= 1:
+        raise AssertionError(f"get_wer: {metrics['']}")
+    if metrics[" identity"]["wer"] != 0:
+        raise AssertionError(f"get_wer identity: {metrics[' identity']}")
+
+    # the card's build_probs against the CPU's on a sub-block
+    preds = data["preds"][:HELD_PREDS]
+    trues = data["trues"][:HELD_CANDIDATES]
+    probs = port_eval.build_probs(server, preds, trues)
+    want["nt_matmul"] += scoring_calls(HELD_PREDS, HELD_CANDIDATES)
+    launches = {k.__name__: k.launches for k in ops.KERNELS}
+    reference, _ = build_server("cpu")
+    probs_ref = port_eval.build_probs(reference, preds, trues)
+    held_err = float(np.abs(probs - probs_ref).max())
+    print(f"build_probs {HELD_PREDS} x {HELD_CANDIDATES} against the CPU: "
+          f"max|diff| {held_err:.3e} (atol {PROBS_TOL})")
+    if held_err > PROBS_TOL:
+        raise AssertionError(f"card vs CPU build_probs: max|diff| {held_err}")
+
+    print(f"eval phase: {n_preds} predictions, {n_cands} candidates, kernel "
+          f"launches {launches}, want {want}")
+    for name, count in want.items():
+        if launches[name] != count:
+            raise AssertionError(f"the eval path launched {name} "
+                                 f"{launches[name]} times, want {count}")
+    del server, data, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -900,13 +1159,15 @@ def main() -> None:
                    check_conv_stats(device)]
     serve_launches, batch = run_slice(device, card_name)
     train_launches, train_routes = run_train(device, card_name, batch)
+    eval_launches = run_eval_phase(device, card_name)
     if tf32_flags() != defaults:
         raise AssertionError(f"TF32 flags {tf32_flags()} after the run, "
                              f"{defaults} before it")
     for entry in kernels:
         by_path = dict(serve=serve_launches[entry["name"]],
-                       train=train_launches[entry["name"]])
-        entry["launches"] = by_path["serve"] + by_path["train"]
+                       train=train_launches[entry["name"]],
+                       eval=eval_launches[entry["name"]])
+        entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         if entry["name"] == "conv_stats":
             entry["train_launches_by_route"] = train_routes

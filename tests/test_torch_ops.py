@@ -122,12 +122,13 @@ def test_nt_matmul_untiled_shape():
 @pytest.mark.parametrize("elem_bytes", [4, 2], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("K", [0, 7, 351_232])
 @pytest.mark.parametrize("N", [1, 2048])
-@pytest.mark.parametrize("M", [1, 7, 8, 9, 65, 256, 257, 1000])
+@pytest.mark.parametrize("M", [1, 7, 8, 9, 65, 256, 257, 1000, 2048])
 def test_plan_tiles_covers_m_and_k(M, N, K, elem_bytes):
     """The CUDA kernel's tile plan: the smallest prediction width that
     covers M (a grid of the widest tiles above that: 128 in fp32, 256 in
-    bf16), whole K steps with every k covered once, and at the scoring
-    shape at least one CTA per SM of the card's 132."""
+    bf16), whole K steps with every k covered once, a bf16 split of at
+    most MAX_BF16_STEPS K steps, and at the scoring shape at least one CTA
+    per SM of the card's 132."""
     width, bank_rows, splits, k_chunk = matmul.plan_tiles(M, N, K, 132,
                                                           elem_bytes)
     widths = matmul.WIDTHS[elem_bytes]
@@ -141,6 +142,8 @@ def test_plan_tiles_covers_m_and_k(M, N, K, elem_bytes):
     bk = matmul.STEP_BYTES // elem_bytes
     assert k_chunk % bk == 0 and splits >= 1
     assert splits * k_chunk >= K and (splits - 1) * k_chunk < max(K, 1)
+    if elem_bytes == 2:
+        assert k_chunk // bk <= matmul.MAX_BF16_STEPS
     ctas = -(-N // bank_rows) * m_tiles * splits
     if K == 351_232 and N == 2048 and M in (1, 256):
         assert ctas >= 132

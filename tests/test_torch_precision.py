@@ -1,7 +1,8 @@
 """The port's entry points set fp32 precision themselves: inside
-Server.forward_batch, Server.probabilities and Solver.step (its forward and
-its backward) TF32 is off in cuBLAS and cuDNN, and both flags are back as
-the caller set them afterwards, also when the call raises."""
+Server.forward_batch, Server.probabilities, Solver.step (its forward and
+its backward), eval.build_probs, eval.run_eval and wer.get_wer TF32 is off
+in cuBLAS and cuDNN, and both flags are back as the caller set them
+afterwards, also when the call raises."""
 
 import types
 
@@ -9,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from brainmagick_tpu_torch import config, precision, serve
+from brainmagick_tpu_torch import config, losses, precision, serve, wer
+from brainmagick_tpu_torch import eval as port_eval
 from brainmagick_tpu_torch.serve import Server
 from brainmagick_tpu_torch.train import Trainer
 
@@ -93,6 +95,48 @@ def test_server_calls_run_without_tf32(tf32_on, monkeypatch):
         server.forward_batch(types.SimpleNamespace(meg=batch.meg))
     with pytest.raises(ValueError):
         server.probabilities(estimate, output[:, :1])
+    assert _flags() == (True, True)
+
+
+def test_eval_entry_points_run_without_tf32(tf32_on, monkeypatch,
+                                            tmp_path):
+    """build_probs, run_eval and get_wer score with both flags off (seen
+    by the pool's scoring and by the own-output scores), and restore
+    them after."""
+    args, na, batch = _setup()
+    args.test.wer_negatives, args.test.wer_topx = 0, 1
+    args.dset.tmin = -0.2           # the event's sample within T
+    server = Server(args, C, F, 1, None, None, na, "cpu",
+                    generator=torch.Generator().manual_seed(0))
+    onset = -args.dset.tmin
+    batch.event_lists = [
+        [types.SimpleNamespace(kind="slice", start=0., duration=1.),
+         types.SimpleNamespace(kind="word", start=onset, duration=0.1,
+                               word=f"w{k}", word_index=k,
+                               word_sequence="s")] for k in range(B)]
+    batch.study = "seeded"
+    batch.word_hash = np.ones((B, T), np.int64)
+    seen = []
+    scores, own = losses.retrieval_scores, losses.ClipLoss.own_scores
+
+    def recording_scores(*a, **kw):
+        seen.append(("scores", _flags()))
+        return scores(*a, **kw)
+
+    def recording_own(*a, **kw):
+        seen.append(("own", _flags()))
+        return own(*a, **kw)
+
+    monkeypatch.setattr(losses, "retrieval_scores", recording_scores)
+    monkeypatch.setattr(losses.ClipLoss, "own_scores", recording_own)
+    probs = port_eval.build_probs(server, batch.features, batch.features)
+    assert probs.shape == (B, B) and _flags() == (True, True)
+    port_eval.run_eval(server, [batch], tmp_path)
+    assert _flags() == (True, True)
+    metrics = wer.get_wer(server, [batch])
+    assert set(metrics) == {"wer", "wer_vocab", "wer_n_vocab"}
+    assert seen == [("scores", (False, False))] * 3 + [("own", (False,
+                                                                False))]
     assert _flags() == (True, True)
 
 

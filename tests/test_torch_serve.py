@@ -192,15 +192,17 @@ def _run(*cmd, **extra_env):
 
 
 def test_import_hygiene_and_copied_constants():
-    """Importing the port (its serving and training entry points and the
-    conv_stats op) loads no jax, flax, pandas or JAX-package module; the
-    constants it copies equal their originals, and so do the config
-    fields the train step reads."""
+    """Importing the port (its serving, training and evaluation entry
+    points and the conv_stats op) loads no jax, flax, pandas or
+    JAX-package module; the constants it copies equal their originals,
+    and so do the config fields the train step and the evaluation
+    read."""
     proc = _run("-c", (
         "import sys\n"
         "import brainmagick_tpu_torch, brainmagick_tpu_torch.serve\n"
         "import brainmagick_tpu_torch.ops, brainmagick_tpu_torch.config\n"
         "import brainmagick_tpu_torch.train\n"
+        "import brainmagick_tpu_torch.eval, brainmagick_tpu_torch.wer\n"
         "import brainmagick_tpu_torch.ops.conv_bn\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "    ('jax', 'jaxlib', 'flax', 'pandas', 'brainmagick_tpu'))\n"
@@ -223,6 +225,14 @@ def test_import_hygiene_and_copied_constants():
                                                         name), name
         for name in ("tmin_train", "tmax_train"):
             assert getattr(port.clip, name) == getattr(original.clip, name)
+        for name in ("wer_negatives", "wer_topx", "wer_random", "pool_int8"):
+            assert getattr(port.test, name) == getattr(original.test, name)
+        assert port.seed == original.seed
+        assert port.dset.test.tmin == original.dset.test.tmin
+    from brainmagick_tpu.features.basic import stable_word_hash
+    from brainmagick_tpu_torch import eval as port_eval
+    for word in ("", "Word.", "the", "ÉTÉ"):
+        assert port_eval.stable_word_hash(word) == stable_word_hash(word)
 
 
 def test_chip_smoke_refuses_without_a_card():
