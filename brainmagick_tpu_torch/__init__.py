@@ -10,7 +10,9 @@ with each encoder conv and its BatchNorm sums in one CUDA kernel
 (``eval.run_eval``, ``wer.get_wer``): the server's forwards, then every
 prediction scored against a candidate pool streamed to the card in
 blocks (the same GEMM), top-k segment accuracy and word-retrieval error.
-The entry points run fp32 with TF32 off (``precision.exact_fp32``).
+The entry points run fp32 with TF32 off (``precision.exact_fp32``), or
+the ``clip_conv_tpu`` recipe's bf16 where the config asks for it
+(``models.common`` says where each op casts).
 The JAX package ``brainmagick_tpu`` stays the reference; the tests hold
 this package to it on the same inputs and bridged weights
 (``convert.load_jax_params``).

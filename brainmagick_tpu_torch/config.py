@@ -1,10 +1,11 @@
 """Configuration of the serving, training and evaluation slices.
 
-The fields the port reads, with the names, defaults and ``clip_conv``
-preset of ``brainmagick_tpu.config``, copied so that the port runs on a
-host that has no JAX package (tests/test_torch_serve.py holds the copy to
-the original). Every function of the port that takes `args` accepts the
-JAX package's ``MainConfig`` as well.
+The fields the port reads, with the names, defaults and the ``clip_conv``
+and ``clip_conv_tpu`` presets of ``brainmagick_tpu.config``, copied so
+that the port runs on a host that has no JAX package
+(tests/test_torch_serve.py holds the copy to the original). Every
+function of the port that takes `args` accepts the JAX package's
+``MainConfig`` as well.
 """
 
 from __future__ import annotations
@@ -93,6 +94,19 @@ class TaskConfig:
 
 
 @dataclass
+class ParallelConfig:
+    """The wire-format fields of ``brainmagick_tpu.config.ParallelConfig``
+    (the mesh and sharding fields are not ported)."""
+    #: cast meg/features to this dtype on the host before the copy to the
+    #: card (``dataset.to_device``): 'bfloat16' halves the bytes, and the
+    #: compute upcasts on the card
+    transfer_dtype: tp.Optional[str] = None
+    #: the dtype the native host gather assembles batches in; copied for
+    #: the presets, and read nowhere until the port has a data path
+    assemble_dtype: tp.Optional[str] = None
+
+
+@dataclass
 class MainConfig:
     seed: int = 2036
     model_name: str = "simpleconv"
@@ -105,10 +119,23 @@ class MainConfig:
     dset: DsetConfig = field(default_factory=DsetConfig)
     norm: NormConfig = field(default_factory=NormConfig)
     task: TaskConfig = field(default_factory=TaskConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
 
 def apply_preset(cfg: MainConfig, name: str) -> MainConfig:
-    """The ``clip_conv`` preset (the paper recipe) on the copied fields."""
+    """The ``clip_conv`` preset (the paper recipe) or ``clip_conv_tpu``
+    (the paper recipe with bf16 compute, estimates and scores, no
+    BatchNorm-cancelled conv biases, the fused head, tanh GELU and the
+    bf16 wire) on the copied fields."""
+    if name == "clip_conv_tpu":
+        apply_preset(cfg, "clip_conv")
+        cfg.simpleconv.update(dtype="bfloat16", output_dtype="bfloat16",
+                              bn_conv_bias=False, fused_head=True,
+                              gelu_exact=False)
+        cfg.clip.compute_dtype = "bfloat16"
+        cfg.parallel.transfer_dtype = "bfloat16"
+        cfg.parallel.assemble_dtype = "bfloat16"
+        return cfg
     if name != "clip_conv":
         raise NotImplementedError(f"preset {name!r}")
     cfg.model_name = "simpleconv"

@@ -12,8 +12,11 @@ encoder through ``conv_sequence_rules``, which also walks
 ``fused_conv_bn`` layers (flax's ``FusedConvBN_{n}`` holds the conv
 kernel and the BatchNorm scale, bias and running statistics of a fused
 layer, and flax's ``Conv_{i}`` counter skips fused layers, so the GLU
-convs behind them are renumbered). The tests hold these rules to the JAX
-package's.
+convs behind them are renumbered) and the bias-less BatchNorm'd convs of
+``bn_conv_bias=False`` (their running mean loads as it is: the JAX
+package's bias fold is for reference torch checkpoints, whose convs have a
+bias). ``fused_head`` and the compute dtypes change no parameter. The
+tests hold these rules to the JAX package's.
 
 The module imports nothing of the JAX package: a JAX tree arrives as
 nested dicts of numpy arrays.
@@ -118,8 +121,10 @@ def conv_sequence_rules(seq: nn.Module, tprefix: str,
             f = fprefix + (name("Conv"),)
             rules.append((f"{conv_key}.weight", f + ("kernel",), "conv_w",
                           "params"))
-            rules.append((f"{conv_key}.bias", f + ("bias",), "copy",
-                          "params"))
+            if layer[pos].bias is not None:
+                # without bn_conv_bias a BatchNorm'd conv has no bias leaf
+                rules.append((f"{conv_key}.bias", f + ("bias",), "copy",
+                              "params"))
             if pos + 1 < len(layer) and isinstance(layer[pos + 1],
                                                    nn.BatchNorm1d):
                 f = fprefix + (name("BatchNorm"),)

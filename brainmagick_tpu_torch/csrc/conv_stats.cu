@@ -70,21 +70,38 @@
 //   thread's two rows, then __shfl_xor over the 8 lanes of a column, then
 //   the 8 consumer warps in order through shared memory.
 //
-// bf16, the SIMT route (conv_stats_simt): an implicit GEMM with M = O, N =
-// B T, K = C k on the fp32 SIMT cores. One block computes 64 output
-// channels x 128 time steps of one batch row with 128 threads, each owning
-// an 8 x 8 register tile. Per step of 16 input channels the block stages,
-// in shared memory, the weights as [16 k][64] and the x window as
-// [16 k][128]: one row per (channel, tap), each tap's row already shifted
-// by its dilation, converted to fp32 while staged. The weights are first
-// transposed once per call to [C k, O4] fp32 (a small kernel; O4 = O
-// rounded up to 4, zero-padded) and staged with cp.async, double-buffered.
-// The tap count k is a template parameter (1, 3, 5 or 7). Accumulation is
-// fp32 and y is stored in bf16.
+// bf16, the same kernel (conv_stats_tc<bf16, W>): one wgmma m64nWk16 bf16
+// product per 16 channels, where fp32 takes three TF32 products per 8.
+// - A K step is one 128-byte weight row, as in fp32: 64 bf16 channels. The
+//   x box [64 c][136 t] is 17,408 bytes, as fp32's [32 c][136 t]; the stage
+//   holds one weight tile [W o][64 c] (no lo tile), so at W = 160 five
+//   stages fit. The weights are the K-major B operand [k, O, C8] (C8 = C
+//   rounded up to 8, zero-padded; one rearranging copy per call, no split),
+//   with the same 128-byte swizzle and descriptor as fp32.
+// - A comes from registers as packed bf16x2: the fragment's two values of
+//   a register are two neighbouring channels of one time step, which lie in
+//   two rows of the time-contiguous [c][t] tile, so each register is two
+//   16-bit reads and a pack. A 136-step bf16 row is 68 words (4 mod 32
+//   banks); lane (g, t) reads channels 2t and 2t + 1 at step g, so the 8
+//   values of g fall in 4 words and the 4 values of t 8 banks apart: no
+//   two lanes of a warp read different words of one bank.
+// - TMA's 16-byte alignment is 8 bf16 steps: the x box starts at the
+//   multiple of 8 at or before the tap's first step and the consumers add
+//   the remainder (0 to 7), which the box's 8 extra steps cover; the
+//   wrapper pads T to T8 = T rounded up to 8.
+// - One running fp32 accumulator over all the K steps: the products are
+//   exact, and at the paper shape the chain is C k = 960 deep (60 k16
+//   products), far from the 32,768-deep chains past which the tensor
+//   core's fp32 sum drifted in nt_matmul (ops/matmul.py, MAX_BF16_STEPS).
+//   At W = 160 it is 80 registers a thread in one pass. y is the
+//   accumulator rounded to bf16 (round to nearest even); the sums are taken
+//   over the fp32 accumulator, as the JAX kernel's.
+// - What bounds it: one bf16 product, 54 GFLOP at 989 TFLOP/s, 0.055 ms;
+//   x and y (56 MB each in bf16) 0.034 ms. Operations bound it.
 //
-// Later work: bf16 on wgmma, one halo box per channel block read once for
-// all taps, T4-aligned activations so the wrapper's pad copy goes, and the
-// BatchNorm normalize (+ GELU) fused into the epilogue.
+// Later work: a persistent grid, one halo box per channel block read once
+// for all taps, T4/T8-aligned activations so the wrapper's pad copy goes,
+// and the BatchNorm normalize (+ GELU) fused into the epilogue.
 
 #include <cuda_bf16.h>
 
@@ -92,50 +109,58 @@
 
 namespace {
 
-constexpr int BT = 128;                // time steps per block, both routes
+constexpr int BT = 128;                // time steps per block
 constexpr int SMEM_LIMIT = 232448;     // 227 KB per block
-
-// tensor-core route
 constexpr int TC_CONSUMERS = 2;                       // warpgroups of 64 t
 constexpr int TC_THREADS = 128 * (TC_CONSUMERS + 1);  // + the producer
-constexpr int TC_BC = 32;              // input channels per K step
-constexpr int X_ROW = BT + 8;          // x box row, 8 (mod 32) banks
-constexpr int X_BYTES = TC_BC * X_ROW * 4;
-constexpr int W_ROW_BYTES = TC_BC * 4;  // one 128-byte swizzle row
+constexpr int ROW_BYTES = 128;         // a K step's weight row (swizzle row)
+constexpr int X_ROW = BT + 8;          // x box row, time steps
+constexpr int X_BYTES = ROW_BYTES * X_ROW;  // the x box, either type
 constexpr int TC_MAX_STAGES = 8;
-
-// SIMT route
-constexpr int BO = 64;                 // output channels per block
-constexpr int BC = 16;                 // input channels per stage
-constexpr int TO = 8;                  // threads along o
-constexpr int TT = 16;                 // threads along t
-constexpr int THREADS = TO * TT;       // 128 = BT: one x column per thread
-constexpr int STAGES = 2;
 
 constexpr int RED_O = 32;              // reduce: channels per block
 constexpr int RED_G = 8;               // reduce: column groups per channel
 
 using bf16 = __nv_bfloat16;
 
+// What the element type sets: input channels per K step (one 128-byte
+// weight row), weight tiles per stage (fp32: hi and lo), and TMA's
+// 16-byte alignment in elements.
+template <typename E>
+struct Route {
+  static constexpr bool FP32 = sizeof(E) == 4;
+  static constexpr int CHANNELS = ROW_BYTES / sizeof(E);
+  static constexpr int W_TILES = FP32 ? 2 : 1;
+  static constexpr int ALIGN = 16 / sizeof(E);
+};
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
 // One CTA: time steps [t0, t0 + 128) x output channels [o0, o0 + W) of
-// batch row b, over K steps i = j c_blocks + cb (tap j, channels [32 cb,
-// 32 cb + 32)). Stage s holds the x box [32 c][136 t], then the weights'
-// hi and lo tiles [W o][32 c]. Writes y and this column tile's partial
-// sums part_s/part_ss[b n_t_tiles + tile][o] for o < O.
-template <int W>
+// batch row b, over K steps i = j c_blocks + cb (tap j, channels
+// [CH cb, CH cb + CH), CH = 32 fp32 or 64 bf16). Stage s holds the x box
+// [CH c][136 t], then the weights' tile [W o][CH c] (fp32: its hi and lo
+// tiles). Writes y and this column tile's partial sums
+// part_s/part_ss[b n_t_tiles + tile][o] for o < O.
+template <typename E, int W>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 conv_stats_tc(const __grid_constant__ CUtensorMap x_map,
               const __grid_constant__ CUtensorMap w_map,
-              float* __restrict__ y, float* __restrict__ part_s,
+              E* __restrict__ y, float* __restrict__ part_s,
               float* __restrict__ part_ss, int C, int T_len, int O, int k,
               int dilation, int stages) {
+  using R = Route<E>;
   constexpr bool REBALANCE = W >= 128;
-  // W = 160 sums each step in two fresh accumulators of 80 columns, one
-  // after the other: one of 160 would not fit beside the running sum and
-  // the A fragments (ptxas spilled it, and the kernel ran 31% slower)
-  constexpr int PARTS = W > 128 ? 2 : 1;
-  constexpr int W_BYTES = W * W_ROW_BYTES;
-  constexpr int STAGE_BYTES = X_BYTES + 2 * W_BYTES;
+  // fp32 at W = 160 sums each step in two fresh accumulators of 80
+  // columns, one after the other: one of 160 would not fit beside the
+  // running sum and the A fragments (ptxas spilled it, and the kernel ran
+  // 31% slower)
+  constexpr int PARTS = R::FP32 && W > 128 ? 2 : 1;
+  constexpr int W_BYTES = W * ROW_BYTES;
+  constexpr int STAGE_BYTES = X_BYTES + R::W_TILES * W_BYTES;
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles need 1024-byte alignment; the launch adds the slack
   const uint32_t raw = smem_addr(smem_raw);
@@ -161,8 +186,9 @@ conv_stats_tc(const __grid_constant__ CUtensorMap x_map,
   const int t0 = blockIdx.x * BT;
   const int o0 = blockIdx.y * W;
   const int b = blockIdx.z;
-  const int c_blocks = (C + TC_BC - 1) / TC_BC;
+  const int c_blocks = (C + R::CHANNELS - 1) / R::CHANNELS;
   const int steps = k * c_blocks;
+  const int first = t0 - (k / 2) * dilation;  // tap 0's first time step
 
   // one if-else for the two roles, never rejoined (setmaxnreg needs it)
   if (wg == TC_CONSUMERS) {
@@ -170,7 +196,6 @@ conv_stats_tc(const __grid_constant__ CUtensorMap x_map,
     if constexpr (REBALANCE)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (warp % 4 == 0 && lane == 0) {
-      const int first = t0 - (k / 2) * dilation;  // tap 0's first time step
       for (int i = 0; i < steps; ++i) {
         const int s = i % stages;
         const int round = i / stages;
@@ -178,13 +203,14 @@ conv_stats_tc(const __grid_constant__ CUtensorMap x_map,
         mbar_expect_tx(full + 8 * s, STAGE_BYTES);
         const uint32_t tile = base + s * STAGE_BYTES;
         const int j = i / c_blocks;
-        const int c0 = (i - j * c_blocks) * TC_BC;
+        const int c0 = (i - j * c_blocks) * R::CHANNELS;
         // TMA takes a box only at a 16-byte aligned innermost coordinate
-        tma_load_3d(tile, &x_map, (first + j * dilation) & ~3, c0, b,
+        tma_load_3d(tile, &x_map, (first + j * dilation) & -R::ALIGN, c0, b,
                     full + 8 * s);
         tma_load_3d(tile + X_BYTES, &w_map, c0, o0, j, full + 8 * s);
-        tma_load_3d(tile + X_BYTES + W_BYTES, &w_map, c0, o0, k + j,
-                    full + 8 * s);
+        if constexpr (R::FP32)
+          tma_load_3d(tile + X_BYTES + W_BYTES, &w_map, c0, o0, k + j,
+                      full + 8 * s);
       }
     }
   } else {
@@ -194,55 +220,84 @@ conv_stats_tc(const __grid_constant__ CUtensorMap x_map,
     const int g = lane / 4;  // fragment row within the warp's 8-row group
     const int t = lane % 4;
     const int tau = 64 * wg + 16 * (warp % 4) + g;  // this thread's row
-    const int first = t0 - (k / 2) * dilation;
     float d[W / 2];
-    float step[W / 2 / PARTS];  // one K step's sum over one part
+    // fp32: one K step's sum over one part
+    constexpr int STEP = R::FP32 ? W / 2 / PARTS : 1;
+    float step[STEP];
 #pragma unroll
     for (int i = 0; i < W / 2; ++i) d[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < W / 2 / PARTS; ++i) step[i] = 0.f;
+    for (int i = 0; i < STEP; ++i) step[i] = 0.f;
     fence_operands(d);
 
     for (int i = 0; i < steps; ++i) {
       const int s = i % stages;
       mbar_wait(full + 8 * s, (i / stages) & 1);
       const uint32_t tile = base + s * STAGE_BYTES;
-      // A fragment of k8 chunk jj: rows tau and tau + 8, channels 8 jj + t
-      // and 8 jj + t + 4, read from the x box [channel][time], which starts
-      // (first + j d) % 4 steps before the tap's first step
-      const int shift = (first + (i / c_blocks) * dilation) & 3;
-      const float* xs = reinterpret_cast<const float*>(smem + s * STAGE_BYTES)
-                        + t * X_ROW + tau + shift;
-      uint32_t a_hi[4][4], a_lo[4][4];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          // q: (row, c), (row + 8, c), (row, c + 4), (row + 8, c + 4)
-          const float v = xs[(8 * jj + 4 * (q / 2)) * X_ROW + 8 * (q % 2)];
-          a_hi[jj][q] = to_tf32(v);
-          a_lo[jj][q] = to_tf32(v - __uint_as_float(a_hi[jj][q]));
-        }
-      }
-#pragma unroll
-      for (int part = 0; part < PARTS; ++part) {
-        // output channels [part W / PARTS, (part + 1) W / PARTS): whole
-        // 8-row swizzle groups of the weight tiles
-        const uint32_t rows = part * (W / PARTS) * W_ROW_BYTES;
-        const uint64_t w_hi = smem_desc(tile + X_BYTES + rows);
-        const uint64_t w_lo = smem_desc(tile + X_BYTES + W_BYTES + rows);
-        wgmma_fence();
+      // the x box [channel][time] starts this many steps before the tap's
+      // first step
+      const int shift = (first + (i / c_blocks) * dilation) & (R::ALIGN - 1);
+      if constexpr (R::FP32) {
+        // A fragment of k8 chunk jj: rows tau and tau + 8, channels 8 jj +
+        // t and 8 jj + t + 4
+        const float* xs =
+            reinterpret_cast<const float*>(smem + s * STAGE_BYTES) +
+            t * X_ROW + tau + shift;
+        uint32_t a_hi[4][4], a_lo[4][4];
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
-          Wgmma<W / PARTS>::tf32(step, a_lo[jj], w_hi + 2 * jj, jj > 0);
-          Wgmma<W / PARTS>::tf32(step, a_hi[jj], w_lo + 2 * jj, 1);
-          Wgmma<W / PARTS>::tf32(step, a_hi[jj], w_hi + 2 * jj, 1);
-        }
-        wgmma_commit_and_wait();
-        fence_operands(step);
 #pragma unroll
-        for (int r = 0; r < W / 2 / PARTS; ++r)
-          d[part * (W / 2 / PARTS) + r] += step[r];
+          for (int q = 0; q < 4; ++q) {
+            // q: (row, c), (row + 8, c), (row, c + 4), (row + 8, c + 4)
+            const float v = xs[(8 * jj + 4 * (q / 2)) * X_ROW + 8 * (q % 2)];
+            a_hi[jj][q] = to_tf32(v);
+            a_lo[jj][q] = to_tf32(v - __uint_as_float(a_hi[jj][q]));
+          }
+        }
+#pragma unroll
+        for (int part = 0; part < PARTS; ++part) {
+          // output channels [part W / PARTS, (part + 1) W / PARTS): whole
+          // 8-row swizzle groups of the weight tiles
+          const uint32_t rows = part * (W / PARTS) * ROW_BYTES;
+          const uint64_t w_hi = smem_desc(tile + X_BYTES + rows);
+          const uint64_t w_lo = smem_desc(tile + X_BYTES + W_BYTES + rows);
+          wgmma_fence();
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            Wgmma<W / PARTS>::tf32(step, a_lo[jj], w_hi + 2 * jj, jj > 0);
+            Wgmma<W / PARTS>::tf32(step, a_hi[jj], w_lo + 2 * jj, 1);
+            Wgmma<W / PARTS>::tf32(step, a_hi[jj], w_hi + 2 * jj, 1);
+          }
+          wgmma_commit_and_wait();
+          fence_operands(step);
+#pragma unroll
+          for (int r = 0; r < STEP; ++r) d[part * STEP + r] += step[r];
+        }
+      } else {
+        // A fragment of k16 chunk kk, register q: rows tau + 8 (q % 2),
+        // channels 16 kk + 2 t + 8 (q / 2) (low half) and the next one
+        // (high half), read from their two rows of the x box
+        const uint16_t* xs =
+            reinterpret_cast<const uint16_t*>(smem + s * STAGE_BYTES) +
+            2 * t * X_ROW + tau + shift;
+        uint32_t a[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const uint16_t* p = xs + (16 * kk + 8 * (q / 2)) * X_ROW
+                                + 8 * (q % 2);
+            a[kk][q] = static_cast<uint32_t>(p[0]) |
+                       (static_cast<uint32_t>(p[X_ROW]) << 16);
+          }
+        }
+        const uint64_t w = smem_desc(tile + X_BYTES);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<W>::bf16_rs(d, a[kk], w + 2 * kk, 1);
+        wgmma_commit_and_wait();
+        fence_operands(d);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + 8 * s);
@@ -264,9 +319,9 @@ conv_stats_tc(const __grid_constant__ CUtensorMap x_map,
         const float v0 = ok_lo ? d[4 * i + p] : 0.f;
         const float v1 = ok_hi ? d[4 * i + 2 + p] : 0.f;
         if (o0 + col < O) {
-          float* row = y + (static_cast<int64_t>(b) * O + o0 + col) * T_len;
-          if (ok_lo) row[t_lo] = v0;
-          if (ok_hi) row[t_hi] = v1;
+          E* row = y + (static_cast<int64_t>(b) * O + o0 + col) * T_len;
+          if (ok_lo) store(row + t_lo, v0);
+          if (ok_hi) store(row + t_hi, v1);
         }
         float s = v0 + v1;
         float ss = v0 * v0 + v1 * v1;
@@ -299,32 +354,36 @@ conv_stats_tc(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-// map of a row-major [d2, d1, d0] fp32 tensor loaded in [1, box1, box0]
-// boxes, zero-filled past its edges
-bool encode_3d(CUtensorMap* map, const void* ptr, int64_t d0, int64_t d1,
-               int64_t d2, int box0, int box1, CUtensorMapSwizzle swizzle) {
+// map of a row-major [d2, d1, d0] fp32 or bf16 tensor loaded in [1, box1,
+// box0] boxes, zero-filled past its edges
+bool encode_3d(CUtensorMap* map, const void* ptr, bool is_bf16, int64_t d0,
+               int64_t d1, int64_t d2, int box0, int box1,
+               CUtensorMapSwizzle swizzle) {
+  const int64_t elem = is_bf16 ? 2 : 4;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
                               static_cast<cuuint64_t>(d1),
                               static_cast<cuuint64_t>(d2)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d0 * 4),
-                                 static_cast<cuuint64_t>(d0 * d1 * 4)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d0 * elem),
+                                 static_cast<cuuint64_t>(d0 * d1 * elem)};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(box0),
                              static_cast<cuuint32_t>(box1), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   EncodeTiled fn = encoder();
   return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+         fn(map, is_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                         : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+            3, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int W>
+template <typename E, int W>
 cudaError_t launch_tc(const CUtensorMap& x_map, const CUtensorMap& w_map,
-                      float* y, float* part_s, float* part_ss, int64_t B,
+                      void* y, float* part_s, float* part_ss, int64_t B,
                       int64_t C, int64_t T_len, int64_t O, int k,
                       int dilation, int stages, cudaStream_t stream) {
-  constexpr int STAGE_BYTES = X_BYTES + 2 * W * W_ROW_BYTES;
+  constexpr int STAGE_BYTES = X_BYTES + Route<E>::W_TILES * W * ROW_BYTES;
   // 1024 bytes of alignment slack, 16 bytes of barriers per stage, then
   // the epilogue's sums
   const int smem = 1024 + stages * (STAGE_BYTES + 16) + 2 * 8 * W * 4;
@@ -332,7 +391,7 @@ cudaError_t launch_tc(const CUtensorMap& x_map, const CUtensorMap& w_map,
   if (stages < 1 || stages > TC_MAX_STAGES || smem > SMEM_LIMIT ||
       B > 65535 || n_o_tiles > 65535)
     return cudaErrorInvalidValue;
-  auto kernel = conv_stats_tc<W>;
+  auto kernel = conv_stats_tc<E, W>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -340,161 +399,28 @@ cudaError_t launch_tc(const CUtensorMap& x_map, const CUtensorMap& w_map,
                   static_cast<unsigned>(n_o_tiles),
                   static_cast<unsigned>(B));
   kernel<<<grid, TC_THREADS, smem, stream>>>(
-      x_map, w_map, y, part_s, part_ss, static_cast<int>(C),
-      static_cast<int>(T_len), static_cast<int>(O), k, dilation, stages);
+      x_map, w_map, static_cast<E*>(y), part_s, part_ss,
+      static_cast<int>(C), static_cast<int>(T_len), static_cast<int>(O), k,
+      dilation, stages);
   return cudaGetLastError();
 }
 
-// wt[r, o] = w[o, r] in fp32 for r over C k and o < O, 0 for O <= o < O4
-__global__ void transpose_weights(const bf16* __restrict__ w,
-                                  float* __restrict__ wt, int64_t O,
-                                  int64_t O4, int64_t CK) {
-  const int64_t n = O4 * CK;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t r = i / O4;
-    const int64_t o = i - r * O4;
-    wt[i] = o < O ? __bfloat162float(w[o * CK + r]) : 0.f;
-  }
-}
-
-// asynchronous copy of 16 bytes; valid false writes zeros and reads
-// nothing
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Shared memory per stage: xs [BC K][BT], then ws [BC K][BO].
-template <int K>
-__global__ void __launch_bounds__(THREADS)
-conv_stats_simt(const bf16* __restrict__ x, const float* __restrict__ wt,
-                bf16* __restrict__ y, float* __restrict__ part_s,
-                float* __restrict__ part_ss, int64_t C, int64_t T_len,
-                int64_t O, int64_t O4, int dilation, int n_t_tiles) {
-  constexpr int ROWS = BC * K;
-  constexpr int STAGE_FLOATS = ROWS * (BT + BO);
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-
-  const int tid = threadIdx.x;
-  const int to = tid / TT;
-  const int tt = tid % TT;
-  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * BT;
-  const int64_t o0 = static_cast<int64_t>(blockIdx.y) * BO;
-  const int64_t b = blockIdx.z;
-  const bf16* xb = x + b * C * T_len;
-  // this thread's x column for each tap, and whether it lies inside [0, T)
-  int64_t tap_t[K];
-  bool tap_ok[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    tap_t[j] = t0 + tid + static_cast<int64_t>(j - K / 2) * dilation;
-    tap_ok[j] = tap_t[j] >= 0 && tap_t[j] < T_len;
-  }
-
-  // copies of one stage: row ci K + j of xs holds x[c0 + ci, t + j d - pad]
-  // over the block's t (converted to fp32), and row r of ws holds
-  // wt[c0 K + r, o0 : o0 + BO]
-  auto load_stage = [&](int buf, int64_t c0) {
-    float* xs = smem + buf * STAGE_FLOATS;
-    float* ws = xs + ROWS * BT;
-    const bf16* row = xb + c0 * T_len;
-#pragma unroll
-    for (int ci = 0; ci < BC; ++ci, row += T_len) {
-      const bool c_ok = c0 + ci < C;
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        const bool ok = c_ok && tap_ok[j];
-        xs[(ci * K + j) * BT + tid] =
-            ok ? __bfloat162float(row[tap_t[j]]) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int e = tid; e < ROWS * (BO / 4); e += THREADS) {
-      const int r = e / (BO / 4);
-      const int g = e % (BO / 4);
-      const int64_t grow = c0 * K + r;
-      const int64_t o = o0 + 4 * g;
-      const bool ok = grow < C * K && o < O4;
-      cp_async16(ws + r * BO + 4 * g, ok ? wt + grow * O4 + o : wt, ok);
-    }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[i][q] = 0.f;
-
-  const int64_t n_steps = (C + BC - 1) / BC;
-  for (int i = 0; i < STAGES - 1; ++i) {
-    if (i < n_steps) load_stage(i, i * BC);
-    cp_async_commit();
-  }
-  for (int64_t step = 0; step < n_steps; ++step) {
-    const int64_t next = step + STAGES - 1;
-    if (next < n_steps) load_stage(next % STAGES, next * BC);
-    cp_async_commit();
-    cp_async_wait<STAGES - 1>();
-    __syncthreads();
-    const float* xs = smem + (step % STAGES) * STAGE_FLOATS;
-    const float4* xs4 = reinterpret_cast<const float4*>(xs);
-    const float4* ws4 = reinterpret_cast<const float4*>(xs + ROWS * BT);
-#pragma unroll 4
-    for (int r = 0; r < ROWS; ++r) {
-      const float4 a0 = ws4[r * (BO / 4) + to];
-      const float4 a1 = ws4[r * (BO / 4) + BO / 8 + to];
-      const float4 v0 = xs4[r * (BT / 4) + tt];
-      const float4 v1 = xs4[r * (BT / 4) + BT / 8 + tt];
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int q = 0; q < 8; ++q) acc[i][q] = fmaf(a[i], v[q], acc[i][q]);
-    }
-    // the next iteration's copies overwrite the buffer just read
-    __syncthreads();
-  }
-
-  // epilogue: store y, and reduce sum / sum of squares over the valid t
-  const int64_t col = b * n_t_tiles + blockIdx.x;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int64_t o = o0 + (i < 4 ? 4 * to + i : BO / 2 + 4 * to + i - 4);
-    float s = 0.f;
-    float ss = 0.f;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int64_t t = t0 + (q < 4 ? 4 * tt + q : BT / 2 + 4 * tt + q - 4);
-      if (t < T_len) {
-        const float v = acc[i][q];
-        s += v;
-        ss = fmaf(v, v, ss);
-        if (o < O) y[(b * O + o) * T_len + t] = __float2bfloat16(v);
-      }
-    }
-    // the TT = 16 threads of one o row are one half-warp
-#pragma unroll
-    for (int off = TT / 2; off > 0; off /= 2) {
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-      ss += __shfl_xor_sync(0xffffffffu, ss, off);
-    }
-    if (tt == 0 && o < O) {
-      part_s[col * O + o] = s;
-      part_ss[col * O + o] = ss;
-    }
+template <typename E>
+cudaError_t launch_width(int width, const CUtensorMap& x_map,
+                         const CUtensorMap& w_map, void* y, float* part_s,
+                         float* part_ss, int64_t B, int64_t C, int64_t T_len,
+                         int64_t O, int k, int dilation, int stages,
+                         cudaStream_t st) {
+  switch (width) {
+    case 8: return launch_tc<E, 8>(x_map, w_map, y, part_s, part_ss, B, C,
+                                   T_len, O, k, dilation, stages, st);
+    case 64: return launch_tc<E, 64>(x_map, w_map, y, part_s, part_ss, B, C,
+                                     T_len, O, k, dilation, stages, st);
+    case 128: return launch_tc<E, 128>(x_map, w_map, y, part_s, part_ss, B,
+                                       C, T_len, O, k, dilation, stages, st);
+    case 160: return launch_tc<E, 160>(x_map, w_map, y, part_s, part_ss, B,
+                                       C, T_len, O, k, dilation, stages, st);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -546,37 +472,6 @@ cudaError_t sum_columns(const float* part_s, const float* part_ss, void* s,
   return cudaGetLastError();
 }
 
-template <int K>
-cudaError_t launch_simt(const void* x, const void* w, void* y, float* part_s,
-                        float* part_ss, float* wt, int64_t B, int64_t C,
-                        int64_t T_len, int64_t O, int dilation,
-                        cudaStream_t stream) {
-  const int n_t_tiles = static_cast<int>((T_len + BT - 1) / BT);
-  const int64_t n_o_tiles = (O + BO - 1) / BO;
-  if (B > 65535 || n_o_tiles > 65535) return cudaErrorInvalidConfiguration;
-  const int64_t O4 = (O + 3) / 4 * 4;
-  const int64_t n_w = O4 * C * K;
-  const int64_t w_blocks = (n_w + 255) / 256 < 4096 ? (n_w + 255) / 256 : 4096;
-  if (n_w > 0) {
-    transpose_weights<<<static_cast<unsigned>(w_blocks), 256, 0, stream>>>(
-        static_cast<const bf16*>(w), wt, O, O4, C * K);
-  }
-  const size_t smem = sizeof(float) * STAGES * BC * K * (BT + BO);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        conv_stats_simt<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(static_cast<unsigned>(n_t_tiles),
-                  static_cast<unsigned>(n_o_tiles),
-                  static_cast<unsigned>(B));
-  conv_stats_simt<K><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(x), wt, static_cast<bf16*>(y), part_s,
-      part_ss, C, T_len, O, O4, dilation, n_t_tiles);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // The 3xTF32 split of x [count4 x 4] fp32 into hi and lo of the same size,
@@ -589,76 +484,44 @@ extern "C" int bm_split_tf32(const void* x, void* hi, void* lo,
       x, hi, lo, count4, static_cast<cudaStream_t>(stream)));
 }
 
-// fp32 on the tensor cores. x [B, C, T4] (T4 = T rounded up to 4, the
-// columns past T zero), w_split [2 k, O, C4] (C4 = C rounded up to 4: hi
-// taps then lo taps, the channels past C zero), both 16-byte aligned; y
-// [B, O, T]; workspace fp32 of 2 B ceil(T / 128) O floats (the per-tile
-// partial sums); s, ss [O] fp32. width in {8, 64, 128, 160} and stages as
-// the host's planner gives them; odd k >= 1, dilation >= 1, B, C, T and
-// O >= 1. Returns the cudaError_t of the launches (cudaErrorInvalidValue
-// for a width, stage count or shape the kernel does not take).
-extern "C" int bm_conv_stats_tc(const void* x, const void* w_split, void* y,
-                                void* workspace, void* s, void* ss,
+// conv_stats on the tensor cores, fp32 or bf16 (is_bf16). x [B, C, T_pad]
+// (T_pad = T rounded up to 4 fp32 or 8 bf16, the columns past T zero);
+// w_op the weights as the B operand: fp32 [2 k, O, C4] (hi taps then lo
+// taps), bf16 [k, O, C8] (C4, C8 = C rounded up to 4 or 8, the channels
+// past C zero); both 16-byte aligned. y [B, O, T] in x's type; workspace
+// fp32 of 2 B ceil(T / 128) O floats (the per-tile partial sums); s, ss
+// [O] fp32. width in {8, 64, 128, 160} and stages as the host's planner
+// gives them; odd k >= 1, dilation >= 1, B, C, T and O >= 1. Returns the
+// cudaError_t of the launches (cudaErrorInvalidValue for a width, stage
+// count or shape the kernel does not take).
+extern "C" int bm_conv_stats_tc(const void* x, const void* w_op, int is_bf16,
+                                void* y, void* workspace, void* s, void* ss,
                                 long long B, long long C, long long T,
-                                long long T4, long long O, int k,
+                                long long T_pad, long long O, int k,
                                 int dilation, int width, int stages,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t C4 = (C + 3) / 4 * 4;
+  const bool bf16_op = is_bf16 != 0;
+  const int align = bf16_op ? Route<bf16>::ALIGN : Route<float>::ALIGN;
+  const int channels = bf16_op ? Route<bf16>::CHANNELS
+                               : Route<float>::CHANNELS;
+  const int taps = bf16_op ? k : 2 * k;
+  const int64_t C_pad = (C + align - 1) / align * align;
   const int64_t n_cols = B * ((T + BT - 1) / BT);
   float* part_s = static_cast<float*>(workspace);
   float* part_ss = part_s + n_cols * O;
   CUtensorMap x_map, w_map;
-  if (T4 % 4 != 0 || T4 < T ||
-      !encode_3d(&x_map, x, T4, C, B, X_ROW, TC_BC,
+  if (T_pad % align != 0 || T_pad < T ||
+      !encode_3d(&x_map, x, bf16_op, T_pad, C, B, X_ROW, channels,
                  CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !encode_3d(&w_map, w_split, C4, O, 2 * k, TC_BC, width,
+      !encode_3d(&w_map, w_op, bf16_op, C_pad, O, taps, channels, width,
                  CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
-  float* out = static_cast<float*>(y);
-  cudaError_t err;
-  switch (width) {
-    case 8: err = launch_tc<8>(x_map, w_map, out, part_s, part_ss, B, C, T,
-                               O, k, dilation, stages, st); break;
-    case 64: err = launch_tc<64>(x_map, w_map, out, part_s, part_ss, B, C, T,
-                                 O, k, dilation, stages, st); break;
-    case 128: err = launch_tc<128>(x_map, w_map, out, part_s, part_ss, B, C,
-                                   T, O, k, dilation, stages, st); break;
-    case 160: err = launch_tc<160>(x_map, w_map, out, part_s, part_ss, B, C,
-                                   T, O, k, dilation, stages, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(sum_columns(part_s, part_ss, s, ss, n_cols, O, st));
-}
-
-// bf16 on the SIMT cores. x [B, C, T], w [O, C, k] row-major bf16; y
-// [B, O, T] bf16; workspace fp32 of C k O4 + 2 B ceil(T / 128) O floats
-// (O4 = O rounded up to 4: the transposed weights, then the per-tile
-// partial sums), 16-byte aligned; s, ss [O] fp32. k in {1, 3, 5, 7},
-// dilation >= 1; B, T and O >= 1. Returns the cudaError_t of the launches.
-extern "C" int bm_conv_stats_bf16(const void* x, const void* w, void* y,
-                                  void* workspace, void* s, void* ss,
-                                  long long B, long long C, long long T,
-                                  long long O, int k, int dilation,
-                                  void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t n_cols = B * ((T + BT - 1) / BT);
-  float* wt = static_cast<float*>(workspace);
-  float* part_s = wt + C * k * ((O + 3) / 4 * 4);
-  float* part_ss = part_s + n_cols * O;
-  cudaError_t err;
-  switch (k) {
-    case 1: err = launch_simt<1>(x, w, y, part_s, part_ss, wt, B, C, T, O,
-                                 dilation, st); break;
-    case 3: err = launch_simt<3>(x, w, y, part_s, part_ss, wt, B, C, T, O,
-                                 dilation, st); break;
-    case 5: err = launch_simt<5>(x, w, y, part_s, part_ss, wt, B, C, T, O,
-                                 dilation, st); break;
-    case 7: err = launch_simt<7>(x, w, y, part_s, part_ss, wt, B, C, T, O,
-                                 dilation, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const cudaError_t err =
+      bf16_op ? launch_width<bf16>(width, x_map, w_map, y, part_s, part_ss,
+                                   B, C, T, O, k, dilation, stages, st)
+              : launch_width<float>(width, x_map, w_map, y, part_s, part_ss,
+                                    B, C, T, O, k, dilation, stages, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(sum_columns(part_s, part_ss, s, ss, n_cols, O, st));
 }

@@ -101,9 +101,11 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 }
 
 // wgmma m64nW with an fp32 accumulator of W / 2 registers per thread: bf16
-// with both operands in shared memory, or tf32 with A in registers (W <=
-// 128). acc = 0 overwrites the accumulator, 1 adds to it. The operand
-// lists are written out in full, as PTX requires.
+// with both operands in shared memory, bf16 with A in registers (bf16_rs;
+// four registers of two values, the lower K index in the low half), or
+// tf32 with A in registers (W <= 128). acc = 0 overwrites the accumulator,
+// 1 adds to it. The operand lists are written out in full, as PTX
+// requires.
 #define ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define ACC32(i)                                                       \
   ACC4(i), ACC4(i + 4), ACC4(i + 8), ACC4(i + 12), ACC4(i + 16),       \
@@ -135,6 +137,17 @@ struct Wgmma<8> {
       : ACC4(0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
+  static __device__ __forceinline__ void bf16_rs(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int acc) {
+    asm volatile(
+      "{.reg .pred p; setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;}\n"
+      : ACC4(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
 };
 
 template <>
@@ -161,6 +174,19 @@ struct Wgmma<64> {
       "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
       "%26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1;}\n"
+      : ACC32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void bf16_rs(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int acc) {
+    asm volatile(
+      "{.reg .pred p; setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;}\n"
       : ACC32(0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
@@ -215,6 +241,44 @@ struct Wgmma<128> {
       "%62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1;}\n"
       : ACC32(0), ACC32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void bf16_rs(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int acc) {
+    asm volatile(
+      "{.reg .pred p; setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;}\n"
+      : ACC32(0), ACC32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<160> {
+  static __device__ __forceinline__ void bf16_rs(float (&d)[80],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int acc) {
+    asm volatile(
+      "{.reg .pred p; setp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 0;}\n"
+      : ACC32(0), ACC32(32), ACC4(64), ACC4(68), ACC4(72),
+        ACC4(76)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };

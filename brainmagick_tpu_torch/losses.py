@@ -19,15 +19,7 @@ import numpy as np
 import torch
 
 from .ops.matmul import nt_matmul
-
-
-def _torch_dtype(name: tp.Optional[str]) -> tp.Optional[torch.dtype]:
-    if name is None:
-        return None
-    dtype = getattr(torch, str(name), None)
-    if not isinstance(dtype, torch.dtype):
-        raise ValueError(f"unknown compute dtype {name!r}")
-    return dtype
+from .precision import torch_dtype
 
 
 def _masked_reduce(err: torch.Tensor, mask: torch.Tensor,
@@ -86,7 +78,7 @@ class ClipLoss:
         self.tmin_train, self.tmax_train = tmin_train, tmax_train
         self.dset_tmin = dset_tmin
         self.dset_sample_rate = dset_sample_rate
-        self.compute_dtype = _torch_dtype(compute_dtype)
+        self.compute_dtype = torch_dtype(compute_dtype)
 
     def trim_samples(self, estimates: torch.Tensor, candidates: torch.Tensor,
                      train: bool = False

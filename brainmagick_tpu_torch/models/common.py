@@ -8,6 +8,14 @@ the keys ``brainmagick_tpu.convert`` maps flax leaves onto. Train mode
 follows flax: BatchNorm normalizes with the biased batch variance and
 keeps it in its running average, and the merger's dropout disk comes from
 an explicit ``torch.Generator`` (or a centre the caller passes).
+
+A compute dtype (bf16) follows flax's ``dtype=`` rule: parameters,
+BatchNorm statistics and softmaxes stay fp32, and each op casts its
+operands where the flax module does. The convs (``Conv1d``,
+``ConvTranspose1d``) cast input and weights at use and return the compute
+dtype; BatchNorm runs in fp32 and casts back; the merger and the subject
+layers contract with an fp32 accumulator and return fp32
+(``precision.einsum_fp32``).
 """
 
 from __future__ import annotations
@@ -17,9 +25,11 @@ import math
 import typing as tp
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv_bn import batch_mean_var, conv_stats
+from ..precision import einsum_fp32
 
 #: marker for channels with unknown position; a copy of
 #: brainmagick_tpu.studies.api.INVALID_POSITION (that module imports pandas)
@@ -70,6 +80,43 @@ def fourier_emb(positions: torch.Tensor, dimension: int = 256,
     return torch.cat([torch.cos(loc), torch.sin(loc)], dim=-1)
 
 
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` with flax ``nn.Conv``'s `compute_dtype` (``dtype=``):
+    input, weight and bias cast to it at use, the result in it; with None,
+    ``nn.Conv1d`` itself. The parameters stay fp32."""
+
+    def __init__(self, *args, compute_dtype: tp.Optional[torch.dtype] = None,
+                 **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class ConvTranspose1d(nn.ConvTranspose1d):
+    """``nn.ConvTranspose1d`` with a `compute_dtype`, as ``Conv1d``."""
+
+    def __init__(self, *args, compute_dtype: tp.Optional[torch.dtype] = None,
+                 **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv_transpose1d(x.to(dt), self.weight.to(dt), bias,
+                                  self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
+
+
 class SubjectLayers(nn.Module):
     """Per-subject linear sensor remix: one [C_in, C_out] matrix per
     subject, gathered by subject index."""
@@ -94,8 +141,9 @@ class SubjectLayers(nn.Module):
 
     def forward(self, x: torch.Tensor, subjects: torch.Tensor
                 ) -> torch.Tensor:
-        # x: [B, C_in, T], subjects: [B] -> [B, C_out, T]
-        return torch.einsum("bct,bcd->bdt", x, self.weights[subjects])
+        # x: [B, C_in, T], subjects: [B] -> [B, C_out, T] fp32 (a bf16 x
+        # meets the fp32 weights in fp32, as in the flax module)
+        return torch.einsum("bct,bcd->bdt", x.float(), self.weights[subjects])
 
 
 class ChannelMerger(nn.Module):
@@ -125,15 +173,18 @@ class ChannelMerger(nn.Module):
                   rec_index: tp.Optional[torch.Tensor] = None,
                   rec_positions: tp.Optional[torch.Tensor] = None,
                   generator: tp.Optional[torch.Generator] = None,
-                  center: tp.Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
-        """Softmax weights [B, chout, C] over the sensors.
+                  center: tp.Optional[torch.Tensor] = None,
+                  dtype: tp.Optional[torch.dtype] = None,
+                  gather: bool = True) -> torch.Tensor:
+        """Softmax weights [B, chout, C] over the sensors, fp32.
 
         pos_emb is either [B, C, D] per sample, or [R, C, D] per
         recording together with rec_index [B] and rec_positions
-        [R, C, 2]: then R softmax rows are computed instead of B. In
-        train mode with dropout, the disk centre is `center` ([2]) when
-        given, else drawn uniformly in [0, 1)^2 from `generator`."""
+        [R, C, 2]: then R softmax rows are computed instead of B, and
+        returned as they are, [R, chout, C], when not `gather`. The scores
+        contract in `dtype` (the meg's) with an fp32 accumulator. In train
+        mode with dropout, the disk centre is `center` ([2]) when given,
+        else drawn uniformly in [0, 1)^2 from `generator`."""
         per_recording = rec_index is not None and pos_emb is not None
         if per_recording:
             embedding, mask_positions = pos_emb, rec_positions
@@ -158,9 +209,10 @@ class ChannelMerger(nn.Module):
                                    device=masked.device)
         score_offset = score_offset.masked_fill(masked & ~all_masked,
                                                 -math.inf)
-        scores = torch.einsum("rcd,od->roc", embedding, self.heads)
+        scores = einsum_fp32("rcd,od->roc", embedding, self.heads,
+                             dtype=dtype)
         weights = torch.softmax(scores + score_offset[:, None, :], dim=2)
-        if per_recording:
+        if per_recording and gather:
             weights = weights[rec_index]                       # [B, O, C]
         return weights
 
@@ -175,11 +227,13 @@ class ChannelMerger(nn.Module):
                 generator: tp.Optional[torch.Generator] = None,
                 center: tp.Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        """meg [B, C, T], positions [B, C, 2] -> [B, chout, T]; the other
+        """meg [B, C, T], positions [B, C, 2] -> [B, chout, T] fp32,
+        contracted in meg's dtype with an fp32 accumulator; the other
         arguments as in `attention`."""
         weights = self.attention(positions, pos_emb, rec_index,
-                                 rec_positions, generator, center)
-        return torch.einsum("bct,boc->bot", meg, weights)
+                                 rec_positions, generator, center,
+                                 dtype=meg.dtype)
+        return einsum_fp32("bct,boc->bot", meg, weights, dtype=meg.dtype)
 
 
 def get_activation(gelu: bool = False, relu_leakiness: float = 0.0,
@@ -199,7 +253,9 @@ class BatchNorm(nn.BatchNorm1d):
     (eps 1e-5, running-average weight 0.99). Train mode normalizes with
     the biased batch variance E[y^2] - E[y]^2 (fp32, clamped at 0) and
     keeps that biased variance in the running average, where torch's
-    BatchNorm1d keeps the unbiased one. Eval mode is torch's."""
+    BatchNorm1d keeps the unbiased one. Eval mode is torch's. Both run in
+    fp32 and cast back to the input's dtype (flax's BatchNorm with
+    ``dtype=float32``, then the cast to the compute dtype)."""
 
     #: flax's running-average weight of the old statistics
     FLAX_MOMENTUM = 0.99
@@ -208,8 +264,9 @@ class BatchNorm(nn.BatchNorm1d):
         super().__init__(channels, eps=1e-5, momentum=1 - self.FLAX_MOMENTUM)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """fp32 on any input, the result in the input's dtype."""
         if not self.training:
-            return super().forward(x)
+            return super().forward(x.float()).to(x.dtype)
         x32 = x.float()
         mean = x32.mean(dim=(0, 2))
         var = ((x32 * x32).mean(dim=(0, 2)) - mean * mean).clamp(min=0.0)
@@ -238,7 +295,9 @@ class ConvSequence(nn.Module):
     without bias, and in train mode runs ``ops.conv_bn.conv_stats``: the
     conv and its batch sums in one pass, normalized from those sums. In
     eval mode such a layer is the plain conv and BatchNorm on the running
-    statistics. The key layout is the same for both settings."""
+    statistics. The key layout is the same for both settings. Without
+    `bn_conv_bias`, no BatchNorm'd conv has a bias (BatchNorm cancels it).
+    The convs run in `compute_dtype` (bf16 or None for the input's)."""
 
     def __init__(self, channels: tp.Sequence[int], kernel: int = 4,
                  dilation_growth: int = 1,
@@ -248,7 +307,8 @@ class ConvSequence(nn.Module):
                  skip: bool = False, activation_on_last: bool = True,
                  glu: int = 0, glu_context: int = 0, glu_glu: bool = True,
                  activation: tp.Callable[[], nn.Module] = nn.ReLU,
-                 fused_conv_bn: bool = False) -> None:
+                 fused_conv_bn: bool = False, bn_conv_bias: bool = True,
+                 compute_dtype: tp.Optional[torch.dtype] = None) -> None:
         super().__init__()
         if kernel % 2 != 1:
             raise NotImplementedError("even conv kernels (SAME padding "
@@ -271,10 +331,11 @@ class ConvSequence(nn.Module):
             if dilation_period and k % dilation_period == 0:
                 dilation = 1
             # flax's FusedConvBN has no conv bias (BatchNorm cancels it)
-            layers.append(nn.Conv1d(
+            layers.append(Conv1d(
                 chin, chout, kernel, padding=kernel // 2 * dilation,
                 dilation=dilation, groups=groups if k > 0 else 1,
-                bias=not fused))
+                bias=(bn_conv_bias or not has_bn) and not fused,
+                compute_dtype=compute_dtype))
             dilation *= dilation_growth
             if activation_on_last or not is_last:
                 if batch_norm:
@@ -286,20 +347,23 @@ class ConvSequence(nn.Module):
             if glu and (k + 1) % glu == 0:
                 width = 1 + 2 * glu_context
                 self.glus.append(nn.Sequential(
-                    nn.Conv1d(chout, 2 * chout if glu_glu else chout, width,
-                              padding=glu_context),
+                    Conv1d(chout, 2 * chout if glu_glu else chout, width,
+                           padding=glu_context, compute_dtype=compute_dtype),
                     nn.GLU(dim=1) if glu_glu else activation()))
             else:
                 self.glus.append(None)
 
     @staticmethod
     def _fused_train(layer: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
-        """(conv, BatchNorm) in train mode through conv_stats, the rest of
-        the layer (input dropout before, activation after) as it is."""
+        """(conv, BatchNorm) in train mode through conv_stats on operands
+        in the conv's compute dtype (x's when None), the rest of the layer
+        (input dropout before, activation after) as it is."""
         pos = next(i for i, m in enumerate(layer)
                    if isinstance(m, nn.Conv1d))
         conv, bn = layer[pos], layer[pos + 1]
-        y, s, ss = conv_stats(layer[:pos](x), conv.weight, conv.dilation[0])
+        x = layer[:pos](x)
+        dt = x.dtype if conv.compute_dtype is None else conv.compute_dtype
+        y, s, ss = conv_stats(x.to(dt), conv.weight.to(dt), conv.dilation[0])
         mean, var = batch_mean_var(s, ss, y.shape[0] * y.shape[2])
         x = bn.normalize_train(y.float(), mean, var).to(y.dtype)
         return layer[pos + 2:](x)

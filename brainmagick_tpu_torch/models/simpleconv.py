@@ -1,10 +1,11 @@
-"""SimpleConv, the paper's brain decoder (unfused head).
+"""SimpleConv, the paper's brain decoder.
 
 Port of ``brainmagick_tpu/models/simpleconv.py``. Forward pipeline:
 ChannelMerger spatial attention -> initial 1x1 conv stack -> per-subject
 SubjectLayers -> dilated ConvSequence encoder -> final (linear / complex)
 1x1 head -> crop to the input length. Layout [B, C, T] in and
-[B, F, T] out, as the flax module's public call.
+[B, F, T] out, as the flax module's public call. With `fused_head` the
+first three run as one gathered matrix per recording (``_fused_head``).
 
 The constructor takes the flax module's keyword arguments and keeps them
 as attributes of the same names, so ``brainmagick_tpu.convert
@@ -16,7 +17,10 @@ only test them for truth). Options outside the ported slices raise
 NotImplementedError naming the option. In train mode the merger's dropout
 disk is drawn from the `generator` passed to ``forward``, and
 ``fused_conv_bn`` runs the encoder's conv + BatchNorm layers through
-``ops.conv_bn.conv_stats``.
+``ops.conv_bn.conv_stats``. `dtype` ('bfloat16') is the compute dtype of
+the convs, the merger's contractions and the fused head (parameters and
+statistics stay fp32, see ``models.common``); `output_dtype` that of the
+estimate (fp32 when None).
 """
 
 from __future__ import annotations
@@ -26,16 +30,16 @@ import typing as tp
 import torch
 from torch import nn
 
-from .common import (ChannelMerger, ConvSequence, SubjectLayers,
-                     get_activation, init_conv_)
+from ..precision import einsum_fp32, torch_dtype
+from .common import (ChannelMerger, Conv1d, ConvSequence, ConvTranspose1d,
+                     SubjectLayers, get_activation, init_conv_)
 
 #: option -> value the slice supports; any other value raises
 _SUPPORTED = dict(concatenate=False, post_skip=False, scale=None,
                   rewrite=False, dual_path=0, subject_dim=0, n_fft=None,
                   merger_per_subject=False, dropout=0.,
-                  subsample_meg_channels=0, dtype=None, output_dtype=None,
-                  output_layout="bct", bn_conv_bias=True, conv_impl="conv",
-                  fused_head=False)
+                  subsample_meg_channels=0, output_layout="bct",
+                  conv_impl="conv")
 
 
 class SimpleConv(nn.Module):
@@ -76,9 +80,7 @@ class SimpleConv(nn.Module):
                      subject_dim=subject_dim, n_fft=n_fft,
                      merger_per_subject=merger_per_subject, dropout=dropout,
                      subsample_meg_channels=subsample_meg_channels,
-                     dtype=dtype, output_dtype=output_dtype,
-                     output_layout=output_layout, bn_conv_bias=bn_conv_bias,
-                     conv_impl=conv_impl, fused_head=fused_head)
+                     output_layout=output_layout, conv_impl=conv_impl)
         for name, value in given.items():
             if value != _SUPPORTED[name]:
                 raise NotImplementedError(f"simpleconv.{name}={value!r}")
@@ -108,8 +110,16 @@ class SimpleConv(nn.Module):
         self.merger_dropout = merger_dropout
         self.merger_penalty = merger_penalty
         self.fused_conv_bn = fused_conv_bn
+        self.initial_nonlin = initial_nonlin
+        self.dtype = dtype
+        self.output_dtype = output_dtype
+        self.bn_conv_bias = bn_conv_bias
+        self.fused_head = fused_head
         for name, value in given.items():
             setattr(self, name, value)
+        dt = torch_dtype(dtype)
+        self.compute_dtype = dt
+        self.estimate_dtype = torch_dtype(output_dtype) or torch.float32
 
         act = get_activation(gelu, relu_leakiness, gelu_exact)
         chin = in_channels["meg"]
@@ -123,9 +133,11 @@ class SimpleConv(nn.Module):
         self.initial_linear = None
         if initial_linear:
             # reference layout: conv at 2 d, activation between convs
-            layers: tp.List[nn.Module] = [nn.Conv1d(chin, initial_linear, 1)]
+            layers: tp.List[nn.Module] = [
+                Conv1d(chin, initial_linear, 1, compute_dtype=dt)]
             for _ in range(initial_depth - 1):
-                layers += [act(), nn.Conv1d(initial_linear, initial_linear, 1)]
+                layers += [act(), Conv1d(initial_linear, initial_linear, 1,
+                                         compute_dtype=dt)]
             if initial_nonlin:
                 layers.append(act())
             self.initial_linear = nn.Sequential(*layers)
@@ -148,16 +160,20 @@ class SimpleConv(nn.Module):
             groups=groups, batch_norm=batch_norm,
             dropout_input=dropout_input, skip=skip,
             activation_on_last=use_final, glu=glu, glu_context=glu_context,
-            glu_glu=glu_glu, activation=act, fused_conv_bn=fused_conv_bn)})
+            glu_glu=glu_glu, activation=act, fused_conv_bn=fused_conv_bn,
+            bn_conv_bias=bn_conv_bias, compute_dtype=dt)})
 
         final_channels = sizes[-1]
         self.final: tp.Optional[nn.Module] = None
         if linear_out:
-            self.final = nn.ConvTranspose1d(final_channels, out_channels, 1)
+            self.final = ConvTranspose1d(final_channels, out_channels, 1,
+                                         compute_dtype=dt)
         elif complex_out:
             self.final = nn.Sequential(
-                nn.Conv1d(final_channels, 2 * final_channels, 1), act(),
-                nn.ConvTranspose1d(2 * final_channels, out_channels, 1))
+                Conv1d(final_channels, 2 * final_channels, 1,
+                       compute_dtype=dt), act(),
+                ConvTranspose1d(2 * final_channels, out_channels, 1,
+                                compute_dtype=dt))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Initialize every weight from `generator` (drawn on the CPU):
@@ -171,18 +187,50 @@ class SimpleConv(nn.Module):
             elif isinstance(module, (ChannelMerger, SubjectLayers)):
                 module.reset_parameters(generator)
 
+    def _fused_head(self, meg: torch.Tensor, positions: torch.Tensor,
+                    pos_emb: torch.Tensor, rec_index: torch.Tensor,
+                    rec_positions: torch.Tensor, rec_subjects: torch.Tensor,
+                    generator: tp.Optional[torch.Generator]) -> torch.Tensor:
+        """The merger's mix, the initial 1x1 conv and the subject matrix
+        as one gathered [C_in, dim] matrix per recording (the flax
+        module's ``_fused_head``): by associativity on the same
+        parameters, ((x A_r^T) W1 + b1) S_s = x (A_r^T W1 S_s) + b1 S_s,
+        with S_s the subject matrix of recording r's subject
+        ``rec_subjects[r]``. The operands are cast to meg's dtype (the bias
+        to it as well, as the flax module reads it through the conv) and
+        contracted with an fp32 accumulator; the result [B, dim, T] is
+        fp32."""
+        cd = meg.dtype
+        attention = self.merger.attention(
+            positions, pos_emb, rec_index, rec_positions, generator,
+            dtype=cd, gather=False)                            # [R, O_m, C]
+        conv = self.initial_linear[0]
+        w1 = conv.weight[:, :, 0].t()                          # [O_m, O1]
+        subj = self.subject_layers.weights[rec_subjects]       # [R, O1, D]
+        t1 = einsum_fp32("roc,ok->rck", attention, w1, dtype=cd)
+        fold = einsum_fp32("rck,rkd->rcd", t1, subj, dtype=cd)
+        bias = einsum_fp32("k,rkd->rd", conv.bias.to(cd), subj)
+        out = einsum_fp32("bct,bcd->bdt", meg, fold[rec_index], dtype=cd)
+        return out + bias[rec_index][:, :, None]
+
     def forward(self, inputs: tp.Mapping[str, torch.Tensor],
                 subject_index: torch.Tensor, positions: torch.Tensor,
                 pos_emb: tp.Optional[torch.Tensor] = None,
                 rec_index: tp.Optional[torch.Tensor] = None,
                 rec_positions: tp.Optional[torch.Tensor] = None,
+                rec_subjects: tp.Optional[torch.Tensor] = None,
                 generator: tp.Optional[torch.Generator] = None,
                 with_penalty: bool = False):
         """inputs {'meg': [B, C, T]}, subject_index [B], positions
         [B, C, 2]; pos_emb/rec_index/rec_positions, and the dropout's
-        generator, as in ChannelMerger.attention.
-        Returns [B, out_channels, T] fp32, or with `with_penalty` that and
-        the train-mode merger usage penalty (a scalar, 0 in eval)."""
+        generator, as in ChannelMerger.attention; rec_subjects [R], each
+        recording's subject, for the fused head, which engages as the flax
+        module's does: with `fused_head`, the merger, one initial conv with
+        no activation after it, the subject layers, no merger penalty, and
+        the per-recording arrays given; otherwise the unfused ops run.
+        Returns [B, out_channels, T] in `output_dtype` (fp32 when None), or
+        with `with_penalty` that and the train-mode merger usage penalty (a
+        scalar, 0 in eval)."""
         if self.training:
             for name in ("conv_dropout", "dropout_input"):
                 if getattr(self, name):
@@ -192,20 +240,35 @@ class SimpleConv(nn.Module):
                         f"train mode")
         meg = inputs["meg"]
         length = meg.shape[-1]
+        if self.compute_dtype is not None:
+            meg = meg.to(self.compute_dtype)
         penalty = torch.zeros((), device=meg.device)
-        if self.merger is not None:
-            weights = self.merger.attention(
-                positions, pos_emb=pos_emb, rec_index=rec_index,
-                rec_positions=rec_positions, generator=generator)
-            meg = torch.einsum("bct,boc->bot", meg, weights)
-            if self.training and self.merger_penalty > 0:
-                penalty = self.merger.penalty(weights)
-        if self.initial_linear is not None:
-            meg = self.initial_linear(meg)
-        if self.subject_layers is not None:
-            meg = self.subject_layers(meg, subject_index)
+        fused_head = (
+            self.fused_head and self.merger is not None
+            and self.initial_linear is not None
+            and self.subject_layers is not None and self.initial_depth == 1
+            and not self.initial_nonlin and self.merger_penalty == 0
+            and pos_emb is not None and rec_index is not None
+            and rec_subjects is not None)
+        if fused_head:
+            meg = self._fused_head(meg, positions, pos_emb, rec_index,
+                                   rec_positions, rec_subjects, generator)
+        else:
+            if self.merger is not None:
+                weights = self.merger.attention(
+                    positions, pos_emb=pos_emb, rec_index=rec_index,
+                    rec_positions=rec_positions, generator=generator,
+                    dtype=meg.dtype)
+                meg = einsum_fp32("bct,boc->bot", meg, weights,
+                                  dtype=meg.dtype)
+                if self.training and self.merger_penalty > 0:
+                    penalty = self.merger.penalty(weights)
+            if self.initial_linear is not None:
+                meg = self.initial_linear(meg)
+            if self.subject_layers is not None:
+                meg = self.subject_layers(meg, subject_index)
         x = self.encoders["meg"](meg)
         if self.final is not None:
             x = self.final(x)
-        x = x[..., :length]
+        x = x[..., :length].to(self.estimate_dtype)
         return (x, penalty) if with_penalty else x

@@ -11,5 +11,6 @@ KERNELS = (normalize_clamp_peak, nt_matmul, conv_stats)
 def reset_launch_counts() -> None:
     for kernel in KERNELS:
         kernel.launches = 0
-    conv_stats.launches_by_route = dict.fromkeys(
-        conv_stats.launches_by_route, 0)
+    for counts in (conv_stats.launches_by_route,
+                   conv_stats.launches_by_dtype):
+        counts.update(dict.fromkeys(counts, 0))

@@ -38,14 +38,11 @@ SIGNATURES = {
     #  k_chunk, stream)
     "bm_nt_matmul": ((_P, _P, ctypes.c_int, _P, _P, _P, _I64, _I64, _I64,
                       ctypes.c_int, ctypes.c_int, _I64, _P), ctypes.c_int),
-    # (x, w_split, y, workspace, s, ss, B, C, T, T4, O, k, dilation,
-    #  width, stages, stream)
-    "bm_conv_stats_tc": ((_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                          _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, _P), ctypes.c_int),
-    # (x, w, y, workspace, s, ss, B, C, T, O, k, dilation, stream)
-    "bm_conv_stats_bf16": ((_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                            ctypes.c_int, ctypes.c_int, _P), ctypes.c_int),
+    # (x, w_op, is_bf16, y, workspace, s, ss, B, C, T, T_pad, O, k,
+    #  dilation, width, stages, stream)
+    "bm_conv_stats_tc": ((_P, _P, ctypes.c_int, _P, _P, _P, _P, _I64, _I64,
+                          _I64, _I64, _I64, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, _P), ctypes.c_int),
     # (x, hi, lo, count4, stream)
     "bm_split_tf32": ((_P, _P, _P, _I64, _P), ctypes.c_int),
     # (meg, is_bf16, center, scale, rec, out, peak, B, C, T, R, limit, clip,

@@ -17,13 +17,13 @@ would cost two transposes of the [B, T, C] activation (~112 MB each at the
 paper shape) per layer per step. The tests transpose when they compare
 with JAX.
 
-On a CUDA tensor the forward launches a hand-written kernel of
-``csrc/conv_stats.cu`` (design note there), chosen by dtype alone: fp32
-runs on the tensor cores as three TF32 products (route "tc": TMA-fed
-``wgmma``, the time tiles as the A operand, the weights split once per
-call into hi and lo TF32 halves as the K-major B operand, see
-``split_weights``), bf16 on the SIMT cores
-(route "simt"). On a CPU tensor it runs the plain version,
+On a CUDA tensor the forward launches the hand-written kernel of
+``csrc/conv_stats.cu`` (design note there), route "tc" for both types:
+TMA-fed ``wgmma`` with the time tiles as the register-fed A operand and
+the weights as the K-major B operand (``tc_operands``). fp32 runs as
+three TF32 products, its weights split once per call into hi and lo TF32
+halves (``split_weights``); bf16 runs one bf16 product, its weights
+rearranged once per call. On a CPU tensor it runs the plain version,
 ``_reference_impl``. The backward mirrors the JAX custom
 VJP (``_conv_stats_bwd``), which is plain XLA there and plain torch here:
 fold the cotangents of s and ss into dY = dy + ds + 2 y dss in fp32, cast
@@ -42,18 +42,20 @@ import torch.nn.functional as F
 from . import _build
 from .matmul import tma_operand
 
-#: time steps per block of both CUDA kernels (one workspace column tile)
+#: time steps per block (one workspace column tile)
 _BT = 128
-#: kernel widths the bf16 SIMT kernel is built for (the fp32 tensor-core
-#: kernel takes any odd k)
-_SIMT_WIDTHS = (1, 3, 5, 7)
-#: tensor-core route: output-channel tile widths (the wgmma N side),
-#: input channels per K step, the x box's time steps, shared memory
+#: the types the kernel takes
+TYPES = (torch.float32, torch.bfloat16)
+#: output-channel tile widths (the wgmma N side), the bytes of a K step's
+#: weight row (one 128-byte swizzle row: 32 fp32 or 64 bf16 input
+#: channels), the x box's time steps, shared memory
 TC_WIDTHS = (8, 64, 128, 160)
-TC_CHANNELS = 32
+TC_ROW_BYTES = 128
 _X_BOX_STEPS = _BT + 8
 _SMEM_LIMIT = 232_448          # 227 KB per block
 _MAX_STAGES = 8
+#: TMA's row and innermost-coordinate alignment
+_ALIGN_BYTES = 16
 
 
 def _reference_impl(x: torch.Tensor, w: torch.Tensor, dilation: int
@@ -72,16 +74,22 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def split_weights(w: torch.Tensor) -> torch.Tensor:
-    """w [O, C, k] fp32 -> [2 k, O, C4] fp32, the tensor-core route's B
-    operand: taps j < k hold hi = rna_tf32(w[:, :, j]), taps k + j hold
-    lo = rna_tf32(w - hi), each [O, C] with C contiguous (K-major) and
-    zero-padded to C4 = C rounded up to 4 (TMA's 16-byte rows).
+def weight_taps(w: torch.Tensor) -> torch.Tensor:
+    """w [O, C, k] -> [k, O, C_pad] in w's type, one copy: C contiguous
+    (K-major) and zero-padded to a multiple of 16 bytes (TMA's rows), C4
+    in fp32 and C8 in bf16. The bf16 B operand as it is."""
+    multiple = _ALIGN_BYTES // w.element_size()
+    return F.pad(w.permute(2, 0, 1), (0, -w.shape[1] % multiple)).contiguous()
 
-    One copy rearranges w into [k, O, C4]; on a CUDA tensor the split is
-    then ``split_tf32`` of ``csrc/sm90.cuh`` (one launch), on a CPU tensor
-    its plain version, ``round_tf32``."""
-    taps = F.pad(w.permute(2, 0, 1), (0, -w.shape[1] % 4)).contiguous()
+
+def split_weights(w: torch.Tensor) -> torch.Tensor:
+    """w [O, C, k] fp32 -> [2 k, O, C4] fp32, the fp32 B operand: taps j <
+    k hold hi = rna_tf32(w[:, :, j]), taps k + j hold lo = rna_tf32(w -
+    hi), each ``weight_taps``' [O, C4].
+
+    On a CUDA tensor the split is ``split_tf32`` of ``csrc/sm90.cuh`` (one
+    launch), on a CPU tensor its plain version, ``round_tf32``."""
+    taps = weight_taps(w)
     if taps.device.type == "cpu":
         hi = round_tf32(taps)
         return torch.cat([hi, round_tf32(taps - hi)])
@@ -98,74 +106,73 @@ def split_weights(w: torch.Tensor) -> torch.Tensor:
 
 def tc_operands(x: torch.Tensor, w: torch.Tensor
                 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-    """The tensor-core route's operands: x [B, C, T] as [B, C, T4] with
-    T4 = T rounded up to 4 (zero columns, a copy only when T % 4 != 0 or
-    x is misaligned), and the split weights [2 k, O, C4]."""
+    """The kernel's operands: x [B, C, T] as [B, C, T_pad] with T_pad = T
+    rounded up to 16 bytes, T4 fp32 or T8 bf16 (zero columns, a copy only
+    when T is not a multiple or x is misaligned), and the weights as the B
+    operand: fp32 split [2 k, O, C4], bf16 taps [k, O, C8]."""
     batch, channels, times = x.shape
-    x4 = tma_operand(x.view(batch * channels, times))
-    return x4.view(batch, channels, -1), split_weights(w)
+    x_pad = tma_operand(x.view(batch * channels, times))
+    w_op = split_weights(w) if w.dtype == torch.float32 else weight_taps(w)
+    return x_pad.view(batch, channels, -1), w_op
 
 
 @functools.lru_cache(maxsize=64)
-def plan_tc(out_channels: int) -> tp.Tuple[int, int, int]:
-    """(width, stages, shared memory bytes) of the tensor-core kernel.
+def plan_tc(out_channels: int, dtype: torch.dtype = torch.float32
+            ) -> tp.Tuple[int, int, int]:
+    """(width, stages, shared memory bytes) of the kernel in `dtype`.
 
     width is the smallest of TC_WIDTHS that covers `out_channels`, the
-    widest (160: two tiles at the paper's 320) above that. A stage
-    holds the x box [32 channels][136 steps] and the weights' hi and lo
-    tiles [width][32]; the ring takes as many stages as fit in 227 KB
-    beside 1024 bytes of alignment slack, 16 bytes of barriers a stage
-    and the epilogue's [2][8 warps][width] sums, at most 8."""
+    widest (160: two tiles at the paper's 320) above that. A stage holds
+    the x box [channels][136 steps] and the weights' tiles [width][channels]
+    of 128-byte rows: hi and lo in fp32, one in bf16. The ring takes as
+    many stages as fit in 227 KB beside 1024 bytes of alignment slack, 16
+    bytes of barriers a stage and the epilogue's [2][8 warps][width] sums,
+    at most 8."""
     width = next((w for w in TC_WIDTHS if w >= out_channels), TC_WIDTHS[-1])
-    stage = TC_CHANNELS * 4 * (_X_BOX_STEPS + 2 * width)
+    tiles = 2 if dtype == torch.float32 else 1
+    stage = TC_ROW_BYTES * (_X_BOX_STEPS + tiles * width)
     sums = 2 * 8 * width * 4
     stages = min(_MAX_STAGES, (_SMEM_LIMIT - 1024 - sums) // (stage + 16))
     return width, stages, 1024 + stages * (stage + 16) + sums
 
 
-def _tc_kernel(x4: torch.Tensor, w_split: torch.Tensor, y: torch.Tensor,
+def _tc_kernel(x_pad: torch.Tensor, w_op: torch.Tensor, y: torch.Tensor,
                s: torch.Tensor, ss: torch.Tensor, dilation: int) -> None:
-    """The tensor-core kernel (and its column sums) alone, on the operands
+    """The kernel (and its column sums) alone, on the operands
     ``tc_operands`` gives, into y [B, O, T], s and ss [O]."""
-    batch, channels, times4 = x4.shape
+    batch, channels, times_pad = x_pad.shape
     _, out_channels, times = y.shape
-    width, stages, _ = plan_tc(out_channels)
+    bf16 = x_pad.dtype == torch.bfloat16
+    width, stages, _ = plan_tc(out_channels, x_pad.dtype)
     # the per-tile partial sums [2, column tiles, O]
     workspace = torch.empty(2 * batch * -(-times // _BT) * out_channels,
-                            dtype=torch.float32, device=x4.device)
-    with torch.cuda.device(x4.device):
+                            dtype=torch.float32, device=x_pad.device)
+    with torch.cuda.device(x_pad.device):
         status = _build.library().bm_conv_stats_tc(
-            x4.data_ptr(), w_split.data_ptr(), y.data_ptr(),
+            x_pad.data_ptr(), w_op.data_ptr(), int(bf16), y.data_ptr(),
             workspace.data_ptr(), s.data_ptr(), ss.data_ptr(), batch,
-            channels, times, times4, out_channels, w_split.shape[0] // 2,
-            dilation, width, stages,
-            torch.cuda.current_stream(x4.device).cuda_stream)
+            channels, times, times_pad, out_channels,
+            w_op.shape[0] // (1 if bf16 else 2), dilation, width, stages,
+            torch.cuda.current_stream(x_pad.device).cuda_stream)
     _build.check_status("conv_stats", status)
 
 
 def _check_route(dtype: torch.dtype, k: int) -> str:
-    """The route of a `dtype` operand ("tc" for fp32, "simt" for bf16),
-    after checking that it takes width `k`: the tensor-core kernel reads k
-    at run time and takes any odd k, the SIMT kernel is built for
-    _SIMT_WIDTHS only."""
-    if dtype == torch.float32:
-        if k < 1 or k % 2 == 0:
-            raise ValueError(f"conv_stats' fp32 route (tensor cores) takes "
-                             f"an odd k >= 1, got {k}")
-        return "tc"
-    if dtype == torch.bfloat16:
-        if k not in _SIMT_WIDTHS:
-            raise ValueError(f"conv_stats' bf16 route (SIMT) takes k in "
-                             f"{_SIMT_WIDTHS}, got {k}")
-        return "simt"
-    raise TypeError(f"conv_stats takes fp32 or bf16, got {dtype}")
+    """The route of a `dtype` operand, "tc" (the tensor cores) for fp32
+    and bf16, after checking that it takes width `k`: any odd k."""
+    if dtype not in TYPES:
+        raise TypeError(f"conv_stats takes fp32 or bf16, got {dtype}")
+    if k < 1 or k % 2 == 0:
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        raise ValueError(f"conv_stats' {name} route (tensor cores) takes "
+                         f"an odd k >= 1, got {k}")
+    return "tc"
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, dilation: int
             ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """A CUDA kernel on contiguous fp32 or bf16 operands of one type:
-    fp32 on the tensor cores, bf16 on the SIMT cores."""
-    if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
+    """The CUDA kernel on contiguous fp32 or bf16 operands of one type."""
+    if x.dtype not in TYPES or w.dtype != x.dtype:
         raise TypeError(f"conv_stats takes fp32 or bf16 operands of one "
                         f"type, got {x.dtype} and {w.dtype}")
     if not (x.is_contiguous() and w.is_contiguous()):
@@ -183,24 +190,10 @@ def _launch(x: torch.Tensor, w: torch.Tensor, dilation: int
         return y, s, ss
     if channels == 0:
         return y.zero_(), s, ss
-    if route == "tc":
-        _tc_kernel(*tc_operands(x, w), y, s, ss, dilation)
-    else:
-        # the transposed weights [C k, O rounded up to 4], then the
-        # per-tile partial sums [2, column tiles, O]
-        workspace = torch.empty(
-            channels * k * -(-out_channels // 4) * 4
-            + 2 * batch * -(-times // _BT) * out_channels,
-            dtype=torch.float32, device=x.device)
-        with torch.cuda.device(x.device):
-            status = _build.library().bm_conv_stats_bf16(
-                x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                workspace.data_ptr(), s.data_ptr(), ss.data_ptr(), batch,
-                channels, times, out_channels, k, dilation,
-                torch.cuda.current_stream(x.device).cuda_stream)
-        _build.check_status("conv_stats", status)
+    _tc_kernel(*tc_operands(x, w), y, s, ss, dilation)
     conv_stats.launches += 1
     conv_stats.launches_by_route[route] += 1
+    conv_stats.launches_by_dtype[str(x.dtype).split(".")[-1]] += 1
     return y, s, ss
 
 
@@ -261,9 +254,10 @@ def conv_stats(x: torch.Tensor, w: torch.Tensor, dilation: int = 1
 
 
 #: kernel launches since the last reset (the CPU path does not count), in
-#: all and by route
+#: all, by route and by operand type
 conv_stats.launches = 0
-conv_stats.launches_by_route = {"tc": 0, "simt": 0}
+conv_stats.launches_by_route = {"tc": 0}
+conv_stats.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 
 def batch_mean_var(s: torch.Tensor, ss: torch.Tensor, n: int

@@ -1,4 +1,4 @@
-"""fp32 that means fp32 on the card.
+"""fp32 that means fp32 on the card, and the JAX package's compute dtypes.
 
 torch lets cuDNN run fp32 convolutions in TF32 by default
 (``torch.backends.cudnn.allow_tf32`` is True; the cuBLAS flag
@@ -7,6 +7,12 @@ three decimal digits. The port's contract is the JAX package's fp32, and
 its own kernels run fp32 products as 3xTF32, so the entry points
 (``Server.forward_batch``, ``Server.probabilities``, ``Solver.step``) run
 inside ``exact_fp32``.
+
+A compute dtype (``simpleconv.dtype``, ``clip.compute_dtype``) is named
+by a string, as in the JAX package's config (``torch_dtype``). Where the
+JAX package contracts operands of that dtype with an fp32 accumulator and
+an fp32 result (``preferred_element_type=float32``), the port calls
+``einsum_fp32``: a bf16 ``torch.einsum`` would round its result to bf16.
 """
 
 from __future__ import annotations
@@ -15,6 +21,30 @@ import contextlib
 import typing as tp
 
 import torch
+
+
+def torch_dtype(name: tp.Any) -> tp.Optional[torch.dtype]:
+    """A config's dtype name ('bfloat16', 'float32'), or a torch dtype,
+    as a torch dtype; None stays None."""
+    if name is None or isinstance(name, torch.dtype):
+        return name
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dtype
+
+
+def einsum_fp32(equation: str, *operands: torch.Tensor,
+                dtype: tp.Optional[torch.dtype] = None) -> torch.Tensor:
+    """``jnp.einsum(equation, *operands, preferred_element_type=float32)``
+    on operands cast to `dtype`: each operand rounded to `dtype` (when
+    given), then contracted in fp32. The products of bf16 values are exact
+    in fp32, so this is a bf16 contraction with an fp32 accumulator and an
+    fp32 result; on the card it runs as fp32 (exact inside
+    ``exact_fp32``)."""
+    if dtype is not None:
+        operands = tuple(op.to(dtype) for op in operands)
+    return torch.einsum(equation, *(op.float() for op in operands))
 
 
 @contextlib.contextmanager

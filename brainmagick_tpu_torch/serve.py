@@ -12,7 +12,9 @@ arrays on one device and answers both calls directly:
 
 On a CUDA device both calls run the hand-written kernels
 (``ops.norm.normalize_clamp_peak``, ``ops.matmul.nt_matmul``), and both
-run in fp32 with TF32 off (``precision.exact_fp32``).
+run with TF32 off (``precision.exact_fp32``): in fp32, or in the
+``clip_conv_tpu`` recipe's bf16 where the config asks for it (the model's
+compute and estimate, the scores' operands, the batch's wire format).
 """
 
 from __future__ import annotations
@@ -60,11 +62,13 @@ class Server:
     def forward_batch(self, batch: tp.Any,
                       pad_weight: tp.Optional[tp.Any] = None):
         """A batch with the ``dataset.ARRAY_FIELDS`` arrays -> (estimate
-        [B, F, T'], output [B, F, T'], mask [B, 1, T'], keep [B] bool),
-        tensors on the server's device. `pad_weight` [B] (ones when None)
-        is 0 for the rows a loader adds to fill its last batch; those rows
-        are not kept."""
-        arrays = to_device(batch, self.device)
+        [B, F, T'] in ``simpleconv.output_dtype``, output [B, F, T'], mask
+        [B, 1, T'], keep [B] bool), tensors on the server's device; meg and
+        features cross in ``parallel.transfer_dtype``. `pad_weight` [B]
+        (ones when None) is 0 for the rows a loader adds to fill its last
+        batch; those rows are not kept."""
+        arrays = to_device(batch, self.device,
+                           self.args.parallel.transfer_dtype)
         if pad_weight is None:
             pad_weight = torch.ones(arrays["meg"].shape[0],
                                     dtype=torch.float32, device=self.device)

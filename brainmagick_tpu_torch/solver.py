@@ -108,11 +108,11 @@ class Solver:
 
     def _forward(self, arrays: tp.Mapping[str, torch.Tensor],
                  pad_weight: torch.Tensor, train: bool = False):
-        """Batch arrays (``dataset.to_device``) -> (estimate [B, F, T'],
-        output [B, F, T'], mask [B, 1, T'], keep [B] fp32 weights, the
-        merger usage penalty). The model runs in train mode when `train`
-        (BatchNorm batch statistics, merger dropout) and in eval mode
-        otherwise."""
+        """Batch arrays (``dataset.to_device``) -> (estimate [B, F, T'] in
+        ``simpleconv.output_dtype``, output [B, F, T'], mask [B, 1, T'],
+        keep [B] fp32 weights, the merger usage penalty). The model runs
+        in train mode when `train` (BatchNorm batch statistics, merger
+        dropout) and in eval mode otherwise."""
         args = self.args
         na = self.norm_arrays
         meg = arrays["meg"]
@@ -147,6 +147,14 @@ class Solver:
             # per-recording attention: R softmax rows instead of B
             model_kwargs = dict(pos_emb=na["pos_emb"], rec_index=rec,
                                 rec_positions=na["rec_positions"])
+            if getattr(self.model, "fused_head", False) and \
+                    na.get("rec_subjects") is not None:
+                # the fused head folds each recording's subject matrix in;
+                # this batch's own (recording, subject) pairs override the
+                # table, so a batch that gives a recording another subject
+                # computes with it, as the unfused subject layers would
+                model_kwargs["rec_subjects"] = na["rec_subjects"].long(
+                    ).index_put((rec,), arrays["subject_index"])
         self.model.train(train)
         estimate, penalty = self.model(
             inputs, arrays["subject_index"], arrays["positions"],

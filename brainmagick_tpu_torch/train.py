@@ -59,6 +59,7 @@ class Trainer:
                  norm_arrays: tp.Mapping[str, tp.Any],
                  device: tp.Union[str, torch.device],
                  generator: tp.Optional[torch.Generator] = None) -> None:
+        self.args = args
         self.device = torch.device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -75,8 +76,10 @@ class Trainer:
     def step(self, batch: tp.Any, train: bool = True
              ) -> tp.Dict[str, torch.Tensor]:
         """One step (``Solver.step``) on a batch with the
-        ``dataset.ARRAY_FIELDS`` arrays, every row weighted 1."""
-        arrays = to_device(batch, self.device)
+        ``dataset.ARRAY_FIELDS`` arrays, every row weighted 1; meg and
+        features cross in ``parallel.transfer_dtype``."""
+        arrays = to_device(batch, self.device,
+                           self.args.parallel.transfer_dtype)
         pad_weight = torch.ones(arrays["meg"].shape[0], dtype=torch.float32,
                                 device=self.device)
         return self.solver.step(arrays, pad_weight, train)

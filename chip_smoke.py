@@ -1,12 +1,14 @@
 """Drive the PyTorch port's serving, training and evaluation paths on one
-CUDA card.
+CUDA card, in the paper recipe's fp32 and in its bf16 clip_conv_tpu form.
 
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-Phases, each printing its lines; any failed check raises, so the script
-exits non-zero and prints no result:
+It builds every kernel from brainmagick_tpu_torch/csrc with nvcc into the
+gitignored brainmagick_tpu_torch/_build/, so the script and the checkout's
+sources are all it needs. Phases, each printing its lines; any failed
+check raises, so the script exits non-zero and prints no result:
 
 1. card and environment: the card's name and power limit (nvidia-smi),
    torch/CUDA versions, and torch's TF32 flags as they are: the script
@@ -21,9 +23,11 @@ exits non-zero and prints no result:
    function where there is one, and the least time the card could take,
    all inside precision.exact_fp32 so that plain versions and library
    calls are fp32 (normalize bit-equal with NaN and inf, bf16 meg and rec
-   tables, its stage's device activities in torch.profiler; conv_stats forward and backward; its fp32 forward on the
-   tensor cores at every edge of that route, k = 9 and 11 included, and
-   at every encoder layer shape, two calls bit-equal);
+   tables, its stage's device activities in torch.profiler; conv_stats
+   forward and backward in fp32 and bf16, both on the tensor-core route,
+   at every edge of that route, k = 9 and 11 included, and at every
+   encoder layer shape, two calls of each type bit-equal, each type timed
+   beside cuDNN's conv in that type);
 4. the serving slice at the clip_conv preset's full width (273 sensors,
    361 samples, 1024 features, random seeded weights): four requests
    through Server.forward_batch and Server.probabilities against a bank of
@@ -34,7 +38,7 @@ exits non-zero and prints no result:
 5. the training slice at the same width with simpleconv.fused_conv_bn:
    five Adam steps of Trainer.step at B=256 on one seeded batch (finite
    losses that fall, conv_stats launched once per encoder layer per step,
-   every launch on its fp32 tensor-core route, normalize once per step),
+   every launch fp32 on the tensor-core route, normalize once per step),
    the warm step's time and peak memory, and a B=8 step held against the
    same trainer on the CPU;
 6. the offline evaluation at the same width: nine seeded B=256 batches
@@ -45,7 +49,18 @@ exits non-zero and prints no result:
    1), wer.get_wer, and again with the outputs as the estimates (wer must
    be 0); each pass's wall time, transfers and peak memory, the launch
    counts the loops imply, and 64 predictions x 300 candidates of
-   build_probs held against the same call on the CPU.
+   build_probs held against the same call on the CPU;
+7. the clip_conv_tpu recipe at the same width (bf16 compute and
+   estimates, no conv bias before BatchNorm, the fused head, tanh GELU,
+   bf16 scores and the bf16 wire): phase 4's four requests through Server
+   against the bank stored in bf16, then the warm B=256 forward and
+   scoring, and phase 5's five Adam steps with fused_conv_bn (conv_stats
+   10 times a step, every launch bf16 on the tensor-core route), each
+   beside the fp32 recipe's, every forward through the fused head; the
+   B=1 request and a B=8 step held against the same server and trainer
+   on the CPU at RECIPE_TOL, beside the same step with fp32 compute at
+   STEP_TOL and each bf16 gradient's distance from the fp32 one against
+   the CPU's (RECIPE_SPREAD).
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it raises at once.
@@ -66,6 +81,8 @@ import numpy as np
 import torch
 
 SEED = 0
+#: phase 7's preset: the paper recipe in bf16 (see the module docstring)
+RECIPE = "clip_conv_tpu"
 #: clip_conv at full width: sensors, samples (3 s at 120 Hz), features
 C, T, F = 273, 361, 1024
 N_RECORDINGS = N_SUBJECTS = 4
@@ -83,22 +100,25 @@ MATMUL_TOL = 1e-6
 #: in fp32 in other orders (cuDNN against the kernel, torch.sum against
 #: the kernel's fixed-order partial sums).
 CONV_TOL = 1e-5
-#: bf16: y may land one bf16 rounding apart (2^-8 of |y| on top of
-#: CONV_TOL), and the kernel's backward rounds dY to bf16 where the plain
-#: version's fp32 autograd does not (2^-7 of the bound)
+#: bf16: y is the kernel's fp32 accumulator rounded once to bf16, so it
+#: may land one bf16 rounding (2^-8 of |y|) from the plain version's fp32
+#: y on top of CONV_TOL; the kernel's backward rounds dY to bf16 where the
+#: plain version's fp32 autograd does not (2^-7 of the bound)
 CONV_GRAD_TOL_BF16 = 2 ** -7
 #: (B, C, O, T, dilation, k) checked in fp32 and bf16: partial tiles in
 #: every dimension, and the widest halo at a short T
 RAGGED_CONV = ((1, 1, 1, 1, 1, 3), (2, 3, 5, 7, 2, 3), (2, 17, 33, 130, 4, 3),
                (3, 270, 320, 37, 16, 3))
-#: fp32 only, the other edges of the tensor-core route: k in {1, 5, 7},
-#: T % 4 == 0, B=1, O not a multiple of its tile width (200 in tiles of
-#: 160, 72 in one of 128), a tap's x box wholly outside the sequence
-#: (k=7, d=64, T=37), and the widths only this route takes (k=9 at d=1,
-#: k=11 at d=4)
+#: the other edges of the tensor-core route, in fp32 and bf16: k in {1, 5,
+#: 7}, T a multiple of 4 (fp32's alignment) and not of 8 (bf16's), B=1, O
+#: not a multiple of its tile width (200 in tiles of 160, 72 in one of
+#: 128), a tap's x box wholly outside the sequence (k=7, d=64, T=37), C
+#: past one bf16 K step (64 channels) and ragged within the next, and the
+#: widths the SIMT kernel before it did not take (k=9 at d=1, k=11 at d=4)
 RAGGED_CONV_TC = ((1, 40, 200, 128, 1, 1), (2, 64, 72, 259, 2, 5),
                   (1, 32, 160, 36, 8, 7), (2, 24, 48, 37, 64, 7),
-                  (2, 48, 64, 101, 1, 9), (2, 40, 72, 203, 4, 11))
+                  (2, 48, 64, 101, 1, 9), (2, 40, 72, 203, 4, 11),
+                  (2, 100, 64, 60, 2, 3))
 #: the encoder's layers at the paper shape: C=320 at each dilation, and the
 #: first layer's C=270
 PAPER_CONV = tuple((REQUESTS[0], 320, 320, T - 18, d, 3)
@@ -122,6 +142,23 @@ HELD_LEAVES = ("merger.heads", "subject_layers.weights",
 #: CPU sum in other orders): allclose rtol = atol
 REFERENCE_TOL = 1e-4
 PROBS_TOL = 1e-5
+#: the clip_conv_tpu recipe (phase 7) on the card against the same bf16
+#: model on the CPU: the error's norm over the reference's norm, for the
+#: estimate, the probabilities, the loss, the held gradients and the
+#: running statistics. cuDNN and the CPU accumulate in other orders, so a
+#: bf16 rounding may land one step (2^-8 of a value) apart anywhere, and
+#: the steps travel through the encoder's ten layers. The B=8 step's
+#: gradients go through those layers twice, forward and back, with dY
+#: rounded to bf16 at each (cuDNN's bf16 wgrad and dgrad against the
+#: CPU's): RECIPE_GRAD_TOL. Two witnesses stand beside that limit: the
+#: same step with the recipe's compute in fp32 holds the card to the CPU
+#: at STEP_TOL (every structural option, no bf16 rounding), and each held
+#: bf16 gradient of the card lies no farther from the CPU's fp32 one than
+#: RECIPE_SPREAD times the CPU's own bf16 gradient does (what parts the
+#: card from the CPU is bf16 rounding of the size the CPU shows itself).
+RECIPE_TOL = 2 ** -5
+RECIPE_GRAD_TOL = 2 ** -4
+RECIPE_SPREAD = 2.
 STEADY_RUNS = 5
 #: normalize_clamp_peak beyond the path's shape: B=1, samples shorter and
 #: longer than a block, B C T not a multiple of 4 (fp32's vector) nor of 8
@@ -522,8 +559,10 @@ def _conv_errors(x, w, d, cot, got, want, got_grads, want_grads):
                                              device=x.device),
                        padding=(k // 2) * d, dilation=d).sqrt()
     bound = w32.flatten(1).norm(dim=1)[None, :, None] * window  # [B, O, T]
-    y_ref = want[0].float()
+    # the plain version's y before its rounding to x's type
+    y_ref = fn.conv1d(x32, w32, padding=(k // 2) * d, dilation=d)
     rounding = 2 ** -8 * y_ref.abs() if x.dtype == torch.bfloat16 else 0.
+    dy = (got[0].float() - y_ref).abs()
     dY = (cot[0].float() + cot[1][None, :, None]
           + 2 * y_ref * cot[2][None, :, None])
     dx_bound = (w32.norm(dim=(0, 2))[None, :, None]
@@ -531,45 +570,55 @@ def _conv_errors(x, w, d, cot, got, want, got_grads, want_grads):
     dw_bound = (dY.norm(dim=(0, 2))[:, None, None]
                 * x32.norm(dim=(0, 2))[None, :, None])
     return dict(
-        y=((got[0].float() - y_ref).abs() / (bound + rounding)).max().item(),
+        y=((dy - rounding).clamp(min=0) / bound).max().item(),
         s=((got[1] - want[1]).abs() / bound.sum((0, 2))).max().item(),
         ss=((got[2] - want[2]).abs() / (bound ** 2).sum((0, 2))).max().item(),
         dx=((got_grads[0].float() - want_grads[0].float()).abs()
             / dx_bound).max().item(),
         dw=((got_grads[1].float() - want_grads[1].float()).abs()
             / dw_bound).max().item(),
-        abs_y=(got[0].float() - y_ref).abs().max().item())
+        abs_y=dy.max().item())
 
 
-def _conv_bound(shape) -> tuple:
-    """(bound_ms, bound_by) of the fp32 forward at (B, C, O, T, d, k):
-    x, w read and y, s, ss written once; 2 B T C O k fp32 operations as
-    three TF32 products each."""
+def _conv_bound(shape, dtype) -> tuple:
+    """(bound_ms, bound_by) of the forward at (B, C, O, T, d, k) in
+    `dtype`: x, w read and y written once in that type, s and ss in fp32;
+    2 B T C O k operations, in fp32 as three TF32 products each, in bf16 as
+    one bf16 product."""
     B, Cin, O, Tc, _, k = shape
-    return bound(4 * (B * Cin * Tc + O * Cin * k + B * O * Tc + 2 * O),
-                 3 * 2 * B * Tc * Cin * O * k)
+    n_bytes = (dtype.itemsize * (B * Cin * Tc + O * Cin * k + B * O * Tc)
+               + 4 * 2 * O)
+    flop = 2 * B * Tc * Cin * O * k
+    if dtype == torch.float32:
+        return bound(n_bytes, 3 * flop)
+    return bound(n_bytes, flop, BF16_FLOPS)
+
+
+def _type_name(dtype: torch.dtype) -> str:
+    return str(dtype).split(".")[-1]
 
 
 def check_conv_stats(device: torch.device) -> dict:
     """conv_stats forward (y, s, ss) and backward (dx, dw through autograd)
-    against its plain version's autograd: ragged shapes in fp32 and bf16,
-    the tensor-core route's other edges and the encoder's paper shapes in
-    fp32, two fp32 calls bit-equal at [256, 320, 343]; then at every
-    paper shape the weight split on the card bit-equal to its plain
-    version, and the median times of the forward through its wrapper, of
-    its parts alone (the tensor-core kernel with its column sums, the
-    zero-padding of T to a multiple of 4, the weight split), of its plain
-    version (cuDNN conv + the two sums) and of cuDNN's conv alone (y only:
-    no single PyTorch call computes the sums with it); and the forward +
-    backward at [256, 320, 343]."""
+    against its plain version's autograd, in fp32 and bf16: the ragged
+    shapes, the tensor-core route's other edges (k = 9 and 11 included) and
+    the encoder's paper shapes, two calls of each type bit-equal at [256,
+    320, 343]; then at every paper shape in each type the weights' B
+    operand on the card equal to its plain version, and the median times
+    of the forward through its wrapper, of its parts alone (the kernel with
+    its column sums, the zero-padding of T to 16 bytes, the weights'
+    operand: fp32's split, bf16's rearranging copy), of its plain version
+    (cuDNN conv + the two sums) and of cuDNN's conv alone in that type (y
+    only: no single PyTorch call computes the sums with it); and the
+    forward + backward at [256, 320, 343] in each type."""
     import torch.nn.functional as fn
 
     from brainmagick_tpu_torch.ops import conv_bn, matmul
 
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
-    cases = [(shape, dtype) for shape in RAGGED_CONV
-             for dtype in (torch.float32, torch.bfloat16)]
-    cases += [(shape, torch.float32) for shape in RAGGED_CONV_TC + PAPER_CONV]
+    types = (torch.float32, torch.bfloat16)
+    cases = [(shape, dtype) for shape in RAGGED_CONV + RAGGED_CONV_TC
+             + PAPER_CONV for dtype in types]
     summary = {}
     for shape, dtype in cases:
         d = shape[4]
@@ -584,7 +633,7 @@ def check_conv_stats(device: torch.device) -> dict:
         limits = dict(y=CONV_TOL, s=CONV_TOL, ss=CONV_TOL,
                       dx=CONV_GRAD_TOL_BF16 if bf16 else CONV_TOL,
                       dw=CONV_GRAD_TOL_BF16 if bf16 else CONV_TOL)
-        name = str(dtype).split(".")[-1]
+        name = _type_name(dtype)
         print(f"conv_stats {shape} {name}: " + ", ".join(
             f"{key} {value:.2e}" for key, value in errors.items())
             + " (over their bounds; abs_y is max|dy|)")
@@ -593,61 +642,75 @@ def check_conv_stats(device: torch.device) -> dict:
                 raise AssertionError(f"conv_stats {shape} {name}: {key} "
                                      f"error {errors[key]} > {limit}")
         if shape == PAPER_CONV[0]:
-            summary["max_abs_err"] = errors["abs_y"]
+            summary[name] = errors["abs_y"]
             again = conv_bn.conv_stats(x, w, d)
             if not all(torch.equal(g, a) for g, a in zip(got, again)):
-                raise AssertionError(f"conv_stats {shape}: two calls differ")
-            print(f"conv_stats {shape} fp32: two calls bit-equal")
+                raise AssertionError(f"conv_stats {shape} {name}: two calls "
+                                     f"differ")
+            print(f"conv_stats {shape} {name}: two calls bit-equal")
         del x, w, cot, got, want, got_grads, want_grads
 
     shapes = {}
-    for shape in PAPER_CONV:
-        B, Cin, O, Tc, d, k = shape
-        x, w, _ = _conv_case(shape, torch.float32, device, gen)
-        # the weight split on the card against its plain version
-        w_split = conv_bn.split_weights(w)
-        if not torch.equal(w_split.cpu(), conv_bn.split_weights(w.cpu())):
-            raise AssertionError(f"split_weights {tuple(w.shape)} differs "
-                                 f"from its plain version")
-        x4 = matmul.tma_operand(x.view(B * Cin, Tc)).view(B, Cin, -1)
-        y, s, ss = conv_bn.conv_stats(x, w, d)
-        ms = median_ms(lambda: conv_bn.conv_stats(x, w, d))
-        kernel_ms = median_ms(lambda: conv_bn._tc_kernel(x4, w_split, y, s,
-                                                         ss, d))
-        pad_ms = median_ms(lambda: matmul.tma_operand(x.view(B * Cin, Tc)))
-        split_ms = median_ms(lambda: conv_bn.split_weights(w))
-        plain_ms = median_ms(lambda: conv_bn._reference_impl(x, w, d))
-        library_ms = median_ms(lambda: fn.conv1d(x, w, padding=(k // 2) * d,
-                                                 dilation=d))
-        bound_ms, bound_by = _conv_bound(shape)
-        gflop = 2 * B * Tc * Cin * O * k / 1e9
-        print(f"conv_stats [{B}, {Cin}, {Tc}] x [{O}, {Cin}, {k}] d={d} fp32 "
-              f"forward: through its wrapper {ms:.3f} ms ({gflop / ms:.1f} "
-              f"TFLOP/s) = the kernel and its column sums {kernel_ms:.3f} "
-              f"ms + the pad of T to {Tc + -Tc % 4} {pad_ms:.3f} ms + the "
-              f"weight split {split_ms:.3f} ms (each timed alone); plain "
-              f"{plain_ms:.3f} ms, cuDNN conv alone {library_ms:.3f} ms, "
-              f"bound {bound_ms:.3f} ms ({bound_by})")
-        shapes[f"{B}x{Cin}x{Tc} O{O} k{k} d{d}"] = dict(
-            ms=ms, kernel_ms=kernel_ms, pad_ms=pad_ms, split_ms=split_ms,
-            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-            bound_by=bound_by)
-        del x, w, w_split, x4, y, s, ss
+    for dtype in types:
+        name = _type_name(dtype)
+        for shape in PAPER_CONV:
+            B, Cin, O, Tc, d, k = shape
+            x, w, _ = _conv_case(shape, dtype, device, gen)
+            weights = (conv_bn.split_weights if dtype == torch.float32
+                       else conv_bn.weight_taps)
+            # the weights' operand on the card against its plain version
+            w_op = weights(w)
+            if not torch.equal(w_op.cpu(), weights(w.cpu())):
+                raise AssertionError(f"{weights.__name__} {tuple(w.shape)} "
+                                     f"{name} differs from its plain version")
+            x_pad = matmul.tma_operand(x.view(B * Cin, Tc)).view(B, Cin, -1)
+            y, s, ss = conv_bn.conv_stats(x, w, d)
+            ms = median_ms(lambda: conv_bn.conv_stats(x, w, d))
+            kernel_ms = median_ms(lambda: conv_bn._tc_kernel(
+                x_pad, w_op, y, s, ss, d))
+            pad_ms = median_ms(lambda: matmul.tma_operand(
+                x.view(B * Cin, Tc)))
+            weights_ms = median_ms(lambda: weights(w))
+            plain_ms = median_ms(lambda: conv_bn._reference_impl(x, w, d))
+            library_ms = median_ms(lambda: fn.conv1d(
+                x, w, padding=(k // 2) * d, dilation=d))
+            bound_ms, bound_by = _conv_bound(shape, dtype)
+            gflop = 2 * B * Tc * Cin * O * k / 1e9
+            print(f"conv_stats [{B}, {Cin}, {Tc}] x [{O}, {Cin}, {k}] d={d} "
+                  f"{name} forward: through its wrapper {ms:.3f} ms "
+                  f"({gflop / ms:.1f} TFLOP/s) = the kernel and its column "
+                  f"sums {kernel_ms:.3f} ms + the pad of T to "
+                  f"{x_pad.shape[2]} {pad_ms:.3f} ms + the weights' "
+                  f"{weights.__name__} {weights_ms:.3f} ms (each timed "
+                  f"alone); plain {plain_ms:.3f} ms, cuDNN {name} conv "
+                  f"alone {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
+                  f"({bound_by})")
+            shapes[f"{B}x{Cin}x{Tc} O{O} k{k} d{d} {name}"] = dict(
+                ms=ms, kernel_ms=kernel_ms, pad_ms=pad_ms,
+                weights_ms=weights_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            del x, w, w_op, x_pad, y, s, ss
 
     B, Cin, O, Tc, d, k = PAPER_CONV[0]
-    x, w, cot = _conv_case(PAPER_CONV[0], torch.float32, device, gen)
-    ms_bwd = median_ms(lambda: _conv_grads(conv_bn.conv_stats, x, w, d, cot))
-    plain_bwd = median_ms(lambda: _conv_grads(conv_bn._reference_impl, x, w,
-                                              d, cot))
-    print(f"conv_stats [{B}, {Cin}, {Tc}] x [{O}, {Cin}, {k}] d={d} fp32 "
-          f"forward + backward: kernel {ms_bwd:.3f} ms, plain "
-          f"{plain_bwd:.3f} ms")
-    head = shapes.pop(f"{B}x{Cin}x{Tc} O{O} k{k} d{d}")
+    head = f"{B}x{Cin}x{Tc} O{O} k{k} d{d}"
+    for dtype in types:
+        name = _type_name(dtype)
+        x, w, cot = _conv_case(PAPER_CONV[0], dtype, device, gen)
+        ms_bwd = median_ms(lambda: _conv_grads(conv_bn.conv_stats, x, w, d,
+                                               cot))
+        plain_bwd = median_ms(lambda: _conv_grads(conv_bn._reference_impl,
+                                                  x, w, d, cot))
+        print(f"conv_stats [{B}, {Cin}, {Tc}] x [{O}, {Cin}, {k}] d={d} "
+              f"{name} forward + backward: kernel {ms_bwd:.3f} ms, plain "
+              f"{plain_bwd:.3f} ms")
+        shapes[f"{head} {name}"].update(fwd_bwd_ms=ms_bwd,
+                                        plain_fwd_bwd_ms=plain_bwd,
+                                        max_abs_err=summary[name])
+        del x, w, cot
     return dict(name="conv_stats", route="cuda",
                 source="brainmagick_tpu_torch/csrc/conv_stats.cu",
                 replaces="brainmagick_tpu/ops/pallas_conv_bn.py:89",
-                **head, fwd_bwd_ms=ms_bwd, plain_fwd_bwd_ms=plain_bwd,
-                **summary, other_shapes=shapes)
+                **shapes.pop(f"{head} float32"), other_shapes=shapes)
 
 
 def seeded_arrays():
@@ -668,8 +731,9 @@ def seeded_arrays():
     return norm_arrays, rng
 
 
-def build_server(device):
-    """The clip_conv preset at full width on `device`, from seeds only:
+def build_server(device, preset: str = "clip_conv"):
+    """`preset` (clip_conv, or clip_conv_tpu: bf16 compute, estimates,
+    scores and wire) at full width on `device`, from seeds only:
     port-initialized weights, BatchNorm running stats drawn from numpy
     (mean ~ N(0, 0.1), var ~ U(0.5, 1.5)) and seeded normalization
     arrays. Two calls give the same server on any device."""
@@ -678,7 +742,7 @@ def build_server(device):
 
     norm_arrays, rng = seeded_arrays()
     rec_positions = norm_arrays["rec_positions"]
-    args = apply_preset(MainConfig(), "clip_conv")
+    args = apply_preset(MainConfig(), preset)
     server = Server(args, C, F, N_SUBJECTS, None, None, norm_arrays, device,
                     generator=torch.Generator().manual_seed(SEED))
     with torch.no_grad():
@@ -714,15 +778,63 @@ def _check_probs(probs: torch.Tensor, b: int, what: str) -> None:
         raise AssertionError(f"{what}: probability rows off 1 by {row_err}")
 
 
-def run_slice(device: torch.device, card_name: str):
-    """The serving slice: four requests, then the largest one warm (its
-    forward and fp32 scoring, then its scoring with clip.compute_dtype
-    bfloat16 against the bank stored in bf16). Returns the kernel launch
-    counts over all of it and the first B=256 request (the train slice's
-    batch)."""
+def _norm_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """|got - want| / |want| (Frobenius), on the CPU in fp32."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def _against_cpu(what: str, got: torch.Tensor, want: torch.Tensor,
+                 atol: float, recipe: bool) -> str:
+    """Hold the card's `got` to the CPU's `want`: fp32 allclose at rtol 0
+    and `atol` (rtol = atol for estimates), or the recipe's bf16 norm
+    tolerance. Returns the error's description."""
+    if recipe:
+        err = _norm_err(got, want)
+        if not err <= RECIPE_TOL:
+            raise AssertionError(f"card vs CPU {what}: |diff|/|ref| {err}")
+        return f"{what} |diff|/|ref| {err:.3e} (tol {RECIPE_TOL:.3e})"
+    got = got.detach().cpu()
+    err = (got - want).abs().max().item()
+    rtol = atol if what == "estimate" else 0.
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"card vs CPU {what}: max|diff| {err}")
+    return f"{what} max|diff| {err:.3e} (rtol {rtol}, atol {atol})"
+
+
+def count_fused_head(model) -> list:
+    """Count the calls of `model`'s fused head (SimpleConv falls back to
+    the unfused ops, silently, when an engage condition fails): a
+    one-item list that each call adds one to."""
+    calls = [0]
+    fused_head = model._fused_head
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return fused_head(*args, **kwargs)
+    model._fused_head = counted
+    return calls
+
+
+def _check_fused_head(calls: list, want: int, what: str) -> None:
+    if calls[0] != want:
+        raise AssertionError(f"{what}: the fused head ran {calls[0]} times, "
+                             f"want {want}")
+
+
+def run_slice(device: torch.device, card_name: str,
+              preset: str = "clip_conv"):
+    """The serving slice of `preset`: four requests, then the largest one
+    warm (its forward and scoring against the bank, stored in the scores'
+    compute dtype: fp32 for clip_conv, bf16 for clip_conv_tpu; clip_conv
+    also scores with clip.compute_dtype bfloat16 against the bank stored
+    in bf16). Returns the kernel launch counts over all of it, the first
+    B=256 request (the train slice's batch) and the warm medians."""
     from brainmagick_tpu_torch import ops
 
-    server, rec_positions = build_server(device)
+    recipe = preset == RECIPE
+    server, rec_positions = build_server(device, preset)
+    fused_calls = count_fused_head(server.model)
     rng = np.random.RandomState(SEED + 2)
     requests = [make_request(rng, b, rec_positions) for b in REQUESTS]
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
@@ -730,6 +842,9 @@ def run_slice(device: torch.device, card_name: str):
     bank = torch.randn((N_CANDIDATES, F, t_out), generator=gen,
                        device=device)
     bank_bf16 = bank.to(torch.bfloat16)
+    if recipe:
+        bank = bank_bf16
+    est_dtype = server.model.estimate_dtype
     torch.cuda.synchronize()
 
     ops.reset_launch_counts()
@@ -747,16 +862,20 @@ def run_slice(device: torch.device, card_name: str):
             raise AssertionError(f"estimate {tuple(estimate.shape)}, output "
                                  f"{tuple(output.shape)}; want "
                                  f"{(b, F, t_out)}")
+        if estimate.dtype != est_dtype:
+            raise AssertionError(f"{preset}: estimate in {estimate.dtype}, "
+                                 f"want {est_dtype}")
         for name, t in (("estimate", estimate), ("output", output)):
             if not torch.isfinite(t).all():
                 raise AssertionError(f"non-finite {name} at B={b}")
-        _check_probs(probs, b, f"B={b}")
+        _check_probs(probs, b, f"{preset} B={b}")
         if not keep.all() or mask.shape != (b, 1, t_out):
             raise AssertionError(f"B={b}: keep {keep.tolist()[:8]}, mask "
                                  f"{tuple(mask.shape)}")
-        print(f"request B={b}: forward {(t1 - t0) * 1e3:.2f} ms, scoring "
-              f"against {N_CANDIDATES} candidates {(t2 - t1) * 1e3:.2f} ms "
-              f"(host clock, synchronized; {card_name})")
+        print(f"{preset} request B={b}: forward {(t1 - t0) * 1e3:.2f} ms, "
+              f"scoring against {N_CANDIDATES} candidates "
+              f"{(t2 - t1) * 1e3:.2f} ms (host clock, synchronized; "
+              f"{card_name})")
         results.append((batch, estimate, probs))
 
     # each request above was its batch size's first call (cuDNN picks its
@@ -774,81 +893,98 @@ def run_slice(device: torch.device, card_name: str):
         forward_ms.append((t1 - t0) * 1e3)
         scoring_ms.append((t2 - t1) * 1e3)
     b = len(batch.meg)
-    print(f"warm B={b} over {STEADY_RUNS} runs: forward median "
-          f"{statistics.median(forward_ms):.2f} ms, scoring median "
-          f"{statistics.median(scoring_ms):.2f} ms ({card_name})")
-    # the same estimate scored with bf16 operands (clip_conv_tpu's
-    # clip.compute_dtype) against the bank already stored in bf16
-    server.clip.compute_dtype = torch.bfloat16
-    bf16_ms = []
-    for _ in range(STEADY_RUNS):
-        t0 = time.perf_counter()
-        probs_bf16 = server.probabilities(estimate, bank_bf16)
-        torch.cuda.synchronize()
-        bf16_ms.append((time.perf_counter() - t0) * 1e3)
-    server.clip.compute_dtype = None
-    _check_probs(probs_bf16, b, f"B={b} bf16 scoring")
-    print(f"warm B={b} scoring with clip.compute_dtype bfloat16 over "
-          f"{STEADY_RUNS} runs: median {statistics.median(bf16_ms):.2f} ms; "
-          f"max|p_bf16 - p_fp32| {(probs_bf16 - probs).abs().max().item():.3e}"
-          f" ({card_name})")
+    warm = dict(forward_ms=statistics.median(forward_ms),
+                scoring_ms=statistics.median(scoring_ms))
+    print(f"{preset} warm B={b} over {STEADY_RUNS} runs: forward median "
+          f"{warm['forward_ms']:.2f} ms, scoring median "
+          f"{warm['scoring_ms']:.2f} ms ({card_name})")
+    if not recipe:
+        # the same estimate scored with bf16 operands (clip_conv_tpu's
+        # clip.compute_dtype) against the bank already stored in bf16
+        server.clip.compute_dtype = torch.bfloat16
+        bf16_ms = []
+        for _ in range(STEADY_RUNS):
+            t0 = time.perf_counter()
+            probs_bf16 = server.probabilities(estimate, bank_bf16)
+            torch.cuda.synchronize()
+            bf16_ms.append((time.perf_counter() - t0) * 1e3)
+        server.clip.compute_dtype = None
+        _check_probs(probs_bf16, b, f"B={b} bf16 scoring")
+        print(f"warm B={b} scoring with clip.compute_dtype bfloat16 over "
+              f"{STEADY_RUNS} runs: median {statistics.median(bf16_ms):.2f} "
+              f"ms; max|p_bf16 - p_fp32| "
+              f"{(probs_bf16 - probs).abs().max().item():.3e} ({card_name})")
 
     launches = {k.__name__: k.launches for k in ops.KERNELS}
-    print(f"kernel launches over the {len(REQUESTS)} requests and the warm "
-          f"runs: {launches}")
+    print(f"{preset} kernel launches over the {len(REQUESTS)} requests and "
+          f"the warm runs: {launches}; fused head calls {fused_calls[0]}")
+    _check_fused_head(fused_calls,
+                      len(REQUESTS) + STEADY_RUNS if recipe else 0,
+                      f"the {preset} serving path")
     want = dict(normalize_clamp_peak=len(REQUESTS) + STEADY_RUNS,
-                nt_matmul=len(REQUESTS) + 2 * STEADY_RUNS)
+                nt_matmul=len(REQUESTS) + STEADY_RUNS * (1 if recipe else 2),
+                conv_stats=0)
     for name, count in want.items():
         if launches[name] != count:
-            raise AssertionError(f"the serving path launched {name} "
+            raise AssertionError(f"the {preset} serving path launched {name} "
                                  f"{launches[name]} times, want {count}")
 
     # the smallest request, held against the same server on the CPU
     batch, estimate, _ = results[-1]
-    reference, _ = build_server("cpu")
+    reference, _ = build_server("cpu", preset)
+    fused_calls = count_fused_head(reference.model)
     est_ref, _, _, _ = reference.forward_batch(batch)
-    est_err = (estimate.cpu() - est_ref).abs().max().item()
-    if not torch.allclose(estimate.cpu(), est_ref, rtol=REFERENCE_TOL,
-                          atol=REFERENCE_TOL):
-        raise AssertionError(f"card vs CPU estimate: max|diff| {est_err}")
+    _check_fused_head(fused_calls, 1 if recipe else 0,
+                      f"the {preset} B=1 request on the CPU")
     cands = bank[:64]
-    probs = server.probabilities(estimate, cands).cpu()
+    probs = server.probabilities(estimate, cands)
     probs_ref = reference.probabilities(est_ref, cands.cpu())
-    probs_err = (probs - probs_ref).abs().max().item()
-    if probs_err > PROBS_TOL:
-        raise AssertionError(f"card vs CPU probabilities: max|diff| "
-                             f"{probs_err}")
-    print(f"B=1 against the CPU: estimate max|diff| {est_err:.3e} "
-          f"(rtol=atol={REFERENCE_TOL}), probabilities over 64 candidates "
-          f"max|diff| {probs_err:.3e} (atol {PROBS_TOL})")
-    return launches, requests[0]
+    print(f"{preset} B=1 against the CPU: "
+          + _against_cpu("estimate", estimate, est_ref, REFERENCE_TOL, recipe)
+          + "; over 64 candidates "
+          + _against_cpu("probabilities", probs, probs_ref, PROBS_TOL,
+                         recipe))
+    return launches, requests[0], warm
 
 
-def build_trainer(device):
-    """The clip_conv preset with simpleconv.fused_conv_bn at full width on
-    `device`, from seeds only (port-initialized weights, seeded
-    normalization arrays, the dropout generator seeded SEED). Two calls
-    give the same trainer on any device, drawing the same dropout disks."""
+def build_trainer(device, preset: str = "clip_conv",
+                  compute_fp32: bool = False):
+    """`preset` with simpleconv.fused_conv_bn at full width on `device`,
+    from seeds only (port-initialized weights, seeded normalization
+    arrays, the dropout generator seeded SEED). Two calls give the same
+    trainer on any device, drawing the same dropout disks, with the same
+    fp32 weights whatever the compute dtype. `compute_fp32` sets the
+    preset's compute dtypes (simpleconv.dtype and output_dtype,
+    clip.compute_dtype) back to fp32 and keeps the rest of it, the wire's
+    dtype included."""
     from brainmagick_tpu_torch.config import MainConfig, apply_preset
     from brainmagick_tpu_torch.train import Trainer
 
     norm_arrays, _ = seeded_arrays()
-    args = apply_preset(MainConfig(), "clip_conv")
+    args = apply_preset(MainConfig(), preset)
     args.simpleconv["fused_conv_bn"] = True
+    if compute_fp32:
+        args.simpleconv.update(dtype=None, output_dtype=None)
+        args.clip.compute_dtype = None
     return Trainer(args, C, F, N_SUBJECTS, None, None, norm_arrays, device,
                    generator=torch.Generator().manual_seed(SEED))
 
 
-def run_train(device: torch.device, card_name: str, batch) -> dict:
+def run_train(device: torch.device, card_name: str, batch,
+              preset: str = "clip_conv") -> tuple:
     """TRAIN_STEPS Adam steps of Trainer.step on one B=256 batch, then a
     B=8 step held against the same trainer on the CPU. Returns the kernel
-    launch counts over the TRAIN_STEPS steps, and conv_stats' by route."""
-    from brainmagick_tpu_torch import dataset, ops
+    launch counts over the TRAIN_STEPS steps, conv_stats' by dtype, and
+    the warm step's median and peak memory."""
+    from brainmagick_tpu_torch import ops
 
-    trainer = build_trainer(device)
+    recipe = preset == RECIPE
+    dtype = "bfloat16" if recipe else "float32"
+    trainer = build_trainer(device, preset)
     n_fused = sum(trainer.model.encoders["meg"].fused)
     if n_fused != 10:
         raise AssertionError(f"{n_fused} fused encoder layers, want 10")
+    fused_calls = count_fused_head(trainer.model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -863,60 +999,135 @@ def run_train(device: torch.device, card_name: str, batch) -> dict:
             raise AssertionError(f"keep/count {metrics}")
     launches = {k.__name__: k.launches for k in ops.KERNELS}
     routes = dict(ops.conv_stats.launches_by_route)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"train B={TRAIN_B}: losses {losses}; step times "
+    by_dtype = dict(ops.conv_stats.launches_by_dtype)
+    warm = dict(step_ms=statistics.median(step_ms[1:]),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"{preset} train B={TRAIN_B}: losses {losses}; step times "
           f"{[round(t, 2) for t in step_ms]} ms (host clock, synchronized, "
           f"host-to-device copy included; {card_name})")
-    print(f"train warm step median over steps 2-{TRAIN_STEPS}: "
-          f"{statistics.median(step_ms[1:]):.2f} ms; peak device memory "
-          f"{peak_gb:.2f} GB; kernel launches over the {TRAIN_STEPS} steps: "
-          f"{launches}, conv_stats by route {routes}")
+    print(f"{preset} train warm step median over steps 2-{TRAIN_STEPS}: "
+          f"{warm['step_ms']:.2f} ms; peak device memory "
+          f"{warm['peak_gb']:.2f} GB; kernel launches over the "
+          f"{TRAIN_STEPS} steps: {launches}, conv_stats by route {routes}, "
+          f"by type {by_dtype}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train losses {losses}: want finite, and the "
                              f"last below the first")
+    _check_fused_head(fused_calls, TRAIN_STEPS if recipe else 0,
+                      f"the {preset} train steps")
     want = dict(conv_stats=n_fused * TRAIN_STEPS,
                 normalize_clamp_peak=TRAIN_STEPS)
     for name, count in want.items():
         if launches[name] != count:
             raise AssertionError(f"train path launched {name} "
                                  f"{launches[name]} times, want {count}")
-    if routes != {"tc": n_fused * TRAIN_STEPS, "simt": 0}:
-        raise AssertionError(f"fp32 train steps ran conv_stats by route "
-                             f"{routes}, want every launch on 'tc'")
+    if routes != {"tc": n_fused * TRAIN_STEPS} \
+            or by_dtype[dtype] != n_fused * TRAIN_STEPS:
+        raise AssertionError(f"{preset} train steps ran conv_stats by route "
+                             f"{routes}, by type {by_dtype}, want every "
+                             f"launch {dtype} on 'tc'")
     del trainer, metrics
     torch.cuda.empty_cache()
 
-    # a B=8 step on the card against the same trainer on the CPU
-    small = types.SimpleNamespace(**{
-        name: getattr(batch, name)[:HELD_B] for name in dataset.ARRAY_FIELDS})
-    held = {}
-    for where in (device, "cpu"):
-        trainer = build_trainer(where)
-        loss = trainer.step(small)["loss"].item()
-        held[str(where)] = (loss, trainer.model)
-    (loss, model), (loss_ref, model_ref) = held[str(device)], held["cpu"]
+    check_held_step(device, preset, batch)
+    return launches, by_dtype, warm
+
+
+def held_step(where, preset: str, batch, compute_fp32: bool = False):
+    """One Trainer.step of build_trainer(where, preset, compute_fp32) on
+    `batch`: (loss, model). clip_conv_tpu's must run its fused head."""
+    trainer = build_trainer(where, preset, compute_fp32)
+    fused_calls = count_fused_head(trainer.model)
+    loss = trainer.step(batch)["loss"].item()
+    _check_fused_head(fused_calls, 1 if preset == RECIPE else 0,
+                      f"the {preset} B={len(batch.meg)} step on {where}")
+    return loss, trainer.model
+
+
+def _grad(model, name: str) -> torch.Tensor:
+    return model.get_parameter(name).grad.cpu()
+
+
+def _step_errors(card: tuple, cpu: tuple, bf16: bool) -> tuple:
+    """A held_step on the card against one on the CPU: the loss's relative
+    error and each HELD_LEAVES gradient's, in bf16 the gradients' and the
+    running statistics' in norm (_norm_err), in fp32 each gradient's max
+    error over its max magnitude, with the running statistics held
+    allclose at rtol = atol = STEP_TOL here. Returns (errors, note)."""
+    (loss, model), (loss_ref, model_ref) = card, cpu
     errors = {"loss": abs(loss - loss_ref) / abs(loss_ref)}
     for name in HELD_LEAVES:
-        grad = model.get_parameter(name).grad.cpu()
-        ref = model_ref.get_parameter(name).grad
-        errors[f"grad {name}"] = ((grad - ref).abs().max()
-                                  / ref.abs().max()).item()
+        grad, ref = _grad(model, name), _grad(model_ref, name)
+        errors[f"grad {name}"] = (_norm_err(grad, ref) if bf16 else
+                                  ((grad - ref).abs().max()
+                                   / ref.abs().max()).item())
     stats = dict(model_ref.named_buffers())
-    for name, buf in model.named_buffers():
-        if "running" in name and not torch.allclose(
-                buf.cpu(), stats[name], rtol=STEP_TOL, atol=STEP_TOL):
+    running = [(name, buf.cpu(), stats[name])
+               for name, buf in model.named_buffers() if "running" in name]
+    if bf16:
+        errors["running statistics"] = max(_norm_err(got, ref)
+                                           for _, got, ref in running)
+        return errors, (f"relative, of the norm; the gradients' tol "
+                        f"{RECIPE_GRAD_TOL:.2e}")
+    for name, got, ref in running:
+        if not torch.allclose(got, ref, rtol=STEP_TOL, atol=STEP_TOL):
             raise AssertionError(f"card vs CPU {name}: max|diff| "
-                                 f"{(buf.cpu() - stats[name]).abs().max()}")
-    stat_err = max((buf.cpu() - stats[name]).abs().max().item()
-                   for name, buf in model.named_buffers() if "running" in name)
-    print(f"train B={HELD_B} against the CPU: " + ", ".join(
-        f"{key} {value:.2e}" for key, value in errors.items())
-        + f" (relative; tol {STEP_TOL}); running statistics max|diff| "
-        f"{stat_err:.2e} (rtol=atol={STEP_TOL})")
+                                 f"{(got - ref).abs().max()}")
+    worst = max((g - r).abs().max().item() for _, g, r in running)
+    return errors, (f"relative; running statistics max|diff| {worst:.2e} "
+                    f"(rtol=atol={STEP_TOL})")
+
+
+def _check_errors(errors: dict, tol: float, what: str,
+                  grad_tol: float | None = None) -> None:
     for key, value in errors.items():
-        if not value <= STEP_TOL:
-            raise AssertionError(f"card vs CPU train step: {key} {value}")
-    return launches, routes
+        limit = grad_tol if grad_tol and key.startswith("grad") else tol
+        if not value <= limit:
+            raise AssertionError(f"card vs CPU {what}: {key} {value} > "
+                                 f"{limit}")
+
+
+def check_held_step(device, preset: str, batch) -> None:
+    """A B=HELD_B step on the card against the same trainer on the CPU, at
+    STEP_TOL for clip_conv; for clip_conv_tpu at RECIPE_TOL in norm (the
+    gradients at RECIPE_GRAD_TOL), with the two witnesses RECIPE_SPREAD
+    describes: the step with fp32 compute at STEP_TOL, and the card's bf16
+    gradients no farther from the CPU's fp32 ones than RECIPE_SPREAD times
+    the CPU's bf16 gradients."""
+    from brainmagick_tpu_torch import dataset
+
+    small = types.SimpleNamespace(**{
+        name: getattr(batch, name)[:HELD_B] for name in dataset.ARRAY_FIELDS})
+    recipe = preset == RECIPE
+    card, cpu = (held_step(where, preset, small) for where in (device, "cpu"))
+    errors, note = _step_errors(card, cpu, recipe)
+    tol = RECIPE_TOL if recipe else STEP_TOL
+    print(f"{preset} train B={HELD_B} against the CPU: " + ", ".join(
+        f"{key} {value:.2e}" for key, value in errors.items())
+        + f" (tol {tol:.2e}; {note})")
+    _check_errors(errors, tol, f"{preset} train step",
+                  RECIPE_GRAD_TOL if recipe else None)
+    if not recipe:
+        return
+    card32, cpu32 = (held_step(where, preset, small, compute_fp32=True)
+                     for where in (device, "cpu"))
+    errors, note = _step_errors(card32, cpu32, False)
+    print(f"{preset} train B={HELD_B} with fp32 compute against the CPU: "
+          + ", ".join(f"{key} {value:.2e}" for key, value in errors.items())
+          + f" (tol {STEP_TOL:.2e}; {note})")
+    _check_errors(errors, STEP_TOL, f"{preset} train step in fp32")
+    spread = {name: (_norm_err(_grad(card[1], name), _grad(cpu32[1], name)),
+                     _norm_err(_grad(cpu[1], name), _grad(cpu32[1], name)))
+              for name in HELD_LEAVES}
+    print(f"{preset} train B={HELD_B}, each bf16 gradient against the CPU's "
+          f"fp32 one in norm, card / CPU: " + ", ".join(
+              f"{name} {a:.2e} / {b:.2e}" for name, (a, b) in spread.items())
+          + f" (the card's within {RECIPE_SPREAD} times the CPU's)")
+    for name, (on_card, on_cpu) in spread.items():
+        if not on_card <= RECIPE_SPREAD * on_cpu:
+            raise AssertionError(
+                f"{preset} bf16 gradient {name}: {on_card} from the fp32 one "
+                f"on the card, {on_cpu} on the CPU")
 
 
 def make_eval_batches(device, args, rec_positions: np.ndarray) -> list:
@@ -1157,20 +1368,37 @@ def main() -> None:
     with exact_fp32():
         kernels = [check_normalize(device), check_nt_matmul(device),
                    check_conv_stats(device)]
-    serve_launches, batch = run_slice(device, card_name)
-    train_launches, train_routes = run_train(device, card_name, batch)
+    serve_launches, batch, serve_warm = run_slice(device, card_name)
+    train_launches, train_types, train_warm = run_train(device, card_name,
+                                                        batch)
     eval_launches = run_eval_phase(device, card_name)
+    recipe_serve, _, recipe_serve_warm = run_slice(device, card_name,
+                                                   RECIPE)
+    recipe_train, recipe_types, recipe_train_warm = run_train(
+        device, card_name, batch, RECIPE)
+    print(f"{RECIPE} against clip_conv, warm B={REQUESTS[0]} ({card_name}): "
+          f"forward {recipe_serve_warm['forward_ms']:.2f} ms against "
+          f"{serve_warm['forward_ms']:.2f}, scoring "
+          f"{recipe_serve_warm['scoring_ms']:.2f} ms against "
+          f"{serve_warm['scoring_ms']:.2f}, train step "
+          f"{recipe_train_warm['step_ms']:.2f} ms against "
+          f"{train_warm['step_ms']:.2f}, peak memory "
+          f"{recipe_train_warm['peak_gb']:.2f} GB against "
+          f"{train_warm['peak_gb']:.2f}")
     if tf32_flags() != defaults:
         raise AssertionError(f"TF32 flags {tf32_flags()} after the run, "
                              f"{defaults} before it")
     for entry in kernels:
         by_path = dict(serve=serve_launches[entry["name"]],
                        train=train_launches[entry["name"]],
-                       eval=eval_launches[entry["name"]])
+                       eval=eval_launches[entry["name"]],
+                       recipe_serve=recipe_serve[entry["name"]],
+                       recipe_train=recipe_train[entry["name"]])
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         if entry["name"] == "conv_stats":
-            entry["train_launches_by_route"] = train_routes
+            entry["train_launches_by_dtype"] = train_types
+            entry["recipe_train_launches_by_dtype"] = recipe_types
     print(card_name)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,23 @@ OPTIONS = [dict(), dict(merger=False), dict(initial_linear=0),
            dict(merger=False, initial_linear=0, subject_layers=False,
                 complex_out=False, batch_norm=False, glu=0),
            dict(groups=2, dropout_input=0.1, conv_dropout=0.1)]
+#: the clip_conv_tpu options: no bias on BatchNorm'd convs, the fused head
+#: (the same parameters) and the compute dtypes (no parameter)
+RECIPE = [dict(bn_conv_bias=False), dict(fused_head=True),
+          dict(bn_conv_bias=False, fused_head=True, gelu_exact=False,
+               dtype="bfloat16", output_dtype="bfloat16"),
+          dict(bn_conv_bias=False, batch_norm=False)]
+
+
+def _as_port_rule(rule):
+    """A JAX rule as the port's bridge reads the same leaf. The JAX
+    package's ``bn_mean_fold_bias`` folds a reference torch checkpoint's
+    conv bias into the running mean of a bias-less model; a JAX tree has
+    no such bias, so the port copies the running mean as it is."""
+    tkey, fpath, kind, coll = rule
+    if kind == "bn_mean_fold_bias":
+        return tkey.split("|")[1], fpath, "copy", coll
+    return rule
 
 
 def _pair(fused=False, **overrides):
@@ -41,19 +58,22 @@ def _pair(fused=False, **overrides):
             SimpleConv(**kw, fused_conv_bn=fused))
 
 
-@pytest.mark.parametrize("overrides", OPTIONS, ids=str)
+@pytest.mark.parametrize("overrides", OPTIONS + RECIPE, ids=str)
 def test_rules_equal_the_jax_packages(overrides):
     """Unfused, the port's own rules are the JAX package's rules for the
-    same architecture, and they name exactly the port's weights."""
+    same architecture (a bias-less BatchNorm'd conv's running mean read as
+    a copy, see ``_as_port_rule``), and they name exactly the port's
+    weights."""
     jmodel, port = _pair(**overrides)
     rules = convert.simpleconv_rules(port)
-    assert sorted(rules) == sorted(jconvert.simpleconv_rules(jmodel,
-                                                             tprefix=""))
+    want = [_as_port_rule(r)
+            for r in jconvert.simpleconv_rules(jmodel, tprefix="")]
+    assert sorted(rules) == sorted(want)
     assert {r[0] for r in rules} == {
         k for k in port.state_dict() if not k.endswith("num_batches_tracked")}
 
 
-@pytest.mark.parametrize("overrides", OPTIONS[:9], ids=str)
+@pytest.mark.parametrize("overrides", OPTIONS[:9] + RECIPE[:3], ids=str)
 def test_fused_rules_unchanged(overrides):
     """Fused, the rules above the encoder are the JAX package's for the
     unfused model, and the encoder's come from the port's own walk."""

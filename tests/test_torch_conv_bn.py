@@ -109,7 +109,7 @@ def test_conv_stats_unused_outputs(used):
 def test_conv_stats_bf16_and_errors():
     """bf16 operands: y in bf16, sums from the fp32 accumulator (the
     JAX reference's bf16 y to one bf16 rounding, rtol 2^-7; the sums to
-    1e-4). Bad shapes, widths and types raise."""
+    1e-4). Bad shapes, even widths and types raise."""
     x, w = _operands(2, 8, 4, 21, 3, seed=3)
     xb = torch.from_numpy(x).bfloat16()
     wb = torch.from_numpy(w).bfloat16()
@@ -129,12 +129,54 @@ def test_conv_stats_bf16_and_errors():
         conv_bn.conv_stats(torch.zeros(1, 2, 3), torch.zeros(4, 2, 2))
     with pytest.raises(ValueError, match=r"\[B, C, T\]"):
         conv_bn.conv_stats(torch.zeros(1, 2, 3), torch.zeros(4, 3, 3))
-    # the kernel's launcher checks what it takes before touching the card
-    with pytest.raises(ValueError, match="bf16 route.*k in"):
+    # the kernel's launcher checks what it takes before touching the card:
+    # bf16 takes any odd k on the tensor cores, and refuses an even one
+    with pytest.raises(ValueError, match="bf16 route.*odd k"):
         conv_bn._launch(torch.zeros(1, 2, 3).bfloat16(),
-                        torch.zeros(4, 2, 9).bfloat16(), 1)
+                        torch.zeros(4, 2, 8).bfloat16(), 1)
     with pytest.raises(TypeError, match="fp32 or bf16"):
         conv_bn._launch(torch.zeros(1, 2, 3).half(), torch.zeros(4, 2, 3), 1)
+
+
+@pytest.mark.parametrize("k, dilation", [(3, 2), (9, 1), (11, 4)])
+def test_conv_stats_bf16_matches_jax_interpret(k, dilation):
+    """bf16 operands at k = 9 and 11 (and 3), which the bf16 route takes
+    like any odd k: the port (its plain version on the CPU) against the
+    Pallas kernel in interpret mode on the same bf16 values. y within one
+    bf16 rounding of the JAX y (the fp32 sums before the rounding differ
+    in order only: 2^-8 of |y| + 1e-5), s and ss rtol/atol 1e-4 (fp32
+    sums of 30-odd hundred terms); dx and dw against jax.grad through the
+    custom VJP within 2^-7 of each gradient's largest entry (both round
+    dY and the result to bf16)."""
+    B, C, O, T = 2, 40, 24, 37
+    x, w = _operands(B, C, O, T, k, seed=k + dilation)
+    xb = torch.from_numpy(x).bfloat16()
+    wb = torch.from_numpy(w).bfloat16()
+    xj = jnp.asarray(_btc(xb.float().numpy())).astype(jnp.bfloat16)
+    wj = jnp.asarray(np.transpose(wb.float().numpy(), (2, 1, 0))
+                     ).astype(jnp.bfloat16)
+    want = jconv.conv_stats(xj, wj, dilation, "interpret")
+    got = conv_bn.conv_stats(xb, wb, dilation)
+    assert got[0].dtype == torch.bfloat16
+    want_y = _btc(want[0].astype(jnp.float32))
+    np.testing.assert_allclose(got[0].float().numpy(), want_y,
+                               rtol=2 ** -8, atol=1e-5)
+    for g, r in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4,
+                                   atol=1e-4)
+
+    def jloss(a, b):
+        return _loss(*jconv.conv_stats(a, b, dilation, "interpret"), jnp)
+    gx_ref, gw_ref = jax.grad(jloss, argnums=(0, 1))(xj, wj)
+    xt, wt = xb.clone().requires_grad_(), wb.clone().requires_grad_()
+    _loss(*[t.float() for t in conv_bn.conv_stats(xt, wt, dilation)],
+          torch).backward()
+    for got_grad, ref in ((xt.grad, _btc(gx_ref.astype(jnp.float32))),
+                          (wt.grad, np.transpose(np.asarray(
+                              gw_ref.astype(jnp.float32)), (2, 1, 0)))):
+        assert got_grad.dtype == torch.bfloat16
+        err = np.abs(got_grad.float().numpy() - ref).max()
+        assert err <= 2 ** -7 * np.abs(ref).max(), err
 
 
 def test_batch_mean_var_matches_jax():

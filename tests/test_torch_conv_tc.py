@@ -1,8 +1,8 @@
-"""The fp32 tensor-core route of conv_stats (csrc/conv_stats.cu,
-conv_stats_tc) on the CPU: a numpy model of its arithmetic against the
-JAX package's conv_stats, the host-side operands it is given (padded x,
-split weights), its tile planner, and the checks the wrapper makes before
-it touches the card. The kernel itself runs only on the card
+"""The tensor-core route of conv_stats (csrc/conv_stats.cu, conv_stats_tc)
+on the CPU: a numpy model of its fp32 arithmetic against the JAX package's
+conv_stats, the host-side operands it is given in fp32 and bf16 (padded x,
+split or rearranged weights), its tile planner, and the checks the wrapper
+makes before it touches the card. The kernel itself runs only on the card
 (chip_smoke.py)."""
 
 import jax.numpy as jnp
@@ -49,8 +49,9 @@ def _kernel_model(x4: np.ndarray, w_split: np.ndarray, times: int,
         x_hi = _round_tf32(xj)
         x_lo = _round_tf32(xj - x_hi)
         x_hi, x_lo = x_hi.astype(np.float64), x_lo.astype(np.float64)
-        for c0 in range(0, channels, conv_bn.TC_CHANNELS):
-            c = slice(c0, c0 + conv_bn.TC_CHANNELS)
+        block = conv_bn.TC_ROW_BYTES // 4         # a K step: 32 channels
+        for c0 in range(0, channels, block):
+            c = slice(c0, c0 + block)
             step = (np.einsum("oc,bct->bot", w_hi[j, :, c], x_lo[:, c])
                     + np.einsum("oc,bct->bot", w_lo[j, :, c], x_hi[:, c])
                     + np.einsum("oc,bct->bot", w_hi[j, :, c], x_hi[:, c]))
@@ -157,21 +158,51 @@ def test_round_tf32_rounds_half_away_from_zero():
     np.testing.assert_array_equal(got[4:8], -got[:4])
 
 
-@pytest.mark.parametrize("out_channels", [1, 5, 8, 9, 33, 64, 65, 72, 128,
-                                          129, 161, 200, 256, 320, 1024])
-def test_plan_tc_tiles_and_fits(out_channels):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(5, 3, 1), (24, 40, 3), (320, 270, 3),
+                                   (7, 33, 9)], ids=str)
+def test_weight_taps_layout(shape, dtype):
+    """weight_taps is w as [k, O, C_pad] in its own type, bit for bit: tap
+    j holds w[:, :, j] with C contiguous, zero from C to C4 (fp32) or C8
+    (bf16), the 16 bytes TMA needs; bf16's B operand is this, fp32's the
+    split of it."""
+    O, C, k = shape
+    w = torch.from_numpy(np.random.RandomState(O).randn(O, C, k)
+                         .astype(np.float32)).to(dtype)
+    got = conv_bn.weight_taps(w)
+    pad = -(-C // (16 // dtype.itemsize)) * (16 // dtype.itemsize)
+    assert got.shape == (k, O, pad) and got.dtype == dtype
+    assert got.is_contiguous()
+    assert torch.equal(got[:, :, :C], w.permute(2, 0, 1))
+    assert not got[:, :, C:].any()
+    x = torch.zeros(1, C, 5, dtype=dtype)
+    assert torch.equal(conv_bn.tc_operands(x, w)[1],
+                       got if dtype == torch.bfloat16
+                       else conv_bn.split_weights(w))
+
+
+#: output channels the planner is checked at
+PLAN_CHANNELS = [1, 5, 8, 9, 33, 64, 65, 72, 128, 129, 161, 200, 256, 320,
+                 1024]
+
+
+def _check_plan(out_channels, dtype):
     """The planner's width is a wgmma N (a multiple of 8, at most 256) from
     TC_WIDTHS, the smallest that covers the output channels or else the
     widest, its tiles cover them with less than one tile to spare, and the
     ring of at least two stages, the barriers and the epilogue's sums fit
     the 227 KB a block can have, with no room for one more stage below the
-    cap of 8. A stage holds one tap's boxes, so the plan is the same for
-    every k. At the paper's 320 channels: two tiles of 160, no padding."""
-    width, stages, smem = conv_bn.plan_tc(out_channels)
+    cap of 8. A stage holds one tap's x box and weight tiles of 128-byte
+    rows (hi and lo in fp32, one in bf16), so the plan is the same for
+    every k. At the paper's 320 channels: two tiles of 160, no padding,
+    and five stages in bf16."""
+    width, stages, smem = conv_bn.plan_tc(out_channels, dtype)
     assert width in conv_bn.TC_WIDTHS and width % 8 == 0 and width <= 256
     tiles = -(-out_channels // width)
     assert (tiles - 1) * width < out_channels <= tiles * width
-    stage = 4 * conv_bn.TC_CHANNELS * (136 + 2 * width)
+    weight_tiles = 2 if dtype == torch.float32 else 1
+    stage = 128 * (136 + weight_tiles * width)
     assert 2 <= stages <= 8
     assert smem == 1024 + stages * (stage + 16) + 64 * width
     assert smem <= 232_448
@@ -180,31 +211,59 @@ def test_plan_tc_tiles_and_fits(out_channels):
     assert width == (covering[0] if covering else conv_bn.TC_WIDTHS[-1])
     if out_channels == 320:
         assert (width, tiles) == (160, 2)
+        assert dtype == torch.float32 or stages == 5
+
+
+@pytest.mark.parametrize("out_channels", PLAN_CHANNELS)
+def test_plan_tc_tiles_and_fits(out_channels):
+    """``_check_plan`` in fp32 (the planner's default type)."""
+    _check_plan(out_channels, torch.float32)
+    assert conv_bn.plan_tc(out_channels) == conv_bn.plan_tc(out_channels,
+                                                           torch.float32)
+
+
+@pytest.mark.parametrize("out_channels", PLAN_CHANNELS)
+def test_plan_tc_bf16_tiles_and_fits(out_channels):
+    """``_check_plan`` in bf16: one weight tile a stage."""
+    _check_plan(out_channels, torch.bfloat16)
+
+
+def _check_pad(times, dtype):
+    """x is padded in T to 16 bytes (T4 fp32, T8 bf16), copied only then;
+    the weights become the type's B operand."""
+    x = torch.randn(2, 3, times).to(dtype)
+    w = torch.randn(4, 3, 3).to(dtype)
+    x_pad, w_op = conv_bn.tc_operands(x, w)
+    multiple = 16 // dtype.itemsize
+    assert x_pad.shape == (2, 3, times + (-times % multiple))
+    assert x_pad.dtype == w_op.dtype == dtype
+    assert torch.equal(x_pad[:, :, :times], x)
+    assert not x_pad[:, :, times:].any()
+    assert (x_pad.data_ptr() == x.data_ptr()) == (times % multiple == 0)
+    assert w_op.shape == ((6, 4, 4) if dtype == torch.float32 else (3, 4, 8))
 
 
 @pytest.mark.parametrize("times", [1, 4, 37, 343, 344])
 def test_tc_operands_pad_time_only_when_needed(times):
-    x = torch.randn(2, 3, times)
-    w = torch.randn(4, 3, 3)
-    x4, w_split = conv_bn.tc_operands(x, w)
-    assert x4.shape == (2, 3, times + (-times % 4))
-    assert torch.equal(x4[:, :, :times], x) and not x4[:, :, times:].any()
-    assert (x4.data_ptr() == x.data_ptr()) == (times % 4 == 0)
-    assert w_split.shape == (6, 4, 4)
+    _check_pad(times, torch.float32)
+
+
+@pytest.mark.parametrize("times", [1, 4, 8, 37, 343, 344])
+def test_tc_operands_bf16_pad_time_only_when_needed(times):
+    _check_pad(times, torch.bfloat16)
 
 
 def test_launch_refuses_what_the_kernels_do_not_take():
     """The wrapper raises before it builds or touches anything: other
-    types, mixed types, non-contiguous operands, widths the dtype's route
-    does not take (bf16 outside {1, 3, 5, 7}, an even fp32 width) and
-    dilation < 1."""
+    types, mixed types, non-contiguous operands, an even width in either
+    type, and dilation < 1."""
     x, w = torch.zeros(1, 2, 5), torch.zeros(4, 2, 3)
     cases = [((x.half(), w.half(), 1), TypeError, "fp32 or bf16"),
              ((x, w.bfloat16(), 1), TypeError, "one type"),
              ((x.transpose(1, 2).contiguous().transpose(1, 2), w, 1),
               ValueError, "contiguous"),
-             ((x.bfloat16(), torch.zeros(4, 2, 9).bfloat16(), 1),
-              ValueError, r"bf16 route \(SIMT\) takes k in"),
+             ((x.bfloat16(), torch.zeros(4, 2, 2).bfloat16(), 1),
+              ValueError, r"bf16 route \(tensor cores\) takes an odd k"),
              ((x, torch.zeros(4, 2, 2), 1), ValueError,
               r"fp32 route \(tensor cores\) takes an odd k"),
              ((x, w, 0), ValueError, "dilation")]
@@ -214,31 +273,48 @@ def test_launch_refuses_what_the_kernels_do_not_take():
 
 
 def test_check_route_by_dtype():
-    """fp32 goes to the tensor cores at any odd k, 9 and 11 included; bf16
-    to the SIMT kernel, which refuses a width it is not built for and
-    says which route refused it."""
-    for k in (1, 3, 9, 11, 31):
-        assert conv_bn._check_route(torch.float32, k) == "tc"
-    for k in (1, 3, 5, 7):
-        assert conv_bn._check_route(torch.bfloat16, k) == "simt"
-    with pytest.raises(ValueError, match=r"bf16 route \(SIMT\).*got 9"):
-        conv_bn._check_route(torch.bfloat16, 9)
-    for k in (0, 2, -1):
-        with pytest.raises(ValueError, match="fp32 route"):
-            conv_bn._check_route(torch.float32, k)
+    """fp32 and bf16 both go to the tensor cores ("tc") at any odd k, 9
+    and 11 included, and an even or non-positive width is refused with the
+    type's route named."""
+    for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for k in (1, 3, 9, 11, 31):
+            assert conv_bn._check_route(dtype, k) == "tc"
+        for k in (0, 2, -1):
+            with pytest.raises(ValueError, match=f"{name} route"):
+                conv_bn._check_route(dtype, k)
     with pytest.raises(TypeError, match="fp32 or bf16"):
         conv_bn._check_route(torch.float16, 3)
 
 
 def test_route_counts_reset_with_the_launch_counts():
     conv_bn.conv_stats.launches_by_route["tc"] += 3
+    conv_bn.conv_stats.launches_by_dtype["bfloat16"] += 3
     conv_bn.conv_stats.launches += 3
     ops.reset_launch_counts()
     assert conv_bn.conv_stats.launches == 0
-    assert conv_bn.conv_stats.launches_by_route == {"tc": 0, "simt": 0}
+    assert conv_bn.conv_stats.launches_by_route == {"tc": 0}
+    assert conv_bn.conv_stats.launches_by_dtype == {"float32": 0,
+                                                    "bfloat16": 0}
     # the CPU path runs the plain version and counts nothing
     conv_bn.conv_stats(torch.randn(1, 2, 5), torch.randn(3, 2, 3))
-    assert conv_bn.conv_stats.launches_by_route == {"tc": 0, "simt": 0}
+    conv_bn.conv_stats(torch.randn(1, 2, 5).bfloat16(),
+                       torch.randn(3, 2, 9).bfloat16())
+    assert conv_bn.conv_stats.launches_by_route == {"tc": 0}
+    assert conv_bn.conv_stats.launches_by_dtype == {"float32": 0,
+                                                    "bfloat16": 0}
+
+
+def test_kernel_signature_takes_both_types():
+    """bm_conv_stats_tc is the one C entry of conv_stats: it takes the
+    type as an int beside the operands, and the SIMT entry is gone."""
+    argtypes, restype = _build.SIGNATURES["bm_conv_stats_tc"]
+    assert len(argtypes) == 17 and argtypes[2] is _build.ctypes.c_int
+    assert restype is _build.ctypes.c_int
+    assert not any("bf16" in name for name in _build.SIGNATURES
+                   if name.startswith("bm_conv_stats"))
+    source = (_build.CSRC_DIR / "conv_stats.cu").read_text()
+    assert "conv_stats_simt" not in source
+    assert "bm_conv_stats_bf16" not in source
 
 
 def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):

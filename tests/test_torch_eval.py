@@ -24,6 +24,7 @@ from brainmagick_tpu.dataset import ConcatDataset
 from brainmagick_tpu.env import env
 from brainmagick_tpu_torch import eval as port_eval
 from brainmagick_tpu_torch import losses, wer
+from brainmagick_tpu_torch.precision import torch_dtype
 from brainmagick_tpu_torch.serve import Server
 
 #: preds and trues from the two forwards (the serving test's tolerance)
@@ -309,7 +310,7 @@ def test_candidate_blocks_match_jax(compute_dtype):
     """The port's blocks are the JAX blocks without the tail's zero rows."""
     pool = np.random.RandomState(3).randn(5, 3, 4).astype(np.float32)
     want = bm_losses.candidate_blocks(pool, compute_dtype, block_size=2)
-    got = losses.candidate_blocks(pool, losses._torch_dtype(compute_dtype),
+    got = losses.candidate_blocks(pool, torch_dtype(compute_dtype),
                                   block_size=2)
     assert [len(b) for b in got] == [2, 2, 1]
     for g, w in zip(got, want):

@@ -279,10 +279,9 @@ def test_bridge_consumes_every_leaf():
 
 @pytest.mark.parametrize("option", [
     dict(dual_path=1), dict(n_fft=4), dict(conv_impl="dots"),
-    dict(fused_head=True),
-    dict(bn_conv_bias=False), dict(rewrite=True), dict(post_skip=True),
+    dict(rewrite=True), dict(post_skip=True),
     dict(scale=0.1), dict(concatenate=True), dict(subject_dim=4),
-    dict(merger_per_subject=True), dict(dtype="bfloat16")], ids=str)
+    dict(merger_per_subject=True), dict(output_layout="btc")], ids=str)
 def test_unsupported_options_raise(option):
     kw = {**TINY, **option}
     hidden = kw.pop("hidden")
@@ -290,6 +289,45 @@ def test_unsupported_options_raise(option):
     with pytest.raises(NotImplementedError, match=name):
         SimpleConv(in_channels={"meg": 20}, out_channels=8,
                    hidden={"meg": hidden}, n_subjects=2, **kw)
+
+
+@pytest.mark.parametrize("option", [
+    dict(fused_head=True), dict(bn_conv_bias=False),
+    dict(dtype="bfloat16"), dict(output_dtype="bfloat16")], ids=str)
+def test_recipe_options_build_and_run(option):
+    """The clip_conv_tpu options that raised before the recipe was ported
+    build, keep the parameter tree of their model (bn_conv_bias=False
+    only drops the BatchNorm'd convs' biases), and run in eval and train
+    mode, the per-recording arrays given, to a finite estimate in
+    output_dtype (fp32 when None)."""
+    kw = {**TINY, **option}
+    hidden = kw.pop("hidden")
+    make = functools.partial(SimpleConv, in_channels={"meg": 20},
+                             out_channels=8, hidden={"meg": hidden},
+                             n_subjects=2)
+    model, plain = make(**kw), make(**{k: v for k, v in kw.items()
+                                       if k not in option})
+    keys, plain_keys = set(model.state_dict()), set(plain.state_dict())
+    if "bn_conv_bias" in option:
+        dropped = plain_keys - keys
+        assert dropped and keys < plain_keys
+        assert all(k.startswith("encoders.meg.sequence.")
+                   and k.endswith(".0.bias") for k in dropped)
+    else:
+        assert keys == plain_keys
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    meg, rec_positions, rec_index, subjects = _tiny_inputs()
+    kwargs = dict(pos_emb=common.fourier_emb(_t(rec_positions), 32),
+                  rec_index=_t(rec_index), rec_positions=_t(rec_positions),
+                  rec_subjects=_t(np.array([0, 1])))
+    want = (torch.bfloat16 if option.get("output_dtype") else torch.float32)
+    for train in (False, True):
+        out = model.train(train)(
+            {"meg": _t(meg)}, _t(subjects).long(),
+            _t(rec_positions[rec_index]),
+            generator=torch.Generator().manual_seed(0), **kwargs)
+        assert out.shape == (3, 8, 40) and out.dtype == want
+        assert torch.isfinite(out.float()).all()
 
 
 def test_build_model_seeded_and_eval_only():

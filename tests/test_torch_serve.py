@@ -157,6 +157,46 @@ def test_to_device_dtypes():
     assert arrays["recording_index"].tolist() == [1, 0]
 
 
+def test_to_device_transfer_dtype():
+    """transfer_dtype='bfloat16' (parallel.transfer_dtype) casts meg and
+    features on the host before the copy, as SegmentBatch.to_device does,
+    and leaves the other arrays alone; a meg already in bf16 is the same
+    memory (no copy for the cast); an unknown name raises."""
+    import ml_dtypes
+
+    from brainmagick_tpu.dataset import SegmentBatch as JaxBatch
+
+    rng = np.random.RandomState(1)
+    fields = dict(
+        meg=rng.randn(2, 3, 4).astype(np.float32),
+        features=rng.randn(2, 5, 4).astype(np.float32),
+        features_mask=np.ones((2, 1, 4), bool),
+        subject_index=np.array([0, 1], np.int32),
+        recording_index=np.array([1, 0], np.int32),
+        positions=rng.rand(2, 3, 2).astype(np.float32))
+    arrays = dataset.to_device(types.SimpleNamespace(**fields), "cpu",
+                               "bfloat16")
+    want = JaxBatch(**fields).to_device("bfloat16")
+    for name in dataset.ARRAY_FIELDS:
+        np.testing.assert_array_equal(
+            arrays[name].float().numpy() if arrays[name].is_floating_point()
+            else arrays[name].numpy(),
+            np.asarray(want[name]).astype(
+                np.float32 if arrays[name].is_floating_point()
+                else np.asarray(want[name]).dtype))
+    assert arrays["meg"].dtype == arrays["features"].dtype == torch.bfloat16
+    assert arrays["positions"].dtype == torch.float32
+    assert arrays["features_mask"].dtype == torch.bool
+    wire = fields["meg"].astype(ml_dtypes.bfloat16)
+    same = dataset.to_device(types.SimpleNamespace(**{**fields, "meg": wire}),
+                             "cpu", "bfloat16")
+    assert same["meg"].data_ptr() == wire.ctypes.data
+    assert dataset.to_device(types.SimpleNamespace(**fields), "cpu")[
+        "meg"].dtype == torch.float32
+    with pytest.raises(ValueError, match="bfloat17"):
+        dataset.to_device(types.SimpleNamespace(**fields), "cpu", "bfloat17")
+
+
 def _fields(obj, prefix=""):
     out = {}
     for f in dataclasses.fields(obj):
@@ -168,10 +208,11 @@ def _fields(obj, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("preset", [None, "clip_conv"])
+@pytest.mark.parametrize("preset", [None, "clip_conv", "clip_conv_tpu"])
 def test_config_copy_equals_original(preset):
     """Every field of the port's config copy, by default and under the
-    clip_conv preset, equals the JAX package's MainConfig."""
+    clip_conv and clip_conv_tpu presets, equals the JAX package's
+    MainConfig."""
     port, original = config.MainConfig(), jconfig.MainConfig()
     if preset:
         config.apply_preset(port, preset)
@@ -214,7 +255,7 @@ def test_import_hygiene_and_copied_constants():
         INVALID_POSITION as PORT_INVALID
     assert PORT_INVALID == INVALID_POSITION
     assert dataset.ARRAY_FIELDS == SegmentBatch.ARRAY_FIELDS
-    for preset in (None, "clip_conv"):
+    for preset in (None, "clip_conv", "clip_conv_tpu"):
         port, original = config.MainConfig(), jconfig.MainConfig()
         if preset:
             config.apply_preset(port, preset)

@@ -2,7 +2,8 @@
 numpy inputs and bridged weights: the merger's dropout disk and usage
 penalty, the CLIP and masked losses, the weight bridge of fused_conv_bn
 models, Adam, and three whole training steps of Trainer against the JAX
-solver's jitted step, with fused_conv_bn off and on."""
+solver's jitted step, with fused_conv_bn off and on, and with the
+clip_conv_tpu recipe's structural options in fp32."""
 
 import jax
 import jax.numpy as jnp
@@ -263,19 +264,28 @@ def test_adam_matches_optax_and_model_hash():
     assert model_hash(a) != model_hash(b)
 
 
+#: the solvers' model options beyond tiny_args: fused_conv_bn off and on,
+#: and the clip_conv_tpu recipe's structural options (no conv bias before
+#: BatchNorm, the fused head with per-recording subjects, tanh GELU) in
+#: fp32 on the port's fused train path
+VARIANTS = {"unfused": dict(), "fused": dict(fused_conv_bn=True),
+            "recipe": dict(fused_conv_bn=True, bn_conv_bias=False,
+                           fused_head=True, gelu_exact=False)}
+
+
 @pytest.fixture(scope="module")
 def jax_solvers(tmp_path_factory):
     """Untrained tiny_args JAX solvers with an Adam optimizer and no
-    merger dropout, with fused_conv_bn off and on."""
+    merger dropout, one per VARIANTS entry."""
     tmp = tmp_path_factory.mktemp("train")
     cache = tmp / "fake_cache"
     cache.mkdir()
     solvers = {}
     with env.temporary(cache=cache):
-        for fused in (False, True):
-            args = tiny_args(cache, tmp / f"fused_{fused}")
-            args.simpleconv.update(fused_conv_bn=fused, merger_dropout=0.)
-            solvers[fused] = bm_train.get_solver(args, training=True)
+        for name, options in VARIANTS.items():
+            args = tiny_args(cache, tmp / name)
+            args.simpleconv.update(merger_dropout=0., **options)
+            solvers[name] = bm_train.get_solver(args, training=True)
         yield solvers
 
 
@@ -321,8 +331,8 @@ def _noise_driven(model, tkey):
     return mask
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
-def test_train_steps_match_jax_solver(jax_solvers, fused):
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_train_steps_match_jax_solver(jax_solvers, variant):
     """Three Trainer.steps against the JAX solver's jitted
     _build_step(True, False, False) on the same batches:
 
@@ -337,9 +347,13 @@ def test_train_steps_match_jax_solver(jax_solvers, fused):
       1e-5 fused and, unfused, 2 STEPS lr (1 - 0.99^STEPS): the running
       mean takes in that share of the noise-driven conv bias's drift.
     """
-    solver = jax_solvers[fused]
+    solver = jax_solvers[variant]
+    fused = variant != "unfused"
     trainer = _trainer(solver)
     assert trainer.model.encoders["meg"].fused == [fused] * 2
+    # the recipe's fused head engages: the solver hands it rec_subjects
+    assert ("rec_subjects" in trainer.solver.norm_arrays) \
+        and trainer.model.fused_head == (variant == "recipe")
     step = solver._build_step(True, False, False)
     state = jax.tree_util.tree_map(jnp.array, solver.state)
     rng = jax.random.PRNGKey(0)
@@ -385,11 +399,11 @@ def test_train_steps_match_jax_solver(jax_solvers, fused):
                                        err_msg=tkey)
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
-def test_eval_step_matches_jax_solver(jax_solvers, fused):
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_eval_step_matches_jax_solver(jax_solvers, variant):
     """train=False: the eval-mode loss with no update (rtol 1e-5), and the
     weights untouched."""
-    solver = jax_solvers[fused]
+    solver = jax_solvers[variant]
     trainer = _trainer(solver)
     before = model_hash(trainer.model)
     batch = _batches(solver)[0]
