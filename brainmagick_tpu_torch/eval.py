@@ -92,7 +92,11 @@ def check_index(args: tp.Any) -> int:
     return int((-tmin) * args.dset.sample_rate) + 2
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """`t` as a host numpy array; bf16, which numpy lacks, upcast to fp32
+    (exactly: the scoring casts back to its compute dtype)."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
     return t.cpu().numpy()
 
 
@@ -111,7 +115,7 @@ def load_test_data(server: tp.Any, batches: tp.Iterable[tp.Any]
             batch, args.dset.sample_rate)
         preds, trues, _, keep_t = server.forward_batch(
             batch, getattr(batch, "pad_weight", None))
-        keep = _host(keep_t)
+        keep = host_array(keep_t)
         if not keep.any():
             continue
         if getattr(batch, "word_hash", None) is not None:
@@ -141,9 +145,9 @@ def load_test_data(server: tp.Any, batches: tp.Iterable[tp.Any]
                 mask.append(True)
         mask = np.array(mask, dtype=bool)
 
-        outs["preds"].append(_host(preds[keep_t]))
+        outs["preds"].append(host_array(preds[keep_t]))
         outs["segment_hashes"].append(segment_hashes)
-        outs["trues"].append(_host(
+        outs["trues"].append(host_array(
             trues[keep_t][torch.from_numpy(mask).to(trues.device)]))
         outs["trues_segment_hashes"].append(segment_hashes[mask])
         outs["word_hashes"].append(wh.astype(np.int64))

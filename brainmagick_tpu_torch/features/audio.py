@@ -1,0 +1,179 @@
+"""Audio features: the log-mel spectrogram of the sound events.
+
+Port of ``MelSpectrum`` of ``brainmagick_tpu/features/audio.py``, with its
+helpers (``_extract_wav_part``, ``_interp_nearest``, ``_mel_filterbank``).
+``melspectrogram`` frames the waveform in numpy and runs the FFT
+(``torch.fft.rfft``) and the filterbank product in fp32 torch on the host:
+a feature is painted once per recording into a track that the datasets
+keep as a host memmap, as the JAX package does. ``Pitch`` and the wav2vec
+2.0 features are not ported: they raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import math
+import typing as tp
+import wave
+from functools import lru_cache
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import events
+from ..cache import Cache
+from ..ops.dsp import resample
+from ..utils import Frequency
+from . import base
+
+
+def _extract_wav_part(filepath: tp.Union[Path, str], onset: float,
+                      offset: float) -> tp.Tuple[np.ndarray, Frequency]:
+    """[channels, T] float32 of a PCM wav between `onset` and `offset`
+    (seconds)."""
+    with wave.open(str(filepath), "rb") as f:
+        sr = Frequency(f.getframerate())
+        n_channels = f.getnchannels()
+        sampwidth = f.getsampwidth()
+        start = sr.to_ind(onset)
+        n_frames = sr.to_ind(offset - onset)
+        f.setpos(min(start, f.getnframes()))
+        n_frames = min(n_frames, f.getnframes() - start)
+        raw = f.readframes(max(n_frames, 0))
+    dtype = {1: np.uint8, 2: np.int16, 4: np.int32}[sampwidth]
+    data = np.frombuffer(raw, dtype=dtype).astype(np.float32)
+    if sampwidth == 1:
+        data = (data - 128.0) / 128.0
+    else:
+        data = data / float(2 ** (8 * sampwidth - 1))
+    wav = data.reshape(-1, n_channels).T
+    delta = abs(wav.shape[-1] / sr - offset + onset)
+    assert delta <= 0.1, (delta, filepath, onset, offset)
+    return wav, sr
+
+
+def _interp_nearest(x: np.ndarray, size: int) -> np.ndarray:
+    """Nearest-neighbour resize along the last axis."""
+    length = x.shape[-1]
+    idx = (np.arange(size) * length // size).clip(0, length - 1)
+    return x[..., idx]
+
+
+def _hz_to_mel(f: np.ndarray) -> np.ndarray:
+    """HTK mel scale."""
+    return 2595.0 * np.log10(1.0 + f / 700.0)
+
+
+def _mel_to_hz(m: np.ndarray) -> np.ndarray:
+    return 700.0 * (10.0 ** (m / 2595.0) - 1.0)
+
+
+@lru_cache(maxsize=None)
+def _mel_filterbank(sr: int, n_fft: int, n_mels: int) -> np.ndarray:
+    """[n_freqs, n_mels] triangular filterbank on the HTK scale, without
+    normalization."""
+    n_freqs = n_fft // 2 + 1
+    freqs = np.linspace(0, sr / 2, n_freqs)
+    mel_pts = np.linspace(_hz_to_mel(np.array(0.0)),
+                          _hz_to_mel(np.array(sr / 2.0)), n_mels + 2)
+    f_pts = _mel_to_hz(mel_pts)
+    slopes = f_pts[None, :] - freqs[:, None]          # [n_freqs, n_mels+2]
+    down = -slopes[:, :-2] / np.maximum(f_pts[1:-1] - f_pts[:-2], 1e-8)
+    up = slopes[:, 2:] / np.maximum(f_pts[2:] - f_pts[1:-1], 1e-8)
+    fb = np.maximum(0.0, np.minimum(down, up))
+    return fb.astype(np.float32)
+
+
+def melspectrogram(wav: np.ndarray, sr: int, n_fft: int, hop: int,
+                   n_mels: int, normalized: bool = True) -> np.ndarray:
+    """[T] waveform -> [n_mels, 1 + T // hop] power mel spectrogram:
+    centred hann frames with reflect padding, the HTK mel scale, power 2.
+    fp32 on the host."""
+    pad = n_fft // 2
+    x = np.pad(wav, (pad, pad), mode="reflect")
+    n_frames = 1 + (len(x) - n_fft) // hop
+    idx = np.arange(n_frames)[:, None] * hop + np.arange(n_fft)[None, :]
+    frames = torch.from_numpy(np.ascontiguousarray(x[idx], dtype=np.float32))
+    window = torch.from_numpy(np.hanning(n_fft + 1)[:-1].astype(np.float32))
+    power = torch.fft.rfft(frames * window, dim=-1).abs() ** 2
+    if normalized:
+        power = power / torch.sum(window ** 2)
+    fb = torch.from_numpy(_mel_filterbank(sr, n_fft, n_mels))
+    return (power @ fb).T.numpy()
+
+
+class MelSpectrum(base.Feature):
+    """Log-mel spectrogram of the sound event, nearest-resampled to the
+    feature rate; cached per (file, start, stop)."""
+
+    event_kind = "sound"
+
+    def __init__(self, sample_rate: Frequency, n_mels: int = 40,
+                 n_fft: int = 512, in_sampling: int = 16_000,
+                 normalized: bool = True, use_log_scale: bool = True,
+                 log_scale_eps: float = 1e-5, norm_audio: bool = True) -> None:
+        super().__init__(sample_rate)
+        self.dimension = n_mels
+        self.cache = Cache(self.__class__.__name__, dict(
+            n_mels=n_mels, n_fft=n_fft, in_sampling=in_sampling,
+            normalized=normalized, use_log_scale=use_log_scale,
+            log_scale_eps=log_scale_eps, norm_audio=norm_audio))
+        self.in_sampling = in_sampling
+        self.n_mels = n_mels
+        self.n_fft = n_fft
+        self.hop_length = n_fft // 4
+        self.use_log_scale = use_log_scale
+        self.log_scale_eps = log_scale_eps
+        self.normalized = normalized
+        self.norm_audio = norm_audio
+        if use_log_scale:
+            self.default_value = math.log10(log_scale_eps)
+
+    def _compute(self, filepath: str, start: float, stop: float
+                 ) -> np.ndarray:
+        wav, sr = _extract_wav_part(filepath, start, stop)
+        wav = wav.mean(axis=0)
+        if self.norm_audio:
+            wav = (wav - wav.mean()) / (1e-8 + wav.std())
+        wav = resample(torch.from_numpy(np.ascontiguousarray(wav)), int(sr),
+                       self.in_sampling).numpy()
+        mel = melspectrogram(wav, self.in_sampling, self.n_fft,
+                             self.hop_length, self.n_mels, self.normalized)
+        if self.use_log_scale:
+            mel = np.log10(mel + self.log_scale_eps)
+        return mel.astype(np.float32)
+
+    def get(self, event: events.Sound) -> np.ndarray:
+        mel = self.cache.get(self._compute, filepath=str(event.filepath),
+                             start=event.offset,
+                             stop=event.offset + event.duration)
+        n = self.sample_rate.to_ind(event.stop - event.start)
+        return _interp_nearest(np.asarray(mel), n)
+
+
+class _NotPorted(base.Feature):
+    """A feature of the JAX package that the port does not have yet."""
+
+    event_kind = "sound"
+    waits_for = ""
+
+    def __init__(self, sample_rate: Frequency, **kwargs: tp.Any) -> None:
+        raise NotImplementedError(
+            f"{self.name} is not ported to brainmagick_tpu_torch: it waits "
+            f"for {self.waits_for}")
+
+
+class Pitch(_NotPorted):
+    waits_for = "a port of the YIN pitch tracker"
+
+
+class Wav2VecTransformer(_NotPorted):
+    waits_for = "a wav2vec 2.0 model and its configuration in the repository"
+
+
+class Wav2VecConvolution(_NotPorted):
+    waits_for = "a wav2vec 2.0 model and its configuration in the repository"
+
+
+class Wav2VecChunk(_NotPorted):
+    waits_for = "a wav2vec 2.0 model and its configuration in the repository"

@@ -21,11 +21,9 @@ from __future__ import annotations
 
 import typing as tp
 
-import numpy as np
 import torch
 
 from .convert import load_jax_params
-from .dataset import to_device
 from .losses import retrieval_scores
 from .models import build_model
 from .precision import exact_fp32
@@ -57,27 +55,16 @@ class Server:
             self.model, norm_arrays, self.device))
         self.clip = self.solver.clip_loss
 
-    @torch.no_grad()
-    @exact_fp32()
     def forward_batch(self, batch: tp.Any,
                       pad_weight: tp.Optional[tp.Any] = None):
         """A batch with the ``dataset.ARRAY_FIELDS`` arrays -> (estimate
         [B, F, T'] in ``simpleconv.output_dtype``, output [B, F, T'], mask
-        [B, 1, T'], keep [B] bool), tensors on the server's device; meg and
-        features cross in ``parallel.transfer_dtype``. `pad_weight` [B]
-        (ones when None) is 0 for the rows a loader adds to fill its last
-        batch; those rows are not kept."""
-        arrays = to_device(batch, self.device,
-                           self.args.parallel.transfer_dtype)
-        if pad_weight is None:
-            pad_weight = torch.ones(arrays["meg"].shape[0],
-                                    dtype=torch.float32, device=self.device)
-        else:
-            pad_weight = _on(np.asarray(pad_weight, dtype=np.float32),
-                             self.device)
-        estimate, output, mask, keep, _ = self.solver._forward(arrays,
-                                                               pad_weight)
-        return estimate, output, mask, keep > 0.5
+        [B, 1, T'], keep [B] bool), tensors on the server's device
+        (``Solver.forward_batch``); meg and features cross in
+        ``parallel.transfer_dtype``. `pad_weight` [B] (ones when None) is 0
+        for the rows a loader adds to fill its last batch; those rows are
+        not kept."""
+        return self.solver.forward_batch(batch, pad_weight)
 
     @torch.no_grad()
     @exact_fp32()

@@ -1,28 +1,45 @@
-"""The per-batch engine: normalize -> task wiring -> model -> loss, and
-the training step.
+"""The solver: normalize -> task wiring -> model -> loss, the training
+step, and the epoch loop over datasets.
 
-Port of ``Solver._offsets``, ``Solver._task_wiring``, ``Solver._forward``,
-``Solver._loss_value``, ``Solver._loss_and_aux`` and the single-device
-step of ``Solver._build_step`` (``brainmagick_tpu/solver.py``), without
-the datasets, the epoch loop, sampled negatives or meshes. The
-normalization arrays keep the JAX solver's ``norm_arrays`` layout:
-``meg_center``/``meg_scale`` [R, C], ``feat_center``/``feat_scale`` [F],
-``pos_emb`` [R, C, pos_dim], ``rec_positions`` [R, C, 2] and
-``rec_subjects`` [R], as tensors on the model's device
-(``prepare_norm_arrays``).
+Port of ``brainmagick_tpu/solver.py`` on one device, without sampled
+negatives or meshes. ``Solver(args, model, norm_arrays, ...)`` is the
+per-batch engine that ``serve.Server`` and ``train.Trainer`` hold: its
+normalization arrays keep the JAX solver's ``norm_arrays`` layout
+(``meg_center``/``meg_scale`` [R, C], ``feat_center``/``feat_scale``
+[F], ``pos_emb`` [R, C, pos_dim], ``rec_positions`` [R, C, 2],
+``rec_subjects`` [R]) as tensors on the model's device
+(``prepare_norm_arrays``). ``Solver.from_datasets`` builds the same
+engine from the datasets, as the JAX constructor does: the scaler fitted
+on the train split (through the disk cache), the normalization arrays
+exported from it, the loaders, and a restore from the XP folder's
+checkpoint; ``train`` then runs the epochs with validation, early
+stopping, the test stage and a checkpoint after each epoch.
 """
 
 from __future__ import annotations
 
+import json
+import logging
+import time
 import typing as tp
 
 import numpy as np
 import torch
 
+from .cache import Cache, tagged
+from .dataset import to_device
+from .loader import Loader
+from .logging_utils import MetricSinks
 from .losses import ClipLoss, masked_l1, masked_l2
 from .models.common import fourier_emb
+from .norm import BatchScaler
+from .ops.dsp import DSP_VERSION, lowpass_filter
 from .ops.norm import INPUT_TYPES, normalize_clamp_peak
 from .precision import exact_fp32
+from .studies.api import INVALID_POSITION
+from .utils import write_and_rename
+
+logger = logging.getLogger(__name__)
 
 
 def _on(value: tp.Any, device: torch.device) -> torch.Tensor:
@@ -60,8 +77,6 @@ class Solver:
                  generator: tp.Optional[torch.Generator] = None) -> None:
         if args.task.type != "decode":
             raise NotImplementedError(f"task.type={args.task.type!r}")
-        if args.task.lowpass:
-            raise NotImplementedError(f"task.lowpass={args.task.lowpass!r}")
         if args.feature_model_name is not None:
             raise NotImplementedError(
                 f"feature_model_name={args.feature_model_name!r}")
@@ -75,9 +90,12 @@ class Solver:
             raise NotImplementedError(f"optim.svd={optim.svd!r}")
         self.args = args
         self.model = model
+        self.device = next(model.parameters()).device
         self.norm_arrays = dict(norm_arrays)
         self.optimizer = optimizer
         self.generator = generator
+        #: the epoch loop's datasets (``from_datasets``)
+        self.datasets: tp.Any = None
         self.clip_loss: tp.Optional[ClipLoss] = None
         if optim.loss == "clip":
             c = args.clip
@@ -95,15 +113,20 @@ class Solver:
 
     def _task_wiring(self, meg: torch.Tensor, features: torch.Tensor,
                      features_mask: torch.Tensor):
-        """MEG offset and decode-task input/output selection.
+        """MEG offset, ``task.lowpass`` (a zero-phase FIR of the MEG, 5
+        zero crossings a side) and decode-task input/output selection.
         Returns (inputs dict, output, mask)."""
-        if not self.args.task.mask_loss:
+        args = self.args
+        if not args.task.mask_loss:
             features_mask = torch.ones_like(features_mask)
         off_meg, off_feat = self._offsets()
         if off_meg:
             meg = meg[..., off_meg:]
             features = features[..., :-off_feat]
             features_mask = features_mask[..., :-off_feat]
+        if args.task.lowpass:
+            meg = lowpass_filter(meg, args.task.lowpass
+                                 / args.dset.sample_rate, zeros=5)
         return dict(meg=meg), features, features_mask
 
     def _forward(self, arrays: tp.Mapping[str, torch.Tensor],
@@ -204,3 +227,341 @@ class Solver:
             with torch.no_grad():
                 loss, keep = self._loss_and_aux(arrays, pad_weight, False)
         return {"loss": loss, "keep": keep.sum(), "count": pad_weight.sum()}
+
+    # -- the epoch loop ------------------------------------------------------
+
+    @classmethod
+    def from_datasets(cls, args: tp.Any, datasets: tp.Any,
+                      model: torch.nn.Module,
+                      optimizer: tp.Optional[torch.optim.Optimizer] = None,
+                      generator: tp.Optional[torch.Generator] = None
+                      ) -> "Solver":
+        """The solver of ``train.get_solver``: the scaler fitted on the
+        train split's recordings (or read from the disk cache), the
+        normalization arrays exported from it for every recording of the
+        three splits, the loaders, and the state of the XP folder's
+        checkpoint when there is one (else of ``continue_sig``'s). Without
+        `optimizer` the model keeps the best state found."""
+        timings: tp.Dict[str, float] = {}
+        t0 = time.perf_counter()
+        used_features = datasets.train.datasets[0].features
+        # the scaler is fitted on DSP-derived features: a numerics change
+        # must refit it
+        scaler_cache = Cache("scaler", (args.dset, args.norm, DSP_VERSION))
+
+        def fit() -> BatchScaler:
+            logger.info("Fitting scaler. Dataset size=%d samples.",
+                        len(datasets.train))
+            sc = args.norm.scaler
+            return BatchScaler(
+                used_features,
+                n_samples_per_recording=sc.n_samples_per_recording,
+                per_channel=sc.per_channel,
+                n_samples_features=sc.n_samples_features,
+            ).fit(datasets.train.datasets)
+
+        scaler = scaler_cache.get(fit)
+        timings["scaler"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        device = next(model.parameters()).device
+        norm_arrays = _norm_arrays(scaler, datasets, model)
+        solver = cls(args, model,
+                     prepare_norm_arrays(model, norm_arrays, device),
+                     optimizer=optimizer, generator=generator)
+        timings["norm_arrays"] = time.perf_counter() - t0
+        solver.build_timings = timings
+        solver.datasets = datasets
+        solver.scaler = scaler
+        solver.used_features = used_features
+        shuffled = {"train"} | ({"valid"} if args.optim.max_batches
+                                else set())
+        solver.loaders = {
+            name: Loader(getattr(datasets, name),
+                         batch_size=args.optim.batch_size,
+                         shuffle=name in shuffled, seed=args.seed,
+                         drop_last=(name == "train"),
+                         num_workers=args.num_workers,
+                         assemble_dtype=args.parallel.assemble_dtype,
+                         device=device)
+            for name in ("train", "valid", "test")}
+        solver.history = []
+        #: wall seconds of each epoch's stages
+        solver.stage_seconds = []
+        solver.best_state = None
+        solver.best_loss = float("inf")
+        solver.best_epoch = 0
+        solver.last_test_epoch = 0
+        solver.epoch = 1
+        solver._rejected = solver._seen = 0
+        solver.folder = args.xp_folder
+        solver.folder.mkdir(parents=True, exist_ok=True)
+        solver.checkpoint_path = solver.folder / tagged("checkpoint.pt")
+        wandb = dict(args.wandb)
+        solver.metric_sinks = MetricSinks(
+            solver.folder, use_wandb=wandb.get("use_wandb", False),
+            use_tensorboard=args.tensorboard)
+        solver.restore()
+        if optimizer is None and solver.best_state is not None:
+            solver._load_params(solver.best_state)
+        return solver
+
+    def make_loader(self, dataset: tp.Any, shuffle: bool = False,
+                    with_events: bool = False) -> Loader:
+        """A host loader of fp32 batches: the test stage reads the word
+        hashes from the features on the host, where a bf16 rounding would
+        change them."""
+        return Loader(dataset, batch_size=self.args.optim.batch_size,
+                      shuffle=shuffle, seed=self.args.seed,
+                      num_workers=self.args.num_workers,
+                      with_events=with_events)
+
+    @torch.no_grad()
+    @exact_fp32()
+    def forward_batch(self, batch: tp.Any,
+                      pad_weight: tp.Optional[tp.Any] = None):
+        """A batch with the ``dataset.ARRAY_FIELDS`` arrays (host arrays or
+        tensors) -> (estimate [B, F, T'] in ``simpleconv.output_dtype``,
+        output [B, F, T'], mask [B, 1, T'], keep [B] bool), tensors on the
+        solver's device, the model in eval mode; meg and features cross in
+        ``parallel.transfer_dtype``. `pad_weight` [B] (ones when None) is 0
+        for the rows a loader adds to fill its last batch; those rows are
+        not kept."""
+        arrays = to_device(batch, self.device,
+                           self.args.parallel.transfer_dtype)
+        if pad_weight is None:
+            pad_weight = torch.ones(arrays["meg"].shape[0],
+                                    dtype=torch.float32, device=self.device)
+        else:
+            pad_weight = _on(pad_weight, self.device).float()
+        estimate, output, mask, keep, _ = self._forward(arrays, pad_weight)
+        return estimate, output, mask, keep > 0.5
+
+    def _run_one_epoch(self, training: bool) -> tp.Dict[str, float]:
+        """One pass of the train or valid loader (at most
+        ``optim.max_batches`` batches); the losses stay on the device
+        until the epoch's end. The merger's dropout generator is seeded
+        from (seed, epoch, phase), so that a resumed run draws the disks
+        the uninterrupted one would."""
+        args = self.args
+        phase = "train" if training else "valid"
+        loader = self.loaders[phase]
+        loader.set_epoch(self.epoch - 1)
+        total = len(loader)
+        if args.optim.max_batches:
+            total = min(total, args.optim.max_batches)
+        if self.generator is not None:
+            self.generator.manual_seed(args.seed + self.epoch * 1000
+                                       + (0 if training else 1))
+        train = training and self.optimizer is not None
+        losses, keeps, counts = [], [], []
+        for idx, (batch, pad_weight) in enumerate(loader):
+            if idx >= total:
+                break
+            arrays = to_device(batch, self.device,
+                               args.parallel.transfer_dtype)
+            metrics = self.step(arrays, pad_weight, train)
+            losses.append(metrics["loss"])
+            keeps.append(metrics["keep"])
+            counts.append(metrics["count"])
+            if idx + 1 == total:
+                break
+        if not losses:
+            return {"loss": float("nan")}
+        losses, keeps, counts = torch.stack(
+            [torch.stack(losses).float(), torch.stack(keeps).float(),
+             torch.stack(counts).float()]).cpu().numpy()
+        self._seen += int(counts.sum())
+        self._rejected += int(counts.sum() - keeps.sum())
+        metrics = {"loss": float(np.mean(losses))}
+        if not training and metrics["loss"] < self.best_loss:
+            self.best_loss = metrics["loss"]
+            self.best_epoch = self.epoch
+            logger.info("New best valid loss %.4f", self.best_loss)
+            self.best_state = self._copy_params()
+        return metrics
+
+    def train(self) -> float:
+        """Epochs ``self.epoch`` .. ``optim.epochs``: train, valid, and the
+        test stage every ``eval_every`` epochs (and at the last) with the
+        best state's weights swapped in, when the best state is newer than
+        the last test; early stopping after ``early_stop_patience`` epochs
+        without a better valid loss; a checkpoint after every epoch, and
+        ``done.json`` at the end. Returns the best valid loss."""
+        args = self.args
+        if self.history:
+            logger.info("Replaying %d past epochs of metrics",
+                        len(self.history))
+        for epoch in range(self.epoch, args.optim.epochs + 1):
+            self.epoch = epoch
+            stages: tp.Dict[str, tp.Dict[str, float]] = {}
+            seconds: tp.Dict[str, float] = {}
+            for name, fn in (("train", lambda: self._run_one_epoch(True)),
+                             ("valid", lambda: self._run_one_epoch(False))):
+                t0 = time.perf_counter()
+                stages[name] = fn()
+                seconds[name] = time.perf_counter() - t0
+
+            will_stop = epoch == args.optim.epochs
+            if args.early_stop_patience and \
+                    epoch >= self.best_epoch + args.early_stop_patience:
+                logger.warning("Early stopping after %d epochs without "
+                               "improvement.", args.early_stop_patience)
+                will_stop = True
+
+            if (epoch % args.eval_every == 0 or will_stop) \
+                    and self.best_epoch > self.last_test_epoch:
+                assert self.best_state is not None
+                t0 = time.perf_counter()
+                saved = self._copy_params()
+                self._load_params(self.best_state)
+                try:
+                    stages["test"] = self._test_one_epoch()
+                finally:
+                    self._load_params(saved)
+                self.last_test_epoch = epoch
+                seconds["test"] = time.perf_counter() - t0
+            logger.info(
+                "Epoch %d | %s | reject %.3f%% | %s", epoch,
+                " | ".join(f"{k} loss {v['loss']:.4f}" if "loss" in v
+                           else f"{k} {v}" for k, v in stages.items()),
+                100 * self.rejection_rate,
+                " ".join(f"{k} {v:.1f}s" for k, v in seconds.items()))
+            self.history.append(stages)
+            self.stage_seconds.append(seconds)
+            self.metric_sinks.log(epoch, stages)
+            self.commit()
+            if will_stop:
+                break
+        with write_and_rename(self.folder / "done.json", "w") as f:
+            json.dump({"epochs": self.epoch,
+                       "best_loss": float(self.best_loss)}, f)
+        return self.best_loss
+
+    @property
+    def rejection_rate(self) -> float:
+        return self._rejected / max(self._seen, 1)
+
+    def _test_one_epoch(self) -> tp.Dict[str, float]:
+        """The word-retrieval error (``wer.get_wer``) for a CLIP model whose
+        test features carry ``WordHash``, else the streaming metrics of
+        ``play.get_test_metrics``."""
+        test_features = self.datasets.test.datasets[0].features
+        if self.clip_loss is not None and "WordHash" in test_features:
+            from .wer import get_wer, test_batches
+            return get_wer(self, test_batches(self))
+        from .play import get_test_metrics
+        return get_test_metrics(self)
+
+    def get_metric_constructors(self) -> tp.List[tp.Callable]:
+        """A test metric per used feature: argmax accuracy for a
+        categorical one, L2 error and correlation otherwise."""
+        from .metrics import ClassificationAcc, L2Reg, OnlineCorrelation
+        constructors = []
+        for feature in self.used_features.values():
+            name = feature.name
+            sl = self.used_features.get_slice(name)
+            out_sl = self.used_features.get_slice(name, model_output=True)
+            if feature.categorical:
+                constructors.append(ClassificationAcc.get_constructor(
+                    out_sl, sl, name=f"acc_{name}"))
+            else:
+                constructors.append(L2Reg.get_constructor(
+                    sl, out_sl, name=f"l2_{name}"))
+                constructors.append(OnlineCorrelation.get_constructor(
+                    out_sl, sl, name=f"corr_{name}"))
+        return constructors
+
+    @property
+    def clip(self) -> tp.Optional[ClipLoss]:
+        """The CLIP scorer (``wer.get_wer`` reads it as a server's)."""
+        return self.clip_loss
+
+    # -- state ----------------------------------------------------------------
+
+    def _copy_params(self) -> tp.Dict[str, torch.Tensor]:
+        """A copy of the model's state dict: weights and the BatchNorm
+        running statistics."""
+        return {k: v.detach().clone()
+                for k, v in self.model.state_dict().items()}
+
+    def _load_params(self, saved: tp.Mapping[str, torch.Tensor]) -> None:
+        self.model.load_state_dict(saved)
+
+    def commit(self) -> None:
+        """Write the checkpoint (the model's and the optimizer's state
+        dicts, the best state, the history and the loop's counters) and
+        ``history.json``, each through a rename. The port writes as the
+        epoch ends (``checkpoint_async`` is not read)."""
+        payload = dict(
+            model=self.model.state_dict(),
+            optimizer=(None if self.optimizer is None
+                       else self.optimizer.state_dict()),
+            best_state=self.best_state, history=list(self.history),
+            epoch=self.epoch + 1, best_loss=self.best_loss,
+            best_epoch=self.best_epoch,
+            last_test_epoch=self.last_test_epoch,
+            delta=json.dumps(self.args.delta(), sort_keys=True,
+                             default=str))
+        with write_and_rename(self.checkpoint_path) as f:
+            torch.save(payload, f)
+        with write_and_rename(self.folder / "history.json", "w") as f:
+            json.dump(self.history, f, indent=1, default=float)
+
+    def _load_checkpoint(self, path: tp.Any) -> tp.Dict[str, tp.Any]:
+        with open(path, "rb") as f:
+            return torch.load(f, map_location=self.device,
+                              weights_only=True)
+
+    def restore(self) -> bool:
+        """Resume from this XP's checkpoint. Without one, and with
+        ``continue_sig``: ``continue_best`` loads that XP's best weights,
+        as the JAX package does; otherwise the port resumes that XP's
+        whole training state (weights, optimizer, history, counters), so
+        that a run with more ``optim.epochs`` continues where the other
+        stopped. Returns whether this XP's checkpoint was found."""
+        path = self.checkpoint_path
+        own = path.exists()
+        if not own:
+            if not self.args.continue_sig:
+                return False
+            path = self.folder.parent / self.args.continue_sig / path.name
+            if not path.exists():
+                raise FileNotFoundError(f"Could not find checkpoint {path}")
+        payload = self._load_checkpoint(path)
+        if not own and self.args.continue_best:
+            self._load_params(payload["best_state"])
+            return False
+        self.model.load_state_dict(payload["model"])
+        if self.optimizer is not None and payload["optimizer"] is not None:
+            self.optimizer.load_state_dict(payload["optimizer"])
+        self.best_state = payload["best_state"]
+        self.history = payload["history"]
+        self.epoch = payload["epoch"]
+        self.best_loss = payload["best_loss"]
+        self.best_epoch = payload["best_epoch"]
+        self.last_test_epoch = payload["last_test_epoch"]
+        logger.info("Restored checkpoint %s at epoch %d", path, self.epoch)
+        return own
+
+
+def _norm_arrays(scaler: BatchScaler, datasets: tp.Any,
+                 model: torch.nn.Module) -> tp.Dict[str, np.ndarray]:
+    """The JAX solver's ``norm_arrays`` and ``_pos_emb_table`` as numpy:
+    the scaler's statistics for every recording index of the three
+    splits, and with a merger each recording's sensor positions and
+    subject (``prepare_norm_arrays`` derives ``pos_emb``)."""
+    n_rec = 1 + max(s.recording.recording_index
+                    for split in datasets for s in split.datasets)
+    n_chan = datasets.train[0].meg.shape[0]
+    arrays = scaler.export_arrays(n_rec, n_chan)
+    if getattr(model, "merger", None) is not None:
+        positions = np.full((n_rec, n_chan, 2), INVALID_POSITION,
+                            dtype=np.float32)
+        rec_subjects = np.zeros(n_rec, dtype=np.int32)
+        for split in datasets:
+            for dset in split.datasets:
+                index = dset.recording.recording_index
+                positions[index] = dset._get_positions()
+                rec_subjects[index] = dset.recording.subject_index
+        arrays.update(rec_positions=positions, rec_subjects=rec_subjects)
+    return arrays

@@ -1,7 +1,19 @@
-"""Training on one device: model, optimizer and solver from the config.
+"""Training: config -> datasets -> model -> solver -> epochs.
 
-Port of ``brainmagick_tpu/train.py`` without the datasets: the epoch loop
-(``Solver.train``) needs the data path, which is not ported yet.
+Port of ``brainmagick_tpu/train.py`` for the SimpleConv decoder. The CLI
+takes the JAX package's dotted ``key=value`` overrides (values parsed as
+Python literals, ``preset=name`` applies a preset) and trains one XP in
+``out_dir/xps/<sig>``, whose signature is the JAX package's for the same
+overrides:
+
+    python -m brainmagick_tpu_torch.train preset=clip_conv \
+        'dset.selections=["fake"]' 'dset.features=["MelSpectrum"]' \
+        optim.epochs=2 cache=./cache/fake_cache
+
+It runs on the CUDA card (``device``, "cuda" by default); ``device=cpu``
+is the only way onto the CPU, and without a CUDA device the CLI raises at
+once.
+
 ``Trainer`` is the counterpart of ``get_solver`` for a caller that brings
 its own batches:
 
@@ -13,15 +25,25 @@ its own batches:
 
 from __future__ import annotations
 
+import ast
+import dataclasses
 import hashlib
+import logging
+import sys
+import time
 import typing as tp
 
 import torch
 
+from . import dataset as dset
+from . import models
+from .config import DELETED, MainConfig, apply_preset
 from .convert import load_jax_params
 from .dataset import to_device
-from .models import build_model
+from .env import env
 from .solver import Solver, prepare_norm_arrays
+
+logger = logging.getLogger(__name__)
 
 
 def build_optimizer(args: tp.Any, params: tp.Iterable[torch.nn.Parameter]
@@ -63,7 +85,7 @@ class Trainer:
         self.device = torch.device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        self.model = build_model(args, meg_channels, out_channels,
+        self.model = models.build_model(args, meg_channels, out_channels,
                                  n_subjects, self.device, generator)
         if params is not None:
             load_jax_params(self.model, params, batch_stats or {})
@@ -83,3 +105,139 @@ class Trainer:
         pad_weight = torch.ones(arrays["meg"].shape[0], dtype=torch.float32,
                                 device=self.device)
         return self.solver.step(arrays, pad_weight, train)
+
+
+def get_device(args: tp.Any) -> torch.device:
+    """``args.device``: "cuda" (the default), refused when no CUDA device
+    is visible, or "cpu"."""
+    try:
+        device = torch.device(args.device)
+    except RuntimeError:
+        device = None
+    if device is None or device.type not in ("cuda", "cpu"):
+        raise ValueError(f"device={args.device!r}: 'cuda' or 'cpu'")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={args.device!r} but no CUDA device is visible; "
+            f"pass device=cpu to run on the CPU")
+    return device
+
+
+def build_datasets(args: tp.Any) -> dset.Datasets:
+    """The splits of ``args.dset`` (``WordHash`` added to the test
+    features of a CLIP loss, for the word-retrieval test stage), the
+    recordings preprocessed on ``args.device``."""
+    kwargs = dataclasses.asdict(args.dset)
+    kwargs["selections"] = [args.selections[name]
+                            for name in kwargs.pop("selections")]
+    if args.optim.loss == "clip":
+        kwargs["extra_test_features"] = list(
+            kwargs.get("extra_test_features") or []) + ["WordHash"]
+    return dset.get_datasets(num_workers=args.num_workers,
+                             device=get_device(args), **kwargs)
+
+
+def build_model(args: tp.Any, datasets: dset.Datasets,
+                device: tp.Union[str, torch.device],
+                generator: tp.Optional[torch.Generator] = None
+                ) -> torch.nn.Module:
+    """The decode SimpleConv for `datasets`: the train split's sensor
+    count in, its features' model-output dimension out, one subject
+    layer per train subject (``override_n_subjects_model`` when set)."""
+    if args.task.type != "decode":
+        raise NotImplementedError(f"task.type={args.task.type!r}")
+    meg_dimension = datasets.train[0].meg.shape[0]
+    chout = datasets.train.datasets[0].features.output_dimension
+    if args.override_n_subjects_model is not None:
+        n_subjects = args.override_n_subjects_model
+    else:
+        n_subjects = 1 + max(d.recording.subject_index
+                             for d in datasets.train.datasets)
+    return models.build_model(args, meg_dimension, chout, n_subjects,
+                              device, generator)
+
+
+def get_solver(args: tp.Any, training: bool = True) -> Solver:
+    """Datasets, model (initialized from ``seed``), Adam when `training`,
+    and the dataset-driven solver (``Solver.from_datasets``)."""
+    device = get_device(args)
+    t0 = time.perf_counter()
+    datasets = build_datasets(args)
+    t_datasets = time.perf_counter() - t0
+    if args.download_only:
+        sys.exit(0)
+    model = build_model(args, datasets, device,
+                        torch.Generator().manual_seed(args.seed))
+    optimizer = build_optimizer(args, model.parameters()) if training \
+        else None
+    solver = Solver.from_datasets(
+        args, datasets, model, optimizer,
+        generator=torch.Generator(device=device).manual_seed(args.seed))
+    solver.build_timings["datasets"] = t_datasets
+    return solver
+
+
+def run(args: tp.Any) -> float:
+    """Train one XP, with the config's cache folder in the env."""
+    with env.temporary_from_args(args):
+        return _run(args)
+
+
+def _run(args: tp.Any) -> float:
+    level = logging.DEBUG if args.verbose else logging.INFO
+    logging.basicConfig(level=level,
+                        format="%(levelname)s %(name)s: %(message)s")
+    solver = get_solver(args)
+    logger.info("Model hash: %s", model_hash(solver.model))
+    if args.show:
+        n_params = sum(p.numel() for p in solver.model.parameters())
+        logger.info("Size: %.1f MB", n_params * 4 / 2 ** 20)
+        return 0.0
+    return solver.train()
+
+
+def parse_overrides(argv: tp.Sequence[str],
+                    args: tp.Optional[MainConfig] = None) -> MainConfig:
+    """``a.b.c=value`` overrides (values parsed as Python literals, else
+    kept as strings; ``preset=name`` applies a preset) onto `args`."""
+    args = args or MainConfig()
+    for token in argv:
+        if "=" not in token:
+            raise ValueError(f"Expected key=value, got {token!r}")
+        key, raw = token.split("=", 1)
+        try:
+            value = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            value = raw
+        if key == "preset":
+            apply_preset(args, value)
+            continue
+        target: tp.Any = args
+        parts = key.split(".")
+        for part in parts[:-1]:
+            target = target[part] if isinstance(target, dict) \
+                else getattr(target, part)
+        last = parts[-1]
+        if isinstance(target, dict):
+            if value == DELETED:
+                target.pop(last, None)
+            else:
+                target[last] = value
+        else:
+            if not hasattr(target, last):
+                raise ValueError(f"Unknown config key {key!r}")
+            setattr(target, last, value)
+    return args
+
+
+def main(argv: tp.Optional[tp.Sequence[str]] = None) -> float:
+    """The CLI: train the XP of the overrides `argv` (``sys.argv[1:]``
+    when None); returns its best valid loss."""
+    args = parse_overrides(argv if argv is not None else sys.argv[1:])
+    get_device(args)
+    logger.info("XP signature: %s -> %s", args.sig, args.xp_folder)
+    return run(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,10 @@
 """Word-retrieval error ("WER") of a CLIP model on test batches.
 
-Port of ``brainmagick_tpu/wer.py`` on one device, over batches the caller
-gives, each with the ``dataset.ARRAY_FIELDS`` arrays, ``word_hash``
-[B, T] (the word's hash over its samples, 0 elsewhere) and optionally
-``pad_weight`` [B]. Every estimate is ranked against up to
+Port of ``brainmagick_tpu/wer.py`` on one device, over batches each with
+the ``dataset.ARRAY_FIELDS`` arrays, ``word_hash`` [B, T] (the word's hash
+over its samples, 0 elsewhere) and optionally ``pad_weight`` [B]: those
+of ``test_batches`` in the test stage of ``Solver.train``, or any the
+caller builds. Every estimate is ranked against up to
 ``test.wer_negatives`` outputs drawn with the config's seed, its own output
 taking the last negative's place; the result is the top-``test.wer_topx``
 error over samples and over the word vocabulary. The pool is scored by
@@ -14,12 +15,14 @@ error over samples and over the word vocabulary. The pool is scored by
 from __future__ import annotations
 
 import logging
+import types
 import typing as tp
 
 import numpy as np
 import torch
 
-from .eval import check_index
+from .dataset import ARRAY_FIELDS, ConcatDataset
+from .eval import check_index, host_array
 from .losses import commit_rows, refuse_int8_pool, streamed_scores
 from .precision import exact_fp32
 
@@ -38,6 +41,31 @@ def _lookup_word_hash(word_hash: np.ndarray, check_at: int) -> np.ndarray:
             wh = np.where(wh == 0, word_hash[:, idx], wh)
     assert (wh != 0).all(), "missing word hash at segment onset"
     return wh
+
+
+def test_batches(solver: tp.Any) -> tp.Iterator[types.SimpleNamespace]:
+    """The test split's batches for ``get_wer``: the first
+    ``test.wer_recordings`` recordings (of ``test.wer_study`` when set),
+    shuffled with the config's seed, each with its ``word_hash`` row,
+    ``pad_weight``, and the features the model is trained on."""
+    test_args = solver.args.test
+    datasets = solver.datasets.test.datasets
+    if test_args.wer_study is not None:
+        datasets = [d for d in datasets
+                    if d.recording.study_name() == test_args.wer_study]
+    if test_args.wer_recordings is not None:
+        datasets = datasets[:test_args.wer_recordings]
+    test_features = solver.datasets.test.datasets[0].features
+    hash_slice = test_features.get_slice("WordHash")
+    used_names = list(solver.used_features.keys())
+    for batch, pad_weight in solver.make_loader(ConcatDataset(datasets),
+                                                shuffle=True):
+        arrays = {name: getattr(batch, name) for name in ARRAY_FIELDS}
+        arrays["features"] = test_features.extract_features(
+            batch.features, used_names)
+        yield types.SimpleNamespace(
+            **arrays, word_hash=batch.features[:, hash_slice][:, 0],
+            pad_weight=pad_weight)
 
 
 @torch.no_grad()
@@ -63,10 +91,10 @@ def get_wer(server: tp.Any, batches: tp.Iterable[tp.Any],
         word_hash = np.asarray(batch.word_hash)
         estimate, output, _, keep_t = server.forward_batch(
             batch, getattr(batch, "pad_weight", None))
-        keep = keep_t.cpu().numpy()
+        keep = host_array(keep_t)
         if keep.any():
-            estimates_list.append(estimate[keep_t].cpu().numpy())
-            outputs_list.append(output[keep_t].cpu().numpy())
+            estimates_list.append(host_array(estimate[keep_t]))
+            outputs_list.append(host_array(output[keep_t]))
             hashes_list.append(_lookup_word_hash(word_hash[keep], check_at))
     estimates = np.concatenate(estimates_list)
     outputs = np.concatenate(outputs_list)

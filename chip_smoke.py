@@ -60,7 +60,21 @@ check raises, so the script exits non-zero and prints no result:
    B=1 request and a B=8 step held against the same server and trainer
    on the CPU at RECIPE_TOL, beside the same step with fp32 compute at
    STEP_TOL and each bf16 gradient's distance from the fp32 one against
-   the CPU's (RECIPE_SPREAD).
+   the CPU's (RECIPE_SPREAD);
+8. the training CLI (``brainmagick_tpu_torch.train.main``, in this
+   process) on the fake study with the clip_conv preset and
+   fused_conv_bn: one recording's preprocessed raw on the card against
+   the CPU (PREPROCESS_TOL), then CLI_EPOCHS epochs over all four
+   recordings at B=64 (120 mels, 361 samples at 120 Hz) in a temporary
+   folder: each split's segment count, history.json with finite losses,
+   the test stage's WER keys, done.json, conv_stats 10 times a train
+   step (fp32 on "tc"), normalize once a forward, nt_matmul in each test
+   stage, and the data path's and the loop's times; a rerun with
+   optim.epochs=3 and continue_sig that restores the XP and trains one
+   epoch; one epoch of the clip_conv_tpu recipe (bf16 conv_stats, the
+   loaders sending bf16); then each kernel against its plain version at
+   the shapes that run gave it (B=64, the 160 test windows' WER), timed
+   as in phase 3 and added to its other_shapes.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it raises at once.
@@ -1340,6 +1354,396 @@ def run_eval_phase(device: torch.device, card_name: str) -> dict:
     return launches
 
 
+#: phase 8: the CLI on the fake study (all four recordings, 120 mels, the
+#: default tmin/tmax at 120 Hz), the paper encoder with fused_conv_bn
+CLI_ARGS = ("preset=clip_conv", "simpleconv.fused_conv_bn=True",
+            'dset.selections=["fake"]', 'dset.features=["MelSpectrum"]',
+            "optim.batch_size=64")
+CLI_EPOCHS = 2
+#: the card's preprocessed raw against the CPU's, as a share of max|x|
+PREPROCESS_TOL = 1e-5
+
+
+class SolverSpy:
+    """While installed: times each Solver.step with CUDA events (read after
+    the run), counts the forwards (Solver._forward) and the nt_matmul
+    launches of each test stage, keeps the dtypes of the meg the loaders
+    send to the card and the last solver seen."""
+
+    def __init__(self) -> None:
+        from brainmagick_tpu_torch import loader, solver
+        self.targets = [(solver.Solver, "step"), (solver.Solver, "_forward"),
+                        (solver.Solver, "_test_one_epoch"),
+                        (loader._Staging, "send")]
+        self.saved = [getattr(cls, name) for cls, name in self.targets]
+        self.events: list = []
+        self.forwards = 0
+        self.test_nt_matmul: list = []
+        self.sent_dtypes: set = set()
+        self.solver = None
+
+    def __enter__(self) -> "SolverSpy":
+        from brainmagick_tpu_torch import ops
+        step, forward, test, send = self.saved
+        spy = self
+
+        def timed_step(solver, arrays, pad_weight, train):
+            spy.solver = solver
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(solver, arrays, pad_weight, train)
+            end.record()
+            spy.events.append((train, start, end))
+            return out
+
+        def counted_forward(solver, *args, **kwargs):
+            spy.forwards += 1
+            return forward(solver, *args, **kwargs)
+
+        def counted_test(solver):
+            before = ops.nt_matmul.launches
+            out = test(solver)
+            spy.test_nt_matmul.append(ops.nt_matmul.launches - before)
+            return out
+
+        def seen_send(staging, *args, **kwargs):
+            arrays, weight = send(staging, *args, **kwargs)
+            spy.sent_dtypes.add(arrays["meg"].dtype)
+            return arrays, weight
+
+        for (cls, name), fn in zip(self.targets, (
+                timed_step, counted_forward, counted_test, seen_send)):
+            setattr(cls, name, fn)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for (cls, name), fn in zip(self.targets, self.saved):
+            setattr(cls, name, fn)
+
+    def train_step_ms(self) -> list:
+        torch.cuda.synchronize()
+        return [start.elapsed_time(end) for train, start, end in self.events
+                if train]
+
+
+def run_cli(argv: list, what: str, card_name: str) -> tuple:
+    """``train.main(argv)`` with every launch count set to 0 just before
+    it; returns (the kernels' launch counts, conv_stats' by route and by
+    type, the spy, the wall seconds, the peak device memory in GB)."""
+    from brainmagick_tpu_torch import ops, train
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with SolverSpy() as spy:
+        t0 = time.perf_counter()
+        best = train.main(list(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in ops.KERNELS}
+    routes = dict(ops.conv_stats.launches_by_route)
+    by_dtype = dict(ops.conv_stats.launches_by_dtype)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"cli {what}: best valid loss {best:.4f} in {wall:.1f} s "
+          f"({card_name}); kernel launches {launches}, conv_stats by route "
+          f"{routes}, by type {by_dtype}; {len(spy.events)} steps, "
+          f"{spy.forwards} forwards, peak device memory {peak_gb:.2f} GB")
+    return launches, routes, by_dtype, spy, wall, peak_gb
+
+
+def _check_cli_launches(what: str, launches: dict, routes: dict,
+                        by_dtype: dict, spy: SolverSpy, dtype: str,
+                        tested: bool = True) -> int:
+    """conv_stats 10 times a train step, every launch `dtype` on the
+    tensor-core route; normalize once a forward; nt_matmul in every test
+    stage and nowhere else, and (`tested`) a test stage ran. Returns the
+    train steps."""
+    steps = sum(1 for train, _, _ in spy.events if train)
+    want = dict(conv_stats=10 * steps, normalize_clamp_peak=spy.forwards,
+                nt_matmul=sum(spy.test_nt_matmul))
+    if steps == 0 or (tested and not spy.test_nt_matmul) \
+            or min(spy.test_nt_matmul, default=1) < 1:
+        raise AssertionError(f"cli {what}: {steps} train steps, nt_matmul "
+                             f"launches by test stage {spy.test_nt_matmul}")
+    for name, count in want.items():
+        if launches[name] != count:
+            raise AssertionError(f"cli {what} launched {name} "
+                                 f"{launches[name]} times, want {count}")
+    if routes != {"tc": 10 * steps} or by_dtype[dtype] != 10 * steps:
+        raise AssertionError(f"cli {what} ran conv_stats by route {routes}, "
+                             f"by type {by_dtype}, want every launch "
+                             f"{dtype} on 'tc'")
+    return steps
+
+
+def _read_history(folder: Path, epochs: int, what: str) -> list:
+    history = json.loads((folder / "history.json").read_text())
+    losses = [h[stage]["loss"] for h in history
+              for stage in ("train", "valid")]
+    if len(history) != epochs or not np.isfinite(losses).all():
+        raise AssertionError(f"cli {what}: history.json {history}, want "
+                             f"{epochs} epochs of finite losses")
+    if not (folder / "done.json").exists():
+        raise AssertionError(f"cli {what}: no done.json in {folder}")
+    return history
+
+
+def check_loader(dataset, device: torch.device, dtype) -> int:
+    """The card loader's batches (pinned buffers reused behind CUDA
+    events, `dtype` = parallel.assemble_dtype) against the host loader's
+    for the same seed and epoch, bit for bit after the same cast. A GEMM
+    between batches keeps the stream busy, so each copy lands late, and
+    every batch is read only after the loop. Returns the batch count."""
+    from brainmagick_tpu_torch.dataset import ARRAY_FIELDS
+    from brainmagick_tpu_torch.loader import Loader
+    from brainmagick_tpu_torch.precision import torch_dtype
+
+    kwargs = dict(batch_size=64, shuffle=True, seed=SEED, num_workers=2)
+    host = Loader(dataset, **kwargs)
+    card = Loader(dataset, device=device, assemble_dtype=dtype, **kwargs)
+    host.set_epoch(1)
+    card.set_epoch(1)
+    busy = torch.randn(4096, 4096, device=device)
+    sent = []
+    for batch, weight in card:
+        busy = busy @ busy.T / busy.norm()
+        sent.append((batch, weight))
+    wire = torch_dtype(dtype)
+    n = 0
+    for (want, want_weight), (got, weight) in zip(host, sent):
+        for name in ARRAY_FIELDS + ("pad_weight",):
+            ref = torch.from_numpy(np.asarray(
+                want_weight if name == "pad_weight" else getattr(want, name)))
+            value = weight if name == "pad_weight" else getattr(got, name)
+            if wire is not None and name in ("meg", "features"):
+                ref = ref.to(wire)
+            if value.device.type != "cuda" or not torch.equal(
+                    value.cpu(), ref.to(value.dtype)):
+                raise AssertionError(f"card loader ({dtype}), batch {n}: "
+                                     f"{name} differs from the host's")
+        n += 1
+    if n != len(host) or len(sent) != n:
+        raise AssertionError(f"card loader gave {len(sent)} batches, the "
+                             f"host's {n} of {len(host)}")
+    return n
+
+
+def check_cli_shapes(device: torch.device, batch: int, n_test: int,
+                     n_mels: int) -> dict:
+    """Each kernel against its plain version at the shapes phase 8's CLI
+    run gave it, in fp32 (clip_conv) and bf16 (clip_conv_tpu), timed
+    beside its plain version, its library call and its bound: normalize
+    at [batch, C, T] with four recordings' tables; conv_stats at the
+    encoder's first two layer shapes at `batch`, forward and backward;
+    nt_matmul at the test stage's `n_test` estimates against the other
+    `n_test - 1` outputs, K = n_mels x T'. Returns {kernel name: {shape
+    label: entry}} for the kernels' other_shapes."""
+    import torch.nn.functional as fn
+
+    from brainmagick_tpu_torch.ops import conv_bn, matmul, norm
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    out: dict = {"normalize_clamp_peak": {}, "nt_matmul": {},
+                 "conv_stats": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = _type_name(dtype)
+        shape = (batch, C, T)
+        meg, center, scale, _ = _norm_case(shape, dtype, device, gen)
+        rec = torch.arange(batch, device=device) % NORM_RECORDINGS
+        got = norm.normalize_clamp_peak(meg, center, scale, LIMIT, rec=rec)
+        want = norm._reference_impl(meg, center, scale, LIMIT, True, rec)
+        if not all(map(_same_bits, got, want)):
+            raise AssertionError(f"normalize_clamp_peak {shape} {name} "
+                                 f"differs from plain")
+        n_bytes = (meg.element_size() * meg.numel() + 4 * meg.numel()
+                   + 2 * center.numel() * 4 + 8 * batch + 4 * batch)
+        entry = dict(
+            ms=median_ms(lambda: norm.normalize_clamp_peak(
+                meg, center, scale, LIMIT, rec=rec)),
+            plain_ms=median_ms(lambda: norm._reference_impl(
+                meg, center, scale, LIMIT, True, rec)),
+            library_ms=None, max_abs_err=0.0)
+        entry.update(zip(("bound_ms", "bound_by"), bound(n_bytes)))
+        out["normalize_clamp_peak"][f"{batch}x{C}x{T} {name}"] = entry
+
+        depth = n_mels * (T - 18)
+        a = torch.randn((n_test, depth), generator=gen,
+                        device=device).to(dtype)
+        b = torch.randn((n_test - 1, depth), generator=gen,
+                        device=device).to(dtype)
+        abs_err, rel_err = _matmul_error(a, b, matmul.nt_matmul(a, b))
+        if not rel_err <= MATMUL_TOL:
+            raise AssertionError(f"nt_matmul {tuple(a.shape)} x "
+                                 f"{tuple(b.shape)} {name}: {rel_err}")
+        flop = 2 * a.shape[0] * b.shape[0] * depth
+        out_dtype = ({} if dtype == torch.float32
+                     else dict(out_dtype=torch.float32))
+        entry = dict(
+            ms=median_ms(lambda: matmul.nt_matmul(a, b)),
+            plain_ms=median_ms(lambda: matmul._reference_impl(a, b)),
+            library_ms=median_ms(lambda: torch.mm(a, b.T, **out_dtype)),
+            max_abs_err=abs_err)
+        entry.update(zip(("bound_ms", "bound_by"), bound(
+            a.element_size() * (a.shape[0] + b.shape[0]) * depth
+            + 4 * a.shape[0] * b.shape[0],
+            *((3 * flop, TF32_FLOPS) if dtype == torch.float32
+              else (flop, BF16_FLOPS)))))
+        out["nt_matmul"][f"{n_test}x{n_test - 1}x{depth} {name}"] = entry
+
+        for conv in ((batch, 270, 320, T - 18, 1, 3),
+                     (batch, 320, 320, T - 18, 2, 3)):
+            _, Cin, O, Tc, d, k = conv
+            x, w, cot = _conv_case(conv, dtype, device, gen)
+            got = conv_bn.conv_stats(x, w, d)
+            want = conv_bn._reference_impl(x, w, d)
+            errors = _conv_errors(
+                x, w, d, cot, got, want,
+                _conv_grads(conv_bn.conv_stats, x, w, d, cot),
+                _conv_grads(conv_bn._reference_impl, x, w, d, cot))
+            grad_tol = CONV_GRAD_TOL_BF16 if dtype == torch.bfloat16 \
+                else CONV_TOL
+            limits = dict(y=CONV_TOL, s=CONV_TOL, ss=CONV_TOL, dx=grad_tol,
+                          dw=grad_tol)
+            if any(not errors[key] <= limit
+                   for key, limit in limits.items()):
+                raise AssertionError(f"conv_stats {conv} {name}: {errors}")
+            entry = dict(
+                ms=median_ms(lambda: conv_bn.conv_stats(x, w, d)),
+                plain_ms=median_ms(lambda: conv_bn._reference_impl(x, w, d)),
+                library_ms=median_ms(lambda: fn.conv1d(
+                    x, w, padding=(k // 2) * d, dilation=d)),
+                max_abs_err=errors["abs_y"])
+            entry.update(zip(("bound_ms", "bound_by"),
+                             _conv_bound(conv, dtype)))
+            out["conv_stats"][f"{batch}x{Cin}x{Tc} O{O} k{k} d{d} {name}"] = \
+                entry
+            del x, w, cot, got, want
+        del meg, center, scale, a, b
+    for kernel, shapes in out.items():
+        for label, entry in shapes.items():
+            print(f"{kernel} at the CLI's shape {label}: kernel "
+                  f"{entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
+                  f"library "
+                  + ("none" if entry["library_ms"] is None
+                     else f"{entry['library_ms']:.4f} ms")
+                  + f", bound {entry['bound_ms']:.4f} ms "
+                  f"({entry['bound_by']}), max|diff| "
+                  f"{entry['max_abs_err']:.3e}")
+    return out
+
+
+def run_cli_phase(device: torch.device, card_name: str) -> dict:
+    """Phase 8: ``python -m brainmagick_tpu_torch.train``'s main in this
+    process on the fake study at the paper encoder's width: CLI_EPOCHS
+    epochs, a rerun with one epoch more, and one epoch of the
+    clip_conv_tpu recipe. Returns the kernel launch counts of the first
+    run (cli_train) and of the recipe's (cli_recipe), and the shapes the
+    run gave the kernels (``check_cli_shapes``' arguments)."""
+    from brainmagick_tpu_torch.studies import api, fake
+    from brainmagick_tpu_torch.train import parse_overrides
+
+    raw = fake.create_fake_meg(seed=1234)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = api.preprocess_raw(raw, 120, device=device)
+    preprocess_s = time.perf_counter() - t0
+    on_cpu = api.preprocess_raw(raw, 120, device="cpu")
+    err = float(np.abs(on_card.data - on_cpu.data).max()
+                / np.abs(on_cpu.data).max())
+    print(f"preprocessed raw {list(raw.data.shape)} at 1200 Hz -> "
+          f"{list(on_card.data.shape)} at 120 Hz on the card in "
+          f"{preprocess_s:.3f} s (first call; {card_name}); max |card - "
+          f"CPU| / max |x| = {err:.2e} (limit {PREPROCESS_TOL:.0e})")
+    if not err <= PREPROCESS_TOL:
+        raise AssertionError(f"preprocessed raw: card against CPU {err:.2e}")
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fake_cache_") as tmp:
+        common = [*CLI_ARGS, f"cache={tmp}/cache", f"out_dir={tmp}/outputs"]
+        first = common + [f"optim.epochs={CLI_EPOCHS}"]
+        launches, routes, by_dtype, spy, wall, peak_gb = run_cli(
+            first, f"{CLI_EPOCHS} epochs", card_name)
+        solver = spy.solver
+        sizes = {name: len(getattr(solver.datasets, name))
+                 for name in ("train", "valid", "test")}
+        n_train_batches = len(solver.loaders["train"])
+        print(f"cli splits (segments): {sizes}; {n_train_batches} train "
+              f"batches of {solver.args.optim.batch_size}")
+        shapes = dict(batch=solver.args.optim.batch_size,
+                      n_test=sizes["test"], n_mels=solver.used_features[
+                          "MelSpectrum"].n_mels)
+        if n_train_batches < 2:
+            raise AssertionError(f"the train split holds {sizes['train']} "
+                                 f"segments, fewer than two batches")
+        for dtype in (None, "bfloat16"):
+            n = check_loader(solver.datasets.train, device, dtype)
+            print(f"card loader ({dtype or 'float32'}): {n} batches equal "
+                  f"to the host loader's")
+        steps = _check_cli_launches(f"{CLI_EPOCHS} epochs", launches,
+                                    routes, by_dtype, spy, "float32")
+        if steps != CLI_EPOCHS * n_train_batches:
+            raise AssertionError(f"{steps} train steps, want "
+                                 f"{CLI_EPOCHS * n_train_batches}")
+        args = parse_overrides(first)
+        history = _read_history(Path(args.xp_folder), CLI_EPOCHS, "run")
+        wer_keys = {"wer", "wer_vocab", "wer_n_vocab"}
+        if not wer_keys <= set(history[0].get("test", {})):
+            raise AssertionError(f"no WER in the test stage: {history[0]}")
+        step_ms = spy.train_step_ms()
+        tracks_s = sum(d.track_seconds for split in solver.datasets
+                       for d in split.datasets)
+        timings = solver.build_timings
+        epoch_s = [sum(v for k, v in sec.items() if k != "test")
+                   for sec in solver.stage_seconds]
+        test_s = [sec["test"] for sec in solver.stage_seconds
+                  if "test" in sec]
+        print(f"cli timings ({card_name}): preprocessing "
+              f"{preprocess_s:.3f} s per recording, dataset build "
+              f"{timings['datasets']:.2f} s (4 recordings preprocessed on "
+              f"the card), track render {tracks_s:.2f} s, scaler fit "
+              f"{timings['scaler']:.2f} s (the track render included), "
+              f"train step median {statistics.median(step_ms):.2f} ms over "
+              f"{len(step_ms)} steps (device time), s per epoch (train + "
+              f"valid) {[round(x, 2) for x in epoch_s]}, test stage "
+              f"{[round(x, 2) for x in test_s]} s, peak device memory "
+              f"{peak_gb:.2f} GB, whole run {wall:.1f} s")
+        print(f"cli history: {history}")
+        out["cli_train"] = launches
+
+        # one epoch more, from the finished XP's whole state
+        resumed = common + ["optim.epochs=3", f"continue_sig={args.sig}",
+                            "continue_best=False"]
+        launches, routes, by_dtype, spy, _, _ = run_cli(
+            resumed, "resumed with optim.epochs=3", card_name)
+        # its test stage runs only if epoch 3 improves the valid loss
+        steps = _check_cli_launches("resume", launches, routes, by_dtype,
+                                    spy, "float32", tested=False)
+        history3 = _read_history(Path(parse_overrides(resumed).xp_folder), 3,
+                                 "resume")
+        if steps != n_train_batches or history3[:2] != history:
+            raise AssertionError(f"the resumed run took {steps} train steps "
+                                 f"(want {n_train_batches}) and its history "
+                                 f"starts {history3[:2]}")
+
+        # one epoch of the bf16 recipe, the loaders assembling in bf16
+        recipe = [f"preset={RECIPE}", *common[1:], "optim.epochs=1"]
+        if parse_overrides(recipe).parallel.assemble_dtype != "bfloat16":
+            raise AssertionError(f"{RECIPE} does not assemble in bf16")
+        launches, routes, by_dtype, spy, _, _ = run_cli(
+            recipe, f"{RECIPE}, 1 epoch", card_name)
+        _check_cli_launches(RECIPE, launches, routes, by_dtype, spy,
+                            "bfloat16")
+        if spy.sent_dtypes != {torch.bfloat16}:
+            raise AssertionError(f"the {RECIPE} loaders sent meg in "
+                                 f"{spy.sent_dtypes}, want bf16 only")
+        _read_history(Path(parse_overrides(recipe).xp_folder), 1, RECIPE)
+        out["cli_recipe"] = launches
+    del solver, spy
+    torch.cuda.empty_cache()
+    return out, shapes
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -1376,6 +1780,9 @@ def main() -> None:
                                                    RECIPE)
     recipe_train, recipe_types, recipe_train_warm = run_train(
         device, card_name, batch, RECIPE)
+    cli_launches, cli_shape = run_cli_phase(device, card_name)
+    with exact_fp32():
+        cli_shapes = check_cli_shapes(device, **cli_shape)
     print(f"{RECIPE} against clip_conv, warm B={REQUESTS[0]} ({card_name}): "
           f"forward {recipe_serve_warm['forward_ms']:.2f} ms against "
           f"{serve_warm['forward_ms']:.2f}, scoring "
@@ -1393,7 +1800,10 @@ def main() -> None:
                        train=train_launches[entry["name"]],
                        eval=eval_launches[entry["name"]],
                        recipe_serve=recipe_serve[entry["name"]],
-                       recipe_train=recipe_train[entry["name"]])
+                       recipe_train=recipe_train[entry["name"]],
+                       **{path: counts[entry["name"]]
+                          for path, counts in cli_launches.items()})
+        entry["other_shapes"].update(cli_shapes[entry["name"]])
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         if entry["name"] == "conv_stats":

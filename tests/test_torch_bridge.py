@@ -1,6 +1,7 @@
 """The port's weight bridge (brainmagick_tpu_torch.convert) against the JAX
 package's rules, and the port's import rule: no module of the port and no
-line of chip_smoke.py imports the JAX package, at top level or inside a
+line of chip_smoke.py imports the JAX package, JAX itself, pandas or
+numba (the card's host has none of them), at top level or inside a
 function."""
 
 import ast
@@ -97,9 +98,14 @@ def test_untransform_equals_the_jax_packages(kind):
         convert._untransform("bn_mean_fold_bias", value)
 
 
+#: the top-level packages the port may not import
+FORBIDDEN = ("brainmagick_tpu", "jax", "jaxlib", "flax", "optax", "pandas",
+             "numba")
+
+
 def _imports_of_the_jax_package(source: str) -> list:
-    """(line, module) of every import of brainmagick_tpu or a submodule of
-    it, anywhere in `source`, function bodies included."""
+    """(line, module) of every import of a FORBIDDEN package or a
+    submodule of one, anywhere in `source`, function bodies included."""
     found = []
     for node in ast.walk(ast.parse(source)):
         if isinstance(node, ast.Import):
@@ -109,7 +115,7 @@ def _imports_of_the_jax_package(source: str) -> list:
         else:
             continue
         found += [(node.lineno, name) for name in names
-                  if name.split(".")[0] == "brainmagick_tpu"]
+                  if name.split(".")[0] in FORBIDDEN]
     return found
 
 
@@ -119,9 +125,13 @@ def test_the_import_scan_sees_function_bodies():
               "from . import convert\n"
               "def f():\n"
               "    from brainmagick_tpu.convert import _untransform\n"
-              "    import numpy, brainmagick_tpu.ops as ops\n")
-    assert _imports_of_the_jax_package(source) == [
-        (5, "brainmagick_tpu.convert"), (6, "brainmagick_tpu.ops")]
+              "    import numpy, brainmagick_tpu.ops as ops\n"
+              "    import pandas as pd, numbat\n"
+              "    from numba import njit\n"
+              "from jax import numpy\n")
+    assert sorted(_imports_of_the_jax_package(source)) == [
+        (5, "brainmagick_tpu.convert"), (6, "brainmagick_tpu.ops"),
+        (7, "pandas"), (8, "numba"), (9, "jax")]
 
 
 def test_no_import_of_the_jax_package():

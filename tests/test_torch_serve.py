@@ -116,7 +116,7 @@ def _args_with(**changes):
 
 
 @pytest.mark.parametrize("change", [dict(task__type="encode"),
-                                    dict(task__lowpass=10.),
+                                    dict(optim__negatives=16),
                                     dict(clip__linear=16)], ids=str)
 def test_server_rejects_unsupported_options(change):
     args = _args_with(**change)
@@ -208,17 +208,24 @@ def _fields(obj, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("preset", [None, "clip_conv", "clip_conv_tpu"])
+@pytest.mark.parametrize("preset", [None, "clip_conv", "clip_conv_tpu",
+                                    "tiny"])
 def test_config_copy_equals_original(preset):
     """Every field of the port's config copy, by default and under the
-    clip_conv and clip_conv_tpu presets, equals the JAX package's
-    MainConfig."""
+    clip_conv, clip_conv_tpu and tiny presets, equals the JAX package's
+    MainConfig, except ``device``: the port's runs on the card
+    ("cuda"), the JAX package's on a TPU. It is not in the XP
+    signature."""
     port, original = config.MainConfig(), jconfig.MainConfig()
     if preset:
         config.apply_preset(port, preset)
         jconfig.apply_preset(original, preset)
     assert config.SIMPLECONV_DEFAULTS == jconfig.SIMPLECONV_DEFAULTS
+    assert (port.device, original.device) == ("cuda", "tpu")
+    assert "device" in config.MainConfig._SIG_EXCLUDE
     for dotted, value in _fields(port).items():
+        if dotted == "device":
+            continue
         want = original
         for part in dotted.split("."):
             want = getattr(want, part)
@@ -245,8 +252,12 @@ def test_import_hygiene_and_copied_constants():
         "import brainmagick_tpu_torch.train\n"
         "import brainmagick_tpu_torch.eval, brainmagick_tpu_torch.wer\n"
         "import brainmagick_tpu_torch.ops.conv_bn\n"
+        "import brainmagick_tpu_torch.dataset, brainmagick_tpu_torch.loader\n"
+        "import brainmagick_tpu_torch.studies, brainmagick_tpu_torch.play\n"
+        "import brainmagick_tpu_torch.features, brainmagick_tpu_torch.norm\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "    ('jax', 'jaxlib', 'flax', 'pandas', 'brainmagick_tpu'))\n"
+        "    ('jax', 'jaxlib', 'flax', 'pandas', 'numba',\n"
+        "     'brainmagick_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"))
     assert proc.returncode == 0, proc.stdout + proc.stderr
