@@ -171,6 +171,9 @@ class SegmentDataset:
         self._track: tp.Optional[np.ndarray] = None  # [D+1, T]
         self._track_sr: tp.Optional[Frequency] = None
         self._records: tp.Optional[tuple] = None
+        #: [N, meg_dimension, T] repaired epochs (dset.autoreject), which
+        #: then take the place of the recording's
+        self._meg_override: tp.Optional[np.ndarray] = None
         #: seconds spent painting or loading the feature track
         self.track_seconds = 0.
 
@@ -215,6 +218,8 @@ class SegmentDataset:
         return self.sample_rate.to_sec(start), self.sample_rate.to_sec(stop)
 
     def _get_meg(self, idx: int) -> np.ndarray:
+        if self._meg_override is not None:
+            return self._meg_override[idx]
         start = int(self.event_samples[idx]) + self._start_offset
         meg = np.array(self.raw.data[:, start:start + self._n_times],
                        dtype=np.float32)
@@ -288,17 +293,20 @@ class SegmentDataset:
         recording and the track in one pass each."""
         indices = np.asarray(indices, dtype=np.int64)
         n = len(indices)
-        baseline_len = 0
-        if self.baseline is not None:
-            bl0, bl1 = self.baseline
-            if bl0 is not None:
-                raise NotImplementedError(
-                    "get_batch supports a (None, t1) baseline only")
-            baseline_len = self.sample_rate.to_ind(bl1 - self.tmin) + 1
         starts = self.event_samples[indices] + self._start_offset
-        meg = gather_epochs(self.raw.data, starts, self._n_times,
-                            self.meg_dimension or self.raw.n_channels,
-                            baseline_len)
+        if self._meg_override is not None:
+            meg = np.asarray(self._meg_override[indices], dtype=np.float32)
+        else:
+            baseline_len = 0
+            if self.baseline is not None:
+                bl0, bl1 = self.baseline
+                if bl0 is not None:
+                    raise NotImplementedError(
+                        "get_batch supports a (None, t1) baseline only")
+                baseline_len = self.sample_rate.to_ind(bl1 - self.tmin) + 1
+            meg = gather_epochs(self.raw.data, starts, self._n_times,
+                                self.meg_dimension or self.raw.n_channels,
+                                baseline_len)
 
         track, track_sr = self._get_track()
         if float(track_sr) == float(self.sample_rate):
@@ -393,9 +401,7 @@ class _DatasetFactory:
                  autoreject: bool = False) -> None:
         assert tmin < tmax
         assert decim == 1, "Decimation factor is not supported"
-        if autoreject:
-            raise NotImplementedError(
-                "dset.autoreject is not ported to brainmagick_tpu_torch")
+        self.autoreject = autoreject
         self.features = list(features)
         self.features_params = features_params
         self.condition = condition
@@ -467,7 +473,39 @@ class _DatasetFactory:
             tmin=self.tmin, tmax=self.tmax, baseline=self.baseline,
             event_mask=self.event_mask, meg_dimension=self.meg_dimension)
         dset.blocks = blocks
+        if self.autoreject:
+            self._apply_autoreject(dset, raw)
         return dset
+
+    def _apply_autoreject(self, dset: SegmentDataset,
+                          raw: studies.RawData) -> None:
+        """Fit the repair on 200 random epochs (cached), repair every
+        epoch, and let the repaired epochs (padded to meg_dimension) take
+        the place of the recording's in the batches."""
+        from .autoreject import AutoRejectDrop
+
+        cache = Cache("autoreject", args=(
+            dict(recording=dset.recording.recording_uid,
+                 sample_rate=self.sample_rate, tmin=self.tmin,
+                 tmax=self.tmax, highpass=self.highpass),
+            dset.blocks))
+        epochs = np.stack([dset._get_meg(k)[:raw.n_channels]
+                           for k in range(len(dset))])
+        positions = raw.positions
+
+        def _fit() -> AutoRejectDrop:
+            logger.info("Fitting autoreject, cachefile %s",
+                        cache.cache_path({}))
+            rng = np.random.RandomState(1234)
+            idx = rng.permutation(len(epochs))[:200]
+            return AutoRejectDrop().fit(epochs[idx], positions)
+
+        repaired = cache.get(_fit).transform(epochs, positions)
+        if self.meg_dimension is not None:
+            pad = self.meg_dimension - repaired.shape[1]
+            if pad:
+                repaired = np.pad(repaired, ((0, 0), (0, pad), (0, 0)))
+        dset._meg_override = repaired
 
 
 SegmentDataset.Factory = _DatasetFactory
@@ -639,7 +677,9 @@ def get_datasets(
     for i, recording in enumerate(all_recordings):
         events = recording.events()
         blocks = events[events.kind_mask("block")]
-        if min_block_duration > 0 and not force_uid_assignement:
+        # schoffelen2019's blocks (one per sentence or sound) stay apart
+        if min_block_duration > 0 and not force_uid_assignement \
+                and recording.study_name() != "schoffelen2019":
             blocks = blocks.merge_blocks(
                 min_block_duration_s=min_block_duration)
         blocks = assign_blocks(

@@ -13,9 +13,11 @@ the same result, row order included:
     that share a start (a word and its phoneme) come out in pandas' order;
   * ``validate`` instantiates each row's event class, as the ``.event``
     accessor does, and ``iter`` yields the typed events;
-  * ``merge_blocks``, ``assign_blocks`` (the same sha256-seeded draw per
-    block uid) and ``split_wav_as_block`` (sound events cut at block
-    boundaries, so that audio features cannot leak across splits);
+  * ``create_blocks`` (block rows at sentence or sound starts, each with
+    the uid of its contents), ``merge_blocks``, ``assign_blocks`` (the
+    same sha256-seeded draw per block uid) and ``split_wav_as_block``
+    (sound events cut at block boundaries, so that audio features cannot
+    leak across splits);
   * ``query`` takes the conditions the datasets use: ``kind=='word'`` and
     ``field==value``.
 """
@@ -196,6 +198,9 @@ CLASS_KIND_MAPPING: tp.Dict[str, tp.Type[Event]] = {
     "block": Block,
 }
 
+WORD_CONDITIONS = {"sentence", "context", "question", "fixation", "word_list"}
+VALID_BLOCK_TYPES = {"sentence", "sound", "sentence_or_sound"}
+
 
 # ---------------------------------------------------------------------------
 # The table
@@ -347,6 +352,10 @@ class EventTable:
         for row in self.validate().records():
             yield CLASS_KIND_MAPPING[row["kind"]].from_dict(row)
 
+    def create_blocks(self, groupby: str) -> "EventTable":
+        """``create_blocks`` of this table's validated rows."""
+        return create_blocks(self.validate(), groupby=groupby)
+
     def merge_blocks(self, min_block_duration_s: float = 60
                      ) -> "EventTable":
         """``merge_blocks`` of this table's validated block rows."""
@@ -417,6 +426,108 @@ def extract_sequence_info(events: EventTable, word: bool = True,
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
+
+def _unique(values: np.ndarray) -> tp.List[tp.Any]:
+    """The distinct values in order of appearance, every missing one as
+    a single NaN (pandas' ``Series.unique``)."""
+    out: tp.List[tp.Any] = []
+    seen: tp.Set[tp.Any] = set()
+    missing = False
+    for value in values.tolist():
+        if _missing(value):
+            if not missing:
+                missing = True
+                out.append(float("nan"))
+        elif value not in seen:
+            seen.add(value)
+            out.append(value)
+    return out
+
+
+def _get_block_uid(events: EventTable) -> tp.Any:
+    """The uid of a block from the events it holds: their one
+    sequence_uid, else their words (phonemes aside), else their sound
+    files and first start."""
+    if "sequence_uid" in events:
+        unique = _unique(events["sequence_uid"])
+        if len(unique) == 1:
+            return unique[0]
+    condition = events["condition"].tolist()
+    kinds = events["kind"].tolist()
+    has_words = [c in WORD_CONDITIONS and k != "phoneme"
+                 for c, k in zip(condition, kinds)]
+    if not any(has_words):
+        files = events["filepath"] if "filepath" in events \
+            else np.full(len(events), np.nan)
+        parts = [f for f in _unique(files) if isinstance(f, str)]
+        assert parts, \
+            "No filepath information available for defining block unique ID."
+        parts = parts + [str(np.nanmin(events["start"].astype(np.float64)))]
+    else:
+        words = events["word"].tolist()
+        parts = ["nan" if _missing(w) else str(w)
+                 for w, keep in zip(words, has_words) if keep]
+    return " ".join(parts)
+
+
+def create_blocks(events: EventTable, groupby: str) -> EventTable:
+    """The events with a ``block`` row at each block start: the first word
+    of each sentence (``sentence``), each sound (``sound``), or either, a
+    sentence then starting at its first visual word
+    (``sentence_or_sound``). A block runs to the next block's start (the
+    last to infinity); its uid comes from the events it holds
+    (``_get_block_uid``). Rows in pandas' order: each block just before
+    the events that share its start."""
+    assert groupby in VALID_BLOCK_TYPES, \
+        f"by={groupby} not supported, must be one of {VALID_BLOCK_TYPES}."
+    n = len(events)
+    kinds = np.array([str(k) for k in events["kind"].tolist()], dtype=object)
+    word_index = events.get("word_index")
+    if groupby == "sentence":
+        index = np.full(n, -1) if word_index is None else word_index
+        start_mask = (kinds == "word") & (index == 0)
+    elif groupby == "sound":
+        start_mask = kinds == "sound"
+    else:
+        word_starts = kinds == "word"
+        if word_index is not None and "modality" in events:
+            word_starts &= events["modality"] == "visual"
+            word_starts &= word_index == 0
+        else:
+            word_starts[:] = False
+        start_mask = (kinds == "sound") | word_starts
+    start_mask = np.asarray(start_mask, dtype=bool)
+
+    eps = 1e-7
+    starts = events["start"].astype(np.float64)
+    stops = starts + events["duration"].astype(np.float64)
+    events_end = np.nanmax(stops) + eps
+    block_rows = events[start_mask].records()
+    block_starts = starts[start_mask]
+    assert (np.diff(block_starts) > 0).all(), "events not sorted"
+    block_stops = np.concatenate([block_starts[1:], [events_end]])
+    block_events = []
+    for row, stop in zip(block_rows, block_stops):
+        mask = (starts >= row["start"]) & (stops < stop)
+        info = asdict(Block(start=row["start"], duration=stop - row["start"],
+                            uid=_get_block_uid(events[mask]),
+                            language=row.get("language"),
+                            modality=row.get("modality")))
+        block_events.append({**info, "kind": "block"})
+    # the last block runs to the end of the recording
+    block_events[-1]["duration"] = float("inf")
+
+    out = EventTable.from_records(events.records() + block_events)
+    is_block = np.zeros(len(out), dtype=bool)
+    is_block[n:] = True
+    # each block is sorted before the events that share its start
+    start = out["start"].astype(np.float64).copy()
+    start[is_block] -= eps
+    out = out.assign(start=start).sort_by_start()
+    start = out["start"].astype(np.float64).copy()
+    start[out.kind_mask("block")] += eps
+    return out.assign(start=start)
+
 
 def merge_blocks(blocks: EventTable, min_block_duration_s: float = 60
                  ) -> EventTable:

@@ -51,3 +51,20 @@ def mock_wav_path(folder: tp.Optional[Path] = None) -> Path:
         f.writeframes(sig.tobytes())
     tmp.rename(path)
     return path
+
+
+def write_speech_wav(path: Path, seconds: float) -> Path:
+    """A wav of `seconds` at MOCK_WAV_SR: the mock speech repeated, cut to
+    length (a stimulus for the synthetic trees of the real studies)."""
+    with wave.open(str(mock_wav_path()), "rb") as f:
+        speech = np.frombuffer(f.readframes(f.getnframes()), dtype=np.int16)
+    n = int(round(MOCK_WAV_SR * seconds))
+    sig = np.resize(speech, n)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with wave.open(str(path), "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(MOCK_WAV_SR)
+        f.writeframes(sig.tobytes())
+    return path

@@ -48,10 +48,22 @@ def from_selection(selection: tp.Dict[str, tp.Any]
     the other keys go to ``Recording.iter``."""
     params = {k: v for k, v in selection.items() if v is not None}
     name = params.pop("study")
-    if name not in register:
-        raise KeyError(f"study {name!r} is not ported (available: "
-                       f"{sorted(register)})")
     return register[name].iter(**params)
+
+
+def list_selections() -> tp.List[tp.Tuple[tp.Type["Recording"],
+                                          tp.Dict[str, tp.Any]]]:
+    """The named selections of ``MainConfig.selections`` but the fake
+    studies', as (recording class, ``iter`` parameters) pairs."""
+    from ..config import MainConfig
+
+    out = []
+    for params in MainConfig().selections.values():
+        params = dict(params)
+        study = params.pop("study")
+        if not study.startswith("fake"):
+            out.append((register[study], params))
+    return out
 
 
 @dataclass
@@ -62,6 +74,9 @@ class RawData:
     ch_names: tp.List[str]
     #: [C, 2] in [0, 1]^2, INVALID_POSITION where unknown
     positions: np.ndarray = field(default=None)
+    #: each channel's kind code (FIFF's: 1 MEG, 2 EEG, 3 stim), or None
+    #: when the file format gives none
+    ch_kinds: tp.Optional[tp.List[int]] = None
 
     def __post_init__(self) -> None:
         assert self.data.ndim == 2

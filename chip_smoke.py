@@ -74,7 +74,28 @@ check raises, so the script exits non-zero and prints no result:
    epoch; one epoch of the clip_conv_tpu recipe (bf16 conv_stats, the
    loaders sending bf16); then each kernel against its plain version at
    the shapes that run gave it (B=64, the 160 test windows' WER), timed
-   as in phase 3 and added to its other_shapes.
+   as in phase 3 and added to its other_shapes;
+9. the paper's four studies (STUDY_TREES), each a synthetic tree written
+   in a temporary folder in the study's on-disk format, at its real
+   sensor count and rate, by the port's writers, csv, json, wave and
+   scipy.io.savemat: gwilliams2022 (KIT .con, 208 MEG at 1000 Hz, BIDS
+   events.tsv), audio_mous (CTF .ds, 273 MEG + 28 references + UPPT001
+   at 1200 Hz, Presentation logs, TextGrids), brennan2019 (MATLAB raw and
+   proc structs, 60 EEG + VEOG + AUD at 500 Hz, the story CSV) and
+   broderick2019 (MATLAB eegData, 128 EEG at 128 Hz, gentle JSON and
+   transcripts), two recordings each, the mock speech as every stimulus.
+   For each: the first recording's raw as its adapter reads it against
+   the array written (within half a quantization step, then bit-equal
+   after a second write and read; bit-equal for MATLAB), the words of
+   the events against the words written, its preprocessing on the card
+   against the CPU (PREPROCESS_TOL), then ``train.main`` for one epoch of
+   the clip_conv_tpu recipe with fused_conv_bn at B=256 (finite losses,
+   at least two train batches, conv_stats 10 times a train step in bf16
+   on "tc", normalize once a forward, nt_matmul in the test stage), the
+   read, preprocess, track, step and epoch times, and each kernel
+   against its plain version at the shapes the run gave it (normalize at
+   the study's sensor count), added to its other_shapes; the launch
+   counts go into launches_by_path as study_<selection>.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it raises at once.
@@ -84,6 +105,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import tempfile
@@ -1530,15 +1552,18 @@ def check_loader(dataset, device: torch.device, dtype) -> int:
 
 
 def check_cli_shapes(device: torch.device, batch: int, n_test: int,
-                     n_mels: int) -> dict:
+                     n_mels: int, channels: int = C, with_conv: bool = True,
+                     prefix: str = "") -> dict:
     """Each kernel against its plain version at the shapes phase 8's CLI
     run gave it, in fp32 (clip_conv) and bf16 (clip_conv_tpu), timed
     beside its plain version, its library call and its bound: normalize
     at [batch, C, T] with four recordings' tables; conv_stats at the
     encoder's first two layer shapes at `batch`, forward and backward;
     nt_matmul at the test stage's `n_test` estimates against the other
-    `n_test - 1` outputs, K = n_mels x T'. Returns {kernel name: {shape
-    label: entry}} for the kernels' other_shapes."""
+    `n_test - 1` outputs, K = n_mels x T'; normalize at `channels`
+    sensors, conv_stats only `with_conv`, each label after `prefix`.
+    Returns {kernel name: {shape label: entry}} for the kernels'
+    other_shapes."""
     import torch.nn.functional as fn
 
     from brainmagick_tpu_torch.ops import conv_bn, matmul, norm
@@ -1548,7 +1573,7 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
                  "conv_stats": {}}
     for dtype in (torch.float32, torch.bfloat16):
         name = _type_name(dtype)
-        shape = (batch, C, T)
+        shape = (batch, channels, T)
         meg, center, scale, _ = _norm_case(shape, dtype, device, gen)
         rec = torch.arange(batch, device=device) % NORM_RECORDINGS
         got = norm.normalize_clamp_peak(meg, center, scale, LIMIT, rec=rec)
@@ -1565,7 +1590,8 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
                 meg, center, scale, LIMIT, True, rec)),
             library_ms=None, max_abs_err=0.0)
         entry.update(zip(("bound_ms", "bound_by"), bound(n_bytes)))
-        out["normalize_clamp_peak"][f"{batch}x{C}x{T} {name}"] = entry
+        out["normalize_clamp_peak"][
+            f"{prefix}{batch}x{channels}x{T} {name}"] = entry
 
         depth = n_mels * (T - 18)
         a = torch.randn((n_test, depth), generator=gen,
@@ -1589,10 +1615,11 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
             + 4 * a.shape[0] * b.shape[0],
             *((3 * flop, TF32_FLOPS) if dtype == torch.float32
               else (flop, BF16_FLOPS)))))
-        out["nt_matmul"][f"{n_test}x{n_test - 1}x{depth} {name}"] = entry
+        out["nt_matmul"][f"{prefix}{n_test}x{n_test - 1}x{depth} {name}"] \
+            = entry
 
         for conv in ((batch, 270, 320, T - 18, 1, 3),
-                     (batch, 320, 320, T - 18, 2, 3)):
+                     (batch, 320, 320, T - 18, 2, 3))[:2 * with_conv]:
             _, Cin, O, Tc, d, k = conv
             x, w, cot = _conv_case(conv, dtype, device, gen)
             got = conv_bn.conv_stats(x, w, d)
@@ -1616,8 +1643,8 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
                 max_abs_err=errors["abs_y"])
             entry.update(zip(("bound_ms", "bound_by"),
                              _conv_bound(conv, dtype)))
-            out["conv_stats"][f"{batch}x{Cin}x{Tc} O{O} k{k} d{d} {name}"] = \
-                entry
+            out["conv_stats"][
+                f"{prefix}{batch}x{Cin}x{Tc} O{O} k{k} d{d} {name}"] = entry
             del x, w, cot, got, want
         del meg, center, scale, a, b
     for kernel, shapes in out.items():
@@ -1744,6 +1771,497 @@ def run_cli_phase(device: torch.device, card_name: str) -> dict:
     return out, shapes
 
 
+#: phase 9: the paper's four studies, each a synthetic tree in the study's
+#: on-disk format at its real sensor count and rate, two recordings of
+#: STUDY_SECONDS (brennan2019's story needs its 2,129 words; MOUS's
+#: sentence trials, one 3 s window in three of their 4.4 s, need
+#: MOUS_SECONDS for three train batches), trained by the CLI for one
+#: epoch of the clip_conv_tpu recipe with fused_conv_bn
+STUDY_SECONDS = 360.
+MOUS_SECONDS = 900.
+STUDY_ARGS = (f"preset={RECIPE}", "simpleconv.fused_conv_bn=True",
+              'dset.features=["MelSpectrum"]', "optim.batch_size=256",
+              "optim.epochs=1", "dset.n_recordings=2")
+#: a word every WORD_STEP seconds, each WORD_SECONDS long
+WORD_STEP, WORD_SECONDS = 0.3, 0.25
+#: the MOUS presentation log (two tab-separated blocks)
+MOUS_LOG_HEADER = ("Subject\tTrial\tEvent Type\tCode\tTime\tTTime\t"
+                   "Uncertainty\tDuration\tUncertainty\tReqTime\tReqDur")
+#: MOUS: the MEG clock runs this far ahead of the log's
+MOUS_SHIFT = 0.5
+
+
+def _vocabulary(rng: np.random.RandomState, size: int = 400) -> list:
+    """Pseudo-words of one to three syllables."""
+    onsets = ["b", "d", "k", "l", "m", "n", "p", "r", "s", "t", "v", "z"]
+    vowels = ["a", "e", "i", "o", "u", "aa", "ee", "oo"]
+    words: set = set()
+    while len(words) < size:
+        words.add("".join(rng.choice(onsets) + rng.choice(vowels)
+                          for _ in range(rng.randint(1, 4))))
+    return sorted(words)
+
+
+def _sentences(rng: np.random.RandomState, n_words: int) -> list:
+    """Distinct sentences (lists of 6 to 12 words), `n_words` words in
+    all (the last one cut to fit, at least 2 words)."""
+    vocabulary = _vocabulary(rng)
+    out, seen, total = [], set(), 0
+    while total < n_words:
+        n = min(rng.randint(6, 13), n_words - total)
+        words = [str(w) for w in rng.choice(vocabulary, max(n, 2))]
+        if " ".join(words)[:45] in seen:
+            continue
+        seen.add(" ".join(words)[:45])
+        out.append(words)
+        total += len(words)
+    return out
+
+
+def _meg(rng, n: int, sample_rate: float, seconds: float,
+         scale: float) -> np.ndarray:
+    return (rng.randn(n, int(sample_rate * seconds)) * scale
+            ).astype(np.float32)
+
+
+def write_gwilliams_tree(root: Path, rng) -> dict:
+    """MEG-MASC's BIDS layout: participants.tsv, then per subject the
+    session-0 story-0 KIT .con (208 axial gradiometers in tesla, a
+    trigger and a misc channel at 1000 Hz) and its events.tsv (a sound
+    over the story, a word every WORD_STEP s, with dict-literal
+    trial_type cells), and the story's wav."""
+    import csv
+
+    from brainmagick_tpu_torch.mockdata import write_speech_wav
+    from brainmagick_tpu_torch.studies import api, fake, kit
+
+    download = root / "download"
+    download.mkdir(parents=True)
+    subjects = ["01", "02"]
+    with open(download / "participants.tsv", "w", newline="") as f:
+        writer = csv.writer(f, delimiter="\t")
+        writer.writerow(["participant_id", "age"])
+        writer.writerows([f"sub-{s}", 30 + k] for k, s in enumerate(subjects))
+    n_words = int((STUDY_SECONDS - 4) / WORD_STEP * 0.9)
+    sentences = _sentences(rng, n_words)
+    story = STUDY_SECONDS - 2.
+    write_speech_wav(download / "stimuli" / "audio" / "story0.wav", story)
+    rows = [(1.0, story - 1., repr(dict(
+        kind="sound", sound="stimuli/audio/story0.WAV.wav")))]
+    t, words = 1.0, []
+    for seq_id, sentence in enumerate(sentences):
+        for word in sentence:
+            rows.append((round(t, 4), WORD_SECONDS, repr(dict(
+                kind="word", word=word, sequence_id=seq_id,
+                condition="sentence"))))
+            words.append(word)
+            t += WORD_STEP
+        t += WORD_STEP
+    written: dict = {"sample_rate": 1000.}
+    for subject in subjects:
+        meg = download / f"sub-{subject}" / "ses-0" / "meg"
+        meg.mkdir(parents=True)
+        stem = f"sub-{subject}_ses-0_task-0"
+        with open(meg / f"{stem}_events.tsv", "w", newline="") as f:
+            writer = csv.writer(f, delimiter="\t")
+            writer.writerow(["onset", "duration", "trial_type"])
+            writer.writerows(rows)
+        n = int(1000 * STUDY_SECONDS)
+        stim = np.zeros((1, n), dtype=np.float32)
+        stim[0, 1000:1050] = 1.
+        raw = api.RawData(
+            data=np.concatenate([_meg(rng, 208, 1000., STUDY_SECONDS, 1e-13),
+                                 stim, _meg(rng, 1, 1000., STUDY_SECONDS,
+                                            0.1)]),
+            sample_rate=1000., ch_names=[f"MEG {k:03d}" for k in range(210)],
+            positions=np.concatenate([fake.grid_positions(208),
+                                      np.full((2, 2), api.INVALID_POSITION)]
+                                     ).astype(np.float32),
+            ch_kinds=[kit.KIND_MEG] * 208 + [kit.KIND_STIM, kit.KIND_OTHER])
+        path = meg / f"{stem}_meg.con"
+        kit.write_kit(path, raw, system_name="New York University 208ch")
+        written.setdefault("file", path)
+        written.setdefault("data", raw.data[:208])
+    written["words"] = words * len(subjects)
+    return written
+
+
+def _write_textgrid(path: Path, words: list) -> float:
+    """A long-format TextGrid: the words (ORT-MAU, one every WORD_STEP s)
+    and two or three phonemes each (MAU); returns the audio's length."""
+    from brainmagick_tpu_torch.phonemes import ph_dict
+
+    names = list(ph_dict)
+    word_entries, ph_entries = [], []
+    t = 0.1
+    for k, word in enumerate(words):
+        word_entries.append((t, t + WORD_SECONDS, word))
+        n_ph = 2 + k % 2
+        for j in range(n_ph):
+            ph_entries.append((t + WORD_SECONDS * j / n_ph,
+                               t + WORD_SECONDS * (j + 1) / n_ph,
+                               names[(7 * k + j) % len(names)]))
+        t += WORD_STEP
+    end = round(t + 0.1, 4)
+    lines = ['File type = "ooTextFile"', 'Object class = "TextGrid"', "",
+             "xmin = 0", f"xmax = {end}", "tiers? <exists>", "size = 2",
+             "item []:"]
+    for tier_idx, (tier, entries) in enumerate(
+            [("ORT-MAU", word_entries), ("MAU", ph_entries)], 1):
+        lines += [f"    item [{tier_idx}]:", '        class = "IntervalTier"',
+                  f'        name = "{tier}"', "        xmin = 0",
+                  f"        xmax = {end}",
+                  f"        intervals: size = {len(entries)}"]
+        for j, (a, b, name) in enumerate(entries, 1):
+            lines += [f"        intervals [{j}]:",
+                      f"            xmin = {round(a, 4)}",
+                      f"            xmax = {round(b, 4)}",
+                      f'            text = "{name}"']
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("\n".join(lines) + "\n")
+    return end
+
+
+def write_mous_tree(root: Path, rng) -> dict:
+    """The MOUS (Donders) layout for two audio subjects: stimuli.txt, a
+    wav and a TextGrid per sentence, each subject's Presentation log (a
+    fixation, a ZINNEN context, the sentence's sound and its audio onset
+    per trial) and CTF .ds (273 MEG head sensors in tesla, 28 reference
+    channels and the UPPT001 trigger channel at 1200 Hz, its triggers
+    MOUS_SHIFT s after the log's fixations (20) and contexts (10))."""
+    from brainmagick_tpu_torch.mockdata import write_speech_wav
+    from brainmagick_tpu_torch.studies import api, ctf, fake
+
+    download = root / "download"
+    # more sentences than the recording holds: the trials fill it
+    sentences = _sentences(rng, int(MOUS_SECONDS / 4.) * 9)
+    (download / "stimuli").mkdir(parents=True)
+    (download / "stimuli" / "stimuli.txt").write_text("".join(
+        f"{uid} {' '.join(s)}\n" for uid, s in enumerate(sentences, 1)))
+    lengths = {}
+    for uid, sentence in enumerate(sentences, 1):
+        lengths[uid] = _write_textgrid(
+            download / "derivatives" / "textgrids"
+            / ("EQ_Ramp_Int2_Int1LPF%.3i.TextGrid" % uid), sentence)
+        write_speech_wav(download / "stimuli" / "audio_files"
+                         / f"{uid:03d}.wav", lengths[uid])
+    sfreq = 1200.
+    written: dict = {"words": [], "sample_rate": sfreq}
+    for subject in ("sub-A2002", "sub-A2003"):
+        rows1, rows2, sync = [], [], []
+
+        def add(event_type, code, t, duration=0.):
+            rows1.append(f"{subject[4:]}\t1\t{event_type}\t{code}\t"
+                         f"{int(round(t * 1e4))}\t0\t0\t"
+                         f"{int(round(duration * 1e4))}\t0\t0\t0")
+            if event_type in ("Picture", "Sound", "Nothing"):
+                rows2.append("0\tx")
+
+        t = 1.
+        for uid, sentence in enumerate(sentences, 1):
+            if t + 1.5 + lengths[uid] > MOUS_SECONDS - 2:
+                break
+            add("Picture", f"FIX {uid}", t)
+            sync.append((t, 20))
+            t += 0.5
+            add("Picture", f"ZINNEN {uid}", t)
+            sync.append((t, 10))
+            t += 0.5
+            add("Sound", f"Start File {uid:03d}.wav", t)
+            add("Nothing", "Audio onset", t + 0.01)
+            written["words"] += sentence
+            t += lengths[uid]
+            add("Nothing", "End of file", t)
+            t += 0.5
+        log = download / "sourcedata" / "meg_task" / \
+            f"{subject}-MEG-MOUS-Aud.log"
+        log.parent.mkdir(parents=True, exist_ok=True)
+        log.write_text("Scenario - synthetic\nheader\n" + MOUS_LOG_HEADER
+                       + "\n" + "\n".join(rows1) + "\n\n\nUncertainty\t"
+                       "StimInfo\n" + "\n".join(rows2) + "\n")
+        n = int(sfreq * MOUS_SECONDS)
+        stim = np.zeros((1, n), dtype=np.float32)
+        for when, code in sync + [(MOUS_SECONDS - 1. - MOUS_SHIFT, 5)]:
+            sample = int((when + MOUS_SHIFT) * sfreq)
+            stim[0, sample:sample + 300] = code
+        raw = api.RawData(
+            data=np.concatenate([_meg(rng, 273, sfreq, MOUS_SECONDS, 1e-12),
+                                 _meg(rng, 28, sfreq, MOUS_SECONDS, 1.),
+                                 stim]),
+            sample_rate=sfreq,
+            ch_names=[f"MEG{k:03d}-4304" for k in range(273)]
+            + [f"REF{k:02d}-4304" for k in range(28)] + ["UPPT001"],
+            positions=np.concatenate([
+                fake.grid_positions(273),
+                np.full((29, 2), api.INVALID_POSITION)]).astype(np.float32),
+            ch_kinds=[ctf.KIND_MEG] * 273 + [ctf.KIND_OTHER] * 28
+            + [ctf.KIND_STIM])
+        path = download / subject / "meg" / f"{subject}_task-auditory_meg.ds"
+        ctf.write_ctf(path, raw, trial_samples=int(sfreq))
+        written.setdefault("file", path)
+        written.setdefault("data", raw.data[:273])
+    return written
+
+
+def write_brennan_tree(root: Path, rng) -> dict:
+    """Brennan2019's layout for subjects S01 and S03: each subject's
+    MATLAB proc struct (the 2,129 word trials, at WORD_STEP s) and raw
+    struct (60 EEG + VEOG + AUD channels in µV at 500 Hz), the story's
+    AliceChapterOne-EEG.csv (12 audio segments) and a wav per segment."""
+    import csv
+
+    from scipy.io import savemat
+
+    from brainmagick_tpu_torch.mockdata import write_speech_wav
+
+    download = root / "download"
+    (download / "proc").mkdir(parents=True)
+    n_trials, sfreq, n_segments = 2129, 500., 12
+    sentences = _sentences(rng, n_trials)
+    rows, k = [], 0
+    per_segment = -(-n_trials // n_segments)
+    for seq_id, sentence in enumerate(sentences):
+        for position, word in enumerate(sentence):
+            segment = 1 + k // per_segment
+            onset = 0.1 + (k - (segment - 1) * per_segment) * WORD_STEP
+            rows.append((word, position, seq_id, segment, round(onset, 4),
+                         round(onset + WORD_SECONDS, 4)))
+            k += 1
+    with open(download / "AliceChapterOne-EEG.csv", "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["Word", "Position", "Sentence", "Segment",
+                         "onset", "offset"])
+        writer.writerows(rows)
+    for segment in range(1, n_segments + 1):
+        write_speech_wav(download / "audio"
+                         / f"DownTheRabbitHoleFinal_SoundFile{segment}.wav",
+                         per_segment * WORD_STEP + 0.5)
+    starts = (np.arange(n_trials) * WORD_STEP * sfreq + sfreq).astype(float)
+    trl = np.stack([starts, starts + WORD_SECONDS * sfreq,
+                    np.zeros(n_trials), np.array([r[3] for r in rows], float),
+                    np.arange(n_trials, dtype=float)], axis=1)
+    seconds = float(np.ceil(starts[-1] / sfreq + 5.))
+    labels = [str(i + 1 + (i >= 28)) for i in range(60)] + ["VEOG", "AUD"]
+    written: dict = {"words": [r[0] for r in rows] * 2,
+                     "sample_rate": sfreq}
+    for subject in ("S01", "S03"):
+        savemat(download / "proc" / f"{subject}.mat", dict(proc=dict(
+            trl=trl, tot_trials=float(n_trials), tot_chans=61.,
+            varnames=np.array(["segment", "order"], dtype=object))))
+        trial = _meg(rng, 62, sfreq, seconds, 10.)
+        savemat(download / f"{subject}.mat", dict(raw=dict(
+            hdr=dict(Fs=sfreq, nChans=62., label=np.array(labels,
+                                                          dtype=object)),
+            fsample=sfreq, trial=trial)))
+        written.setdefault("file", download / f"{subject}.mat")
+        written.setdefault("data", trial[:60] * 1e-6)
+    return written
+
+
+def write_broderick_tree(root: Path, rng) -> dict:
+    """Broderick2019's layout for Subject1's runs 1 and 2 (the study lists
+    20 runs a subject, so two recordings are two runs): each run's gentle
+    alignment JSON (a word every WORD_STEP s, its phones), transcript and
+    wav, and the run's MATLAB eegData (128 channels at 128 Hz)."""
+    import json
+
+    from scipy.io import savemat
+
+    from brainmagick_tpu_torch.mockdata import write_speech_wav
+
+    download = root / "download"
+    private = download / "private"
+    private.mkdir(parents=True)
+    eeg_dir = download / "Natural Speech" / "EEG" / "Subject1"
+    eeg_dir.mkdir(parents=True)
+    written: dict = {"words": [], "sample_rate": 128.}
+    for run in (1, 2):
+        sentences = _sentences(rng, int((STUDY_SECONDS - 3) / WORD_STEP))
+        (private / f"oldman_run{run}.txt").write_text(" ".join(
+            " ".join(s).capitalize() + "." for s in sentences))
+        t, entries = 0.5, []
+        for word in (w for s in sentences for w in s):
+            entries.append(dict(
+                case="success", word=word, alignedWord=word,
+                start=round(t, 3), end=round(t + WORD_SECONDS, 3),
+                phones=[dict(phone=f"{c}_B", duration=WORD_SECONDS / 2)
+                        for c in word[:2]], startOffset=0, endOffset=1))
+            written["words"].append(word)
+            t += WORD_STEP
+        (private / f"align{run}.json").write_text(json.dumps(
+            dict(words=entries)))
+        write_speech_wav(private / f"audio{run}.wav", t + 1.)
+        eeg = (rng.randn(int(128 * STUDY_SECONDS), 128) * 1e-6
+               ).astype(np.float32)
+        savemat(eeg_dir / f"Subject1_Run{run}.mat",
+                dict(fs=np.array([[128.]]), eegData=eeg))
+        written.setdefault("file", eeg_dir / f"Subject1_Run{run}.mat")
+        written.setdefault("data", eeg.T * 1e6)
+    return written
+
+
+#: (selection, study, tree writer, sensors the model sees)
+STUDY_TREES = (("gwilliams2022", "gwilliams2022", write_gwilliams_tree, 208),
+               ("audio_mous", "schoffelen2019", write_mous_tree, 273),
+               ("brennan2019", "brennan2019", write_brennan_tree, 60),
+               ("broderick2019", "broderick2019", write_broderick_tree, 128))
+
+
+def check_reread(study: str, raw, written: dict, scratch: Path) -> str:
+    """The first recording's raw, as its adapter reads it, against the
+    array written: within half a quantization step of the format (KIT
+    int16 counts, CTF int32), then bit-equal after one more write and read
+    of the reader's arrays; equal bits for MATLAB's float32."""
+    from brainmagick_tpu_torch.studies import ctf, kit
+
+    got, want = raw.data, written["data"]
+    if got.shape != want.shape:
+        raise AssertionError(f"{study}: read {got.shape}, wrote {want.shape}")
+    path = written["file"]
+    if path.suffix in (".con", ".ds"):
+        if path.suffix == ".con":
+            step = kit.INPUT_RANGE_VOLTS / 2 ** kit.ADC_BITS * 1e-12
+            full = kit.read_kit(path)
+            kit.write_kit(scratch / "again.con", full,
+                          system_name="New York University 208ch")
+            again = kit.read_kit(scratch / "again.con")
+        else:
+            step = 1. / (1e9 * 2 ** 20)
+            full = ctf.read_ctf(path)
+            ctf.write_ctf(scratch / "again.ds", full, trial_samples=1200)
+            again = ctf.read_ctf(scratch / "again.ds")
+        err = float(np.abs(got.astype(np.float64) - want).max())
+        # half a step, and the float32 rounding of the scaled counts
+        limit = 0.5 * step + 2. ** -22 * float(np.abs(want).max())
+        if not err <= limit:
+            raise AssertionError(f"{study}: read back {err:.3e} from the "
+                                 f"written data, past half a step and "
+                                 f"the fp32 rounding, {limit:.3e}")
+        if not np.array_equal(again.data, full.data):
+            raise AssertionError(f"{study}: a second write and read changed "
+                                 f"the reader's arrays")
+        return f"within {err / step:.3f} of a quantization step, then " \
+            "bit-equal after a second write and read"
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{study}: the MATLAB arrays read back differ")
+    return "bit-equal"
+
+
+def prepare_study(device: torch.device, card_name: str, selection: str,
+                  study: str, write_tree, sensors: int, root: Path) -> tuple:
+    """A study's tree written into `root`, its first two recordings
+    listed, the first one's raw read back against what was written and
+    preprocessed on `device` against the CPU, and their words against the
+    words written. Returns (read s, preprocess s)."""
+    from brainmagick_tpu_torch.config import MainConfig
+    from brainmagick_tpu_torch.env import env
+    from brainmagick_tpu_torch.studies import api
+
+    t0 = time.perf_counter()
+    written = write_tree(root, np.random.RandomState(SEED + 9))
+    write_s = time.perf_counter() - t0
+    with env.temporary(studies={study: root}, cache=None):
+        recs = list(api.from_selection(MainConfig().selections[selection]))
+        if len(recs) < 2:
+            raise AssertionError(f"{selection}: {len(recs)} recordings")
+        recs = recs[:2]
+        t0 = time.perf_counter()
+        raw = recs[0].raw()
+        read_s = time.perf_counter() - t0
+        if raw.n_channels != sensors:
+            raise AssertionError(f"{selection}: {raw.n_channels} sensors, "
+                                 f"want {sensors}")
+        reread = check_reread(study, raw, written, root)
+        words = [w for rec in recs for w in rec.events()[
+            rec.events().kind_mask("word")]["word"].tolist()]
+        if words != written["words"]:
+            raise AssertionError(f"{selection}: the events hold "
+                                 f"{len(words)} words, {len(written['words'])}"
+                                 f" were written (or not the same)")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = api.preprocess_raw(raw, 120, device=device)
+    preprocess_s = time.perf_counter() - t0
+    on_cpu = api.preprocess_raw(raw, 120, device="cpu")
+    err = float(np.abs(on_card.data - on_cpu.data).max()
+                / np.abs(on_cpu.data).max())
+    if not err <= PREPROCESS_TOL:
+        raise AssertionError(f"{selection}: preprocessed raw, card "
+                             f"against CPU {err:.2e}")
+    print(f"study {selection} ({study}): tree written in {write_s:.1f} s; "
+          f"{sensors} sensors at {written['sample_rate']:g} Hz read in "
+          f"{read_s:.3f} s ({reread}); {len(words)} words in the events as "
+          f"written; preprocessed to 120 Hz on {device} in "
+          f"{preprocess_s:.3f} s, max |card - CPU| / max |x| = {err:.2e} "
+          f"({card_name})")
+    return read_s, preprocess_s
+
+
+def run_study(device: torch.device, card_name: str, selection: str,
+              study: str, write_tree, sensors: int, tmp: Path) -> tuple:
+    """One study: ``prepare_study``, then ``train.main`` for one epoch of
+    STUDY_ARGS on its tree. Returns (the kernels' launch counts, the
+    shapes the run gave them)."""
+    from brainmagick_tpu_torch.env import env
+    from brainmagick_tpu_torch.train import parse_overrides
+
+    root = tmp / study
+    read_s, preprocess_s = prepare_study(device, card_name, selection,
+                                         study, write_tree, sensors, root)
+    with env.temporary(studies={study: root}):
+        argv = [*STUDY_ARGS, f"dset.selections=[{selection!r}]",
+                f"cache={tmp}/cache_{study}", f"out_dir={tmp}/outputs"]
+        launches, routes, by_dtype, spy, wall, peak_gb = run_cli(
+            argv, f"study {selection}", card_name)
+    solver = spy.solver
+    sizes = {name: len(getattr(solver.datasets, name))
+             for name in ("train", "valid", "test")}
+    n_train_batches = len(solver.loaders["train"])
+    if n_train_batches < 2:
+        raise AssertionError(f"{selection}: the train split holds "
+                             f"{sizes['train']} segments, fewer than two "
+                             f"batches")
+    _check_cli_launches(f"study {selection}", launches, routes, by_dtype,
+                        spy, "bfloat16")
+    history = _read_history(Path(parse_overrides(argv).xp_folder), 1,
+                            f"study {selection}")
+    step_ms = spy.train_step_ms()
+    tracks_s = sum(d.track_seconds for split in solver.datasets
+                   for d in split.datasets)
+    epoch_s = sum(v for k, v in solver.stage_seconds[0].items()
+                  if k != "test")
+    print(f"study {selection} timings ({card_name}): read {read_s:.3f} s, "
+          f"preprocess {preprocess_s:.3f} s (one recording), dataset build "
+          f"{solver.build_timings['datasets']:.2f} s (2 recordings, "
+          f"preprocessed on the card), track {tracks_s:.2f} s, scaler fit "
+          f"{solver.build_timings['scaler']:.2f} s, train step median "
+          f"{statistics.median(step_ms):.2f} ms over {len(step_ms)} steps "
+          f"(device time), epoch (train + valid) {epoch_s:.2f} s, test "
+          f"stage {solver.stage_seconds[0].get('test', 0.):.2f} s, peak "
+          f"device memory {peak_gb:.2f} GB, run {wall:.1f} s; splits "
+          f"{sizes}; history {history}")
+    shape = dict(batch=solver.args.optim.batch_size, n_test=sizes["test"],
+                 n_mels=solver.used_features["MelSpectrum"].n_mels,
+                 channels=solver.datasets.train[0].meg.shape[0])
+    del solver, spy
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    return launches, shape
+
+
+def run_study_phase(device: torch.device, card_name: str) -> tuple:
+    """Phase 9: each study of STUDY_TREES in turn. Returns ({"study_<name>":
+    launch counts}, {name: the shapes of its run})."""
+    launches, shapes = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_studies_") as tmp:
+        for selection, study, write_tree, sensors in STUDY_TREES:
+            launches[f"study_{selection}"], shapes[selection] = run_study(
+                device, card_name, selection, study, write_tree, sensors,
+                Path(tmp))
+    return launches, shapes
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -1781,8 +2299,14 @@ def main() -> None:
     recipe_train, recipe_types, recipe_train_warm = run_train(
         device, card_name, batch, RECIPE)
     cli_launches, cli_shape = run_cli_phase(device, card_name)
+    study_launches, study_shapes = run_study_phase(device, card_name)
     with exact_fp32():
         cli_shapes = check_cli_shapes(device, **cli_shape)
+        for k, (selection, shape) in enumerate(study_shapes.items()):
+            for name, shapes in check_cli_shapes(
+                    device, **shape, with_conv=k == 0,
+                    prefix=f"{selection}: ").items():
+                cli_shapes[name].update(shapes)
     print(f"{RECIPE} against clip_conv, warm B={REQUESTS[0]} ({card_name}): "
           f"forward {recipe_serve_warm['forward_ms']:.2f} ms against "
           f"{serve_warm['forward_ms']:.2f}, scoring "
@@ -1802,7 +2326,8 @@ def main() -> None:
                        recipe_serve=recipe_serve[entry["name"]],
                        recipe_train=recipe_train[entry["name"]],
                        **{path: counts[entry["name"]]
-                          for path, counts in cli_launches.items()})
+                          for path, counts in {**cli_launches,
+                                               **study_launches}.items()})
         entry["other_shapes"].update(cli_shapes[entry["name"]])
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path

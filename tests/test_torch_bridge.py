@@ -100,7 +100,7 @@ def test_untransform_equals_the_jax_packages(kind):
 
 #: the top-level packages the port may not import
 FORBIDDEN = ("brainmagick_tpu", "jax", "jaxlib", "flax", "optax", "pandas",
-             "numba")
+             "numba", "mne")
 
 
 def _imports_of_the_jax_package(source: str) -> list:

@@ -353,8 +353,11 @@ def test_cache_entries_carry_the_backend_tag(study, tmp_path):
 
 
 def test_get_datasets_refuses_autoreject():
-    with pytest.raises(NotImplementedError, match="autoreject"):
-        dataset.SegmentDataset.Factory(autoreject=True)
+    """The factory no longer refuses dset.autoreject: it keeps the option
+    (the repair it applies is held to the JAX package's in
+    tests/test_torch_studies.py)."""
+    assert dataset.SegmentDataset.Factory(autoreject=True).autoreject
+    assert not dataset.SegmentDataset.Factory().autoreject
 
 
 def test_cli_refuses_a_missing_card():

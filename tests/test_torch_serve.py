@@ -241,8 +241,8 @@ def _run(*cmd, **extra_env):
 
 def test_import_hygiene_and_copied_constants():
     """Importing the port (its serving, training and evaluation entry
-    points and the conv_stats op) loads no jax, flax, pandas or
-    JAX-package module; the constants it copies equal their originals,
+    points, the conv_stats op, the studies and their readers) loads no
+    jax, flax, pandas, mne or JAX-package module; the constants it copies equal their originals,
     and so do the config fields the train step and the evaluation
     read."""
     proc = _run("-c", (
@@ -255,8 +255,11 @@ def test_import_hygiene_and_copied_constants():
         "import brainmagick_tpu_torch.dataset, brainmagick_tpu_torch.loader\n"
         "import brainmagick_tpu_torch.studies, brainmagick_tpu_torch.play\n"
         "import brainmagick_tpu_torch.features, brainmagick_tpu_torch.norm\n"
+        "import brainmagick_tpu_torch.autoreject\n"
+        "import brainmagick_tpu_torch.textgrid\n"
+        "from brainmagick_tpu_torch.studies import ctf, download, kit\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "    ('jax', 'jaxlib', 'flax', 'pandas', 'numba',\n"
+        "    ('jax', 'jaxlib', 'flax', 'pandas', 'numba', 'mne',\n"
         "     'brainmagick_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"))
