@@ -1,15 +1,16 @@
 """Configuration of the port: the JAX package's config fields that its
 paths read, and the XP signature rule.
 
-The fields (names, defaults and the ``clip_conv``, ``clip_conv_tpu`` and
-``tiny`` presets) are copies of ``brainmagick_tpu.config``'s, so that the
-port runs on a host that has no JAX package (tests/test_torch_serve.py
-holds the copy to the original). Two differences: ``device`` defaults to
-``"cuda"`` (the JAX package's ``"tpu"``), and the mesh and sharding
-fields of ``parallel``, the ConvRNN defaults and the other presets are
-not copied. ``delta``/``sig`` follow the JAX package's rule (the hash of
-the non-default fields, cosmetic keys excluded), so the same overrides
-give the same signature in both packages. Every function of the port
+The fields (names, defaults and the ``clip_conv``, ``clip_conv_tpu``,
+``tiny`` and ``deep_mel`` presets) are copies of
+``brainmagick_tpu.config``'s, so that the port runs on a host that has no
+JAX package (tests/test_torch_serve.py holds the copy to the original).
+Two differences: ``device`` defaults to ``"cuda"`` (the JAX package's
+``"tpu"``), and the mesh and sharding fields of ``parallel``, the ConvRNN
+defaults and the other presets are not copied. ``delta``/``sig`` follow
+the JAX package's rule (the hash of the non-default fields, cosmetic keys
+excluded), so the same overrides give the same signature in both
+packages. Every function of the port
 that takes `args` accepts the JAX package's ``MainConfig`` as well.
 """
 
@@ -282,8 +283,9 @@ def apply_preset(cfg: MainConfig, name: str) -> MainConfig:
     """The ``clip_conv`` preset (the paper recipe), ``clip_conv_tpu``
     (the paper recipe with bf16 compute, estimates and scores, no
     BatchNorm-cancelled conv biases, the fused head, tanh GELU and the
-    bf16 wire) or ``tiny`` (a CPU-sized SimpleConv), on the copied
-    fields."""
+    bf16 wire), ``tiny`` (a CPU-sized SimpleConv) or ``deep_mel`` (the
+    DeepMel feature model on the ground truth, Table 2's "MelSpectrum +
+    DeepMel" cell), on the copied fields."""
     if name == "clip_conv_tpu":
         apply_preset(cfg, "clip_conv")
         cfg.simpleconv.update(dtype="bfloat16", output_dtype="bfloat16",
@@ -301,6 +303,14 @@ def apply_preset(cfg: MainConfig, name: str) -> MainConfig:
             gelu=True, batch_norm=True, subject_layers=True,
             subject_dim=0, complex_out=True)
         cfg.optim.batch_size = 8
+        return cfg
+    if name == "deep_mel":
+        cfg.feature_model_name = "deep_mel"
+        cfg.feature_model_params = dict(
+            n_hidden_channels=320, n_hidden_layers=10, n_out_channels=768,
+            kernel=3, stride=1, dilation_growth=2, dilation_period=5,
+            batch_norm=True, activation_on_last=False, skip=True,
+            glu_context=1, glu=2)
         return cfg
     if name != "clip_conv":
         raise NotImplementedError(f"preset {name!r}")

@@ -1,4 +1,5 @@
-"""Weight bridge: JAX SimpleConv parameter trees -> the port's modules.
+"""Weight bridge: JAX SimpleConv and DeepMel parameter trees -> the port's
+modules.
 
 The reverse half of ``brainmagick_tpu/convert.py``, with its own copy of
 the rules: each rule ``(state-dict key, flax path, transform,
@@ -15,8 +16,9 @@ layer, and flax's ``Conv_{i}`` counter skips fused layers, so the GLU
 convs behind them are renumbered) and the bias-less BatchNorm'd convs of
 ``bn_conv_bias=False`` (their running mean loads as it is: the JAX
 package's bias fold is for reference torch checkpoints, whose convs have a
-bias). ``fused_head`` and the compute dtypes change no parameter. The
-tests hold these rules to the JAX package's.
+bias). ``fused_head`` and the compute dtypes change no parameter.
+``deepmel_rules`` walks a DeepMel, one ConvSequence under flax's ``fm``
+scope. The tests hold these rules to the JAX package's.
 
 The module imports nothing of the JAX package: a JAX tree arrives as
 nested dicts of numpy arrays.
@@ -185,11 +187,34 @@ def simpleconv_rules(model: nn.Module) -> tp.List[tuple]:
     return rules
 
 
+def deepmel_rules(feature_model: nn.Module) -> tp.List[tuple]:
+    """Rules for a port DeepMel: the walk of ``brainmagick_tpu.convert
+    .deepmel_rules`` (one ConvSequence under flax's ``fm`` scope; the
+    port's DeepMel is that ConvSequence, so its keys need no prefix)."""
+    return conv_sequence_rules(feature_model, "", ("fm", "ConvSequence_0"))
+
+
+def _split_fm(tree: Mapping) -> tp.Tuple[dict, dict]:
+    """A JAX solver tree as (everything but ``fm``, ``{"fm": ...}``)."""
+    rest = {k: v for k, v in tree.items() if k != "fm"}
+    return rest, ({"fm": tree["fm"]} if "fm" in tree else {})
+
+
 def load_jax_params(model: nn.Module, params: Mapping,
-                    batch_stats: Mapping) -> None:
+                    batch_stats: Mapping,
+                    feature_model: tp.Optional[nn.Module] = None) -> None:
     """Load the JAX solver's ``params`` and ``batch_stats`` trees
     (``{"model": ...}`` nested dicts of numpy arrays, as
     ``jax.device_get(solver.state[...])`` gives them) into a port
     SimpleConv, by the rules ``simpleconv_rules`` derives from the port
-    model's own attributes."""
+    model's own attributes, and their ``fm`` sub-trees into
+    `feature_model` (``deepmel_rules``). Every leaf must be consumed: an
+    ``fm`` sub-tree without a `feature_model` raises."""
+    if feature_model is None:
+        load_by_rules(model, simpleconv_rules(model), params, batch_stats)
+        return
+    (params, fm_params), (batch_stats, fm_stats) = map(
+        _split_fm, (params, batch_stats))
     load_by_rules(model, simpleconv_rules(model), params, batch_stats)
+    load_by_rules(feature_model, deepmel_rules(feature_model), fm_params,
+                  fm_stats)

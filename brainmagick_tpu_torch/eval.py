@@ -1,20 +1,34 @@
 """Offline segment-retrieval evaluation: the paper's top-k segment accuracy.
 
-Port of ``brainmagick_tpu/eval.py`` on one device, over batches the
-caller gives (the port has no data loader yet). Each batch carries the
-``dataset.ARRAY_FIELDS`` arrays, ``event_lists`` (per row, the events of
-its segment, the first of which marks the segment's start; each has
-``kind``, ``start`` and ``duration``, a word also ``word``,
-``word_index`` and ``word_sequence``), a ``study`` name, and optionally
-``word_hash`` [B, T] and ``pad_weight`` [B]:
+Port of ``brainmagick_tpu/eval.py`` on one device. The predictions come
+from a trained solver's test split (``train.get_solver`` or
+``play.get_solver_from_sig``; ``solver_batches`` reads its loader), or
+from batches the caller gives to a ``serve.Server`` or a solver. Each
+batch carries the ``dataset.ARRAY_FIELDS`` arrays, ``event_lists`` (per
+row, the events of its segment, the first of which marks the segment's
+start; each has ``kind``, ``start`` and ``duration``, a word also
+``word``, ``word_index`` and ``word_sequence``), a ``study`` name, and
+optionally ``word_hash`` [B, T] and ``pad_weight`` [B]:
 
-    data = load_test_data(server, batches)
-    probs = build_probs(server, data["preds"], data["trues"])
+    data = load_test_data(solver)            # or (server, batches)
+    probs = build_probs(solver, data["preds"], data["trues"])
     acc = accuracy_from_probs(probs, data["segment_hashes"],
                               data["trues_segment_hashes"], topk=1)
-    run_eval(server, batches, output_dir)     # all of it, to files
+    run_eval(solver, None, output_dir)       # all of it, to files
 
-The forwards run through ``Server.forward_batch`` and the scoring through
+The command line evaluates a trained XP by its signature:
+
+    python -m brainmagick_tpu_torch.eval sig=<sig> [out_dir=./outputs]
+        [n_negatives=20000] [output=<dir>] [test_study=<study>]
+        [device=cpu]
+
+It reads the port's checkpoint in ``<out_dir>/xps/<sig>/`` and writes
+into ``<out_dir>/eval/<sig>-torch`` unless ``output`` says otherwise (the
+JAX package writes ``eval/<sig>``; the file names are the same, so the
+two evaluations of one XP compare file by file). It runs on the card
+unless ``device=cpu``.
+
+The forwards run through ``forward_batch`` and the scoring through
 ``losses.streamed_scores`` (``nt_matmul`` on a CUDA device), inside
 ``precision.exact_fp32``. The probabilities are a softmax on the host, as
 in the JAX package.
@@ -24,9 +38,12 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import dataclasses
 import hashlib
 import logging
 import os
+import sys
+import types
 import typing as tp
 from collections import defaultdict
 from pathlib import Path
@@ -34,8 +51,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .cache import tagged
+from .dataset import ARRAY_FIELDS, ConcatDataset
 from .losses import ClipLoss, refuse_int8_pool, streamed_scores
 from .precision import exact_fp32
+from .utils import dump_yaml
 
 logger = logging.getLogger(__name__)
 
@@ -100,12 +120,57 @@ def host_array(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def solver_batches(solver: tp.Any, n_recordings: tp.Optional[int] = None,
+                   shuffle: bool = False,
+                   test_study: tp.Optional[str] = None,
+                   with_events: bool = True
+                   ) -> tp.Iterator[types.SimpleNamespace]:
+    """A solver's test split as ``load_test_data`` and ``wer.get_wer``
+    take it: the test recordings (of `test_study` when given, the first
+    `n_recordings` when given) through ``solver.make_loader`` (shuffled
+    with the config's seed when `shuffle`), each batch with the features
+    the model is trained on, the ``WordHash`` track as ``word_hash`` when
+    the test features hold it, its events (`with_events`), the study
+    name and the loader's pad weights."""
+    datasets = solver.datasets.test.datasets
+    if test_study is not None:
+        datasets = [d for d in datasets
+                    if d.recording.study_name() == test_study]
+    if n_recordings is not None:
+        datasets = datasets[:n_recordings]
+    test_features = solver.datasets.test.datasets[0].features
+    hash_slice = test_features.get_slice("WordHash") \
+        if "WordHash" in test_features else None
+    used_names = list(solver.used_features.keys())
+    for batch, pad_weight in solver.make_loader(
+            ConcatDataset(datasets), shuffle=shuffle,
+            with_events=with_events):
+        arrays = {name: getattr(batch, name) for name in ARRAY_FIELDS}
+        arrays["features"] = test_features.extract_features(
+            batch.features, used_names)
+        yield types.SimpleNamespace(
+            **arrays, event_lists=batch._event_lists,
+            study="-".join(sorted({r.study_name()
+                                   for r in batch._recordings})),
+            word_hash=None if hash_slice is None
+            else batch.features[:, hash_slice][:, 0],
+            pad_weight=pad_weight)
+
+
 @torch.no_grad()
-def load_test_data(server: tp.Any, batches: tp.Iterable[tp.Any]
+def load_test_data(server: tp.Any,
+                   batches: tp.Optional[tp.Iterable[tp.Any]] = None,
+                   n_recordings: tp.Optional[int] = None,
+                   test_study: tp.Optional[str] = None
                    ) -> tp.Dict[str, np.ndarray]:
     """Predictions, the candidates deduplicated on their segment hash (the
     hash of the sequence hash and the word index), and per-prediction
-    metadata, as numpy arrays."""
+    metadata, as numpy arrays. Without `batches`, `server` is a solver
+    and the batches are its test split's (``solver_batches``, which
+    takes the other arguments)."""
+    if batches is None:
+        batches = solver_batches(server, n_recordings,
+                                 test_study=test_study)
     args = server.args
     check_at = check_index(args)
     outs: tp.Dict[str, list] = defaultdict(list)
@@ -232,18 +297,25 @@ METADATA_KEYS = ("segment_hashes", "word_hashes", "word_indices",
 
 
 @exact_fp32()
-def run_eval(server: tp.Any, batches: tp.Iterable[tp.Any],
+def run_eval(server: tp.Any, batches: tp.Optional[tp.Iterable[tp.Any]],
              output_dir: tp.Union[str, Path], n_negatives: int = 20_000,
              probs_batch_size: int = 2048,
-             stats: tp.Optional[tp.Dict[str, int]] = None
-             ) -> tp.Dict[int, float]:
-    """The whole offline evaluation. Writes probs_segment.npy,
+             stats: tp.Optional[tp.Dict[str, int]] = None,
+             n_recordings: tp.Optional[int] = None,
+             test_study: tp.Optional[str] = None) -> tp.Dict[int, float]:
+    """The whole offline evaluation, of `batches` or (None) of the solver
+    `server`'s test split (``load_test_data``). Writes
+    solver_config.yaml (``dataclasses.asdict`` of the config, as
+    ``yaml.safe_dump`` writes it), then probs_segment.npy,
     vocab_segment.npy, metadata.csv, acc.csv and negative_stats.csv into
     `output_dir` (the CSV files as the JAX package's pandas writes them)
     and returns the top-1, 5 and 10 segment accuracies."""
     output_dir = Path(output_dir)
     output_dir.mkdir(exist_ok=True, parents=True)
-    data = load_test_data(server, batches)
+    with _write_and_rename(output_dir / "solver_config.yaml", "w") as f:
+        dump_yaml(dataclasses.asdict(server.args), f)
+    data = load_test_data(server, batches, n_recordings=n_recordings,
+                          test_study=test_study)
     logger.info("Loaded %d predictions, %d candidate segments",
                 len(data["preds"]), len(data["trues"]))
     probs_segment = build_probs(server, data["preds"], data["trues"],
@@ -278,3 +350,48 @@ def run_eval(server: tp.Any, batches: tp.Iterable[tp.Any],
     _write_csv(output_dir / "negative_stats.csv", ("", "0"),
                stats_rows.items())
     return acc
+
+
+#: the command line's tokens (``main``)
+TOKENS = ("sig", "out_dir", "n_negatives", "output", "test_study", "device",
+          "compilation_cache", "parallel.compilation_cache", "grid",
+          "workers")
+
+
+def main(argv: tp.Optional[tp.Sequence[str]] = None) -> tp.Dict[int, float]:
+    """The command line: ``sig=<xp>`` evaluated by ``run_eval`` into
+    ``output`` (``<out_dir>/eval/<sig>-torch`` by default); returns its
+    accuracies. ``compilation_cache`` (XLA's, in the JAX package) is
+    accepted and read nowhere; ``grid`` and ``workers`` wait for the grid
+    runner's port."""
+    from .play import get_solver_from_sig
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(levelname)s %(name)s: %(message)s")
+    tokens = {}
+    for token in argv if argv is not None else sys.argv[1:]:
+        key, sep, value = token.partition("=")
+        if not sep or key not in TOKENS:
+            raise ValueError(f"Expected one of {', '.join(TOKENS)} as "
+                             f"key=value, got {token!r}")
+        tokens[key] = value
+    for key in ("grid", "workers"):
+        if key in tokens:
+            raise NotImplementedError(
+                f"{key}=: evaluating a grid's XPs waits for 'The grid "
+                f"runner and the paper tables' (ROADMAP.md, section 1)")
+    if "sig" not in tokens:
+        raise ValueError("sig=<xp signature> is required")
+    sig = tokens["sig"]
+    out_dir = tokens.get("out_dir", "./outputs")
+    output = tokens.get("output", str(Path(out_dir) / "eval" / tagged(sig)))
+    overrides = {"device": tokens["device"]} if "device" in tokens else {}
+    solver = get_solver_from_sig(sig, out_dir=out_dir,
+                                 override_args=overrides, training=False)
+    return run_eval(solver, None, output,
+                    n_negatives=int(tokens.get("n_negatives", 20_000)),
+                    test_study=tokens.get("test_study"))
+
+
+if __name__ == "__main__":
+    main()

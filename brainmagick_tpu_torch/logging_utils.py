@@ -2,8 +2,8 @@
 
 Port of ``MetricSinks`` of ``brainmagick_tpu/logging_utils.py`` without
 its optional backends: the port's record of a run is the history its
-checkpoint and ``history.json`` keep (``Solver.commit``), and asking for
-wandb or TensorBoard raises.
+checkpoint and ``history-torch.json`` keep (``Solver.commit``), and
+asking for wandb or TensorBoard raises.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ class MetricSinks:
         if use_wandb or use_tensorboard:
             raise NotImplementedError(
                 "wandb and tensorboard sinks are not ported to "
-                "brainmagick_tpu_torch; the history is in history.json")
+                "brainmagick_tpu_torch; the history is in "
+                "history-torch.json")
         self.folder = folder
 
     def log(self, epoch: int, stages: tp.Dict[str, tp.Dict[str, float]]

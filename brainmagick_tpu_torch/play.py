@@ -1,16 +1,67 @@
-"""Streaming test metrics of a trained solver.
+"""Trained solvers by signature, and their streaming test metrics.
 
-Port of ``get_test_metrics`` of ``brainmagick_tpu/play.py``: each test
-recording's batches go through ``Solver.forward_batch`` on the solver's
+Port of ``get_solver_from_sig`` and ``get_test_metrics`` of
+``brainmagick_tpu/play.py``. A signature's solver is rebuilt from the
+config delta its port checkpoint stores (datasets, model, feature model)
+with the best state loaded. ``get_test_metrics`` runs each test
+recording's batches through ``Solver.forward_batch`` on the solver's
 device, and the metrics stream over the kept rows on the host.
 """
 
 from __future__ import annotations
 
+import json
 import random
 import typing as tp
+from pathlib import Path
 
 import numpy as np
+import torch
+
+from .cache import tagged
+from .config import MainConfig
+
+
+def get_solver_from_args(args: tp.Any, training: bool = False) -> tp.Any:
+    from .train import get_solver
+    return get_solver(args, training=training)
+
+
+def _apply_delta(args: MainConfig, delta: tp.Dict[str, tp.Any]
+                 ) -> MainConfig:
+    from .train import parse_overrides
+    return parse_overrides([f"{k}={v!r}" for k, v in delta.items()], args)
+
+
+def get_solver_from_sig(sig: str, out_dir: str = "./outputs",
+                        override_args: tp.Optional[dict] = None,
+                        training: bool = False) -> tp.Any:
+    """The solver of the XP `sig` in `out_dir`: its config rebuilt from
+    the delta stored in ``xps/<sig>/checkpoint-torch.pt`` (a JSON string,
+    where the JAX package's is a dict), `override_args` ({dotted key:
+    value}) on top, then ``train.get_solver``, which restores the
+    checkpoint and, without `training`, loads the best state. An override
+    that changes the signature raises, since the solver would restore
+    another XP's folder."""
+    folder = Path(out_dir) / "xps" / sig
+    checkpoint = folder / tagged("checkpoint.pt")
+    if not checkpoint.exists():
+        if (folder / "checkpoint.pkl").exists():
+            raise FileNotFoundError(
+                f"{folder} holds the JAX package's checkpoint.pkl only; "
+                f"reading it without JAX waits for 'Checkpoints on a "
+                f"jax-free host' (ROADMAP.md, section 1)")
+        raise FileNotFoundError(f"No checkpoint at {checkpoint}")
+    with open(checkpoint, "rb") as f:
+        payload = torch.load(f, map_location="cpu", weights_only=True)
+    delta = json.loads(payload["delta"])
+    delta.update(override_args or {})
+    args = _apply_delta(MainConfig(out_dir=out_dir), delta)
+    args.out_dir = out_dir
+    if args.sig != sig:
+        raise ValueError(f"the overrides {override_args} change the "
+                         f"signature {sig} to {args.sig}")
+    return get_solver_from_args(args, training=training)
 
 
 def get_test_metrics(solver: tp.Any, trim_offset: int = 0,

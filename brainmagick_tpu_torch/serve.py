@@ -45,6 +45,11 @@ class Server:
                  norm_arrays: tp.Mapping[str, tp.Any],
                  device: tp.Union[str, torch.device],
                  generator: tp.Optional[torch.Generator] = None) -> None:
+        if args.feature_model_name is not None:
+            # the server scores against candidates the caller brings; the
+            # feature model that makes them is the solver's
+            raise NotImplementedError(
+                f"feature_model_name={args.feature_model_name!r} in Server")
         self.args = args
         self.device = torch.device(device)
         self.model = build_model(args, meg_channels, out_channels,
@@ -64,7 +69,8 @@ class Server:
         ``parallel.transfer_dtype``. `pad_weight` [B] (ones when None) is 0
         for the rows a loader adds to fill its last batch; those rows are
         not kept."""
-        return self.solver.forward_batch(batch, pad_weight)
+        return self.solver.forward_batch(batch, pad_weight,
+                                         self.args.parallel.transfer_dtype)
 
     @torch.no_grad()
     @exact_fp32()

@@ -41,6 +41,9 @@ from .utils import write_and_rename
 
 logger = logging.getLogger(__name__)
 
+#: the feature model's keys in a best state (``Solver._copy_params``)
+FM_PREFIX = "fm."
+
 
 def _on(value: tp.Any, device: torch.device) -> torch.Tensor:
     """A tensor, or a numpy / JAX array, as a tensor on `device`."""
@@ -69,17 +72,23 @@ class Solver:
     `args` is a port or JAX ``MainConfig``; options the slices do not
     cover raise NotImplementedError here, at construction. `optimizer`
     (``train.build_optimizer``) is needed by a training step only;
-    `generator` draws the merger's dropout disk in train mode."""
+    `generator` draws the merger's dropout disk in train mode.
+    `feature_model` (``models.build_feature_model``), which
+    ``feature_model_name`` asks for, maps the ground truth to the targets
+    of the loss, and trains with the model."""
 
     def __init__(self, args: tp.Any, model: torch.nn.Module,
                  norm_arrays: tp.Mapping[str, torch.Tensor],
                  optimizer: tp.Optional[torch.optim.Optimizer] = None,
-                 generator: tp.Optional[torch.Generator] = None) -> None:
+                 generator: tp.Optional[torch.Generator] = None,
+                 feature_model: tp.Optional[torch.nn.Module] = None
+                 ) -> None:
         if args.task.type != "decode":
             raise NotImplementedError(f"task.type={args.task.type!r}")
-        if args.feature_model_name is not None:
-            raise NotImplementedError(
-                f"feature_model_name={args.feature_model_name!r}")
+        if (args.feature_model_name is None) != (feature_model is None):
+            raise ValueError(
+                f"feature_model_name={args.feature_model_name!r} with "
+                f"feature model {type(feature_model).__name__}")
         optim = args.optim
         if optim.loss not in ("clip", "l1", "mse"):
             raise NotImplementedError(f"optim.loss={optim.loss!r}")
@@ -90,6 +99,7 @@ class Solver:
             raise NotImplementedError(f"optim.svd={optim.svd!r}")
         self.args = args
         self.model = model
+        self.feature_model = feature_model
         self.device = next(model.parameters()).device
         self.norm_arrays = dict(norm_arrays)
         self.optimizer = optimizer
@@ -133,9 +143,10 @@ class Solver:
                  pad_weight: torch.Tensor, train: bool = False):
         """Batch arrays (``dataset.to_device``) -> (estimate [B, F, T'] in
         ``simpleconv.output_dtype``, output [B, F, T'], mask [B, 1, T'],
-        keep [B] fp32 weights, the merger usage penalty). The model runs
-        in train mode when `train` (BatchNorm batch statistics, merger
-        dropout) and in eval mode otherwise."""
+        keep [B] fp32 weights, the merger usage penalty). The model (and
+        the feature model, which maps the output) runs in train mode when
+        `train` (BatchNorm batch statistics, merger dropout) and in eval
+        mode otherwise."""
         args = self.args
         na = self.norm_arrays
         meg = arrays["meg"]
@@ -182,7 +193,19 @@ class Solver:
         estimate, penalty = self.model(
             inputs, arrays["subject_index"], arrays["positions"],
             generator=self.generator, with_penalty=True, **model_kwargs)
+        if self.feature_model is not None:
+            # the targets are the feature model's output; in train mode its
+            # BatchNorm moves its running statistics
+            self.feature_model.train(train)
+            output = self.feature_model(output)
         return estimate, output, mask, keep, penalty
+
+    def _output_dim(self, feat_dim: int) -> int:
+        """The width of the loss's targets for features of `feat_dim`."""
+        if self.feature_model is not None:
+            return self.args.feature_model_params.get("n_out_channels",
+                                                      feat_dim)
+        return feat_dim
 
     def _loss_value(self, estimate: torch.Tensor, output: torch.Tensor,
                     mask: torch.Tensor, keep: torch.Tensor,
@@ -234,14 +257,16 @@ class Solver:
     def from_datasets(cls, args: tp.Any, datasets: tp.Any,
                       model: torch.nn.Module,
                       optimizer: tp.Optional[torch.optim.Optimizer] = None,
-                      generator: tp.Optional[torch.Generator] = None
+                      generator: tp.Optional[torch.Generator] = None,
+                      feature_model: tp.Optional[torch.nn.Module] = None
                       ) -> "Solver":
         """The solver of ``train.get_solver``: the scaler fitted on the
         train split's recordings (or read from the disk cache), the
         normalization arrays exported from it for every recording of the
         three splits, the loaders, and the state of the XP folder's
         checkpoint when there is one (else of ``continue_sig``'s). Without
-        `optimizer` the model keeps the best state found."""
+        `optimizer` the model (and `feature_model`) keeps the best state
+        found."""
         timings: tp.Dict[str, float] = {}
         t0 = time.perf_counter()
         used_features = datasets.train.datasets[0].features
@@ -267,7 +292,8 @@ class Solver:
         norm_arrays = _norm_arrays(scaler, datasets, model)
         solver = cls(args, model,
                      prepare_norm_arrays(model, norm_arrays, device),
-                     optimizer=optimizer, generator=generator)
+                     optimizer=optimizer, generator=generator,
+                     feature_model=feature_model)
         timings["norm_arrays"] = time.perf_counter() - t0
         solver.build_timings = timings
         solver.datasets = datasets
@@ -318,16 +344,18 @@ class Solver:
     @torch.no_grad()
     @exact_fp32()
     def forward_batch(self, batch: tp.Any,
-                      pad_weight: tp.Optional[tp.Any] = None):
+                      pad_weight: tp.Optional[tp.Any] = None,
+                      transfer_dtype: tp.Optional[str] = None):
         """A batch with the ``dataset.ARRAY_FIELDS`` arrays (host arrays or
         tensors) -> (estimate [B, F, T'] in ``simpleconv.output_dtype``,
         output [B, F, T'], mask [B, 1, T'], keep [B] bool), tensors on the
         solver's device, the model in eval mode; meg and features cross in
-        ``parallel.transfer_dtype``. `pad_weight` [B] (ones when None) is 0
-        for the rows a loader adds to fill its last batch; those rows are
-        not kept."""
-        arrays = to_device(batch, self.device,
-                           self.args.parallel.transfer_dtype)
+        `transfer_dtype` (fp32 when None, as the JAX solver's forward
+        sends them; only its train and valid steps cross in
+        ``parallel.transfer_dtype``). `pad_weight` [B] (ones when None) is
+        0 for the rows a loader adds to fill its last batch; those rows
+        are not kept."""
+        arrays = to_device(batch, self.device, transfer_dtype)
         if pad_weight is None:
             pad_weight = torch.ones(arrays["meg"].shape[0],
                                     dtype=torch.float32, device=self.device)
@@ -386,7 +414,8 @@ class Solver:
         best state's weights swapped in, when the best state is newer than
         the last test; early stopping after ``early_stop_patience`` epochs
         without a better valid loss; a checkpoint after every epoch, and
-        ``done.json`` at the end. Returns the best valid loss."""
+        ``done-torch.json`` at the end (the loop never reads it to skip a
+        run). Returns the best valid loss."""
         args = self.args
         if self.history:
             logger.info("Replaying %d past epochs of metrics",
@@ -432,7 +461,7 @@ class Solver:
             self.commit()
             if will_stop:
                 break
-        with write_and_rename(self.folder / "done.json", "w") as f:
+        with write_and_rename(self.folder / tagged("done.json"), "w") as f:
             json.dump({"epochs": self.epoch,
                        "best_loss": float(self.best_loss)}, f)
         return self.best_loss
@@ -479,21 +508,34 @@ class Solver:
     # -- state ----------------------------------------------------------------
 
     def _copy_params(self) -> tp.Dict[str, torch.Tensor]:
-        """A copy of the model's state dict: weights and the BatchNorm
-        running statistics."""
-        return {k: v.detach().clone()
-                for k, v in self.model.state_dict().items()}
+        """A copy of the model's state dict (weights and the BatchNorm
+        running statistics) and the feature model's, its keys after
+        ``FM_PREFIX``."""
+        state = dict(self.model.state_dict())
+        if self.feature_model is not None:
+            state.update({FM_PREFIX + k: v for k, v in
+                          self.feature_model.state_dict().items()})
+        return {k: v.detach().clone() for k, v in state.items()}
 
     def _load_params(self, saved: tp.Mapping[str, torch.Tensor]) -> None:
-        self.model.load_state_dict(saved)
+        n = len(FM_PREFIX)
+        self.model.load_state_dict(
+            {k: v for k, v in saved.items() if not k.startswith(FM_PREFIX)})
+        if self.feature_model is not None:
+            self.feature_model.load_state_dict(
+                {k[n:]: v for k, v in saved.items()
+                 if k.startswith(FM_PREFIX)})
 
     def commit(self) -> None:
-        """Write the checkpoint (the model's and the optimizer's state
-        dicts, the best state, the history and the loop's counters) and
-        ``history.json``, each through a rename. The port writes as the
-        epoch ends (``checkpoint_async`` is not read)."""
+        """Write the checkpoint (the model's, the feature model's and the
+        optimizer's state dicts, the best state, the history and the
+        loop's counters) and ``history-torch.json``, each through a
+        rename. The port writes as the epoch ends (``checkpoint_async`` is
+        not read)."""
         payload = dict(
             model=self.model.state_dict(),
+            feature_model=(None if self.feature_model is None
+                           else self.feature_model.state_dict()),
             optimizer=(None if self.optimizer is None
                        else self.optimizer.state_dict()),
             best_state=self.best_state, history=list(self.history),
@@ -504,7 +546,8 @@ class Solver:
                              default=str))
         with write_and_rename(self.checkpoint_path) as f:
             torch.save(payload, f)
-        with write_and_rename(self.folder / "history.json", "w") as f:
+        with write_and_rename(self.folder / tagged("history.json"),
+                              "w") as f:
             json.dump(self.history, f, indent=1, default=float)
 
     def _load_checkpoint(self, path: tp.Any) -> tp.Dict[str, tp.Any]:
@@ -532,6 +575,8 @@ class Solver:
             self._load_params(payload["best_state"])
             return False
         self.model.load_state_dict(payload["model"])
+        if self.feature_model is not None:
+            self.feature_model.load_state_dict(payload["feature_model"])
         if self.optimizer is not None and payload["optimizer"] is not None:
             self.optimizer.load_state_dict(payload["optimizer"])
         self.best_state = payload["best_state"]

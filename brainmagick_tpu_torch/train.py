@@ -28,6 +28,7 @@ from __future__ import annotations
 import ast
 import dataclasses
 import hashlib
+import itertools
 import logging
 import sys
 import time
@@ -57,6 +58,15 @@ def build_optimizer(args: tp.Any, params: tp.Iterable[torch.nn.Parameter]
                             eps=1e-8)
 
 
+def trained_parameters(model: torch.nn.Module,
+                       feature_model: tp.Optional[torch.nn.Module]
+                       ) -> tp.Iterator[torch.nn.Parameter]:
+    """The parameters Adam updates: the model's, then the feature
+    model's (the JAX optimizer's state covers ``params["fm"]``)."""
+    return itertools.chain(model.parameters(), () if feature_model is None
+                           else feature_model.parameters())
+
+
 def model_hash(model: torch.nn.Module) -> str:
     """Reproducibility fingerprint of a model's parameters, in
     ``named_parameters`` order and the port's own layouts (so it differs
@@ -71,9 +81,12 @@ class Trainer:
     """A decode model, its Adam optimizer and its solver on one device.
 
     Arguments as ``serve.Server``'s: `params`/`batch_stats` are the JAX
-    solver's trees as numpy (``{"model": ...}``); with `params` None the
-    model keeps the port's own initialization, seeded by `generator`,
-    which then draws the merger's dropout disks too (seed 0 when None)."""
+    solver's trees as numpy (``{"model": ...}``, and ``{"fm": ...}`` for
+    the feature model that ``feature_model_name`` asks for, built over
+    the features' `out_channels`); with `params` None the models keep the
+    port's own initialization, seeded by `generator`, which then draws
+    the merger's dropout disks too (seed 0 when None). Adam updates both
+    models' parameters."""
 
     def __init__(self, args: tp.Any, meg_channels: int, out_channels: int,
                  n_subjects: int, params: tp.Optional[tp.Mapping],
@@ -86,14 +99,19 @@ class Trainer:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.model = models.build_model(args, meg_channels, out_channels,
-                                 n_subjects, self.device, generator)
+                                        n_subjects, self.device, generator)
+        self.feature_model = models.build_feature_model(
+            args, out_channels, self.device, generator)
         if params is not None:
-            load_jax_params(self.model, params, batch_stats or {})
-        self.optimizer = build_optimizer(args, self.model.parameters())
+            load_jax_params(self.model, params, batch_stats or {},
+                            self.feature_model)
+        self.optimizer = build_optimizer(
+            args, trained_parameters(self.model, self.feature_model))
         self.solver = Solver(
             args, self.model,
             prepare_norm_arrays(self.model, norm_arrays, self.device),
-            optimizer=self.optimizer, generator=generator)
+            optimizer=self.optimizer, generator=generator,
+            feature_model=self.feature_model)
 
     def step(self, batch: tp.Any, train: bool = True
              ) -> tp.Dict[str, torch.Tensor]:
@@ -142,8 +160,9 @@ def build_model(args: tp.Any, datasets: dset.Datasets,
                 generator: tp.Optional[torch.Generator] = None
                 ) -> torch.nn.Module:
     """The decode SimpleConv for `datasets`: the train split's sensor
-    count in, its features' model-output dimension out, one subject
-    layer per train subject (``override_n_subjects_model`` when set)."""
+    count in, its features' model-output dimension out (the feature
+    model's output width when there is one), one subject layer per train
+    subject (``override_n_subjects_model`` when set)."""
     if args.task.type != "decode":
         raise NotImplementedError(f"task.type={args.task.type!r}")
     meg_dimension = datasets.train[0].meg.shape[0]
@@ -158,8 +177,9 @@ def build_model(args: tp.Any, datasets: dset.Datasets,
 
 
 def get_solver(args: tp.Any, training: bool = True) -> Solver:
-    """Datasets, model (initialized from ``seed``), Adam when `training`,
-    and the dataset-driven solver (``Solver.from_datasets``)."""
+    """Datasets, model and feature model (each initialized from a
+    generator seeded with ``seed``), Adam over both when `training`, and
+    the dataset-driven solver (``Solver.from_datasets``)."""
     device = get_device(args)
     t0 = time.perf_counter()
     datasets = build_datasets(args)
@@ -168,11 +188,16 @@ def get_solver(args: tp.Any, training: bool = True) -> Solver:
         sys.exit(0)
     model = build_model(args, datasets, device,
                         torch.Generator().manual_seed(args.seed))
-    optimizer = build_optimizer(args, model.parameters()) if training \
+    feature_model = models.build_feature_model(
+        args, datasets.train.datasets[0].features.output_dimension, device,
+        torch.Generator().manual_seed(args.seed))
+    optimizer = build_optimizer(
+        args, trained_parameters(model, feature_model)) if training \
         else None
     solver = Solver.from_datasets(
         args, datasets, model, optimizer,
-        generator=torch.Generator(device=device).manual_seed(args.seed))
+        generator=torch.Generator(device=device).manual_seed(args.seed),
+        feature_model=feature_model)
     solver.build_timings["datasets"] = t_datasets
     return solver
 

@@ -1,13 +1,15 @@
 """Shared helpers of the data path.
 
 Port of ``brainmagick_tpu/utils/misc.py``: ``Frequency``, ``roundrobin``
-and ``write_and_rename``.
+and ``write_and_rename``; and ``dump_yaml``, which writes a config as
+PyYAML's ``safe_dump`` does (the card's host has no PyYAML).
 """
 
 from __future__ import annotations
 
 import itertools
 import os
+import re
 import threading
 import typing as tp
 from contextlib import contextmanager
@@ -57,3 +59,131 @@ def write_and_rename(path: tp.Union[str, Path], mode: str = "wb"):
     with open(tmp_path, mode) as f:
         yield f
     os.rename(tmp_path, str(path))
+
+
+#: the scalars YAML 1.1 resolves to another type than str when plain
+#: (PyYAML's implicit resolvers: bool, float, int, merge, null, timestamp
+#: and value); such a string is single-quoted
+_YAML_IMPLICIT = re.compile(r"""(?:
+    yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE|on|On|ON|off|Off|OFF
+    |[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?
+    |\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?
+    |[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*
+    |[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN)
+    |[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)
+    |[-+]?0x[0-9a-fA-F_]+|[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+
+    |<<|~|null|Null|NULL|=
+    |[0-9][0-9][0-9][0-9]-[0-9][0-9]-[0-9][0-9]
+    |[0-9][0-9][0-9][0-9]-[0-9][0-9]?-[0-9][0-9]?
+     (?:[Tt]|[ \t]+)[0-9][0-9]?:[0-9][0-9]:[0-9][0-9](?:\.[0-9]*)?
+     (?:[ \t]*(?:Z|[-+][0-9][0-9]?(?::[0-9][0-9])?))?)""", re.X)
+#: PyYAML's line width: it folds a scalar at a space past this column
+_YAML_WIDTH = 80
+#: PyYAML writes an empty key, or one of this length or more, as a
+#: complex key
+_YAML_KEY_LENGTH = 128
+
+
+def _yaml_plain(text: str) -> bool:
+    """Whether PyYAML writes `text` (printable ASCII on one line) as a
+    plain scalar in block context, else single-quoted."""
+    if not text or _YAML_IMPLICIT.fullmatch(text) \
+            or text.startswith(("---", "...")) or " " in (text[0], text[-1]):
+        return False
+    if text[0] in "#,[]{}&*!|>'\"%@`" \
+            or (text[0] in "?:-" and text[1:2] in ("", " ")):
+        return False
+    return not any(ch == ":" and text[i + 1:i + 2] in ("", " ")
+                   or ch == "#" and text[i - 1] == " "
+                   for i, ch in enumerate(text) if i)
+
+
+def _yaml_scalar(value: tp.Any, column: int, key: bool = False) -> str:
+    """A scalar as PyYAML's SafeDumper writes it, starting at `column`."""
+    kind = type(value)
+    if value is None:
+        return "null"
+    if kind is bool:
+        return "true" if value else "false"
+    if kind is int:
+        return str(value)
+    if kind is float:
+        if value != value:
+            return ".nan"
+        if value in (float("inf"), float("-inf")):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value).lower()
+        if "." not in text and "e" in text:
+            text = text.replace("e", ".0e", 1)
+        return text
+    if kind is not str:
+        raise TypeError(f"dump_yaml cannot write {kind.__name__}: "
+                        f"{value!r}")
+    if not all(" " <= ch <= "~" for ch in value):
+        raise ValueError(f"dump_yaml writes printable ASCII on one line, "
+                         f"not {value!r}")
+    text = value if _yaml_plain(value) \
+        else "'" + value.replace("'", "''") + "'"
+    if key and not 0 < len(value) < _YAML_KEY_LENGTH \
+            or not key and " " in value and column + len(text) > _YAML_WIDTH:
+        raise ValueError(f"PyYAML would fold or key {value!r} otherwise")
+    return text
+
+
+def _yaml_block(value: tp.Any, indent: int, seen: set) -> tp.List[str]:
+    """The lines of a non-empty dict (sorted keys) or list in block
+    style, at `indent`."""
+    if id(value) in seen:
+        raise ValueError("dump_yaml writes no anchors: a dict or list "
+                         "appears twice")
+    seen.add(id(value))
+    lines = []
+    items = sorted(value.items()) if isinstance(value, dict) \
+        else [(None, item) for item in value]
+    for key, item in items:
+        if key is None:
+            head = " " * indent + "- "
+        else:
+            if type(key) is not str:
+                raise TypeError(f"dump_yaml writes str keys, not {key!r}")
+            head = " " * indent + _yaml_scalar(key, indent, key=True) + ":"
+        if type(item) in (dict, list, tuple) and item:
+            if key is None:
+                sub = _yaml_block(item, indent + 2, seen)
+                lines += [head + sub[0][indent + 2:]] + sub[1:]
+            else:
+                # a list under a key is not indented (PyYAML's
+                # indentless sequence)
+                lines += [head] + _yaml_block(
+                    item, indent + 2 * (type(item) is dict), seen)
+        else:
+            if key is not None:
+                head += " "
+            if type(item) in (dict, list, tuple):
+                if id(item) in seen and type(item) is not tuple:
+                    raise ValueError("dump_yaml writes no anchors: a dict "
+                                     "or list appears twice")
+                seen.add(id(item))
+                text = "{}" if type(item) is dict else "[]"
+            else:
+                text = _yaml_scalar(item, len(head))
+            lines.append(head + text)
+    return lines
+
+
+def dump_yaml(obj: tp.Any, f: tp.TextIO) -> None:
+    """Write `obj` (a dict or a list of dicts, lists, str, int, float,
+    bool and None, as ``dataclasses.asdict`` of a config gives) to `f` as
+    ``yaml.safe_dump(obj, f, default_flow_style=False)`` writes it. Any
+    other type raises TypeError; a string that PyYAML would write in
+    another style than plain or single-quoted on one line (a newline, a
+    character outside printable ASCII, a fold past the line width, a
+    complex key) raises ValueError, as does a container that appears
+    twice (PyYAML would write an anchor)."""
+    if type(obj) not in (dict, list, tuple):
+        raise TypeError(f"dump_yaml writes a dict or a list, not "
+                        f"{type(obj).__name__}")
+    if not obj:
+        f.write("{}\n" if type(obj) is dict else "[]\n")
+        return
+    f.write("".join(line + "\n" for line in _yaml_block(obj, 0, set())))

@@ -21,8 +21,7 @@ import typing as tp
 import numpy as np
 import torch
 
-from .dataset import ARRAY_FIELDS, ConcatDataset
-from .eval import check_index, host_array
+from .eval import check_index, host_array, solver_batches
 from .losses import commit_rows, refuse_int8_pool, streamed_scores
 from .precision import exact_fp32
 
@@ -44,28 +43,13 @@ def _lookup_word_hash(word_hash: np.ndarray, check_at: int) -> np.ndarray:
 
 
 def test_batches(solver: tp.Any) -> tp.Iterator[types.SimpleNamespace]:
-    """The test split's batches for ``get_wer``: the first
-    ``test.wer_recordings`` recordings (of ``test.wer_study`` when set),
-    shuffled with the config's seed, each with its ``word_hash`` row,
-    ``pad_weight``, and the features the model is trained on."""
+    """The test split's batches for ``get_wer`` (``eval.solver_batches``
+    without events): the first ``test.wer_recordings`` recordings (of
+    ``test.wer_study`` when set), shuffled with the config's seed."""
     test_args = solver.args.test
-    datasets = solver.datasets.test.datasets
-    if test_args.wer_study is not None:
-        datasets = [d for d in datasets
-                    if d.recording.study_name() == test_args.wer_study]
-    if test_args.wer_recordings is not None:
-        datasets = datasets[:test_args.wer_recordings]
-    test_features = solver.datasets.test.datasets[0].features
-    hash_slice = test_features.get_slice("WordHash")
-    used_names = list(solver.used_features.keys())
-    for batch, pad_weight in solver.make_loader(ConcatDataset(datasets),
-                                                shuffle=True):
-        arrays = {name: getattr(batch, name) for name in ARRAY_FIELDS}
-        arrays["features"] = test_features.extract_features(
-            batch.features, used_names)
-        yield types.SimpleNamespace(
-            **arrays, word_hash=batch.features[:, hash_slice][:, 0],
-            pad_weight=pad_weight)
+    return solver_batches(solver, test_args.wer_recordings, shuffle=True,
+                          test_study=test_args.wer_study,
+                          with_events=False)
 
 
 @torch.no_grad()

@@ -1,5 +1,6 @@
 """Drive the PyTorch port's serving, training and evaluation paths on one
-CUDA card, in the paper recipe's fp32 and in its bf16 clip_conv_tpu form.
+CUDA card, in the paper recipe's fp32 and in its bf16 clip_conv_tpu form,
+and Table 2's DeepMel cell.
 
 Run from the repository root, with no arguments:
 
@@ -66,10 +67,10 @@ check raises, so the script exits non-zero and prints no result:
    fused_conv_bn: one recording's preprocessed raw on the card against
    the CPU (PREPROCESS_TOL), then CLI_EPOCHS epochs over all four
    recordings at B=64 (120 mels, 361 samples at 120 Hz) in a temporary
-   folder: each split's segment count, history.json with finite losses,
-   the test stage's WER keys, done.json, conv_stats 10 times a train
-   step (fp32 on "tc"), normalize once a forward, nt_matmul in each test
-   stage, and the data path's and the loop's times; a rerun with
+   folder: each split's segment count, history-torch.json with finite
+   losses, the test stage's WER keys, done-torch.json, conv_stats 10
+   times a train step (fp32 on "tc"), normalize once a forward, nt_matmul
+   in each test stage, and the data path's and the loop's times; a rerun with
    optim.epochs=3 and continue_sig that restores the XP and trains one
    epoch; one epoch of the clip_conv_tpu recipe (bf16 conv_stats, the
    loaders sending bf16); then each kernel against its plain version at
@@ -95,7 +96,24 @@ check raises, so the script exits non-zero and prints no result:
    read, preprocess, track, step and epoch times, and each kernel
    against its plain version at the shapes the run gave it (normalize at
    the study's sensor count), added to its other_shapes; the launch
-   counts go into launches_by_path as study_<selection>.
+   counts go into launches_by_path as study_<selection>;
+10. Table 2's "MelSpectrum + DeepMel" cell on phase 9's gwilliams2022
+   tree (kept for it; phases 8-10 share one temporary folder):
+   ``train.main`` with clip_conv, deep_mel and fused_conv_bn at B=256
+   for one epoch, DeepMel at its published 320 x 10 -> 768 and the
+   encoder at the paper's width with 768 outputs (finite losses,
+   history-torch.json and done-torch.json, conv_stats 10 times a train
+   step in fp32 on "tc" and so none inside DeepMel, normalize once a
+   forward, nt_matmul in the test stage; deepmel_train); that XP
+   evaluated by signature with ``eval.main`` in this process (the six
+   files in eval/<sig>-torch, top-1/5/10 in [0, 1], normalize once a
+   forward, nt_matmul as build_probs' loop implies; run_eval's seconds
+   and peak memory; eval_sig) and again on the CPU, whose first
+   HELD_PREDS probabilities hold the card's to EVAL_SIG_TOL; phase 8's
+   clip_conv_tpu XP evaluated by signature with bf16 scoring
+   (eval_sig_recipe); each kernel against its plain version at these
+   runs' shapes (nt_matmul at DeepMel's K = 768 x 343), added to its
+   other_shapes.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it raises at once.
@@ -111,6 +129,7 @@ import subprocess
 import tempfile
 import time
 import types
+import typing as tp
 from pathlib import Path
 
 import numpy as np
@@ -1500,14 +1519,21 @@ def _check_cli_launches(what: str, launches: dict, routes: dict,
 
 
 def _read_history(folder: Path, epochs: int, what: str) -> list:
-    history = json.loads((folder / "history.json").read_text())
+    """The port's history-torch.json in the XP folder: `epochs` epochs of
+    finite losses; done-torch.json beside it, and neither of the JAX
+    package's untagged names."""
+    history = json.loads((folder / "history-torch.json").read_text())
     losses = [h[stage]["loss"] for h in history
               for stage in ("train", "valid")]
     if len(history) != epochs or not np.isfinite(losses).all():
-        raise AssertionError(f"cli {what}: history.json {history}, want "
-                             f"{epochs} epochs of finite losses")
-    if not (folder / "done.json").exists():
-        raise AssertionError(f"cli {what}: no done.json in {folder}")
+        raise AssertionError(f"cli {what}: history-torch.json {history}, "
+                             f"want {epochs} epochs of finite losses")
+    if not (folder / "done-torch.json").exists():
+        raise AssertionError(f"cli {what}: no done-torch.json in {folder}")
+    untagged = [name for name in ("done.json", "history.json")
+                if (folder / name).exists()]
+    if untagged:
+        raise AssertionError(f"cli {what}: the port wrote {untagged}")
     return history
 
 
@@ -1553,14 +1579,17 @@ def check_loader(dataset, device: torch.device, dtype) -> int:
 
 def check_cli_shapes(device: torch.device, batch: int, n_test: int,
                      n_mels: int, channels: int = C, with_conv: bool = True,
-                     prefix: str = "") -> dict:
+                     prefix: str = "",
+                     n_cand: tp.Optional[int] = None) -> dict:
     """Each kernel against its plain version at the shapes phase 8's CLI
     run gave it, in fp32 (clip_conv) and bf16 (clip_conv_tpu), timed
     beside its plain version, its library call and its bound: normalize
     at [batch, C, T] with four recordings' tables; conv_stats at the
     encoder's first two layer shapes at `batch`, forward and backward;
     nt_matmul at the test stage's `n_test` estimates against the other
-    `n_test - 1` outputs, K = n_mels x T'; normalize at `channels`
+    `n_test - 1` outputs (`n_cand` when given: an evaluation's
+    candidates), K = n_mels x T' (n_mels the scored width: the mel bins,
+    or DeepMel's outputs); normalize at `channels`
     sensors, conv_stats only `with_conv`, each label after `prefix`.
     Returns {kernel name: {shape label: entry}} for the kernels'
     other_shapes."""
@@ -1596,7 +1625,8 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
         depth = n_mels * (T - 18)
         a = torch.randn((n_test, depth), generator=gen,
                         device=device).to(dtype)
-        b = torch.randn((n_test - 1, depth), generator=gen,
+        n_b = n_test - 1 if n_cand is None else n_cand
+        b = torch.randn((n_b, depth), generator=gen,
                         device=device).to(dtype)
         abs_err, rel_err = _matmul_error(a, b, matmul.nt_matmul(a, b))
         if not rel_err <= MATMUL_TOL:
@@ -1615,7 +1645,7 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
             + 4 * a.shape[0] * b.shape[0],
             *((3 * flop, TF32_FLOPS) if dtype == torch.float32
               else (flop, BF16_FLOPS)))))
-        out["nt_matmul"][f"{prefix}{n_test}x{n_test - 1}x{depth} {name}"] \
+        out["nt_matmul"][f"{prefix}{n_test}x{n_b}x{depth} {name}"] \
             = entry
 
         for conv in ((batch, 270, 320, T - 18, 1, 3),
@@ -1660,13 +1690,16 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
     return out
 
 
-def run_cli_phase(device: torch.device, card_name: str) -> dict:
+def run_cli_phase(device: torch.device, card_name: str, work: Path
+                  ) -> tuple:
     """Phase 8: ``python -m brainmagick_tpu_torch.train``'s main in this
     process on the fake study at the paper encoder's width: CLI_EPOCHS
     epochs, a rerun with one epoch more, and one epoch of the
-    clip_conv_tpu recipe. Returns the kernel launch counts of the first
-    run (cli_train) and of the recipe's (cli_recipe), and the shapes the
-    run gave the kernels (``check_cli_shapes``' arguments)."""
+    clip_conv_tpu recipe, each XP in `work` (whose name holds
+    "fake_cache"). Returns the kernel launch counts of the first run
+    (cli_train) and of the recipe's (cli_recipe), the shapes the run gave
+    the kernels (``check_cli_shapes``' arguments), and the recipe's XP
+    (its signature, out_dir and cache) for phase 10."""
     from brainmagick_tpu_torch.studies import api, fake
     from brainmagick_tpu_torch.train import parse_overrides
 
@@ -1686,89 +1719,90 @@ def run_cli_phase(device: torch.device, card_name: str) -> dict:
         raise AssertionError(f"preprocessed raw: card against CPU {err:.2e}")
 
     out: dict = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_fake_cache_") as tmp:
-        common = [*CLI_ARGS, f"cache={tmp}/cache", f"out_dir={tmp}/outputs"]
-        first = common + [f"optim.epochs={CLI_EPOCHS}"]
-        launches, routes, by_dtype, spy, wall, peak_gb = run_cli(
-            first, f"{CLI_EPOCHS} epochs", card_name)
-        solver = spy.solver
-        sizes = {name: len(getattr(solver.datasets, name))
-                 for name in ("train", "valid", "test")}
-        n_train_batches = len(solver.loaders["train"])
-        print(f"cli splits (segments): {sizes}; {n_train_batches} train "
-              f"batches of {solver.args.optim.batch_size}")
-        shapes = dict(batch=solver.args.optim.batch_size,
-                      n_test=sizes["test"], n_mels=solver.used_features[
-                          "MelSpectrum"].n_mels)
-        if n_train_batches < 2:
-            raise AssertionError(f"the train split holds {sizes['train']} "
-                                 f"segments, fewer than two batches")
-        for dtype in (None, "bfloat16"):
-            n = check_loader(solver.datasets.train, device, dtype)
-            print(f"card loader ({dtype or 'float32'}): {n} batches equal "
-                  f"to the host loader's")
-        steps = _check_cli_launches(f"{CLI_EPOCHS} epochs", launches,
-                                    routes, by_dtype, spy, "float32")
-        if steps != CLI_EPOCHS * n_train_batches:
-            raise AssertionError(f"{steps} train steps, want "
-                                 f"{CLI_EPOCHS * n_train_batches}")
-        args = parse_overrides(first)
-        history = _read_history(Path(args.xp_folder), CLI_EPOCHS, "run")
-        wer_keys = {"wer", "wer_vocab", "wer_n_vocab"}
-        if not wer_keys <= set(history[0].get("test", {})):
-            raise AssertionError(f"no WER in the test stage: {history[0]}")
-        step_ms = spy.train_step_ms()
-        tracks_s = sum(d.track_seconds for split in solver.datasets
-                       for d in split.datasets)
-        timings = solver.build_timings
-        epoch_s = [sum(v for k, v in sec.items() if k != "test")
-                   for sec in solver.stage_seconds]
-        test_s = [sec["test"] for sec in solver.stage_seconds
-                  if "test" in sec]
-        print(f"cli timings ({card_name}): preprocessing "
-              f"{preprocess_s:.3f} s per recording, dataset build "
-              f"{timings['datasets']:.2f} s (4 recordings preprocessed on "
-              f"the card), track render {tracks_s:.2f} s, scaler fit "
-              f"{timings['scaler']:.2f} s (the track render included), "
-              f"train step median {statistics.median(step_ms):.2f} ms over "
-              f"{len(step_ms)} steps (device time), s per epoch (train + "
-              f"valid) {[round(x, 2) for x in epoch_s]}, test stage "
-              f"{[round(x, 2) for x in test_s]} s, peak device memory "
-              f"{peak_gb:.2f} GB, whole run {wall:.1f} s")
-        print(f"cli history: {history}")
-        out["cli_train"] = launches
+    common = [*CLI_ARGS, f"cache={work}/cache", f"out_dir={work}/outputs"]
+    first = common + [f"optim.epochs={CLI_EPOCHS}"]
+    launches, routes, by_dtype, spy, wall, peak_gb = run_cli(
+        first, f"{CLI_EPOCHS} epochs", card_name)
+    solver = spy.solver
+    sizes = {name: len(getattr(solver.datasets, name))
+             for name in ("train", "valid", "test")}
+    n_train_batches = len(solver.loaders["train"])
+    print(f"cli splits (segments): {sizes}; {n_train_batches} train "
+          f"batches of {solver.args.optim.batch_size}")
+    shapes = dict(batch=solver.args.optim.batch_size,
+                  n_test=sizes["test"], n_mels=solver.used_features[
+                      "MelSpectrum"].n_mels)
+    if n_train_batches < 2:
+        raise AssertionError(f"the train split holds {sizes['train']} "
+                             f"segments, fewer than two batches")
+    for dtype in (None, "bfloat16"):
+        n = check_loader(solver.datasets.train, device, dtype)
+        print(f"card loader ({dtype or 'float32'}): {n} batches equal "
+              f"to the host loader's")
+    steps = _check_cli_launches(f"{CLI_EPOCHS} epochs", launches,
+                                routes, by_dtype, spy, "float32")
+    if steps != CLI_EPOCHS * n_train_batches:
+        raise AssertionError(f"{steps} train steps, want "
+                             f"{CLI_EPOCHS * n_train_batches}")
+    args = parse_overrides(first)
+    history = _read_history(Path(args.xp_folder), CLI_EPOCHS, "run")
+    wer_keys = {"wer", "wer_vocab", "wer_n_vocab"}
+    if not wer_keys <= set(history[0].get("test", {})):
+        raise AssertionError(f"no WER in the test stage: {history[0]}")
+    step_ms = spy.train_step_ms()
+    tracks_s = sum(d.track_seconds for split in solver.datasets
+                   for d in split.datasets)
+    timings = solver.build_timings
+    epoch_s = [sum(v for k, v in sec.items() if k != "test")
+               for sec in solver.stage_seconds]
+    test_s = [sec["test"] for sec in solver.stage_seconds
+              if "test" in sec]
+    print(f"cli timings ({card_name}): preprocessing "
+          f"{preprocess_s:.3f} s per recording, dataset build "
+          f"{timings['datasets']:.2f} s (4 recordings preprocessed on "
+          f"the card), track render {tracks_s:.2f} s, scaler fit "
+          f"{timings['scaler']:.2f} s (the track render included), "
+          f"train step median {statistics.median(step_ms):.2f} ms over "
+          f"{len(step_ms)} steps (device time), s per epoch (train + "
+          f"valid) {[round(x, 2) for x in epoch_s]}, test stage "
+          f"{[round(x, 2) for x in test_s]} s, peak device memory "
+          f"{peak_gb:.2f} GB, whole run {wall:.1f} s")
+    print(f"cli history: {history}")
+    out["cli_train"] = launches
 
-        # one epoch more, from the finished XP's whole state
-        resumed = common + ["optim.epochs=3", f"continue_sig={args.sig}",
-                            "continue_best=False"]
-        launches, routes, by_dtype, spy, _, _ = run_cli(
-            resumed, "resumed with optim.epochs=3", card_name)
-        # its test stage runs only if epoch 3 improves the valid loss
-        steps = _check_cli_launches("resume", launches, routes, by_dtype,
-                                    spy, "float32", tested=False)
-        history3 = _read_history(Path(parse_overrides(resumed).xp_folder), 3,
-                                 "resume")
-        if steps != n_train_batches or history3[:2] != history:
-            raise AssertionError(f"the resumed run took {steps} train steps "
-                                 f"(want {n_train_batches}) and its history "
-                                 f"starts {history3[:2]}")
+    # one epoch more, from the finished XP's whole state
+    resumed = common + ["optim.epochs=3", f"continue_sig={args.sig}",
+                        "continue_best=False"]
+    launches, routes, by_dtype, spy, _, _ = run_cli(
+        resumed, "resumed with optim.epochs=3", card_name)
+    # its test stage runs only if epoch 3 improves the valid loss
+    steps = _check_cli_launches("resume", launches, routes, by_dtype,
+                                spy, "float32", tested=False)
+    history3 = _read_history(Path(parse_overrides(resumed).xp_folder), 3,
+                             "resume")
+    if steps != n_train_batches or history3[:2] != history:
+        raise AssertionError(f"the resumed run took {steps} train steps "
+                             f"(want {n_train_batches}) and its history "
+                             f"starts {history3[:2]}")
 
-        # one epoch of the bf16 recipe, the loaders assembling in bf16
-        recipe = [f"preset={RECIPE}", *common[1:], "optim.epochs=1"]
-        if parse_overrides(recipe).parallel.assemble_dtype != "bfloat16":
-            raise AssertionError(f"{RECIPE} does not assemble in bf16")
-        launches, routes, by_dtype, spy, _, _ = run_cli(
-            recipe, f"{RECIPE}, 1 epoch", card_name)
-        _check_cli_launches(RECIPE, launches, routes, by_dtype, spy,
-                            "bfloat16")
-        if spy.sent_dtypes != {torch.bfloat16}:
-            raise AssertionError(f"the {RECIPE} loaders sent meg in "
-                                 f"{spy.sent_dtypes}, want bf16 only")
-        _read_history(Path(parse_overrides(recipe).xp_folder), 1, RECIPE)
-        out["cli_recipe"] = launches
+    # one epoch of the bf16 recipe, the loaders assembling in bf16
+    recipe = [f"preset={RECIPE}", *common[1:], "optim.epochs=1"]
+    if parse_overrides(recipe).parallel.assemble_dtype != "bfloat16":
+        raise AssertionError(f"{RECIPE} does not assemble in bf16")
+    launches, routes, by_dtype, spy, _, _ = run_cli(
+        recipe, f"{RECIPE}, 1 epoch", card_name)
+    _check_cli_launches(RECIPE, launches, routes, by_dtype, spy,
+                        "bfloat16")
+    if spy.sent_dtypes != {torch.bfloat16}:
+        raise AssertionError(f"the {RECIPE} loaders sent meg in "
+                             f"{spy.sent_dtypes}, want bf16 only")
+    _read_history(Path(parse_overrides(recipe).xp_folder), 1, RECIPE)
+    out["cli_recipe"] = launches
+    recipe_xp = dict(sig=parse_overrides(recipe).sig,
+                     out_dir=f"{work}/outputs", cache=f"{work}/cache")
     del solver, spy
     torch.cuda.empty_cache()
-    return out, shapes
+    return out, shapes, recipe_xp
 
 
 #: phase 9: the paper's four studies, each a synthetic tree in the study's
@@ -2202,7 +2236,8 @@ def run_study(device: torch.device, card_name: str, selection: str,
               study: str, write_tree, sensors: int, tmp: Path) -> tuple:
     """One study: ``prepare_study``, then ``train.main`` for one epoch of
     STUDY_ARGS on its tree. Returns (the kernels' launch counts, the
-    shapes the run gave them)."""
+    shapes the run gave them). The tree of KEPT_STUDY stays in `tmp` for
+    phase 10; the others are removed."""
     from brainmagick_tpu_torch.env import env
     from brainmagick_tpu_torch.train import parse_overrides
 
@@ -2246,20 +2281,209 @@ def run_study(device: torch.device, card_name: str, selection: str,
                  channels=solver.datasets.train[0].meg.shape[0])
     del solver, spy
     torch.cuda.empty_cache()
-    shutil.rmtree(root)
+    if study != KEPT_STUDY:
+        shutil.rmtree(root)
     return launches, shape
 
 
-def run_study_phase(device: torch.device, card_name: str) -> tuple:
-    """Phase 9: each study of STUDY_TREES in turn. Returns ({"study_<name>":
-    launch counts}, {name: the shapes of its run})."""
+def run_study_phase(device: torch.device, card_name: str, tmp: Path
+                    ) -> tuple:
+    """Phase 9: each study of STUDY_TREES in turn, in `tmp`. Returns
+    ({"study_<name>": launch counts}, {name: the shapes of its run})."""
     launches, shapes = {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_studies_") as tmp:
-        for selection, study, write_tree, sensors in STUDY_TREES:
-            launches[f"study_{selection}"], shapes[selection] = run_study(
-                device, card_name, selection, study, write_tree, sensors,
-                Path(tmp))
+    for selection, study, write_tree, sensors in STUDY_TREES:
+        launches[f"study_{selection}"], shapes[selection] = run_study(
+            device, card_name, selection, study, write_tree, sensors, tmp)
     return launches, shapes
+
+
+#: phase 10: Table 2's "MelSpectrum + DeepMel" cell on phase 9's
+#: gwilliams2022 tree (KEPT_STUDY; KIT, 208 sensors): the paper recipe with
+#: fused_conv_bn and DeepMel at its published 320 x 10 -> 768, B=256, one
+#: epoch; then that XP and phase 8's clip_conv_tpu XP evaluated by
+#: signature
+KEPT_STUDY = "gwilliams2022"
+DEEPMEL_ARGS = ("preset=clip_conv", "preset=deep_mel",
+                "simpleconv.fused_conv_bn=True",
+                'dset.features=["MelSpectrum"]', "optim.batch_size=256",
+                "optim.epochs=1", "dset.n_recordings=2",
+                f"dset.selections=[{KEPT_STUDY!r}]")
+#: DeepMel's published widths: (in, hidden, layers, out); the paper
+#: encoder's (hidden, depth)
+DEEPMEL_WIDTHS = (120, 320, 10, 768)
+PAPER_ENCODER = (320, 10)
+#: what an evaluation by signature writes into eval/<sig>-torch
+EVAL_FILES = ("solver_config.yaml", "probs_segment.npy", "vocab_segment.npy",
+              "metadata.csv", "acc.csv", "negative_stats.csv")
+#: the card's evaluation by signature against the CPU's, on the first
+#: HELD_PREDS predictions' probabilities (max |diff|): each package's
+#: forward of the XP (fp32, TF32 off on the card) agrees to REFERENCE_TOL,
+#: and a softmax row moves by no more than its scores do
+EVAL_SIG_TOL = 1e-4
+
+
+def eval_by_sig(xp: dict, what: str, card_name: str,
+                studies: tp.Optional[dict] = None) -> dict:
+    """``eval.main(["sig=...", "out_dir=..."])`` in this process, with
+    every launch count set to 0 just before it and the XP's cache (and
+    `studies`) in the env: the six files in ``eval/<sig>-torch`` and none
+    in the JAX package's ``eval/<sig>``, finite probability rows, top-1,
+    5 and 10 in [0, 1], normalize once a forward, nt_matmul as often as
+    build_probs' loop implies and conv_stats never. Returns the launch
+    counts, the probabilities and vocabulary, run_eval's seconds and the
+    call's peak device memory, and the dtypes nt_matmul scored in."""
+    from brainmagick_tpu_torch import eval as port_eval
+    from brainmagick_tpu_torch import losses, ops
+    from brainmagick_tpu_torch.env import env
+
+    run_eval, nt_matmul = port_eval.run_eval, losses.nt_matmul
+    seconds, dtypes = {}, set()
+
+    def timed_run_eval(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_eval(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds["run_eval"] = time.perf_counter() - t0
+        return out
+
+    def seen_nt_matmul(a, b):
+        dtypes.add(b.dtype)
+        return nt_matmul(a, b)
+
+    port_eval.run_eval, losses.nt_matmul = timed_run_eval, seen_nt_matmul
+    try:
+        with env.temporary(cache=xp["cache"], **(
+                {"studies": studies} if studies else {})):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            with SolverSpy() as spy:
+                t0 = time.perf_counter()
+                acc = port_eval.main([f"sig={xp['sig']}",
+                                      f"out_dir={xp['out_dir']}"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+    finally:
+        port_eval.run_eval, losses.nt_matmul = run_eval, nt_matmul
+    launches = {k.__name__: k.launches for k in ops.KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    folder = Path(xp["out_dir"]) / "eval" / f"{xp['sig']}-torch"
+    missing = [name for name in EVAL_FILES if not (folder / name).exists()]
+    if missing or (Path(xp["out_dir"]) / "eval" / xp["sig"]).exists():
+        raise AssertionError(f"eval {what}: {missing} missing from {folder}"
+                             f", or the JAX package's eval/<sig> written")
+    vocab = np.load(folder / "vocab_segment.npy")
+    probs = np.load(folder / "probs_segment.npy")
+    _check_eval_probs(probs, (probs.shape[0], len(vocab)), f"eval {what}")
+    if sorted(acc) != [1, 5, 10] or not all(0 <= v <= 1
+                                            for v in acc.values()):
+        raise AssertionError(f"eval {what}: accuracies {acc}")
+    want = dict(normalize_clamp_peak=spy.forwards, conv_stats=0,
+                nt_matmul=scoring_calls(*probs.shape))
+    if spy.forwards < 1 or any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"eval {what} launched {launches}, want {want}")
+    print(f"eval by signature, {what}: top-1/5/10 {acc}; "
+          f"{probs.shape[0]} predictions x {probs.shape[1]} candidates, "
+          f"scored in {sorted(map(str, dtypes))}; run_eval "
+          f"{seconds['run_eval']:.2f} s, the whole call {wall:.2f} s (the "
+          f"solver's datasets and checkpoint included), peak device memory "
+          f"{peak_gb:.2f} GB ({card_name}); kernel launches {launches}")
+    return dict(launches=launches, probs=probs, vocab=vocab,
+                seconds=seconds["run_eval"], peak_gb=peak_gb, dtypes=dtypes)
+
+
+def run_deepmel_phase(device: torch.device, card_name: str, work: Path,
+                      recipe_xp: dict) -> tuple:
+    """Phase 10: the DeepMel cell trained by ``train.main`` on the kept
+    gwilliams2022 tree in `work`, evaluated by signature on the card and,
+    on its first HELD_PREDS predictions, on the CPU; then phase 8's
+    clip_conv_tpu XP (`recipe_xp`) evaluated by signature. Returns
+    ({path: launch counts}, {path: ``check_cli_shapes`` arguments})."""
+    from brainmagick_tpu_torch import eval as port_eval
+    from brainmagick_tpu_torch import play
+    from brainmagick_tpu_torch.env import env
+    from brainmagick_tpu_torch.train import parse_overrides
+
+    studies = {KEPT_STUDY: work / KEPT_STUDY}
+    argv = [*DEEPMEL_ARGS, f"cache={work}/cache_{KEPT_STUDY}",
+            f"out_dir={work}/outputs"]
+    args = parse_overrides(argv)
+    with env.temporary(studies=studies):
+        launches, routes, by_dtype, spy, wall, peak_gb = run_cli(
+            argv, "deep_mel", card_name)
+    solver = spy.solver
+    fm = solver.feature_model
+    widths = (fm.n_in_channels, fm.n_hidden_channels, fm.n_hidden_layers,
+              fm.n_out_channels)
+    paper = (args.simpleconv["hidden"], args.simpleconv["depth"],
+             solver.model.out_channels)
+    if widths != DEEPMEL_WIDTHS \
+            or paper != (*PAPER_ENCODER, DEEPMEL_WIDTHS[3]):
+        raise AssertionError(f"deep_mel: DeepMel {widths}, SimpleConv "
+                             f"(hidden, depth, out) {paper}")
+    # conv_stats 10 times a step: the SimpleConv's fused layers, none
+    # inside DeepMel (its convs are cuDNN's)
+    steps = _check_cli_launches("deep_mel", launches, routes, by_dtype, spy,
+                                "float32")
+    history = _read_history(Path(args.xp_folder), 1, "deep_mel")
+    step_ms = spy.train_step_ms()
+    epoch_s = sum(v for k, v in solver.stage_seconds[0].items()
+                  if k != "test")
+    n_test = len(solver.datasets.test)
+    print(f"deep_mel cell timings ({card_name}): train step median "
+          f"{statistics.median(step_ms):.2f} ms over {steps} steps (device "
+          f"time; each {[round(x, 2) for x in step_ms]}), epoch (train + "
+          f"valid) "
+          f"{epoch_s:.2f} s, test stage "
+          f"{solver.stage_seconds[0].get('test', 0.):.2f} s, dataset build "
+          f"{solver.build_timings['datasets']:.2f} s, peak device memory "
+          f"{peak_gb:.2f} GB, run {wall:.1f} s; history {history}")
+    out = {"deepmel_train": launches}
+    shapes = {"deepmel_train": dict(batch=args.optim.batch_size,
+                                    n_test=n_test, n_mels=DEEPMEL_WIDTHS[3],
+                                    channels=208)}
+    del solver, spy, fm
+    torch.cuda.empty_cache()
+
+    xp = dict(sig=args.sig, out_dir=args.out_dir, cache=args.cache)
+    card = eval_by_sig(xp, "deep_mel", card_name, studies)
+    out["eval_sig"] = card["launches"]
+    shapes["eval_sig"] = dict(
+        batch=args.optim.batch_size, n_test=card["probs"].shape[0],
+        n_cand=card["probs"].shape[1], n_mels=DEEPMEL_WIDTHS[3],
+        channels=208, with_conv=False)
+    t0 = time.perf_counter()
+    with env.temporary(cache=xp["cache"], studies=studies):
+        cpu = play.get_solver_from_sig(xp["sig"], out_dir=xp["out_dir"],
+                                       override_args={"device": "cpu"})
+        data = port_eval.load_test_data(cpu)
+        probs = port_eval.build_probs(cpu, data["preds"][:HELD_PREDS],
+                                      data["trues"])
+    if not np.array_equal(data["trues_segment_hashes"], card["vocab"]):
+        raise AssertionError("deep_mel: the CPU's candidates are not the "
+                             "card's")
+    err = float(np.abs(probs - card["probs"][:HELD_PREDS]).max())
+    print(f"eval by signature, deep_mel, {HELD_PREDS} predictions x "
+          f"{probs.shape[1]} candidates against the CPU: max|diff| "
+          f"{err:.3e} (atol {EVAL_SIG_TOL}); the CPU's pass "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not err <= EVAL_SIG_TOL:
+        raise AssertionError(f"eval by signature, card vs CPU: {err}")
+    del cpu, data
+
+    recipe = eval_by_sig(recipe_xp, RECIPE, card_name)
+    if recipe["dtypes"] != {torch.bfloat16}:
+        raise AssertionError(f"eval {RECIPE} scored in {recipe['dtypes']}")
+    out["eval_sig_recipe"] = recipe["launches"]
+    shapes["eval_sig_recipe"] = dict(
+        batch=parse_overrides([f"preset={RECIPE}", *CLI_ARGS[1:]]
+                              ).optim.batch_size,
+        n_test=recipe["probs"].shape[0], n_cand=recipe["probs"].shape[1],
+        n_mels=parse_overrides(list(CLI_ARGS)).dset.features_params[
+            "MelSpectrum"]["n_mels"], with_conv=False)
+    torch.cuda.empty_cache()
+    return out, shapes
 
 
 def main() -> None:
@@ -2298,14 +2522,26 @@ def main() -> None:
                                                    RECIPE)
     recipe_train, recipe_types, recipe_train_warm = run_train(
         device, card_name, batch, RECIPE)
-    cli_launches, cli_shape = run_cli_phase(device, card_name)
-    study_launches, study_shapes = run_study_phase(device, card_name)
+    # phases 8-10 share one folder: phase 10 trains on phase 9's
+    # gwilliams2022 tree and evaluates phase 8's recipe XP
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fake_cache_") as tmp:
+        work = Path(tmp)
+        cli_launches, cli_shape, recipe_xp = run_cli_phase(device,
+                                                           card_name, work)
+        study_launches, study_shapes = run_study_phase(device, card_name,
+                                                       work)
+        deepmel_launches, deepmel_shapes = run_deepmel_phase(
+            device, card_name, work, recipe_xp)
     with exact_fp32():
         cli_shapes = check_cli_shapes(device, **cli_shape)
         for k, (selection, shape) in enumerate(study_shapes.items()):
             for name, shapes in check_cli_shapes(
                     device, **shape, with_conv=k == 0,
                     prefix=f"{selection}: ").items():
+                cli_shapes[name].update(shapes)
+        for path, shape in deepmel_shapes.items():
+            for name, shapes in check_cli_shapes(
+                    device, **shape, prefix=f"{path}: ").items():
                 cli_shapes[name].update(shapes)
     print(f"{RECIPE} against clip_conv, warm B={REQUESTS[0]} ({card_name}): "
           f"forward {recipe_serve_warm['forward_ms']:.2f} ms against "
@@ -2327,7 +2563,8 @@ def main() -> None:
                        recipe_train=recipe_train[entry["name"]],
                        **{path: counts[entry["name"]]
                           for path, counts in {**cli_launches,
-                                               **study_launches}.items()})
+                                               **study_launches,
+                                               **deepmel_launches}.items()})
         entry["other_shapes"].update(cli_shapes[entry["name"]])
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path

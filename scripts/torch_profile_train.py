@@ -4,10 +4,14 @@ card.
 Run from the repository root:
 
     python3 scripts/torch_profile_train.py [--preset clip_conv_tpu]
+    python3 scripts/torch_profile_train.py --preset deep_mel
 
 Builds chip_smoke.py's trainer (the preset, clip_conv by default or the
 bf16 clip_conv_tpu, at full width with simpleconv.fused_conv_bn, seeded
-weights) and one seeded batch of chip_smoke.TRAIN_B = 256, moves the
+weights; deep_mel is clip_conv with Table 2's DeepMel feature model at
+its published 320 x 10 -> 768 over MELS mel features, the batch's first
+MELS feature channels) and one seeded batch of chip_smoke.TRAIN_B = 256,
+moves the
 batch to the card once (in the preset's parallel.transfer_dtype), times
 WARM Solver.step calls on those resident arrays (host clock,
 synchronized), then profiles STEPS more with torch.profiler and prints
@@ -17,7 +21,9 @@ preset (chip_smoke.py's server): Server.forward_batch of the B=256 batch
 and Server.probabilities against a bank of 2048 candidates stored in the
 scores' compute dtype, WARM requests timed, STEPS profiled. The entry
 points turn TF32 off themselves (precision.exact_fp32), so the script
-leaves torch's flags as they are. Without a CUDA device it exits 1.
+leaves torch's flags as they are. deep_mel profiles the train step
+only (``serve.Server`` takes no feature model). Without a CUDA device it
+exits 1.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 #: warm steps timed on the host clock, profiled steps, kernels printed
 WARM, STEPS, ROWS = 5, 3, 25
+#: deep_mel's mel features (the default MelSpectrum's n_mels)
+MELS = 120
 
 
 def profiled(fn, label: str, unit: str) -> None:
@@ -71,10 +79,26 @@ def profiled(fn, label: str, unit: str) -> None:
         print(f"  {ms:9.3f} ms  {count // STEPS:4d}x  {name[:110]}")
 
 
+def deep_mel_trainer(device: torch.device, norm_arrays: dict):
+    """clip_conv + deep_mel with fused_conv_bn over MELS features, as
+    chip_smoke.build_trainer builds its presets."""
+    import chip_smoke
+    from brainmagick_tpu_torch.config import MainConfig, apply_preset
+    from brainmagick_tpu_torch.train import Trainer
+
+    args = apply_preset(apply_preset(MainConfig(), "clip_conv"), "deep_mel")
+    args.simpleconv["fused_conv_bn"] = True
+    arrays = dict(norm_arrays, feat_center=norm_arrays["feat_center"][:MELS],
+                  feat_scale=norm_arrays["feat_scale"][:MELS])
+    return Trainer(args, chip_smoke.C, MELS, chip_smoke.N_SUBJECTS, None,
+                   None, arrays, device,
+                   generator=torch.Generator().manual_seed(chip_smoke.SEED))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--preset", default="clip_conv",
-                        choices=("clip_conv", "clip_conv_tpu"))
+                        choices=("clip_conv", "clip_conv_tpu", "deep_mel"))
     preset = parser.parse_args().preset
     if not torch.cuda.is_available():
         raise SystemExit("the profile needs a CUDA device; none is visible")
@@ -83,11 +107,15 @@ def main() -> None:
 
     device = torch.device("cuda", 0)
     print(chip_smoke.card())
-    trainer = chip_smoke.build_trainer(device, preset)
     norm_arrays, _ = chip_smoke.seeded_arrays()
     batch = chip_smoke.make_request(np.random.RandomState(chip_smoke.SEED + 2),
                                     chip_smoke.TRAIN_B,
                                     norm_arrays["rec_positions"])
+    if preset == "deep_mel":
+        trainer = deep_mel_trainer(device, norm_arrays)
+        batch.features = np.ascontiguousarray(batch.features[:, :MELS])
+    else:
+        trainer = chip_smoke.build_trainer(device, preset)
     arrays = dataset.to_device(batch, device,
                                trainer.args.parallel.transfer_dtype)
     weight = torch.ones(chip_smoke.TRAIN_B, device=device)
@@ -105,6 +133,8 @@ def main() -> None:
           f"{ops.conv_stats.launches_by_dtype}")
     del trainer, arrays
     torch.cuda.empty_cache()
+    if preset == "deep_mel":
+        return
 
     server, _ = chip_smoke.build_server(device, preset)
     t_out = chip_smoke.T - server.solver._offsets()[0]

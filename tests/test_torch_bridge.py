@@ -1,8 +1,8 @@
 """The port's weight bridge (brainmagick_tpu_torch.convert) against the JAX
 package's rules, and the port's import rule: no module of the port and no
-line of chip_smoke.py imports the JAX package, JAX itself, pandas or
-numba (the card's host has none of them), at top level or inside a
-function."""
+line of chip_smoke.py imports the JAX package, JAX itself, pandas,
+numba or PyYAML (the card's host has none of them), at top level or
+inside a function."""
 
 import ast
 from pathlib import Path
@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 
 from brainmagick_tpu import convert as jconvert
+from brainmagick_tpu.models.features import DeepMel as JaxDeepMel
 from brainmagick_tpu.models.simpleconv import SimpleConv as JaxSimpleConv
 from brainmagick_tpu_torch import convert
+from brainmagick_tpu_torch.models.features import DeepMel
 from brainmagick_tpu_torch.models.simpleconv import SimpleConv
 
 REPO = Path(__file__).resolve().parent.parent
@@ -88,6 +90,23 @@ def test_fused_rules_unchanged(overrides):
     assert sorted(convert.simpleconv_rules(port)) == sorted(want)
 
 
+@pytest.mark.parametrize("overrides", [
+    dict(n_hidden_channels=16, n_hidden_layers=3, n_out_channels=24),
+    dict(n_hidden_channels=12, n_hidden_layers=6, n_out_channels=20,
+         dilation_period=None, skip=False, glu=1, batch_norm=False,
+         activation_on_last=True)], ids=str)
+def test_deepmel_rules_equal_the_jax_packages(overrides):
+    """The port's DeepMel rules are the JAX package's ``deepmel_rules``
+    for the same feature model, and they name exactly its weights."""
+    port = DeepMel(n_in_channels=8, **overrides)
+    want = jconvert.deepmel_rules(JaxDeepMel(n_in_channels=8, **overrides),
+                                  tprefix="")
+    rules = convert.deepmel_rules(port)
+    assert sorted(rules) == sorted(map(_as_port_rule, want))
+    assert {r[0] for r in rules} == {
+        k for k in port.state_dict() if not k.endswith("num_batches_tracked")}
+
+
 @pytest.mark.parametrize("kind", ["copy", "conv_w", "convT_w",
                                   "convT_w_as_conv"])
 def test_untransform_equals_the_jax_packages(kind):
@@ -100,7 +119,7 @@ def test_untransform_equals_the_jax_packages(kind):
 
 #: the top-level packages the port may not import
 FORBIDDEN = ("brainmagick_tpu", "jax", "jaxlib", "flax", "optax", "pandas",
-             "numba", "mne")
+             "numba", "mne", "yaml")
 
 
 def _imports_of_the_jax_package(source: str) -> list:

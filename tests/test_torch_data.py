@@ -307,6 +307,9 @@ def test_scaler_exports_match_jax(study, inputs):
     [], OVERRIDES, ["preset=clip_conv", "optim.epochs=2",
                     "simpleconv.fused_conv_bn=True"],
     ["preset=clip_conv_tpu", 'dset.selections=["fake"]'],
+    ["preset=deep_mel"], ["preset=clip_conv", "preset=deep_mel"],
+    ["preset=clip_conv_tpu", "preset=deep_mel",
+     "feature_model_params.n_hidden_layers=3"],
     ["device=cpu", "num_workers=7", "cache=/x", "out_dir=/y"],
     ["simpleconv.merger_pos_dim=__deleted__"]], ids=str)
 def test_sig_is_the_jax_packages(cli):

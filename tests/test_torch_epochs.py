@@ -1,8 +1,8 @@
 """The port's epoch loop against the JAX package's: ``Solver.train`` on the
 fake study from bridged weights (per-epoch losses and the test stage's
 word-retrieval metrics), and the CLI's XP folder (checkpoint,
-history.json, done.json) and its resume in a subprocess. The loop's own
-rules are in tests/test_torch_loop.py."""
+history-torch.json, done-torch.json) and its resume in a subprocess. The
+loop's own rules are in tests/test_torch_loop.py."""
 
 import json
 import os
@@ -120,6 +120,7 @@ def test_train_matches_jax_solver(tmp_path, variant):
     assert (folder / tagged("checkpoint.pt")).exists()
     assert (folder / "checkpoint.pkl").exists()
     assert (folder / "done.json").exists()
+    assert (folder / "done-torch.json").exists()
 
     # the test stage on the JAX package's inputs
     solver.datasets = jsolver.datasets
@@ -153,8 +154,10 @@ def _cli(tmp_path, *extra):
 def test_cli_writes_its_xp_folder_and_resumes(tmp_path):
     """``python -m brainmagick_tpu_torch.train`` with device=cpu: the XP
     folder of the JAX package's signature holds the port's checkpoint,
-    history.json (two epochs of finite losses, the test stage's WER) and
-    done.json. A rerun with optim.epochs=3 and continue_sig resumes the
+    history-torch.json (two epochs of finite losses, the test stage's WER)
+    and done-torch.json, and no untagged done.json or history.json (those
+    are the JAX package's, and its grid runner skips an XP that has a
+    done.json). A rerun with optim.epochs=3 and continue_sig resumes the
     whole state and trains one epoch more; a rerun of the finished XP
     trains nothing."""
     (tmp_path / "fake_cache").mkdir()
@@ -164,13 +167,14 @@ def test_cli_writes_its_xp_folder_and_resumes(tmp_path):
     assert args.sig == jtrain.parse_overrides(TINY + ["optim.epochs=2"]).sig
     folder = tmp_path / "outputs" / "xps" / args.sig
     assert sorted(p.name for p in folder.iterdir()) == [
-        "checkpoint-torch.pt", "done.json", "history.json"]
-    history = json.loads((folder / "history.json").read_text())
+        "checkpoint-torch.pt", "done-torch.json", "history-torch.json"]
+    history = json.loads((folder / "history-torch.json").read_text())
     assert len(history) == 2
     assert all(np.isfinite(h[s]["loss"]) for h in history
                for s in ("train", "valid"))
     assert {"wer", "wer_vocab", "wer_n_vocab"} <= set(history[0]["test"])
-    assert json.loads((folder / "done.json").read_text())["epochs"] == 2
+    assert json.loads((folder / "done-torch.json").read_text())[
+        "epochs"] == 2
     # the finished XP again: restored at epoch 3 > optim.epochs, no epoch
     log = _cli(tmp_path, "optim.epochs=2")
     assert "Restored checkpoint" in log and "Epoch " not in log
@@ -181,6 +185,6 @@ def test_cli_writes_its_xp_folder_and_resumes(tmp_path):
     args3 = _port_args(tmp_path / "fake_cache", tmp_path / "outputs",
                        "optim.epochs=3", f"continue_sig={args.sig}",
                        "continue_best=False")
-    history3 = json.loads((Path(args3.xp_folder) / "history.json")
+    history3 = json.loads((Path(args3.xp_folder) / "history-torch.json")
                           .read_text())
     assert len(history3) == 3 and history3[:2] == history

@@ -4,7 +4,9 @@ same batches and bridged weights, on the CPU: load_test_data, build_probs
 (fp32, bf16 compute dtype, trim windows and the transform paths, two
 candidate blocks with a ragged tail and ragged prediction chunks),
 accuracy_from_probs, run_eval's files, get_wer, the device-group plan
-and its prefetch order, EstimateCache and the int8-pool refusal."""
+and its prefetch order, EstimateCache and the int8-pool refusal; and the
+same evaluation with the clip_conv_tpu recipe's server (bf16 compute and
+estimates, bf16 scores and wire) against the JAX package's recipe."""
 
 import dataclasses
 import types
@@ -24,6 +26,7 @@ from brainmagick_tpu.dataset import ConcatDataset
 from brainmagick_tpu.env import env
 from brainmagick_tpu_torch import eval as port_eval
 from brainmagick_tpu_torch import losses, wer
+from brainmagick_tpu_torch.dataset import to_device
 from brainmagick_tpu_torch.precision import torch_dtype
 from brainmagick_tpu_torch.serve import Server
 
@@ -40,6 +43,22 @@ PROBS_TOL_BF16 = 1e-6
 #: and some operands then round to the neighbouring bf16 value (measured:
 #: 1.4e-5)
 PROBS_TOL_BF16_CENTERED = 1e-4
+#: the clip_conv_tpu recipe's options on tiny_args (bf16 compute and
+#: estimates, no conv bias before BatchNorm, the fused head, tanh GELU,
+#: bf16 scores and the bf16 wire)
+RECIPE = ["simpleconv.dtype=bfloat16", "simpleconv.output_dtype=bfloat16",
+          "simpleconv.bn_conv_bias=False", "simpleconv.fused_head=True",
+          "simpleconv.gelu_exact=False", "clip.compute_dtype=bfloat16",
+          "parallel.transfer_dtype=bfloat16"]
+#: the recipe's estimates, a whole bf16 forward in each framework: the
+#: error's norm over the estimates' norm, as tests/test_torch_recipe.py's
+#: RECIPE_TOL (measured: 1.1e-2)
+RECIPE_PREDS_TOL = 2 ** -5
+#: the recipe's probabilities: each framework's bf16 estimates, scored in
+#: bf16 against the same candidates (measured: 3.9e-5); the top-k
+#: accuracies then differ by at most the rows whose target sits this close
+#: to the boundary
+RECIPE_PROBS_TOL = 1e-4
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -50,17 +69,32 @@ def _two_threads():
     torch.set_num_threads(previous)
 
 
-@pytest.fixture(scope="module")
-def solver(tmp_path_factory):
-    """The tiny_args JAX solver with seeded BatchNorm running statistics,
-    whose make_loader replays one recorded list of test batches (with
-    their events), so that both packages see the same batches in the same
-    order."""
-    tmp = tmp_path_factory.mktemp("eval")
+def _on_the_wire(batch, test_features):
+    """`batch` with meg and the model's feature channels rounded to bf16
+    (the WordHash channel kept), as the port's bf16 wire gives them to
+    its model: the JAX solver's forward crosses in fp32."""
+    features = np.array(batch.features)
+    keep = test_features.get_slice("WordHash")
+    hashes = features[:, keep].copy()
+    features = torch.from_numpy(features).bfloat16().float().numpy()
+    features[:, keep] = hashes
+    return dataclasses.replace(
+        batch, features=features,
+        meg=torch.from_numpy(np.asarray(batch.meg)).bfloat16().float()
+        .numpy())
+
+
+def _replaying_solver(tmp, overrides=()):
+    """The tiny_args JAX solver (with `overrides`) with seeded BatchNorm
+    running statistics, whose make_loader replays one recorded list of
+    test batches (with their events), so that both packages see the same
+    batches in the same order; with ``parallel.transfer_dtype``, the
+    batches as the port's wire gives them (``_on_the_wire``)."""
     cache = tmp / "fake_cache"
     cache.mkdir()
+    args = bm_train.parse_overrides(list(overrides), tiny_args(cache, tmp))
     with env.temporary(cache=cache):
-        solver = bm_train.get_solver(tiny_args(cache, tmp), training=False)
+        solver = bm_train.get_solver(args, training=False)
         rng = np.random.RandomState(0)
 
         def draw(path, leaf):
@@ -73,12 +107,15 @@ def solver(tmp_path_factory):
                         "batch_stats": jax.device_put(stats)}
         recorded = list(solver.make_loader(
             ConcatDataset(solver.datasets.test.datasets), with_events=True))
+        if args.parallel.transfer_dtype:
+            test_features = solver.datasets.test.datasets[0].features
+            recorded = [(_on_the_wire(batch, test_features), pad)
+                        for batch, pad in recorded]
         solver.make_loader = lambda *args, **kwargs: recorded
-        yield solver
+    return solver
 
 
-@pytest.fixture(scope="module")
-def server(solver):
+def _server(solver):
     return Server(solver.args, solver.model.in_channels["meg"],
                   solver.model.out_channels, solver.model.n_subjects,
                   jax.device_get(solver.state["params"]),
@@ -87,8 +124,7 @@ def server(solver):
                   device="cpu")
 
 
-@pytest.fixture(scope="module")
-def batches(solver):
+def _batches(solver):
     """The replayed batches as the port takes them: the model's features
     extracted, the WordHash channel as word_hash, the events, the study
     name and the loader's pad weights."""
@@ -109,6 +145,21 @@ def batches(solver):
             pad_weight=pad_weight))
     assert any(b.pad_weight.min() == 0 for b in out)
     return out
+
+
+@pytest.fixture(scope="module")
+def solver(tmp_path_factory):
+    return _replaying_solver(tmp_path_factory.mktemp("eval"))
+
+
+@pytest.fixture(scope="module")
+def server(solver):
+    return _server(solver)
+
+
+@pytest.fixture(scope="module")
+def batches(solver):
+    return _batches(solver)
 
 
 @pytest.fixture(scope="module")
@@ -350,6 +401,29 @@ def test_estimate_cache():
         0, lambda: est).dtype == torch.float32
 
 
+def test_solver_forward_batch_crosses_in_fp32(solver, server, batches,
+                                             monkeypatch):
+    """With parallel.transfer_dtype="bfloat16", the solver's forward (the
+    evaluation's by signature and the test stage's) still sends meg and
+    features in fp32, as the JAX solver's forward_batch does (only its
+    train and valid steps cross in bf16); the server's sends them in
+    bf16."""
+    args = dataclasses.replace(solver.args, parallel=dataclasses.replace(
+        solver.args.parallel, transfer_dtype="bfloat16"))
+    batch = batches[0]
+    fp32 = server.solver.forward_batch(batch)
+    monkeypatch.setattr(server, "args", args)
+    monkeypatch.setattr(server.solver, "args", args)
+    got = server.solver.forward_batch(batch)
+    for a, b in zip(got, fp32):
+        assert torch.equal(a, b)
+    wire = server.forward_batch(batch)[1]
+    with torch.no_grad():
+        want = server.solver._forward(to_device(batch, "cpu", "bfloat16"),
+                                      torch.ones(len(batch.meg)))[1]
+    assert torch.equal(wire, want) and not torch.equal(wire, fp32[1])
+
+
 def test_pool_int8_raises(solver, server, batches, tmp_path, monkeypatch):
     args = _with_test(solver, pool_int8=True)
     monkeypatch.setattr(server, "args", args)
@@ -366,3 +440,95 @@ def test_pool_int8_raises(solver, server, batches, tmp_path, monkeypatch):
         types.SimpleNamespace(args=args, clip=pooled,
                               device=torch.device("cpu")), data, data)
     assert probs.shape == (2, 2)
+
+
+# -- the clip_conv_tpu recipe ---------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def recipe(tmp_path_factory):
+    """The recipe's JAX solver, the port's server on its weights, and the
+    replayed batches."""
+    solver = _replaying_solver(tmp_path_factory.mktemp("eval_recipe"),
+                               RECIPE)
+    server = _server(solver)
+    batches = _batches(solver)
+    assert server.forward_batch(batches[0])[0].dtype == torch.bfloat16
+    return solver, server, batches
+
+
+def _norm_err(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def test_recipe_load_test_data_matches_jax(recipe):
+    """The recipe's bf16 estimates within RECIPE_PREDS_TOL in norm (they
+    reach the host upcast to fp32), the outputs within FORWARD_TOL, the
+    metadata exactly."""
+    solver, server, batches = recipe
+    want = bm_eval.load_test_data(solver)
+    got = port_eval.load_test_data(server, batches)
+    assert set(got) == set(want)
+    err = _norm_err(got["preds"], np.asarray(want["preds"], np.float32))
+    print(f"recipe preds: |port - jax| / |jax| = {err:.2e}")
+    assert got["preds"].dtype == np.float32 and err <= RECIPE_PREDS_TOL
+    np.testing.assert_allclose(got["trues"], want["trues"],
+                               rtol=FORWARD_TOL, atol=FORWARD_TOL)
+    for key, value in want.items():
+        if key not in ("preds", "trues"):
+            np.testing.assert_array_equal(got[key], value, err_msg=key)
+
+
+def test_recipe_build_probs_matches_jax(recipe):
+    """bf16 scoring of the same predictions and candidates (the JAX
+    package's): both round the operands to bf16 alike, within
+    PROBS_TOL_BF16."""
+    solver, server, _ = recipe
+    data = bm_eval.load_test_data(solver)
+    preds = np.asarray(data["preds"], np.float32)
+    want = bm_eval.build_probs(solver, preds, data["trues"], batch_size=16)
+    got = port_eval.build_probs(server, preds, data["trues"],
+                                batch_size=16)
+    print(f"recipe probs, same operands: max |port - jax| = "
+          f"{np.abs(got - want).max():.2e}")
+    np.testing.assert_allclose(got, want, rtol=0, atol=PROBS_TOL_BF16)
+
+
+def test_recipe_run_eval_and_wer_match_jax(recipe, tmp_path):
+    """run_eval with each package's own bf16 estimates: metadata.csv and
+    negative_stats.csv byte for byte, the same vocabulary, the
+    probabilities within RECIPE_PROBS_TOL, each top-k accuracy within the
+    share of rows whose target sits within RECIPE_PROBS_TOL of the top-k
+    boundary; get_wer's metrics equal to the JAX package's (its top-3
+    among 50 candidates; measured equal on these batches)."""
+    solver, server, batches = recipe
+    df = bm_eval.run_eval(solver, tmp_path / "jax", n_negatives=30,
+                          probs_batch_size=16)
+    acc = port_eval.run_eval(server, batches, tmp_path / "port",
+                             n_negatives=30, probs_batch_size=16)
+    for name in ("metadata.csv", "negative_stats.csv"):
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "jax" / name).read_bytes(), name
+    vocab = np.load(tmp_path / "jax" / "vocab_segment.npy")
+    np.testing.assert_array_equal(
+        np.load(tmp_path / "port" / "vocab_segment.npy"), vocab)
+    got = np.load(tmp_path / "port" / "probs_segment.npy")
+    want = np.load(tmp_path / "jax" / "probs_segment.npy")
+    print(f"recipe run_eval probs: max |port - jax| = "
+          f"{np.abs(got - want).max():.2e} over {want.shape}")
+    np.testing.assert_allclose(got, want, rtol=0, atol=RECIPE_PROBS_TOL)
+    targets = bm_eval.load_test_data(solver)["segment_hashes"]
+    kth_all = -np.sort(-want, axis=1)
+    target = np.array([want[i][vocab == t].max()
+                       for i, t in enumerate(targets)])
+    for k, value in df.acc_segment.to_dict().items():
+        near = np.abs(target - kth_all[:, min(k, want.shape[1]) - 1]) \
+            <= RECIPE_PROBS_TOL
+        print(f"recipe top-{k}: port {acc[k]}, jax {value}, "
+              f"{near.sum()} of {len(near)} near the boundary")
+        assert abs(acc[k] - value) <= near.sum() / len(near)
+
+    want = bm_wer.get_wer(solver)
+    got = wer.get_wer(server, batches)
+    print(f"recipe get_wer: port {got}, jax {want}")
+    assert got == want

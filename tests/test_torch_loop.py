@@ -63,8 +63,8 @@ def test_best_state_swap_keeps_running_statistics(tmp_path):
 
 def test_early_stopping_after_patience(tmp_path):
     """No valid loss better than epoch 1's: with early_stop_patience=1 the
-    loop stops after epoch 2, tests the best state once, and done.json
-    records the epochs run."""
+    loop stops after epoch 2, tests the best state once, and
+    done-torch.json records the epochs run."""
     (tmp_path / "fake_cache").mkdir()
     args = _port_args(tmp_path / "fake_cache", tmp_path / "out",
                       "optim.epochs=5", "early_stop_patience=1",
@@ -81,7 +81,8 @@ def test_early_stopping_after_patience(tmp_path):
         solver.train()
     assert [sorted(h) for h in solver.history] == [
         ["train", "valid"], ["test", "train", "valid"]]
-    done = json.loads((Path(args.xp_folder) / "done.json").read_text())
+    done = json.loads((Path(args.xp_folder) / "done-torch.json")
+                      .read_text())
     assert done["epochs"] == 2
 
 

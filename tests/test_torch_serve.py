@@ -208,18 +208,19 @@ def _fields(obj, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("preset", [None, "clip_conv", "clip_conv_tpu",
-                                    "tiny"])
+@pytest.mark.parametrize("preset", [
+    None, "clip_conv", "clip_conv_tpu", "tiny", "deep_mel",
+    ("clip_conv", "deep_mel"), ("clip_conv_tpu", "deep_mel")])
 def test_config_copy_equals_original(preset):
     """Every field of the port's config copy, by default and under the
-    clip_conv, clip_conv_tpu and tiny presets, equals the JAX package's
-    MainConfig, except ``device``: the port's runs on the card
-    ("cuda"), the JAX package's on a TPU. It is not in the XP
-    signature."""
+    clip_conv, clip_conv_tpu, tiny and deep_mel presets (deep_mel alone
+    and after each recipe), equals the JAX package's MainConfig, except
+    ``device``: the port's runs on the card ("cuda"), the JAX package's on
+    a TPU. It is not in the XP signature."""
     port, original = config.MainConfig(), jconfig.MainConfig()
-    if preset:
-        config.apply_preset(port, preset)
-        jconfig.apply_preset(original, preset)
+    for name in (preset,) if isinstance(preset, str) else preset or ():
+        config.apply_preset(port, name)
+        jconfig.apply_preset(original, name)
     assert config.SIMPLECONV_DEFAULTS == jconfig.SIMPLECONV_DEFAULTS
     assert (port.device, original.device) == ("cuda", "tpu")
     assert "device" in config.MainConfig._SIG_EXCLUDE
@@ -241,10 +242,10 @@ def _run(*cmd, **extra_env):
 
 def test_import_hygiene_and_copied_constants():
     """Importing the port (its serving, training and evaluation entry
-    points, the conv_stats op, the studies and their readers) loads no
-    jax, flax, pandas, mne or JAX-package module; the constants it copies equal their originals,
-    and so do the config fields the train step and the evaluation
-    read."""
+    points, the conv_stats op, the studies and their readers, the feature
+    models) loads no jax, flax, pandas, mne, yaml or JAX-package module;
+    the constants it copies equal their originals, and so do the config
+    fields the train step and the evaluation read."""
     proc = _run("-c", (
         "import sys\n"
         "import brainmagick_tpu_torch, brainmagick_tpu_torch.serve\n"
@@ -254,12 +255,13 @@ def test_import_hygiene_and_copied_constants():
         "import brainmagick_tpu_torch.ops.conv_bn\n"
         "import brainmagick_tpu_torch.dataset, brainmagick_tpu_torch.loader\n"
         "import brainmagick_tpu_torch.studies, brainmagick_tpu_torch.play\n"
+        "import brainmagick_tpu_torch.models.features\n"
         "import brainmagick_tpu_torch.features, brainmagick_tpu_torch.norm\n"
         "import brainmagick_tpu_torch.autoreject\n"
         "import brainmagick_tpu_torch.textgrid\n"
         "from brainmagick_tpu_torch.studies import ctf, download, kit\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "    ('jax', 'jaxlib', 'flax', 'pandas', 'numba', 'mne',\n"
+        "    ('jax', 'jaxlib', 'flax', 'pandas', 'numba', 'mne', 'yaml',\n"
         "     'brainmagick_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"))

@@ -120,7 +120,8 @@ def test_cli_default_selection_trains_gwilliams(tmp_path):
     """``python -m brainmagick_tpu_torch.train`` with the default
     dset.selections (["gwilliams2022"]) and device=cpu trains the tiny
     preset on the KIT tree that BM_TPU_STUDY_GWILLIAMS2022 names: two
-    epochs of finite losses and the test stage's WER in history.json.
+    epochs of finite losses and the test stage's WER in
+    history-torch.json.
     (Without the gwilliams2022 adapter this run raised KeyError.)"""
     root = tmp_path / "gwilliams2022"
     write_gwilliams_kit_tree(root)
@@ -137,7 +138,7 @@ def test_cli_default_selection_trains_gwilliams(tmp_path):
         timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     folder = Path(train.parse_overrides(overrides).xp_folder)
-    history = json.loads((folder / "history.json").read_text())
+    history = json.loads((folder / "history-torch.json").read_text())
     assert len(history) == 2
     assert all(np.isfinite(h[s]["loss"]) for h in history
                for s in ("train", "valid"))
