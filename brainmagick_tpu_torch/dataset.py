@@ -164,7 +164,8 @@ class SegmentDataset:
         self.features_params = dict(features_params or {})
         self.features = FeaturesBuilder(
             events, features, features_params=self.features_params,
-            sample_rate=self.sample_rate, event_mask=event_mask)
+            sample_rate=self.sample_rate, event_mask=event_mask,
+            study=recording.study_name())
         self.blocks: tp.Optional[tp.List[tp.Tuple[float, float]]] = None
         self._start_offset = self.sample_rate.to_ind(tmin)
         self._n_times = self.sample_rate.to_ind(tmax - tmin) + 1
@@ -196,7 +197,7 @@ class SegmentDataset:
             data, mask = self.features.render_track(duration)
             return np.concatenate([data, mask.astype(np.float32)], axis=0)
 
-        cache = Cache("feature_tracks", args=dict(
+        key = dict(
             dsp_version=DSP_VERSION,
             study=self.recording.study_name(),
             recording=self.recording.recording_uid,
@@ -204,8 +205,13 @@ class SegmentDataset:
             features_params=self.features_params,
             sample_rate=float(track_sr),
             event_mask=self.features.event_mask,
-            events_fingerprint=_events_fingerprint(self.events),
-        ), mode="memmap")
+            events_fingerprint=_events_fingerprint(self.events))
+        # a word feature's model or stand-in, as resolved on this host (no
+        # key for the other features, whose entries keep their keys)
+        backends = self.features.backends()
+        if backends:
+            key["backends"] = backends
+        cache = Cache("feature_tracks", args=key, mode="memmap")
         self._track_sr = track_sr
         self._track = cache.get(compute)
 

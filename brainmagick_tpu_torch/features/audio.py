@@ -1,12 +1,15 @@
-"""Audio features: the log-mel spectrogram of the sound events.
+"""Audio features: the log-mel spectrogram and the YIN pitch of the sound
+events.
 
-Port of ``MelSpectrum`` of ``brainmagick_tpu/features/audio.py``, with its
-helpers (``_extract_wav_part``, ``_interp_nearest``, ``_mel_filterbank``).
-``melspectrogram`` frames the waveform in numpy and runs the FFT
-(``torch.fft.rfft``) and the filterbank product in fp32 torch on the host:
-a feature is painted once per recording into a track that the datasets
-keep as a host memmap, as the JAX package does. ``Pitch`` and the wav2vec
-2.0 features are not ported: they raise NotImplementedError.
+Port of ``MelSpectrum`` and ``Pitch`` of
+``brainmagick_tpu/features/audio.py``, with their helpers
+(``_extract_wav_part``, ``_interp_nearest``, ``_mel_filterbank``,
+``compute_yin``). ``melspectrogram`` frames the waveform in numpy and runs
+the FFT (``torch.fft.rfft``) and the filterbank product in fp32 torch on
+the host; ``compute_yin`` is float64 numpy. A feature is painted once per
+recording into a track that the datasets keep as a host memmap, as the
+JAX package does, so both resample a CPU tensor. The wav2vec 2.0
+features are not ported: they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -151,6 +154,114 @@ class MelSpectrum(base.Feature):
         return _interp_nearest(np.asarray(mel), n)
 
 
+def compute_yin(sig: np.ndarray, sr: int, w_len: int = 512,
+                w_step: int = 256, f0_min: float = 100.,
+                f0_max: float = 500., harmo_thresh: float = 0.1):
+    """YIN fundamental-frequency estimation (de Cheveigne and Kawahara
+    2002), vectorized in float64 numpy: the difference function of every
+    frame at once through d(tau) = r(0) + r_tau(0) - 2 corr(tau) (the
+    correlation by FFT), the cumulative-mean normalization, then per frame
+    the first lag below `harmo_thresh` walked down to its local minimum
+    (pitch sr / lag), else the global minimum (pitch 0).
+
+    Returns (pitches, harmonic_rates, argmins, times) per frame."""
+    tau_min = int(sr / f0_max)
+    tau_max = int(sr / f0_min)
+    starts = np.arange(0, len(sig) - w_len - tau_max, w_step, dtype=int)
+    if len(starts) == 0:
+        return [0.0], [0.0], [0.0], [0.0]
+    # frames [n, w_len + tau_max]
+    idx = starts[:, None] + np.arange(w_len + tau_max)[None, :]
+    frames = sig[idx].astype(np.float64)
+    x = frames[:, :w_len]
+    # d(tau) = sum_j (x_j - x_{j + tau})^2 for tau < tau_max
+    n_fft = 1
+    while n_fft < w_len + tau_max:
+        n_fft *= 2
+    fx = np.fft.rfft(frames, n_fft)
+    fy = np.fft.rfft(x[:, ::-1], n_fft)
+    corr = np.fft.irfft(fx * fy, n_fft)[:, w_len - 1: w_len + tau_max]
+    sq = frames ** 2
+    cum = np.cumsum(sq, axis=1)
+    e0 = cum[:, w_len - 1]                       # the energy of x
+    # the energy of the window shifted by tau
+    etau = np.concatenate([
+        e0[:, None], cum[:, w_len:] - cum[:, :tau_max]], axis=1)
+    d = e0[:, None] + etau - 2 * corr            # [n, tau_max + 1]
+    d = np.maximum(d[:, :tau_max], 0.0)
+    # the cumulative mean normalized difference
+    tau = np.arange(1, tau_max)
+    cmnd = np.empty_like(d)
+    cmnd[:, 0] = 1.0
+    csum = np.cumsum(d[:, 1:], axis=1)
+    cmnd[:, 1:] = d[:, 1:] * tau / np.maximum(csum, 1e-12)
+
+    pitches = np.zeros(len(starts))
+    harmonic_rates = np.zeros(len(starts))
+    argmins = np.zeros(len(starts))
+    times = starts / float(sr)
+    for i in range(len(starts)):
+        row = cmnd[i]
+        below = np.flatnonzero(row[tau_min:tau_max] < harmo_thresh)
+        if len(below):
+            t = tau_min + below[0]
+            while t + 1 < tau_max and row[t + 1] < row[t]:
+                t += 1
+            pitches[i] = sr / t
+            harmonic_rates[i] = row[t]
+        else:
+            t = tau_min + int(np.argmin(row[tau_min:tau_max]))
+            harmonic_rates[i] = row[t]
+        if np.argmin(row) > tau_min:
+            argmins[i] = sr / np.argmin(row)
+    return pitches, harmonic_rates, argmins, times
+
+
+class Pitch(base.Feature):
+    """The YIN pitch track of the sound event: the mono mix resampled to
+    16 kHz, YIN over frames of `frame_length_in_samples` every
+    `frame_space_in_samples`, nearest-resampled to the feature rate;
+    cached per (file, start, stop)."""
+
+    event_kind = "sound"
+
+    def __init__(self, sample_rate: Frequency, min_f0: float = 100.0,
+                 max_f0: float = 350.0, harmonic_thresh: float = 0.1,
+                 frame_length_in_samples: int = 256,
+                 frame_space_in_samples: int = 64) -> None:
+        super().__init__(sample_rate)
+        self.cache = Cache(self.__class__.__name__, dict(
+            min_f0=min_f0, max_f0=max_f0, harmonic_thresh=harmonic_thresh,
+            frame_length_in_samples=frame_length_in_samples,
+            frame_space_in_samples=frame_space_in_samples))
+        self.frame_length_in_samples = frame_length_in_samples
+        self.frame_space_in_samples = frame_space_in_samples
+        self.harmonic_thresh = harmonic_thresh
+        self.min_f0 = min_f0
+        self.max_f0 = max_f0
+        self.in_sampling = 16_000
+
+    def _compute(self, filepath: str, start: float, stop: float
+                 ) -> np.ndarray:
+        wav, sr = _extract_wav_part(filepath, start, stop)
+        wav = wav.mean(axis=0)
+        wav = resample(torch.from_numpy(np.ascontiguousarray(wav)), int(sr),
+                       self.in_sampling).numpy()
+        pitches, _, _, _ = compute_yin(
+            sig=wav, sr=self.in_sampling, w_len=self.frame_length_in_samples,
+            w_step=self.frame_space_in_samples,
+            harmo_thresh=self.harmonic_thresh,
+            f0_min=self.min_f0, f0_max=self.max_f0)
+        return np.asarray(pitches, dtype=np.float32)
+
+    def get(self, event: events.Sound) -> np.ndarray:
+        pitches = self.cache.get(self._compute, filepath=str(event.filepath),
+                                 start=event.offset,
+                                 stop=event.offset + event.duration)
+        n = self.sample_rate.to_ind(event.stop - event.start)
+        return _interp_nearest(np.asarray(pitches), n)[None]
+
+
 class _NotPorted(base.Feature):
     """A feature of the JAX package that the port does not have yet."""
 
@@ -161,10 +272,6 @@ class _NotPorted(base.Feature):
         raise NotImplementedError(
             f"{self.name} is not ported to brainmagick_tpu_torch: it waits "
             f"for {self.waits_for}")
-
-
-class Pitch(_NotPorted):
-    waits_for = "a port of the YIN pitch tracker"
 
 
 class Wav2VecTransformer(_NotPorted):

@@ -12,7 +12,11 @@ Port of ``brainmagick_tpu/features/base.py``, on an ``events.EventTable``:
     the window painted at the sample positions of the recording's
     timeline; ``event_mask=True`` paints the word-occupancy mask;
   * ``render_track`` paints a whole recording once (the datasets cache it
-    as a memmap and slice it per segment).
+    as a memmap and slice it per segment);
+  * a feature with an ``allow_fallback`` of None (the word embeddings and
+    the part of speech) may use its offline stand-in only on a synthetic
+    study (``_FALLBACK_STUDIES``) or outside any study; an explicit
+    ``features_params.<name>.allow_fallback`` wins.
 
 Painting runs on the host, in numpy, as in the JAX package.
 """
@@ -116,9 +120,14 @@ class FeaturesBuilder(OrderedDict):
 
     _FEATURE_CLASSES: tp.Dict[str, tp.Type[Feature]] = {}
 
+    #: studies whose features may fall back to their offline stand-ins
+    #: (hash embeddings, the rule-based tagger) when a model is not on disk
+    _FALLBACK_STUDIES = ("fake", "fakeeeg")
+
     def __init__(self, events: EventTable, features: tp.Sequence[str],
                  features_params: tp.Optional[dict],
-                 sample_rate: Frequency, event_mask: bool = False) -> None:
+                 sample_rate: Frequency, event_mask: bool = False,
+                 study: tp.Optional[str] = None) -> None:
         super().__init__()
         features = list(features)
         self.features_params = dict(features_params or {})
@@ -136,6 +145,12 @@ class FeaturesBuilder(OrderedDict):
                 sample_rate=self.sample_rate,
                 **self.features_params.get(name, {})))
             for name in features])
+        # a real study with a missing model fails loudly rather than train
+        # on stand-ins; study None is direct library use
+        auto_allowed = study is None or study in self._FALLBACK_STUDIES
+        for feature in self.values():
+            if getattr(feature, "allow_fallback", False) is None:
+                feature.allow_fallback = auto_allowed
 
         event_kinds = {f.event_kind for f in self.values()}
         if self.event_mask:
@@ -231,6 +246,20 @@ class FeaturesBuilder(OrderedDict):
         """Pickle as a plain object (an OrderedDict subclass would re-enter
         __init__ without arguments)."""
         return object.__reduce__(self)
+
+    def backends(self) -> tp.Dict[str, tp.Any]:
+        """{name: what computes it} for each feature that has a model or an
+        offline stand-in (``Feature.backend``), over the languages of its
+        events: a track cache key that holds it is not served once a model
+        appears on disk or goes."""
+        out = {}
+        for name, feature in self.items():
+            if not hasattr(feature, "backend"):
+                continue
+            languages = {event.language or "en" for event in self.events[
+                self.events.kind_mask(feature.event_kind)].iter()}
+            out[name] = feature.backend(sorted(languages))
+        return out
 
     def render_track(self, duration: float
                      ) -> tp.Tuple[np.ndarray, np.ndarray]:

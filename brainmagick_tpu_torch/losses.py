@@ -1,6 +1,7 @@
 """Training losses and CLIP retrieval scoring.
 
-Port of ``brainmagick_tpu/losses.py``: the masked L1/L2 losses, and
+Port of ``brainmagick_tpu/losses.py``: the masked L1/L2 losses,
+``FeatureDecodingLoss`` (per-feature regression and classification), and
 ``ClipLoss``, which scores estimates [B, F, T] against candidates
 [N, F, T] with the candidate norms folded in and, as a loss, takes the
 weighted cross-entropy of each estimate against its own candidate.
@@ -42,6 +43,98 @@ def masked_l2(estimate: torch.Tensor, output: torch.Tensor,
               sample_weight: tp.Optional[torch.Tensor] = None
               ) -> torch.Tensor:
     return _masked_reduce((estimate - output) ** 2, mask, sample_weight)
+
+
+#: the largest integer a bf16 wire carries exactly (257 rounds to 256)
+_BF16_EXACT = 256
+
+
+def _log_softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jax.nn.log_softmax`` as XLA computes it: the shift by the
+    (constant) maximum in x's type, exp and its sum accumulated in fp32
+    (one fused reduction) and rounded to x's type, log and the difference
+    in x's type. In bf16 it rounds where XLA does; ``torch.log_softmax``
+    rounds once, at the end."""
+    shifted = x - x.amax(dim, keepdim=True).detach()
+    total = torch.exp(shifted.float()).sum(dim, keepdim=True)
+    return shifted - torch.log(total.to(x.dtype))
+
+
+class FeatureDecodingLoss:
+    """Per-feature losses over the ``FeaturesBuilder`` channel layout: the
+    mean squared error of each regressed feature over its masked samples
+    and channels, and for each categorical feature the cross-entropy of
+    its ``cardinality`` logits against the class in its channel, weighted
+    by ``BatchScaler.get_categorical_feature_weights`` when a `scaler` is
+    given. The slices and weights are fixed at construction.
+
+    `wire_dtype` is the type the targets cross to the device in
+    (``parallel.transfer_dtype``): a categorical feature whose labels it
+    cannot carry exactly is refused."""
+
+    def __init__(self, used_features: tp.Any, scaler: tp.Any = None,
+                 wire_dtype: tp.Any = None) -> None:
+        self.specs: tp.List[tp.Dict[str, tp.Any]] = []
+        self.input_dimension = used_features.dimension
+        self.output_dimension = used_features.output_dimension
+        bf16_wire = torch_dtype(wire_dtype) == torch.bfloat16
+        for name, feature in used_features.items():
+            sl_in = used_features.get_slice(name)
+            sl_out = used_features.get_slice(name, model_output=True)
+            weights = None
+            if feature.categorical:
+                if bf16_wire and feature.cardinality > _BF16_EXACT:
+                    raise ValueError(
+                        f"{name} has {feature.cardinality} classes, but a "
+                        f"bf16 wire carries integers exactly up to "
+                        f"{_BF16_EXACT} only")
+                if scaler is not None:
+                    weights = torch.from_numpy(
+                        scaler.get_categorical_feature_weights(name))
+            self.specs.append(dict(
+                name=name, categorical=feature.categorical,
+                sl_in=(sl_in.start, sl_in.stop),
+                sl_out=(sl_out.start, sl_out.stop), weights=weights))
+
+    def __call__(self, estimate: torch.Tensor, output: torch.Tensor,
+                 mask: tp.Optional[torch.Tensor] = None,
+                 sample_weight: tp.Optional[torch.Tensor] = None,
+                 train: bool = False) -> torch.Tensor:
+        """estimate [B, output_dimension, T], output [B, input_dimension,
+        T], mask [B, 1, T] (all true when None), sample_weight [B]. The
+        masks and sums take estimate's type, as in JAX."""
+        assert estimate.shape[1] == self.output_dimension
+        assert output.shape[1] == self.input_dimension
+        if mask is None:
+            mask = torch.ones((output.shape[0], 1, output.shape[-1]),
+                              dtype=torch.bool, device=output.device)
+        m = mask.to(estimate.dtype)
+        if sample_weight is not None:
+            m = m * sample_weight.reshape(-1, 1, 1)
+        denom = m.sum().clamp(min=1.0)
+        loss: tp.Any = 0.
+        for spec in self.specs:
+            i0, i1 = spec["sl_in"]
+            o0, o1 = spec["sl_out"]
+            target = output[:, i0:i1]
+            pred = estimate[:, o0:o1]
+            if spec["categorical"]:
+                labels = target[:, 0].long()                    # [B, T]
+                logp = _log_softmax(pred.transpose(1, 2), -1)   # [B, T, K]
+                nll = -logp.gather(-1, labels[..., None])[..., 0]
+                wm = m[:, 0]
+                if spec["weights"] is not None:
+                    spec["weights"] = spec["weights"].to(estimate.device)
+                    cw = spec["weights"][labels]
+                    nll = nll * cw
+                    loss = loss + (nll * wm).sum() \
+                        / (cw * wm).sum().clamp(min=1e-8)
+                else:
+                    loss = loss + (nll * wm).sum() / denom
+            else:
+                err = (pred - target) ** 2
+                loss = loss + (err * m).sum() / (denom * (i1 - i0))
+        return loss
 
 
 def block_inv_norms(block: torch.Tensor) -> torch.Tensor:

@@ -259,6 +259,20 @@ class BatchScaler:
             out_feat[:, sl] = np.transpose(out, (0, 2, 1))
         return batch.replace(meg=out_meg, features=out_feat)
 
+    def get_categorical_feature_weights(self, feature_name: str
+                                        ) -> np.ndarray:
+        """A categorical feature's class weights for the cross-entropy:
+        1 / sqrt(p) of each class's frequency p among the counted samples,
+        scaled so that their mean under p is 1; 0 for a class never seen."""
+        scaler = self.feature_scalers[feature_name]
+        assert isinstance(scaler, NoOpCategoryCountScaler)
+        probs = scaler.categories_count_ / scaler.categories_count_.sum()
+        with np.errstate(divide="ignore"):
+            weights = 1 / np.sqrt(probs)
+        weights[probs == 0] = 0.
+        weights /= np.sqrt(probs).sum()
+        return weights.astype(np.float32)
+
 
 class ScaleReject:
     """Normalize a host batch, clamp it to ±`limit` when `clip`, and mark

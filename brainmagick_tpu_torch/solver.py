@@ -30,7 +30,7 @@ from .cache import Cache, tagged
 from .dataset import to_device
 from .loader import Loader
 from .logging_utils import MetricSinks
-from .losses import ClipLoss, masked_l1, masked_l2
+from .losses import ClipLoss, FeatureDecodingLoss, masked_l1, masked_l2
 from .models.common import fourier_emb
 from .norm import BatchScaler
 from .ops.dsp import DSP_VERSION, lowpass_filter
@@ -75,14 +75,19 @@ class Solver:
     `generator` draws the merger's dropout disk in train mode.
     `feature_model` (``models.build_feature_model``), which
     ``feature_model_name`` asks for, maps the ground truth to the targets
-    of the loss, and trains with the model."""
+    of the loss, and trains with the model. `used_features` (the
+    datasets' ``FeaturesBuilder``) lays out the targets of
+    ``optim.loss='regression_classification'``, and `scaler` (the fitted
+    ``BatchScaler``) gives its class weights when
+    ``optim.use_weighting``."""
 
     def __init__(self, args: tp.Any, model: torch.nn.Module,
                  norm_arrays: tp.Mapping[str, torch.Tensor],
                  optimizer: tp.Optional[torch.optim.Optimizer] = None,
                  generator: tp.Optional[torch.Generator] = None,
-                 feature_model: tp.Optional[torch.nn.Module] = None
-                 ) -> None:
+                 feature_model: tp.Optional[torch.nn.Module] = None,
+                 used_features: tp.Any = None,
+                 scaler: tp.Optional[BatchScaler] = None) -> None:
         if args.task.type != "decode":
             raise NotImplementedError(f"task.type={args.task.type!r}")
         if (args.feature_model_name is None) != (feature_model is None):
@@ -90,7 +95,8 @@ class Solver:
                 f"feature_model_name={args.feature_model_name!r} with "
                 f"feature model {type(feature_model).__name__}")
         optim = args.optim
-        if optim.loss not in ("clip", "l1", "mse"):
+        if optim.loss not in ("clip", "l1", "mse",
+                              "regression_classification"):
             raise NotImplementedError(f"optim.loss={optim.loss!r}")
         if optim.negatives is not None:
             raise NotImplementedError(
@@ -104,6 +110,8 @@ class Solver:
         self.norm_arrays = dict(norm_arrays)
         self.optimizer = optimizer
         self.generator = generator
+        self.used_features = used_features
+        self.scaler = scaler
         #: the epoch loop's datasets (``from_datasets``)
         self.datasets: tp.Any = None
         self.clip_loss: tp.Optional[ClipLoss] = None
@@ -115,6 +123,16 @@ class Solver:
                 tmax_train=c.tmax_train, dset_tmin=args.dset.tmin,
                 dset_sample_rate=args.dset.sample_rate,
                 compute_dtype=c.compute_dtype)
+        self.feature_loss: tp.Optional[FeatureDecodingLoss] = None
+        if optim.loss == "regression_classification":
+            if used_features is None or (optim.use_weighting
+                                         and scaler is None):
+                raise ValueError(
+                    "optim.loss='regression_classification' needs the used "
+                    "features, and with optim.use_weighting the scaler")
+            self.feature_loss = FeatureDecodingLoss(
+                used_features, scaler if optim.use_weighting else None,
+                wire_dtype=args.parallel.transfer_dtype)
 
     def _offsets(self) -> tp.Tuple[int, int]:
         args = self.args
@@ -213,6 +231,9 @@ class Solver:
         if self.clip_loss is not None:
             return self.clip_loss(estimate, output, sample_weight=keep,
                                   candidate_weight=keep, train=train)
+        if self.feature_loss is not None:
+            return self.feature_loss(estimate, output, mask,
+                                     sample_weight=keep, train=train)
         fn = {"l1": masked_l1, "mse": masked_l2}[self.args.optim.loss]
         return fn(estimate, output, mask, sample_weight=keep)
 
@@ -293,12 +314,11 @@ class Solver:
         solver = cls(args, model,
                      prepare_norm_arrays(model, norm_arrays, device),
                      optimizer=optimizer, generator=generator,
-                     feature_model=feature_model)
+                     feature_model=feature_model,
+                     used_features=used_features, scaler=scaler)
         timings["norm_arrays"] = time.perf_counter() - t0
         solver.build_timings = timings
         solver.datasets = datasets
-        solver.scaler = scaler
-        solver.used_features = used_features
         shuffled = {"train"} | ({"valid"} if args.optim.max_batches
                                 else set())
         solver.loaders = {

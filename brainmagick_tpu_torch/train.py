@@ -20,6 +20,8 @@ its own batches:
     trainer = Trainer(args, meg_channels, out_channels, n_subjects,
                       params, batch_stats, norm_arrays, device="cuda",
                       generator=torch.Generator().manual_seed(0))
+    # optim.loss='regression_classification' also takes the datasets'
+    # used_features= and, with optim.use_weighting, the fitted scaler=
     metrics = trainer.step(batch)        # {"loss", "keep", "count"}
 """
 
@@ -86,14 +88,17 @@ class Trainer:
     the features' `out_channels`); with `params` None the models keep the
     port's own initialization, seeded by `generator`, which then draws
     the merger's dropout disks too (seed 0 when None). Adam updates both
-    models' parameters."""
+    models' parameters. `used_features` and `scaler` go to the solver
+    (``optim.loss='regression_classification'``)."""
 
     def __init__(self, args: tp.Any, meg_channels: int, out_channels: int,
                  n_subjects: int, params: tp.Optional[tp.Mapping],
                  batch_stats: tp.Optional[tp.Mapping],
                  norm_arrays: tp.Mapping[str, tp.Any],
                  device: tp.Union[str, torch.device],
-                 generator: tp.Optional[torch.Generator] = None) -> None:
+                 generator: tp.Optional[torch.Generator] = None,
+                 used_features: tp.Any = None,
+                 scaler: tp.Any = None) -> None:
         self.args = args
         self.device = torch.device(device)
         if generator is None:
@@ -111,7 +116,8 @@ class Trainer:
             args, self.model,
             prepare_norm_arrays(self.model, norm_arrays, self.device),
             optimizer=self.optimizer, generator=generator,
-            feature_model=self.feature_model)
+            feature_model=self.feature_model, used_features=used_features,
+            scaler=scaler)
 
     def step(self, batch: tp.Any, train: bool = True
              ) -> tp.Dict[str, torch.Tensor]:

@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving, training and evaluation paths on one
 CUDA card, in the paper recipe's fp32 and in its bf16 clip_conv_tpu form,
-and Table 2's DeepMel cell.
+Table 2's DeepMel cell, and feature decoding.
 
 Run from the repository root, with no arguments:
 
@@ -113,7 +113,21 @@ check raises, so the script exits non-zero and prints no result:
    clip_conv_tpu XP evaluated by signature with bf16 scoring
    (eval_sig_recipe); each kernel against its plain version at these
    runs' shapes (nt_matmul at DeepMel's K = 768 x 343), added to its
-   other_shapes.
+   other_shapes;
+11. feature decoding on the same tree: ``train.main`` with clip_conv,
+   fused_conv_bn, optim.loss=regression_classification and class weights
+   (optim.use_weighting) over WordEmbedding, PartOfSpeech, Pitch and
+   WordSegment (303 targets, 324 outputs) at B=256 for one epoch: first
+   without allow_fallback, which must raise MissingModelError before any
+   step (a real study, and no spacy model on the card's machine), then
+   with it (finite losses, history-torch.json and done-torch.json,
+   conv_stats 10 times a train step in fp32 on "tc", normalize once a
+   forward, nt_matmul never; the test stage's accuracies in [0, 1] and
+   finite L2 and correlations; regression_words); the track render's
+   seconds and Pitch's alone, the step's device time and peak memory; a
+   B=HELD_B step of the same configuration on the card against the CPU
+   at STEP_TOL; normalize and conv_stats against their plain versions at
+   this run's shapes, added to their other_shapes.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it raises at once.
@@ -1495,16 +1509,17 @@ def run_cli(argv: list, what: str, card_name: str) -> tuple:
 
 def _check_cli_launches(what: str, launches: dict, routes: dict,
                         by_dtype: dict, spy: SolverSpy, dtype: str,
-                        tested: bool = True) -> int:
+                        tested: bool = True, scored: bool = True) -> int:
     """conv_stats 10 times a train step, every launch `dtype` on the
     tensor-core route; normalize once a forward; nt_matmul in every test
-    stage and nowhere else, and (`tested`) a test stage ran. Returns the
-    train steps."""
+    stage (`scored`: a CLIP test stage scores its estimates; else never)
+    and nowhere else, and (`tested`) a test stage ran. Returns the train
+    steps."""
     steps = sum(1 for train, _, _ in spy.events if train)
     want = dict(conv_stats=10 * steps, normalize_clamp_peak=spy.forwards,
-                nt_matmul=sum(spy.test_nt_matmul))
+                nt_matmul=sum(spy.test_nt_matmul) if scored else 0)
     if steps == 0 or (tested and not spy.test_nt_matmul) \
-            or min(spy.test_nt_matmul, default=1) < 1:
+            or (scored and min(spy.test_nt_matmul, default=1) < 1):
         raise AssertionError(f"cli {what}: {steps} train steps, nt_matmul "
                              f"launches by test stage {spy.test_nt_matmul}")
     for name, count in want.items():
@@ -1580,7 +1595,8 @@ def check_loader(dataset, device: torch.device, dtype) -> int:
 def check_cli_shapes(device: torch.device, batch: int, n_test: int,
                      n_mels: int, channels: int = C, with_conv: bool = True,
                      prefix: str = "",
-                     n_cand: tp.Optional[int] = None) -> dict:
+                     n_cand: tp.Optional[int] = None,
+                     with_matmul: bool = True) -> dict:
     """Each kernel against its plain version at the shapes phase 8's CLI
     run gave it, in fp32 (clip_conv) and bf16 (clip_conv_tpu), timed
     beside its plain version, its library call and its bound: normalize
@@ -1590,12 +1606,13 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
     `n_test - 1` outputs (`n_cand` when given: an evaluation's
     candidates), K = n_mels x T' (n_mels the scored width: the mel bins,
     or DeepMel's outputs); normalize at `channels`
-    sensors, conv_stats only `with_conv`, each label after `prefix`.
+    sensors, conv_stats only `with_conv`, nt_matmul only `with_matmul`,
+    each label after `prefix`.
     Returns {kernel name: {shape label: entry}} for the kernels'
     other_shapes."""
     import torch.nn.functional as fn
 
-    from brainmagick_tpu_torch.ops import conv_bn, matmul, norm
+    from brainmagick_tpu_torch.ops import conv_bn, norm
 
     gen = torch.Generator(device=device).manual_seed(SEED + 8)
     out: dict = {"normalize_clamp_peak": {}, "nt_matmul": {},
@@ -1622,31 +1639,9 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
         out["normalize_clamp_peak"][
             f"{prefix}{batch}x{channels}x{T} {name}"] = entry
 
-        depth = n_mels * (T - 18)
-        a = torch.randn((n_test, depth), generator=gen,
-                        device=device).to(dtype)
-        n_b = n_test - 1 if n_cand is None else n_cand
-        b = torch.randn((n_b, depth), generator=gen,
-                        device=device).to(dtype)
-        abs_err, rel_err = _matmul_error(a, b, matmul.nt_matmul(a, b))
-        if not rel_err <= MATMUL_TOL:
-            raise AssertionError(f"nt_matmul {tuple(a.shape)} x "
-                                 f"{tuple(b.shape)} {name}: {rel_err}")
-        flop = 2 * a.shape[0] * b.shape[0] * depth
-        out_dtype = ({} if dtype == torch.float32
-                     else dict(out_dtype=torch.float32))
-        entry = dict(
-            ms=median_ms(lambda: matmul.nt_matmul(a, b)),
-            plain_ms=median_ms(lambda: matmul._reference_impl(a, b)),
-            library_ms=median_ms(lambda: torch.mm(a, b.T, **out_dtype)),
-            max_abs_err=abs_err)
-        entry.update(zip(("bound_ms", "bound_by"), bound(
-            a.element_size() * (a.shape[0] + b.shape[0]) * depth
-            + 4 * a.shape[0] * b.shape[0],
-            *((3 * flop, TF32_FLOPS) if dtype == torch.float32
-              else (flop, BF16_FLOPS)))))
-        out["nt_matmul"][f"{prefix}{n_test}x{n_b}x{depth} {name}"] \
-            = entry
+        if with_matmul:
+            check_matmul_shape(device, gen, dtype, n_test, n_mels, n_cand,
+                               prefix, out["nt_matmul"])
 
         for conv in ((batch, 270, 320, T - 18, 1, 3),
                      (batch, 320, 320, T - 18, 2, 3))[:2 * with_conv]:
@@ -1676,7 +1671,7 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
             out["conv_stats"][
                 f"{prefix}{batch}x{Cin}x{Tc} O{O} k{k} d{d} {name}"] = entry
             del x, w, cot, got, want
-        del meg, center, scale, a, b
+        del meg, center, scale
     for kernel, shapes in out.items():
         for label, entry in shapes.items():
             print(f"{kernel} at the CLI's shape {label}: kernel "
@@ -1688,6 +1683,41 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
                   f"({entry['bound_by']}), max|diff| "
                   f"{entry['max_abs_err']:.3e}")
     return out
+
+
+def check_matmul_shape(device: torch.device, gen: torch.Generator, dtype,
+                       n_test: int, n_mels: int,
+                       n_cand: tp.Optional[int], prefix: str,
+                       out: dict) -> None:
+    """nt_matmul against its plain version at a test stage's `n_test`
+    estimates against the other `n_test - 1` outputs (`n_cand` when
+    given), K = n_mels x T', timed beside its plain version, cuBLAS and
+    its bound; the entry goes into `out`."""
+    from brainmagick_tpu_torch.ops import matmul
+
+    name = _type_name(dtype)
+    depth = n_mels * (T - 18)
+    a = torch.randn((n_test, depth), generator=gen, device=device).to(dtype)
+    n_b = n_test - 1 if n_cand is None else n_cand
+    b = torch.randn((n_b, depth), generator=gen, device=device).to(dtype)
+    abs_err, rel_err = _matmul_error(a, b, matmul.nt_matmul(a, b))
+    if not rel_err <= MATMUL_TOL:
+        raise AssertionError(f"nt_matmul {tuple(a.shape)} x "
+                             f"{tuple(b.shape)} {name}: {rel_err}")
+    flop = 2 * a.shape[0] * b.shape[0] * depth
+    out_dtype = ({} if dtype == torch.float32
+                 else dict(out_dtype=torch.float32))
+    entry = dict(
+        ms=median_ms(lambda: matmul.nt_matmul(a, b)),
+        plain_ms=median_ms(lambda: matmul._reference_impl(a, b)),
+        library_ms=median_ms(lambda: torch.mm(a, b.T, **out_dtype)),
+        max_abs_err=abs_err)
+    entry.update(zip(("bound_ms", "bound_by"), bound(
+        a.element_size() * (a.shape[0] + b.shape[0]) * depth
+        + 4 * a.shape[0] * b.shape[0],
+        *((3 * flop, TF32_FLOPS) if dtype == torch.float32
+          else (flop, BF16_FLOPS)))))
+    out[f"{prefix}{n_test}x{n_b}x{depth} {name}"] = entry
 
 
 def run_cli_phase(device: torch.device, card_name: str, work: Path
@@ -2486,6 +2516,146 @@ def run_deepmel_phase(device: torch.device, card_name: str, work: Path,
     return out, shapes
 
 
+#: phase 11: feature decoding on phase 9's gwilliams2022 tree (KEPT_STUDY):
+#: the paper encoder with fused_conv_bn, B=256, one epoch, regressing the
+#: word vectors and the pitch and classifying the part of speech and the
+#: word segments with class weights; the card's machine has no spacy
+#: model, so the word features run on their offline stand-ins, which a
+#: real study takes only with allow_fallback
+WORDS_FEATURES = ("WordEmbedding", "PartOfSpeech", "Pitch", "WordSegment")
+WORDS_ARGS = ("preset=clip_conv", "simpleconv.fused_conv_bn=True",
+              "optim.loss=regression_classification",
+              "optim.use_weighting=True",
+              f"dset.features={list(WORDS_FEATURES)!r}",
+              "optim.batch_size=256", "optim.epochs=1", "dset.n_recordings=2",
+              f"dset.selections=[{KEPT_STUDY!r}]")
+WORDS_FALLBACK = ("dset.features_params=" + repr({
+    name: {"allow_fallback": True}
+    for name in ("WordEmbedding", "PartOfSpeech")}),)
+#: the model's outputs: 300 word-vector channels, 21 part-of-speech
+#: logits, the pitch, 2 word-segment logits
+WORDS_OUTPUTS = 324
+
+
+def words_held_step(where, args, solver, batch) -> tuple:
+    """One Trainer.step of phase 11's configuration on `where`, from seeds
+    (the weights, the dropout generator) and the solver's normalization
+    arrays, features and scaler: (loss, model)."""
+    from brainmagick_tpu_torch.train import Trainer
+
+    model = solver.model
+    trainer = Trainer(
+        args, model.in_channels["meg"], model.out_channels,
+        model.subject_layers.weights.shape[0], None, None,
+        {k: v.cpu() for k, v in solver.norm_arrays.items()}, where,
+        generator=torch.Generator().manual_seed(SEED),
+        used_features=solver.used_features, scaler=solver.scaler)
+    return trainer.step(batch)["loss"].item(), trainer.model
+
+
+def run_words_phase(device: torch.device, card_name: str, work: Path
+                    ) -> tuple:
+    """Phase 11: ``train.main`` of WORDS_ARGS on the kept gwilliams2022
+    tree in `work`, first without WORDS_FALLBACK (MissingModelError before
+    any step), then with it for one epoch; a B=HELD_B step held against
+    the CPU. Returns ({"regression_words": launch counts},
+    {"regression_words": ``check_cli_shapes`` arguments})."""
+    from brainmagick_tpu_torch import dataset
+    from brainmagick_tpu_torch.env import env
+    from brainmagick_tpu_torch.features import FeaturesBuilder
+    from brainmagick_tpu_torch.features.embeddings import MissingModelError
+    from brainmagick_tpu_torch.train import main, parse_overrides
+
+    studies = {KEPT_STUDY: work / KEPT_STUDY}
+    common = [*WORDS_ARGS, f"cache={work}/cache_{KEPT_STUDY}",
+              f"out_dir={work}/outputs"]
+    with env.temporary(studies=studies):
+        with SolverSpy() as spy:
+            try:
+                main(list(common))
+            except MissingModelError as error:
+                refused = str(error)
+            else:
+                raise AssertionError("a real study trained on the word "
+                                     "features' stand-ins without "
+                                     "allow_fallback")
+        if spy.events or spy.forwards:
+            raise AssertionError(f"MissingModelError after {len(spy.events)}"
+                                 f" steps and {spy.forwards} forwards")
+        print(f"words without allow_fallback: MissingModelError before any "
+              f"step ({refused.split('.')[0]})")
+        argv = common + list(WORDS_FALLBACK)
+        launches, routes, by_dtype, spy, wall, peak_gb = run_cli(
+            argv, "regression_words", card_name)
+    args = parse_overrides(argv)
+    solver = spy.solver
+    widths = (args.simpleconv["hidden"], args.simpleconv["depth"],
+              solver.model.in_channels["meg"], solver.model.out_channels,
+              solver.used_features.dimension)
+    if list(solver.used_features) != list(WORDS_FEATURES) \
+            or widths != (*PAPER_ENCODER, 208, WORDS_OUTPUTS, 303):
+        raise AssertionError(f"words: features {list(solver.used_features)}"
+                             f", (hidden, depth, sensors, outputs, "
+                             f"targets) {widths}")
+    steps = _check_cli_launches("regression_words", launches, routes,
+                                by_dtype, spy, "float32", scored=False)
+    history = _read_history(Path(args.xp_folder), 1, "regression_words")
+    test = history[0].get("test", {})
+    accuracies = [test.get(f"acc_{name}", -1.)
+                  for name in ("PartOfSpeech", "WordSegment")]
+    regressed = [test.get(f"{kind}_{name}", math.nan)
+                 for name in ("WordEmbedding", "Pitch")
+                 for kind in ("l2", "corr")]
+    if not all(0 <= a <= 1 for a in accuracies) \
+            or not np.isfinite(regressed).all():
+        raise AssertionError(f"words test metrics {test}")
+    step_ms = spy.train_step_ms()
+    tracks_s = sum(d.track_seconds for split in solver.datasets
+                   for d in split.datasets)
+    first = solver.datasets.train.datasets[0]
+    with env.temporary(cache=None):
+        pitch = FeaturesBuilder(first.events, ["Pitch"], None,
+                                first.sample_rate)
+        t0 = time.perf_counter()
+        pitch.render_track(first.raw.duration)
+        pitch_s = time.perf_counter() - t0
+    epoch_s = sum(v for k, v in solver.stage_seconds[0].items()
+                  if k != "test")
+    print(f"words cell timings ({card_name}): track render {tracks_s:.2f} s "
+          f"for {sum(len(split.datasets) for split in solver.datasets)} "
+          f"datasets ({list(WORDS_FEATURES)}, Pitch's YIN on the host; "
+          f"Pitch alone over one {first.raw.duration:.0f} s recording, "
+          f"uncached, {pitch_s:.2f} s), dataset build "
+          f"{solver.build_timings['datasets']:.2f} s, scaler fit "
+          f"{solver.build_timings['scaler']:.2f} s, train step median "
+          f"{statistics.median(step_ms):.2f} ms over {steps} steps (device "
+          f"time; each {[round(x, 2) for x in step_ms]}; after the first "
+          f"{statistics.median(step_ms[1:] or step_ms):.2f}), epoch (train "
+          f"+ valid, the valid tracks' render included) {epoch_s:.2f} s, "
+          f"test stage (its tracks' render included) "
+          f"{solver.stage_seconds[0].get('test', 0.):.2f} s, peak device "
+          f"memory {peak_gb:.2f} GB, run {wall:.1f} s; history {history}")
+
+    batches = iter(solver.make_loader(solver.datasets.train))
+    batch, _ = next(batches)
+    batches.close()
+    small = types.SimpleNamespace(**{
+        name: getattr(batch, name)[:HELD_B] for name in dataset.ARRAY_FIELDS})
+    card, cpu = (words_held_step(where, args, solver, small)
+                 for where in (device, "cpu"))
+    errors, note = _step_errors(card, cpu, False)
+    print(f"regression_words train B={HELD_B} against the CPU: " + ", ".join(
+        f"{key} {value:.2e}" for key, value in errors.items())
+        + f" (tol {STEP_TOL:.2e}; {note})")
+    _check_errors(errors, STEP_TOL, "regression_words train step")
+    shapes = {"regression_words": dict(
+        batch=args.optim.batch_size, n_test=len(solver.datasets.test),
+        n_mels=1, channels=208, with_matmul=False)}
+    del solver, spy, card, cpu
+    torch.cuda.empty_cache()
+    return {"regression_words": launches}, shapes
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -2511,27 +2681,47 @@ def main() -> None:
         if "ptxas" in line:
             print(f"  {line.strip()}")
 
+    phase_s = {}
+    t0 = time.perf_counter()
     with exact_fp32():
         kernels = [check_normalize(device), check_nt_matmul(device),
                    check_conv_stats(device)]
+    phase_s["3"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     serve_launches, batch, serve_warm = run_slice(device, card_name)
     train_launches, train_types, train_warm = run_train(device, card_name,
                                                         batch)
+    phase_s["4-5"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     eval_launches = run_eval_phase(device, card_name)
+    phase_s["6"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     recipe_serve, _, recipe_serve_warm = run_slice(device, card_name,
                                                    RECIPE)
     recipe_train, recipe_types, recipe_train_warm = run_train(
         device, card_name, batch, RECIPE)
+    phase_s["7"] = time.perf_counter() - t0
     # phases 8-10 share one folder: phase 10 trains on phase 9's
     # gwilliams2022 tree and evaluates phase 8's recipe XP
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fake_cache_") as tmp:
         work = Path(tmp)
+        t0 = time.perf_counter()
         cli_launches, cli_shape, recipe_xp = run_cli_phase(device,
                                                            card_name, work)
+        phase_s["8"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         study_launches, study_shapes = run_study_phase(device, card_name,
                                                        work)
+        phase_s["9"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         deepmel_launches, deepmel_shapes = run_deepmel_phase(
             device, card_name, work, recipe_xp)
+        phase_s["10"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        words_launches, words_shapes = run_words_phase(device, card_name,
+                                                       work)
+        phase_s["11"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     with exact_fp32():
         cli_shapes = check_cli_shapes(device, **cli_shape)
         for k, (selection, shape) in enumerate(study_shapes.items()):
@@ -2539,10 +2729,13 @@ def main() -> None:
                     device, **shape, with_conv=k == 0,
                     prefix=f"{selection}: ").items():
                 cli_shapes[name].update(shapes)
-        for path, shape in deepmel_shapes.items():
+        for path, shape in {**deepmel_shapes, **words_shapes}.items():
             for name, shapes in check_cli_shapes(
                     device, **shape, prefix=f"{path}: ").items():
                 cli_shapes[name].update(shapes)
+    phase_s["the runs' shapes"] = time.perf_counter() - t0
+    print(f"wall seconds by phase ({card_name}): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(f"{RECIPE} against clip_conv, warm B={REQUESTS[0]} ({card_name}): "
           f"forward {recipe_serve_warm['forward_ms']:.2f} ms against "
           f"{serve_warm['forward_ms']:.2f}, scoring "
@@ -2564,7 +2757,8 @@ def main() -> None:
                        **{path: counts[entry["name"]]
                           for path, counts in {**cli_launches,
                                                **study_launches,
-                                               **deepmel_launches}.items()})
+                                               **deepmel_launches,
+                                               **words_launches}.items()})
         entry["other_shapes"].update(cli_shapes[entry["name"]])
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
