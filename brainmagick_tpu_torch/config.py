@@ -2,12 +2,12 @@
 paths read, and the XP signature rule.
 
 The fields (names, defaults and the ``clip_conv``, ``clip_conv_tpu``,
-``tiny`` and ``deep_mel`` presets) are copies of
-``brainmagick_tpu.config``'s, so that the port runs on a host that has no
-JAX package (tests/test_torch_serve.py holds the copy to the original).
-Two differences: ``device`` defaults to ``"cuda"`` (the JAX package's
-``"tpu"``), and the mesh and sharding fields of ``parallel``, the ConvRNN
-defaults and the other presets are not copied. ``delta``/``sig`` follow
+``tiny``, ``deep_mel``, ``convrnn`` and ``decoder_convrnn`` presets) are
+copies of ``brainmagick_tpu.config``'s, so that the port runs on a host
+that has no JAX package (tests/test_torch_serve.py holds the copy to the
+original). Two differences: ``device`` defaults to ``"cuda"`` (the JAX
+package's ``"tpu"``), and the mesh and sharding fields of ``parallel``
+and the other presets are not copied. ``delta``/``sig`` follow
 the JAX package's rule (the hash of the non-default fields, cosmetic keys
 excluded), so the same overrides give the same signature in both
 packages. Every function of the port
@@ -50,6 +50,15 @@ SIMPLECONV_DEFAULTS: tp.Dict[str, tp.Any] = dict(
     dtype=None, output_dtype=None, output_layout="bct", conv_impl="conv",
     bn_conv_bias=True, fused_conv_bn=False, fused_head=False,
     gelu_exact=True)
+
+#: brainmagick_tpu.config.CONVRNN_DEFAULTS
+CONVRNN_DEFAULTS: tp.Dict[str, tp.Any] = dict(
+    concatenate=False, depth=2, linear_out=False, complex_out=False,
+    kernel_size=4, stride=2, growth=1., lstm=4, bidirectional_lstm=False,
+    flip_lstm=False, attention=0, heads=4, conv_dropout=0.0,
+    lstm_dropout=0.0, dropout_input=0.0, batch_norm=False,
+    relu_leakiness=0.0, subject_dim=64, embedding_location=("lstm",),
+    embedding_scale=1.0, subject_layers=False, subject_layers_dim="input")
 
 
 @dataclass
@@ -214,6 +223,8 @@ class MainConfig:
     override_n_subjects_model: tp.Optional[int] = None
     simpleconv: tp.Dict[str, tp.Any] = field(
         default_factory=lambda: copy.deepcopy(SIMPLECONV_DEFAULTS))
+    convrnn: tp.Dict[str, tp.Any] = field(
+        default_factory=lambda: copy.deepcopy(CONVRNN_DEFAULTS))
     optim: OptimConfig = field(default_factory=OptimConfig)
     clip: ClipConfig = field(default_factory=ClipConfig)
     test: TestEvalConfig = field(default_factory=TestEvalConfig)
@@ -283,9 +294,12 @@ def apply_preset(cfg: MainConfig, name: str) -> MainConfig:
     """The ``clip_conv`` preset (the paper recipe), ``clip_conv_tpu``
     (the paper recipe with bf16 compute, estimates and scores, no
     BatchNorm-cancelled conv biases, the fused head, tanh GELU and the
-    bf16 wire), ``tiny`` (a CPU-sized SimpleConv) or ``deep_mel`` (the
+    bf16 wire), ``tiny`` (a CPU-sized SimpleConv), ``deep_mel`` (the
     DeepMel feature model on the ground truth, Table 2's "MelSpectrum +
-    DeepMel" cell), on the copied fields."""
+    DeepMel" cell), ``convrnn`` (the encode task: a ConvRNN predicts the
+    MEG from the features and a MEG prompt, under an L1 loss) or
+    ``decoder_convrnn`` (a bidirectional ConvRNN decoding the word
+    segments), on the copied fields."""
     if name == "clip_conv_tpu":
         apply_preset(cfg, "clip_conv")
         cfg.simpleconv.update(dtype="bfloat16", output_dtype="bfloat16",
@@ -311,6 +325,20 @@ def apply_preset(cfg: MainConfig, name: str) -> MainConfig:
             kernel=3, stride=1, dilation_growth=2, dilation_period=5,
             batch_norm=True, activation_on_last=False, skip=True,
             glu_context=1, glu=2)
+        return cfg
+    if name == "convrnn":
+        cfg.model_name = "convrnn"
+        cfg.convrnn["hidden"] = dict(meg=512, features=12)
+        cfg.task.type = "encode"
+        cfg.optim.loss = "l1"
+        return cfg
+    if name == "decoder_convrnn":
+        cfg.model_name = "convrnn"
+        cfg.convrnn["hidden"] = dict(meg=512)
+        cfg.convrnn["bidirectional_lstm"] = True
+        cfg.dset.features = ["WordSegment"]
+        cfg.optim.loss = "regression_classification"
+        cfg.task.type = "decode"
         return cfg
     if name != "clip_conv":
         raise NotImplementedError(f"preset {name!r}")

@@ -1,5 +1,5 @@
-"""Weight bridge: JAX SimpleConv and DeepMel parameter trees -> the port's
-modules.
+"""Weight bridge: JAX SimpleConv, ConvRNN and DeepMel parameter trees ->
+the port's modules.
 
 The reverse half of ``brainmagick_tpu/convert.py``, with its own copy of
 the rules: each rule ``(state-dict key, flax path, transform,
@@ -16,9 +16,16 @@ layer, and flax's ``Conv_{i}`` counter skips fused layers, so the GLU
 convs behind them are renumbered) and the bias-less BatchNorm'd convs of
 ``bn_conv_bias=False`` (their running mean loads as it is: the JAX
 package's bias fold is for reference torch checkpoints, whose convs have a
-bias). ``fused_head`` and the compute dtypes change no parameter.
-``deepmel_rules`` walks a DeepMel, one ConvSequence under flax's ``fm``
-scope. The tests hold these rules to the JAX package's.
+bias), and a decoder's transposed convs (flax's ``ConvTranspose_{i}``).
+``fused_head`` and the compute dtypes change no parameter; the subject
+embedding, the encode task's features branch and ``concatenate`` follow
+the JAX package's walk. ``convrnn_rules`` walks a ConvRNN, which the JAX
+package's rules do not cover: its subject layers and embedding, encoders,
+LSTM cells (flax's ``StackedLSTM_0/OptimizedLSTMCell_{j}``, one leaf per
+gate), the bidirectional stack's ``Dense_0``, the local attention blocks,
+the decoder and the head. ``deepmel_rules`` walks a DeepMel, one
+ConvSequence under flax's ``fm`` scope. The tests hold these rules to the
+JAX package's, and the ConvRNN's to the flax module's outputs.
 
 The module imports nothing of the JAX package: a JAX tree arrives as
 nested dicts of numpy arrays.
@@ -32,6 +39,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from .models.convrnn import ConvRNN
 
 
 def _leaf_paths(tree: Mapping, prefix: tp.Tuple[str, ...] = ()
@@ -55,11 +64,14 @@ def _get(tree: Mapping, path: tp.Tuple[str, ...]) -> np.ndarray:
 def _untransform(kind: str, value: np.ndarray) -> np.ndarray:
     """A flax leaf in the port's layout: Conv1d weights [O, I/g, k] from
     flax's [k, I/g, O]; ConvTranspose1d weights [I, O, k] from flax's
-    spatially flipped [k, I, O]."""
+    spatially flipped [k, I, O]; Linear and LSTM weights [O, I] from a
+    ``Dense`` kernel [I, O]."""
     if kind == "copy":
         return value
     if kind == "conv_w":
         return np.transpose(value, (2, 1, 0))
+    if kind == "dense_w":
+        return np.ascontiguousarray(value.T)
     if kind == "convT_w":
         return np.transpose(np.flip(value, axis=0), (1, 2, 0)).copy()
     if kind == "convT_w_as_conv":
@@ -92,57 +104,60 @@ def load_by_rules(module: nn.Module, rules: tp.Sequence[tuple],
     module.load_state_dict(state, strict=True)
 
 
+def _conv_rules(tkey: str, fpath: tp.Tuple[str, ...]) -> tp.List[tuple]:
+    return [(f"{tkey}.weight", fpath + ("kernel",), "conv_w", "params"),
+            (f"{tkey}.bias", fpath + ("bias",), "copy", "params")]
+
+
+def _batch_norm_rules(tkey: str, fpath: tp.Tuple[str, ...]
+                      ) -> tp.List[tuple]:
+    return [(f"{tkey}.weight", fpath + ("scale",), "copy", "params"),
+            (f"{tkey}.bias", fpath + ("bias",), "copy", "params"),
+            (f"{tkey}.running_mean", fpath + ("mean",), "copy",
+             "batch_stats"),
+            (f"{tkey}.running_var", fpath + ("var",), "copy", "batch_stats")]
+
+
 def conv_sequence_rules(seq: nn.Module, tprefix: str,
                         fprefix: tp.Tuple[str, ...]) -> tp.List[tuple]:
-    """Rules for a port ``ConvSequence`` (fused layers or not), walking
-    flax's ``Conv_{i}``, ``BatchNorm_{j}`` and ``FusedConvBN_{n}``
-    counters as ``brainmagick_tpu.models.common.ConvSequence`` creates
-    them."""
+    """Rules for a port ``ConvSequence`` (fused layers or not, transposed
+    or not), walking flax's ``Conv_{i}``, ``ConvTranspose_{i}``,
+    ``BatchNorm_{j}`` and ``FusedConvBN_{n}`` counters as
+    ``brainmagick_tpu.models.common.ConvSequence`` creates them."""
     rules: tp.List[tuple] = []
-    counters = {"Conv": 0, "BatchNorm": 0, "FusedConvBN": 0}
+    counters = {"Conv": 0, "ConvTranspose": 0, "BatchNorm": 0,
+                "FusedConvBN": 0}
+    convs = (nn.Conv1d, nn.ConvTranspose1d)
 
     def name(kind: str) -> str:
         counters[kind] += 1
         return f"{kind}_{counters[kind] - 1}"
 
     for k, (layer, glu) in enumerate(zip(seq.sequence, seq.glus)):
-        pos = next(i for i, m in enumerate(layer) if isinstance(m, nn.Conv1d))
+        pos = next(i for i, m in enumerate(layer) if isinstance(m, convs))
         conv_key = f"{tprefix}sequence.{k}.{pos}"
         bn_key = f"{tprefix}sequence.{k}.{pos + 1}"
         if seq.fused[k]:
             f = fprefix + (name("FusedConvBN"),)
-            rules += [(f"{conv_key}.weight", f + ("kernel",), "conv_w",
-                       "params"),
-                      (f"{bn_key}.weight", f + ("scale",), "copy", "params"),
-                      (f"{bn_key}.bias", f + ("bias",), "copy", "params"),
-                      (f"{bn_key}.running_mean", f + ("mean",), "copy",
-                       "batch_stats"),
-                      (f"{bn_key}.running_var", f + ("var",), "copy",
-                       "batch_stats")]
-        else:
-            f = fprefix + (name("Conv"),)
             rules.append((f"{conv_key}.weight", f + ("kernel",), "conv_w",
                           "params"))
+            rules += _batch_norm_rules(bn_key, f)
+        else:
+            transposed = isinstance(layer[pos], nn.ConvTranspose1d)
+            f = fprefix + (name("ConvTranspose" if transposed else "Conv"),)
+            rules.append((f"{conv_key}.weight", f + ("kernel",),
+                          "convT_w" if transposed else "conv_w", "params"))
             if layer[pos].bias is not None:
                 # without bn_conv_bias a BatchNorm'd conv has no bias leaf
                 rules.append((f"{conv_key}.bias", f + ("bias",), "copy",
                               "params"))
             if pos + 1 < len(layer) and isinstance(layer[pos + 1],
                                                    nn.BatchNorm1d):
-                f = fprefix + (name("BatchNorm"),)
-                rules += [(f"{bn_key}.weight", f + ("scale",), "copy",
-                           "params"),
-                          (f"{bn_key}.bias", f + ("bias",), "copy", "params"),
-                          (f"{bn_key}.running_mean", f + ("mean",), "copy",
-                           "batch_stats"),
-                          (f"{bn_key}.running_var", f + ("var",), "copy",
-                           "batch_stats")]
+                rules += _batch_norm_rules(
+                    bn_key, fprefix + (name("BatchNorm"),))
         if glu is not None:
-            f = fprefix + (name("Conv"),)
-            rules.append((f"{tprefix}glus.{k}.0.weight", f + ("kernel",),
-                          "conv_w", "params"))
-            rules.append((f"{tprefix}glus.{k}.0.bias", f + ("bias",), "copy",
-                          "params"))
+            rules += _conv_rules(f"{tprefix}glus.{k}.0",
+                                 fprefix + (name("Conv"),))
     return rules
 
 
@@ -156,10 +171,7 @@ def simpleconv_rules(model: nn.Module) -> tp.List[tuple]:
 
     def conv(tkey: str) -> None:
         nonlocal conv_n
-        rules.extend([(f"{tkey}.weight", f + (f"Conv_{conv_n}", "kernel"),
-                       "conv_w", "params"),
-                      (f"{tkey}.bias", f + (f"Conv_{conv_n}", "bias"),
-                       "copy", "params")])
+        rules.extend(_conv_rules(tkey, f + (f"Conv_{conv_n}",)))
         conv_n += 1
 
     if model.merger is not None:
@@ -172,8 +184,13 @@ def simpleconv_rules(model: nn.Module) -> tp.List[tuple]:
     if model.subject_layers is not None:
         rules.append(("subject_layers.weights",
                       f + ("SubjectLayers_0", "weights"), "copy", "params"))
-    rules += conv_sequence_rules(model.encoders["meg"], "encoders.meg.",
-                                 f + ("encoder_meg",))
+    if model.subject_embedding is not None:
+        rules.append(("subject_embedding.embedding.weight",
+                      f + ("ScaledEmbedding_0", "Embed_0", "embedding"),
+                      "copy", "params"))
+    for name, encoder in model.encoders.items():
+        rules += conv_sequence_rules(encoder, f"encoders.{name}.",
+                                     f + (f"encoder_{name}",))
     transposed = f + ("ConvTranspose_0",)
     if model.linear_out:
         rules += [("final.weight", transposed + ("kernel",), "convT_w",
@@ -184,6 +201,76 @@ def simpleconv_rules(model: nn.Module) -> tp.List[tuple]:
         rules += [("final.2.weight", transposed + ("kernel",), "convT_w",
                    "params"),
                   ("final.2.bias", transposed + ("bias",), "copy", "params")]
+    return rules
+
+
+def stacked_lstm_rules(stack: nn.Module, tprefix: str,
+                       fprefix: tp.Tuple[str, ...]) -> tp.List[tuple]:
+    """Rules for a port ``StackedLSTM``: cell j's gate g reads flax's
+    ``OptimizedLSTMCell_{j}/i{g}/kernel`` (input) and ``h{g}`` (recurrent
+    kernel and the gate's bias); a bidirectional stack's ``linear`` reads
+    ``Dense_0``."""
+    rules: tp.List[tuple] = []
+    for j, cell in enumerate(stack.cells):
+        tkey, fcell = f"{tprefix}cells.{j}", fprefix + (
+            f"OptimizedLSTMCell_{j}",)
+        for g in cell.input:
+            rules += [(f"{tkey}.input.{g}", fcell + (f"i{g}", "kernel"),
+                       "dense_w", "params"),
+                      (f"{tkey}.hidden.{g}", fcell + (f"h{g}", "kernel"),
+                       "dense_w", "params"),
+                      (f"{tkey}.bias.{g}", fcell + (f"h{g}", "bias"), "copy",
+                       "params")]
+    if stack.linear is not None:
+        rules += [(f"{tprefix}linear.weight", fprefix + ("Dense_0", "kernel"),
+                   "dense_w", "params"),
+                  (f"{tprefix}linear.bias", fprefix + ("Dense_0", "bias"),
+                   "copy", "params")]
+    return rules
+
+
+def local_attention_rules(tprefix: str, fprefix: tp.Tuple[str, ...]
+                          ) -> tp.List[tuple]:
+    """Rules for a port ``LocalAttention``: flax's ``Conv_0..3`` are the
+    content, query, key and output convs; ``rel_emb`` the table."""
+    rules: tp.List[tuple] = []
+    for n, part in enumerate(("content", "query", "key", "fc")):
+        rules += _conv_rules(f"{tprefix}{part}", fprefix + (f"Conv_{n}",))
+    rules += [(f"{tprefix}embedding", fprefix + ("rel_emb",), "copy",
+               "params"),
+              (f"{tprefix}scale", fprefix + ("scale",), "copy", "params")]
+    return rules + _batch_norm_rules(f"{tprefix}bn",
+                                     fprefix + ("BatchNorm_0",))
+
+
+def convrnn_rules(model: nn.Module) -> tp.List[tuple]:
+    """Rules for a port ConvRNN, from its own attributes and modules, as
+    flax names the leaves of ``brainmagick_tpu.models.convrnn.ConvRNN``
+    under the top-level ``model`` scope."""
+    f = ("model",)
+    rules: tp.List[tuple] = []
+    if model.subject_layers is not None:
+        rules.append(("subject_layers.weights",
+                      f + ("SubjectLayers_0", "weights"), "copy", "params"))
+    if model.subject_embedding is not None:
+        rules.append(("subject_embedding.embedding.weight",
+                      f + ("ScaledEmbedding_0", "Embed_0", "embedding"),
+                      "copy", "params"))
+    for name, encoder in model.encoders.items():
+        rules += conv_sequence_rules(encoder, f"encoders.{name}.",
+                                     f + (f"encoder_{name}",))
+    if model.lstm is not None:
+        rules += stacked_lstm_rules(model.lstm, "lstm.",
+                                    f + ("StackedLSTM_0",))
+    for i in range(len(model.attentions)):
+        rules += local_attention_rules(f"attentions.{i}.",
+                                       f + (f"LocalAttention_{i}",))
+    rules += conv_sequence_rules(model.decoder, "decoder.", f + ("decoder",))
+    if model.linear_out:
+        rules += _conv_rules("final", f + ("Conv_0",))
+    elif model.complex_out:
+        rules += _conv_rules("final.0", f + ("Conv_0",))
+        rules += _conv_rules("final.2", f + ("Conv_1",))
     return rules
 
 
@@ -200,21 +287,27 @@ def _split_fm(tree: Mapping) -> tp.Tuple[dict, dict]:
     return rest, ({"fm": tree["fm"]} if "fm" in tree else {})
 
 
+def model_rules(model: nn.Module) -> tp.List[tuple]:
+    """The rules of a port SimpleConv or ConvRNN."""
+    return (convrnn_rules if isinstance(model, ConvRNN)
+            else simpleconv_rules)(model)
+
+
 def load_jax_params(model: nn.Module, params: Mapping,
                     batch_stats: Mapping,
                     feature_model: tp.Optional[nn.Module] = None) -> None:
     """Load the JAX solver's ``params`` and ``batch_stats`` trees
     (``{"model": ...}`` nested dicts of numpy arrays, as
     ``jax.device_get(solver.state[...])`` gives them) into a port
-    SimpleConv, by the rules ``simpleconv_rules`` derives from the port
-    model's own attributes, and their ``fm`` sub-trees into
+    SimpleConv or ConvRNN, by the rules ``model_rules`` derives from the
+    port model's own attributes, and their ``fm`` sub-trees into
     `feature_model` (``deepmel_rules``). Every leaf must be consumed: an
     ``fm`` sub-tree without a `feature_model` raises."""
     if feature_model is None:
-        load_by_rules(model, simpleconv_rules(model), params, batch_stats)
+        load_by_rules(model, model_rules(model), params, batch_stats)
         return
     (params, fm_params), (batch_stats, fm_stats) = map(
         _split_fm, (params, batch_stats))
-    load_by_rules(model, simpleconv_rules(model), params, batch_stats)
+    load_by_rules(model, model_rules(model), params, batch_stats)
     load_by_rules(feature_model, deepmel_rules(feature_model), fm_params,
                   fm_stats)

@@ -1,5 +1,6 @@
-"""Shared model blocks: subject layers, spatial attention over sensor
-positions, dilated conv stacks, in eval and train mode.
+"""Shared model blocks: subject layers and embeddings, spatial attention
+over sensor positions, dilated conv stacks (strided, and transposed for a
+decoder), in eval and train mode.
 
 Port of ``brainmagick_tpu/models/common.py`` in torch's natural [B, C, T]
 Conv1d layout. Submodules carry the reference ``bm`` names
@@ -146,6 +147,25 @@ class SubjectLayers(nn.Module):
         return torch.einsum("bct,bcd->bdt", x.float(), self.weights[subjects])
 
 
+class ScaledEmbedding(nn.Module):
+    """Per-subject embedding whose effective learning rate is boosted by
+    `scale`: the table is stored divided by `scale` (N(0, 1/scale^2) at
+    initialization) and each lookup is multiplied back."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 scale: float = 10.) -> None:
+        super().__init__()
+        self.scale = scale
+        self.embedding = nn.Embedding(num_embeddings, features)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        normal_(self.embedding.weight, 1.0 / self.scale, generator)
+
+    def forward(self, subjects: torch.Tensor) -> torch.Tensor:
+        """subjects [B] -> [B, features]."""
+        return self.embedding(subjects) * self.scale
+
+
 class ChannelMerger(nn.Module):
     """Spatial attention over sensors: learned heads attend over Fourier
     embeddings of sensor positions and merge C input channels into
@@ -254,8 +274,9 @@ class BatchNorm(nn.BatchNorm1d):
     the biased batch variance E[y^2] - E[y]^2 (fp32, clamped at 0) and
     keeps that biased variance in the running average, where torch's
     BatchNorm1d keeps the unbiased one. Eval mode is torch's. Both run in
-    fp32 and cast back to the input's dtype (flax's BatchNorm with
-    ``dtype=float32``, then the cast to the compute dtype)."""
+    fp32 (float64 on a float64 input) and cast back to the input's dtype
+    (flax's BatchNorm with ``dtype=float32``, then the cast to the compute
+    dtype)."""
 
     #: flax's running-average weight of the old statistics
     FLAX_MOMENTUM = 0.99
@@ -264,10 +285,10 @@ class BatchNorm(nn.BatchNorm1d):
         super().__init__(channels, eps=1e-5, momentum=1 - self.FLAX_MOMENTUM)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """fp32 on any input, the result in the input's dtype."""
+        """At least fp32 on any input, the result in the input's dtype."""
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
-            return super().forward(x.float()).to(x.dtype)
-        x32 = x.float()
+            return super().forward(x32).to(x.dtype)
         mean = x32.mean(dim=(0, 2))
         var = ((x32 * x32).mean(dim=(0, 2)) - mean * mean).clamp(min=0.0)
         return self.normalize_train(x32, mean, var).to(x.dtype)
@@ -285,23 +306,36 @@ class BatchNorm(nn.BatchNorm1d):
 
 
 class ConvSequence(nn.Module):
-    """Stack of dilated 1D convs (stride 1, SAME padding) with BatchNorm,
-    activation, residual skips and interleaved GLU gates. Layer k is
-    ``sequence[k]`` = (conv, BatchNorm, activation) and its gate is
-    ``glus[k]`` = (conv, GLU) or None.
+    """Stack of dilated 1D convs with BatchNorm, activation, residual
+    skips and interleaved GLU gates. Layer k is ``sequence[k]`` = (conv,
+    BatchNorm, activation) and its gate is ``glus[k]`` = (conv, GLU) or
+    None.
+
+    Each conv pads ``kernel // 2 * dilation`` on both sides, as flax's
+    ``ConvSequence`` does, and steps by `stride` (1 here by default; the
+    flax module's default is 2). With `decode`, each is a transposed conv
+    that follows flax's ``nn.ConvTranspose``: that pads the stride-dilated
+    input by ``kernel // 2`` a side, which is torch's
+    ``conv_transpose1d`` with padding ``kernel - 1 - kernel // 2`` on the
+    flipped kernel (2T outputs at kernel 4 and stride 2, where
+    ``bm``'s ``ConvTranspose1d(padding=2)`` gives the same samples
+    shifted by one, 2T - 2 of them).
 
     With `fused_conv_bn`, every layer that flax's ConvSequence runs as a
     ``FusedConvBN`` (BatchNorm'd, and ungrouped or the first) has a conv
     without bias, and in train mode runs ``ops.conv_bn.conv_stats``: the
     conv and its batch sums in one pass, normalized from those sums. In
     eval mode such a layer is the plain conv and BatchNorm on the running
-    statistics. The key layout is the same for both settings. Without
-    `bn_conv_bias`, no BatchNorm'd conv has a bias (BatchNorm cancels it).
-    The convs run in `compute_dtype` (bf16 or None for the input's)."""
+    statistics. The key layout is the same for both settings. As in flax,
+    only a stride-1 conv with an odd kernel, not transposed, fuses.
+    Without `bn_conv_bias`, no BatchNorm'd conv has a bias (BatchNorm
+    cancels it). The convs run in `compute_dtype` (bf16 or None for the
+    input's)."""
 
     def __init__(self, channels: tp.Sequence[int], kernel: int = 4,
                  dilation_growth: int = 1,
                  dilation_period: tp.Optional[int] = None,
+                 stride: int = 1, decode: bool = False,
                  dropout: float = 0.0, groups: int = 1,
                  batch_norm: bool = False, dropout_input: float = 0.0,
                  skip: bool = False, activation_on_last: bool = True,
@@ -310,9 +344,8 @@ class ConvSequence(nn.Module):
                  fused_conv_bn: bool = False, bn_conv_bias: bool = True,
                  compute_dtype: tp.Optional[torch.dtype] = None) -> None:
         super().__init__()
-        if kernel % 2 != 1:
-            raise NotImplementedError("even conv kernels (SAME padding "
-                                      "needs an odd kernel)")
+        if dilation_growth > 1 and kernel % 2 != 1:
+            raise ValueError("only odd kernels are supported with dilation")
         self.skip = skip
         self.sequence = nn.ModuleList()
         self.glus = nn.ModuleList()
@@ -323,19 +356,32 @@ class ConvSequence(nn.Module):
         for k, (chin, chout) in enumerate(zip(channels[:-1], channels[1:])):
             is_last = k == len(channels) - 2
             has_bn = batch_norm and (activation_on_last or not is_last)
-            fused = fused_conv_bn and has_bn and (groups == 1 or k == 0)
+            fused = (fused_conv_bn and has_bn and (groups == 1 or k == 0)
+                     and not decode and stride == 1 and kernel % 2 == 1)
             self.fused.append(fused)
             layers: tp.List[nn.Module] = []
             if k == 0 and dropout_input:
                 layers.append(nn.Dropout(dropout_input))
             if dilation_period and k % dilation_period == 0:
                 dilation = 1
+            pad = kernel // 2 * dilation
             # flax's FusedConvBN has no conv bias (BatchNorm cancels it)
-            layers.append(Conv1d(
-                chin, chout, kernel, padding=kernel // 2 * dilation,
-                dilation=dilation, groups=groups if k > 0 else 1,
-                bias=(bn_conv_bias or not has_bn) and not fused,
-                compute_dtype=compute_dtype))
+            bias = (bn_conv_bias or not has_bn) and not fused
+            if decode:
+                # flax's nn.ConvTranspose takes neither dilation nor groups
+                if pad > kernel - 1:
+                    raise NotImplementedError(
+                        f"a transposed conv padding {pad} past its kernel "
+                        f"{kernel}")
+                layers.append(ConvTranspose1d(
+                    chin, chout, kernel, stride=stride,
+                    padding=kernel - 1 - pad, bias=bias,
+                    compute_dtype=compute_dtype))
+            else:
+                layers.append(Conv1d(
+                    chin, chout, kernel, stride=stride, padding=pad,
+                    dilation=dilation, groups=groups if k > 0 else 1,
+                    bias=bias, compute_dtype=compute_dtype))
             dilation *= dilation_growth
             if activation_on_last or not is_last:
                 if batch_norm:

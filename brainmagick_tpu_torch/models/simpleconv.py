@@ -2,10 +2,14 @@
 
 Port of ``brainmagick_tpu/models/simpleconv.py``. Forward pipeline:
 ChannelMerger spatial attention -> initial 1x1 conv stack -> per-subject
-SubjectLayers -> dilated ConvSequence encoder -> final (linear / complex)
-1x1 head -> crop to the input length. Layout [B, C, T] in and
-[B, F, T] out, as the flax module's public call. With `fused_head` the
-first three run as one gathered matrix per recording (``_fused_head``).
+SubjectLayers -> the subject embedding (``subject_dim``) -> a dilated
+ConvSequence encoder per input (the MEG, and in the encode task the
+features, whose branch skips the MEG's head), or one over the
+concatenated inputs (``concatenate``) -> final (linear / complex) 1x1
+head over the encoders' concatenated outputs -> crop to the input
+length. Layout [B, C, T] in and [B, F, T] out, as the flax module's public
+call. With `fused_head` the first three run as one gathered matrix per
+recording (``_fused_head``).
 
 The constructor takes the flax module's keyword arguments and keeps them
 as attributes of the same names, so ``brainmagick_tpu.convert
@@ -13,14 +17,15 @@ as attributes of the same names, so ``brainmagick_tpu.convert
 those names are submodules here, because the reference key layout puts
 weights under them: ``merger``, ``initial_linear`` and ``subject_layers``
 hold the module when the option is on and None when it is off (the rules
-only test them for truth). Options outside the ported slices raise
-NotImplementedError naming the option. In train mode the merger's dropout
-disk is drawn from the `generator` passed to ``forward``, and
-``fused_conv_bn`` runs the encoder's conv + BatchNorm layers through
-``ops.conv_bn.conv_stats``. `dtype` ('bfloat16') is the compute dtype of
-the convs, the merger's contractions and the fused head (parameters and
-statistics stay fp32, see ``models.common``); `output_dtype` that of the
-estimate (fp32 when None).
+only test them for truth); the embedding is ``subject_embedding``.
+Options outside the ported slices raise NotImplementedError naming the
+option. In train mode the merger's dropout disk is drawn from the
+`generator` passed to ``forward``, and ``fused_conv_bn`` runs the
+encoders' conv + BatchNorm layers through ``ops.conv_bn.conv_stats``.
+`dtype` ('bfloat16') is the compute dtype of the convs, the merger's
+contractions and the fused head (parameters and statistics stay fp32,
+see ``models.common``); `output_dtype` that of the estimate (fp32 when
+None).
 """
 
 from __future__ import annotations
@@ -32,12 +37,12 @@ from torch import nn
 
 from ..precision import einsum_fp32, torch_dtype
 from .common import (ChannelMerger, Conv1d, ConvSequence, ConvTranspose1d,
-                     SubjectLayers, get_activation, init_conv_)
+                     ScaledEmbedding, SubjectLayers, get_activation,
+                     init_conv_)
 
 #: option -> value the slice supports; any other value raises
-_SUPPORTED = dict(concatenate=False, post_skip=False, scale=None,
-                  rewrite=False, dual_path=0, subject_dim=0, n_fft=None,
-                  merger_per_subject=False, dropout=0.,
+_SUPPORTED = dict(post_skip=False, scale=None, rewrite=False, dual_path=0,
+                  n_fft=None, merger_per_subject=False, dropout=0.,
                   subsample_meg_channels=0, output_layout="bct",
                   conv_impl="conv")
 
@@ -75,21 +80,26 @@ class SimpleConv(nn.Module):
                  fused_conv_bn: bool = False,
                  fused_head: bool = False) -> None:
         super().__init__()
-        given = dict(concatenate=concatenate, post_skip=post_skip,
-                     scale=scale, rewrite=rewrite, dual_path=dual_path,
-                     subject_dim=subject_dim, n_fft=n_fft,
+        given = dict(post_skip=post_skip, scale=scale, rewrite=rewrite,
+                     dual_path=dual_path, n_fft=n_fft,
                      merger_per_subject=merger_per_subject, dropout=dropout,
                      subsample_meg_channels=subsample_meg_channels,
                      output_layout=output_layout, conv_impl=conv_impl)
         for name, value in given.items():
             if value != _SUPPORTED[name]:
                 raise NotImplementedError(f"simpleconv.{name}={value!r}")
-        if set(in_channels) != {"meg"} or set(hidden) != {"meg"}:
-            raise NotImplementedError(
-                f"inputs other than 'meg' (the encode task): in_channels "
-                f"{dict(in_channels)}, hidden {dict(hidden)}")
+        if set(in_channels) != set(hidden):
+            raise ValueError(f"in_channels and hidden keys must match "
+                             f"({set(in_channels)} vs {set(hidden)})")
+        if "meg" not in in_channels:
+            raise NotImplementedError(f"inputs without 'meg': "
+                                      f"{dict(in_channels)}")
         if linear_out and complex_out:
             raise ValueError("linear_out and complex_out are exclusive")
+        use_final = linear_out or complex_out
+        if not use_final and len(in_channels) > 1 and not concatenate:
+            raise ValueError("without a linear or complex head there must "
+                             "be a single branch")
         # the flax module's attributes, read by convert.simpleconv_rules
         self.in_channels = dict(in_channels)
         self.out_channels = out_channels
@@ -115,6 +125,8 @@ class SimpleConv(nn.Module):
         self.output_dtype = output_dtype
         self.bn_conv_bias = bn_conv_bias
         self.fused_head = fused_head
+        self.concatenate = concatenate
+        self.subject_dim = subject_dim
         for name, value in given.items():
             setattr(self, name, value)
         dt = torch_dtype(dtype)
@@ -148,22 +160,34 @@ class SimpleConv(nn.Module):
             self.subject_layers = SubjectLayers(chin, dim, n_subjects,
                                                 subject_layers_id)
             chin = dim
+        self.subject_embedding = None
+        if subject_dim:
+            self.subject_embedding = ScaledEmbedding(n_subjects, subject_dim,
+                                                     embedding_scale)
+            chin += subject_dim
 
-        sizes = [chin] + [int(round(hidden["meg"] * growth ** k))
-                          for k in range(depth)]
-        use_final = linear_out or complex_out
+        channels = {**in_channels, "meg": chin}
+        hidden = dict(hidden)
+        if concatenate:
+            channels = {"concat": sum(channels.values())}
+            hidden = {"concat": sum(hidden.values())}
+        sizes = {name: [channels[name]] + [int(round(hidden[name]
+                                                     * growth ** k))
+                                           for k in range(depth)]
+                 for name in sorted(channels)}
+        final_channels = sum(s[-1] for s in sizes.values())
         if not use_final:
-            sizes[-1] = out_channels
-        self.encoders = nn.ModuleDict({"meg": ConvSequence(
-            sizes, kernel=kernel_size, dilation_growth=dilation_growth,
+            sizes[next(iter(sizes))][-1] = out_channels
+        self.encoders = nn.ModuleDict({name: ConvSequence(
+            size, kernel=kernel_size, dilation_growth=dilation_growth,
             dilation_period=dilation_period, dropout=conv_dropout,
             groups=groups, batch_norm=batch_norm,
             dropout_input=dropout_input, skip=skip,
             activation_on_last=use_final, glu=glu, glu_context=glu_context,
             glu_glu=glu_glu, activation=act, fused_conv_bn=fused_conv_bn,
-            bn_conv_bias=bn_conv_bias, compute_dtype=dt)})
+            bn_conv_bias=bn_conv_bias, compute_dtype=dt)
+            for name, size in sizes.items()})
 
-        final_channels = sizes[-1]
         self.final: tp.Optional[nn.Module] = None
         if linear_out:
             self.final = ConvTranspose1d(final_channels, out_channels, 1,
@@ -178,13 +202,15 @@ class SimpleConv(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Initialize every weight from `generator` (drawn on the CPU):
         LeCun-normal convs with zero bias, N(0, 1/pos_dim) merger heads,
-        N(0, 1/C_in) subject matrices, BatchNorm at identity."""
+        N(0, 1/C_in) subject matrices, N(0, 1/scale^2) subject embeddings,
+        BatchNorm at identity."""
         for module in self.modules():
             if isinstance(module, (nn.Conv1d, nn.ConvTranspose1d)):
                 init_conv_(module, generator)
             elif isinstance(module, nn.BatchNorm1d):
                 module.reset_parameters()
-            elif isinstance(module, (ChannelMerger, SubjectLayers)):
+            elif isinstance(module, (ChannelMerger, SubjectLayers,
+                                     ScaledEmbedding)):
                 module.reset_parameters(generator)
 
     def _fused_head(self, meg: torch.Tensor, positions: torch.Tensor,
@@ -221,9 +247,10 @@ class SimpleConv(nn.Module):
                 rec_subjects: tp.Optional[torch.Tensor] = None,
                 generator: tp.Optional[torch.Generator] = None,
                 with_penalty: bool = False):
-        """inputs {'meg': [B, C, T]}, subject_index [B], positions
-        [B, C, 2]; pos_emb/rec_index/rec_positions, and the dropout's
-        generator, as in ChannelMerger.attention; rec_subjects [R], each
+        """inputs {'meg': [B, C, T]} (and 'features' [B, F, T] in the
+        encode task), subject_index [B], positions [B, C, 2];
+        pos_emb/rec_index/rec_positions, and the dropout's generator, as in
+        ChannelMerger.attention; rec_subjects [R], each
         recording's subject, for the fused head, which engages as the flax
         module's does: with `fused_head`, the merger, one initial conv with
         no activation after it, the subject layers, no merger penalty, and
@@ -238,10 +265,11 @@ class SimpleConv(nn.Module):
                     raise NotImplementedError(
                         f"simpleconv.{name}={getattr(self, name)!r} in "
                         f"train mode")
-        meg = inputs["meg"]
-        length = meg.shape[-1]
+        length = inputs["meg"].shape[-1]
         if self.compute_dtype is not None:
-            meg = meg.to(self.compute_dtype)
+            inputs = {name: x.to(self.compute_dtype)
+                      for name, x in inputs.items()}
+        meg = inputs["meg"]
         penalty = torch.zeros((), device=meg.device)
         fused_head = (
             self.fused_head and self.merger is not None
@@ -267,7 +295,16 @@ class SimpleConv(nn.Module):
                 meg = self.initial_linear(meg)
             if self.subject_layers is not None:
                 meg = self.subject_layers(meg, subject_index)
-        x = self.encoders["meg"](meg)
+        # torch.cat promotes mixed types as jnp.concatenate does
+        if self.subject_embedding is not None:
+            emb = self.subject_embedding(subject_index)[:, :, None]
+            meg = torch.cat([meg, emb.expand(-1, -1, length)], dim=1)
+        inputs = {**inputs, "meg": meg}
+        if self.concatenate:
+            inputs = {"concat": torch.cat(
+                [inputs[name] for name in sorted(inputs)], dim=1)}
+        x = torch.cat([self.encoders[name](inputs[name])
+                       for name in sorted(inputs)], dim=1)
         if self.final is not None:
             x = self.final(x)
         x = x[..., :length].to(self.estimate_dtype)

@@ -50,6 +50,11 @@ class Server:
             # feature model that makes them is the solver's
             raise NotImplementedError(
                 f"feature_model_name={args.feature_model_name!r} in Server")
+        if args.task.type != "decode":
+            # the server decodes MEG into candidates' space; the encode
+            # task trains through Solver and Trainer
+            raise NotImplementedError(f"task.type={args.task.type!r} in "
+                                      f"Server")
         self.args = args
         self.device = torch.device(device)
         self.model = build_model(args, meg_channels, out_channels,

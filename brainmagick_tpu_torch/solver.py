@@ -32,6 +32,7 @@ from .loader import Loader
 from .logging_utils import MetricSinks
 from .losses import ClipLoss, FeatureDecodingLoss, masked_l1, masked_l2
 from .models.common import fourier_emb
+from .models.simpleconv import SimpleConv
 from .norm import BatchScaler
 from .ops.dsp import DSP_VERSION, lowpass_filter
 from .ops.norm import INPUT_TYPES, normalize_clamp_peak
@@ -57,17 +58,19 @@ def prepare_norm_arrays(model: torch.nn.Module,
                         device: torch.device) -> tp.Dict[str, torch.Tensor]:
     """The JAX solver's ``norm_arrays`` (numpy or tensors) on `device`;
     ``pos_emb`` is computed from ``rec_positions`` when absent, as
-    ``Solver._pos_emb_table`` does."""
+    ``Solver._pos_emb_table`` does, for a model with a merger."""
     na = {name: _on(value, device)
           for name, value in norm_arrays.items() if value is not None}
-    if model.merger is not None and "pos_emb" not in na:
+    if getattr(model, "merger", None) is not None and "pos_emb" not in na:
         na["pos_emb"] = fourier_emb(na["rec_positions"],
                                     model.merger_pos_dim)
     return na
 
 
 class Solver:
-    """Forward, loss and training step of a decode-task model.
+    """Forward, loss and training step of a decode- or encode-task model
+    (a SimpleConv, or a ConvRNN, which takes no positions and has no
+    merger).
 
     `args` is a port or JAX ``MainConfig``; options the slices do not
     cover raise NotImplementedError here, at construction. `optimizer`
@@ -88,8 +91,8 @@ class Solver:
                  feature_model: tp.Optional[torch.nn.Module] = None,
                  used_features: tp.Any = None,
                  scaler: tp.Optional[BatchScaler] = None) -> None:
-        if args.task.type != "decode":
-            raise NotImplementedError(f"task.type={args.task.type!r}")
+        if args.task.type not in ("decode", "encode"):
+            raise ValueError(f"Unknown task {args.task.type}")
         if (args.feature_model_name is None) != (feature_model is None):
             raise ValueError(
                 f"feature_model_name={args.feature_model_name!r} with "
@@ -139,11 +142,23 @@ class Solver:
         off = int(args.task.offset_meg_ms / 1000 * args.dset.sample_rate)
         return off, off
 
+    def _prompt_limit(self) -> int:
+        """The encode task's prompt: the first ``task.meg_init`` s of MEG
+        the model sees, which the loss and the metrics leave out (0 when
+        decoding)."""
+        args = self.args
+        if args.task.type == "encode":
+            return int(args.task.meg_init * args.dset.sample_rate)
+        return 0
+
     def _task_wiring(self, meg: torch.Tensor, features: torch.Tensor,
-                     features_mask: torch.Tensor):
+                     features_mask: torch.Tensor, train: bool = False):
         """MEG offset, ``task.lowpass`` (a zero-phase FIR of the MEG, 5
-        zero crossings a side) and decode-task input/output selection.
-        Returns (inputs dict, output, mask)."""
+        zero crossings a side) and the task's inputs and output: decoding
+        reads the MEG into the features; encoding reads the features and
+        the MEG prompt (the MEG before ``_prompt_limit``, zeros after) into
+        the MEG, lowpassed only with ``task.lowpass_gt`` in training or
+        ``task.lowpass_gt_test``. Returns (inputs dict, output, mask)."""
         args = self.args
         if not args.task.mask_loss:
             features_mask = torch.ones_like(features_mask)
@@ -152,17 +167,26 @@ class Solver:
             meg = meg[..., off_meg:]
             features = features[..., :-off_feat]
             features_mask = features_mask[..., :-off_feat]
+        meg_gt = meg
         if args.task.lowpass:
             meg = lowpass_filter(meg, args.task.lowpass
                                  / args.dset.sample_rate, zeros=5)
-        return dict(meg=meg), features, features_mask
+            if (args.task.lowpass_gt and train) or args.task.lowpass_gt_test:
+                meg_gt = meg
+        if args.task.type == "decode":
+            return dict(meg=meg), features, features_mask
+        steps = torch.arange(meg.shape[-1], device=meg.device)
+        prompt = (steps < self._prompt_limit()).to(meg.dtype)
+        return dict(meg=meg * prompt, features=features), meg_gt, \
+            features_mask
 
     def _forward(self, arrays: tp.Mapping[str, torch.Tensor],
                  pad_weight: torch.Tensor, train: bool = False):
         """Batch arrays (``dataset.to_device``) -> (estimate [B, F, T'] in
         ``simpleconv.output_dtype``, output [B, F, T'], mask [B, 1, T'],
-        keep [B] fp32 weights, the merger usage penalty). The model (and
-        the feature model, which maps the output) runs in train mode when
+        keep [B] fp32 weights, the merger usage penalty). The encode task
+        leaves the prompt's samples out of all three. The model (and the
+        feature model, which maps the output) runs in train mode when
         `train` (BatchNorm batch statistics, merger dropout) and in eval
         mode otherwise."""
         args = self.args
@@ -193,9 +217,36 @@ class Solver:
         keep = keep.float() * pad_weight
 
         inputs, output, mask = self._task_wiring(
-            meg, features, arrays["features_mask"])
+            meg, features, arrays["features_mask"], train)
+        self.model.train(train)
+        estimate, penalty = self._run_model(inputs, arrays)
+        limit = self._prompt_limit()
+        if limit:
+            estimate = estimate[..., limit:]
+            output = output[..., limit:]
+            mask = mask[..., limit:]
+        if self.feature_model is not None:
+            # the targets are the feature model's output; in train mode its
+            # BatchNorm moves its running statistics
+            self.feature_model.train(train)
+            output = self.feature_model(output)
+        return estimate, output, mask, keep, penalty
+
+    def _run_model(self, inputs: tp.Mapping[str, torch.Tensor],
+                   arrays: tp.Mapping[str, torch.Tensor]
+                   ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        """The model on the task's inputs -> (estimate, the merger usage
+        penalty). A SimpleConv takes the per-recording arrays and the
+        dropout generator; any other model (a ConvRNN) takes neither and
+        has no penalty."""
+        na = self.norm_arrays
+        if not isinstance(self.model, SimpleConv):
+            estimate = self.model(inputs, arrays["subject_index"],
+                                  arrays["positions"])
+            return estimate, torch.zeros((), device=estimate.device)
         model_kwargs = {}
         if na.get("pos_emb") is not None:
+            rec = arrays["recording_index"]
             # per-recording attention: R softmax rows instead of B
             model_kwargs = dict(pos_emb=na["pos_emb"], rec_index=rec,
                                 rec_positions=na["rec_positions"])
@@ -207,16 +258,9 @@ class Solver:
                 # computes with it, as the unfused subject layers would
                 model_kwargs["rec_subjects"] = na["rec_subjects"].long(
                     ).index_put((rec,), arrays["subject_index"])
-        self.model.train(train)
-        estimate, penalty = self.model(
+        return self.model(
             inputs, arrays["subject_index"], arrays["positions"],
             generator=self.generator, with_penalty=True, **model_kwargs)
-        if self.feature_model is not None:
-            # the targets are the feature model's output; in train mode its
-            # BatchNorm moves its running statistics
-            self.feature_model.train(train)
-            output = self.feature_model(output)
-        return estimate, output, mask, keep, penalty
 
     def _output_dim(self, feat_dim: int) -> int:
         """The width of the loss's targets for features of `feat_dim`."""
@@ -493,18 +537,30 @@ class Solver:
     def _test_one_epoch(self) -> tp.Dict[str, float]:
         """The word-retrieval error (``wer.get_wer``) for a CLIP model whose
         test features carry ``WordHash``, else the streaming metrics of
-        ``play.get_test_metrics``."""
+        ``play.get_test_metrics``; the encode task's leave out the samples
+        before ``task.meg_init`` s after the event (the window starts at
+        ``dset.tmin``), as the JAX solver's do."""
         test_features = self.datasets.test.datasets[0].features
         if self.clip_loss is not None and "WordHash" in test_features:
             from .wer import get_wer, test_batches
             return get_wer(self, test_batches(self))
         from .play import get_test_metrics
-        return get_test_metrics(self)
+        args = self.args
+        trim_offset = 0
+        if args.task.type == "encode":
+            trim_offset = int(args.dset.sample_rate
+                              * (-args.dset.tmin - args.task.meg_init))
+        return get_test_metrics(self, trim_offset)
 
     def get_metric_constructors(self) -> tp.List[tp.Callable]:
-        """A test metric per used feature: argmax accuracy for a
-        categorical one, L2 error and correlation otherwise."""
+        """The encode task's correlation over the MEG channels
+        (``corr_meg``); when decoding, a test metric per used feature:
+        argmax accuracy for a categorical one, L2 error and correlation
+        otherwise."""
         from .metrics import ClassificationAcc, L2Reg, OnlineCorrelation
+        if self.args.task.type == "encode":
+            return [OnlineCorrelation.get_constructor(
+                slice(None), slice(None), "corr_meg")]
         constructors = []
         for feature in self.used_features.values():
             name = feature.name

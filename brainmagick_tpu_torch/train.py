@@ -1,7 +1,9 @@
 """Training: config -> datasets -> model -> solver -> epochs.
 
-Port of ``brainmagick_tpu/train.py`` for the SimpleConv decoder. The CLI
-takes the JAX package's dotted ``key=value`` overrides (values parsed as
+Port of ``brainmagick_tpu/train.py``: a SimpleConv or a ConvRNN
+(``model_name``), decoding the features from the MEG or encoding the MEG
+from the features and a MEG prompt (``task.type``). The CLI takes the
+JAX package's dotted ``key=value`` overrides (values parsed as
 Python literals, ``preset=name`` applies a preset) and trains one XP in
 ``out_dir/xps/<sig>``, whose signature is the JAX package's for the same
 overrides:
@@ -21,7 +23,9 @@ its own batches:
                       params, batch_stats, norm_arrays, device="cuda",
                       generator=torch.Generator().manual_seed(0))
     # optim.loss='regression_classification' also takes the datasets'
-    # used_features= and, with optim.use_weighting, the fitted scaler=
+    # used_features= and, with optim.use_weighting, the fitted scaler=;
+    # task.type='encode' takes features_channels= and the MEG's width as
+    # out_channels
     metrics = trainer.step(batch)        # {"loss", "keep", "count"}
 """
 
@@ -80,16 +84,17 @@ def model_hash(model: torch.nn.Module) -> str:
 
 
 class Trainer:
-    """A decode model, its Adam optimizer and its solver on one device.
+    """A model, its Adam optimizer and its solver on one device.
 
     Arguments as ``serve.Server``'s: `params`/`batch_stats` are the JAX
     solver's trees as numpy (``{"model": ...}``, and ``{"fm": ...}`` for
     the feature model that ``feature_model_name`` asks for, built over
-    the features' `out_channels`); with `params` None the models keep the
-    port's own initialization, seeded by `generator`, which then draws
-    the merger's dropout disks too (seed 0 when None). Adam updates both
-    models' parameters. `used_features` and `scaler` go to the solver
-    (``optim.loss='regression_classification'``)."""
+    `out_channels`); with `params` None the models keep the port's own
+    initialization, seeded by `generator`, which then draws the merger's
+    dropout disks too (seed 0 when None). Adam updates both models'
+    parameters. `out_channels` and `features_channels` are
+    ``models.build_model``'s. `used_features` and `scaler` go to the
+    solver (``optim.loss='regression_classification'``)."""
 
     def __init__(self, args: tp.Any, meg_channels: int, out_channels: int,
                  n_subjects: int, params: tp.Optional[tp.Mapping],
@@ -98,13 +103,15 @@ class Trainer:
                  device: tp.Union[str, torch.device],
                  generator: tp.Optional[torch.Generator] = None,
                  used_features: tp.Any = None,
-                 scaler: tp.Any = None) -> None:
+                 scaler: tp.Any = None,
+                 features_channels: tp.Optional[int] = None) -> None:
         self.args = args
         self.device = torch.device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.model = models.build_model(args, meg_channels, out_channels,
-                                        n_subjects, self.device, generator)
+                                        n_subjects, self.device, generator,
+                                        features_channels)
         self.feature_model = models.build_feature_model(
             args, out_channels, self.device, generator)
         if params is not None:
@@ -161,25 +168,34 @@ def build_datasets(args: tp.Any) -> dset.Datasets:
                              device=get_device(args), **kwargs)
 
 
+def model_widths(args: tp.Any, datasets: dset.Datasets
+                 ) -> tp.Tuple[int, int, tp.Optional[int]]:
+    """(the train split's sensor count, the model's target width, the
+    features' input width or None): decoding targets the features' model
+    outputs; encoding targets the MEG and reads the features."""
+    meg_dimension = datasets.train[0].meg.shape[0]
+    features = datasets.train.datasets[0].features
+    if args.task.type == "encode":
+        return meg_dimension, meg_dimension, features.dimension
+    return meg_dimension, features.output_dimension, None
+
+
 def build_model(args: tp.Any, datasets: dset.Datasets,
                 device: tp.Union[str, torch.device],
                 generator: tp.Optional[torch.Generator] = None
                 ) -> torch.nn.Module:
-    """The decode SimpleConv for `datasets`: the train split's sensor
-    count in, its features' model-output dimension out (the feature
-    model's output width when there is one), one subject layer per train
-    subject (``override_n_subjects_model`` when set)."""
-    if args.task.type != "decode":
-        raise NotImplementedError(f"task.type={args.task.type!r}")
-    meg_dimension = datasets.train[0].meg.shape[0]
-    chout = datasets.train.datasets[0].features.output_dimension
+    """``models.build_model`` at the widths of `datasets`
+    (``model_widths``; the feature model's output width when there is one
+    in the decode task), one subject layer per train subject
+    (``override_n_subjects_model`` when set)."""
+    meg_dimension, chout, features_dimension = model_widths(args, datasets)
     if args.override_n_subjects_model is not None:
         n_subjects = args.override_n_subjects_model
     else:
         n_subjects = 1 + max(d.recording.subject_index
                              for d in datasets.train.datasets)
     return models.build_model(args, meg_dimension, chout, n_subjects,
-                              device, generator)
+                              device, generator, features_dimension)
 
 
 def get_solver(args: tp.Any, training: bool = True) -> Solver:
@@ -195,7 +211,7 @@ def get_solver(args: tp.Any, training: bool = True) -> Solver:
     model = build_model(args, datasets, device,
                         torch.Generator().manual_seed(args.seed))
     feature_model = models.build_feature_model(
-        args, datasets.train.datasets[0].features.output_dimension, device,
+        args, model_widths(args, datasets)[1], device,
         torch.Generator().manual_seed(args.seed))
     optimizer = build_optimizer(
         args, trained_parameters(model, feature_model)) if training \

@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving, training and evaluation paths on one
 CUDA card, in the paper recipe's fp32 and in its bf16 clip_conv_tpu form,
-Table 2's DeepMel cell, and feature decoding.
+Table 2's DeepMel cell, feature decoding, and the encode task and ConvRNN.
 
 Run from the repository root, with no arguments:
 
@@ -98,7 +98,7 @@ check raises, so the script exits non-zero and prints no result:
    the study's sensor count), added to its other_shapes; the launch
    counts go into launches_by_path as study_<selection>;
 10. Table 2's "MelSpectrum + DeepMel" cell on phase 9's gwilliams2022
-   tree (kept for it; phases 8-10 share one temporary folder):
+   tree (kept for it; phases 8-12 share one temporary folder):
    ``train.main`` with clip_conv, deep_mel and fused_conv_bn at B=256
    for one epoch, DeepMel at its published 320 x 10 -> 768 and the
    encoder at the paper's width with 768 outputs (finite losses,
@@ -127,7 +127,26 @@ check raises, so the script exits non-zero and prints no result:
    seconds and Pitch's alone, the step's device time and peak memory; a
    B=HELD_B step of the same configuration on the card against the CPU
    at STEP_TOL; normalize and conv_stats against their plain versions at
-   this run's shapes, added to their other_shapes.
+   this run's shapes, added to their other_shapes;
+12. the encode task and ConvRNN on the same tree, each ``train.main`` at
+   its preset's published widths, B=256, one epoch (ENCODE_RUNS): the
+   convrnn preset over MelSpectrum (its wav2vec 2.0 features wait for a
+   config in the repository; encode_convrnn), decoder_convrnn
+   (decoder_convrnn) and clip_conv with task.type=encode, optim.loss=l1
+   and fused_conv_bn (encode_simpleconv): finite losses,
+   history-torch.json and done-torch.json, a finite corr_meg or an
+   acc_WordSegment in [0, 1], normalize once a forward, conv_stats 20
+   times a train step (fp32 on "tc") for SimpleConv's two fused encoders
+   and never for ConvRNN's, nt_matmul never; each run's step device
+   time, peak memory, track, scaler and phase seconds; the ENCODE_HELD
+   B=HELD_B steps against the CPU at STEP_TOL (the convrnn preset, a
+   ConvRNN with attention, a bidirectional LSTM and reversed time, whose
+   gradients are held in float64 as ENCODE_HELD says why, and SimpleConv
+   encoding); the convrnn step's device time in
+   torch.profiler, split into the LSTM's forward and backward, the convs
+   and the rest; normalize, and conv_stats at the features encoder's
+   first layer [256, 120, 343], against their plain versions, added to
+   their other_shapes.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it raises at once.
@@ -296,10 +315,12 @@ def median_ms(fn, runs: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_us(event) -> float:
-    """A torch.profiler event's own device time in µs (the attribute's
-    name differs across torch versions)."""
-    for name in ("self_device_time_total", "self_cuda_time_total"):
+def device_us(event, own: bool = True) -> float:
+    """A torch.profiler event's own device time in µs, or with `own`
+    False its children's included (the attributes' names differ across
+    torch versions)."""
+    prefix = "self_" if own else ""
+    for name in (f"{prefix}device_time_total", f"{prefix}cuda_time_total"):
         if hasattr(event, name):
             return getattr(event, name)
     return 0.
@@ -1117,15 +1138,16 @@ def _grad(model, name: str) -> torch.Tensor:
     return model.get_parameter(name).grad.cpu()
 
 
-def _step_errors(card: tuple, cpu: tuple, bf16: bool) -> tuple:
+def _step_errors(card: tuple, cpu: tuple, bf16: bool,
+                 leaves: tp.Sequence[str] = HELD_LEAVES) -> tuple:
     """A held_step on the card against one on the CPU: the loss's relative
-    error and each HELD_LEAVES gradient's, in bf16 the gradients' and the
-    running statistics' in norm (_norm_err), in fp32 each gradient's max
-    error over its max magnitude, with the running statistics held
+    error and each of the `leaves`' gradients', in bf16 the gradients' and
+    the running statistics' in norm (_norm_err), in fp32 each gradient's
+    max error over its max magnitude, with the running statistics held
     allclose at rtol = atol = STEP_TOL here. Returns (errors, note)."""
     (loss, model), (loss_ref, model_ref) = card, cpu
     errors = {"loss": abs(loss - loss_ref) / abs(loss_ref)}
-    for name in HELD_LEAVES:
+    for name in leaves:
         grad, ref = _grad(model, name), _grad(model_ref, name)
         errors[f"grad {name}"] = (_norm_err(grad, ref) if bf16 else
                                   ((grad - ref).abs().max()
@@ -1142,7 +1164,8 @@ def _step_errors(card: tuple, cpu: tuple, bf16: bool) -> tuple:
         if not torch.allclose(got, ref, rtol=STEP_TOL, atol=STEP_TOL):
             raise AssertionError(f"card vs CPU {name}: max|diff| "
                                  f"{(got - ref).abs().max()}")
-    worst = max((g - r).abs().max().item() for _, g, r in running)
+    worst = max(((g - r).abs().max().item() for _, g, r in running),
+                default=0.)
     return errors, (f"relative; running statistics max|diff| {worst:.2e} "
                     f"(rtol=atol={STEP_TOL})")
 
@@ -1509,14 +1532,15 @@ def run_cli(argv: list, what: str, card_name: str) -> tuple:
 
 def _check_cli_launches(what: str, launches: dict, routes: dict,
                         by_dtype: dict, spy: SolverSpy, dtype: str,
-                        tested: bool = True, scored: bool = True) -> int:
-    """conv_stats 10 times a train step, every launch `dtype` on the
-    tensor-core route; normalize once a forward; nt_matmul in every test
-    stage (`scored`: a CLIP test stage scores its estimates; else never)
-    and nowhere else, and (`tested`) a test stage ran. Returns the train
-    steps."""
+                        tested: bool = True, scored: bool = True,
+                        fused: int = 10) -> int:
+    """conv_stats `fused` times a train step (the fused encoder layers),
+    every launch `dtype` on the tensor-core route; normalize once a
+    forward; nt_matmul in every test stage (`scored`: a CLIP test stage
+    scores its estimates; else never) and nowhere else, and (`tested`) a
+    test stage ran. Returns the train steps."""
     steps = sum(1 for train, _, _ in spy.events if train)
-    want = dict(conv_stats=10 * steps, normalize_clamp_peak=spy.forwards,
+    want = dict(conv_stats=fused * steps, normalize_clamp_peak=spy.forwards,
                 nt_matmul=sum(spy.test_nt_matmul) if scored else 0)
     if steps == 0 or (tested and not spy.test_nt_matmul) \
             or (scored and min(spy.test_nt_matmul, default=1) < 1):
@@ -1526,7 +1550,7 @@ def _check_cli_launches(what: str, launches: dict, routes: dict,
         if launches[name] != count:
             raise AssertionError(f"cli {what} launched {name} "
                                  f"{launches[name]} times, want {count}")
-    if routes != {"tc": 10 * steps} or by_dtype[dtype] != 10 * steps:
+    if routes != {"tc": fused * steps} or by_dtype[dtype] != fused * steps:
         raise AssertionError(f"cli {what} ran conv_stats by route {routes}, "
                              f"by type {by_dtype}, want every launch "
                              f"{dtype} on 'tc'")
@@ -1596,7 +1620,8 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
                      n_mels: int, channels: int = C, with_conv: bool = True,
                      prefix: str = "",
                      n_cand: tp.Optional[int] = None,
-                     with_matmul: bool = True) -> dict:
+                     with_matmul: bool = True,
+                     convs: tp.Optional[tuple] = None) -> dict:
     """Each kernel against its plain version at the shapes phase 8's CLI
     run gave it, in fp32 (clip_conv) and bf16 (clip_conv_tpu), timed
     beside its plain version, its library call and its bound: normalize
@@ -1606,7 +1631,8 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
     `n_test - 1` outputs (`n_cand` when given: an evaluation's
     candidates), K = n_mels x T' (n_mels the scored width: the mel bins,
     or DeepMel's outputs); normalize at `channels`
-    sensors, conv_stats only `with_conv`, nt_matmul only `with_matmul`,
+    sensors, conv_stats only `with_conv` (at the `convs` shapes when
+    given, (B, C, O, T, dilation, k) each), nt_matmul only `with_matmul`,
     each label after `prefix`.
     Returns {kernel name: {shape label: entry}} for the kernels'
     other_shapes."""
@@ -1617,6 +1643,9 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
     gen = torch.Generator(device=device).manual_seed(SEED + 8)
     out: dict = {"normalize_clamp_peak": {}, "nt_matmul": {},
                  "conv_stats": {}}
+    conv_shapes = (convs or ((batch, 270, 320, T - 18, 1, 3),
+                             (batch, 320, 320, T - 18, 2, 3))
+                   ) if with_conv else ()
     for dtype in (torch.float32, torch.bfloat16):
         name = _type_name(dtype)
         shape = (batch, channels, T)
@@ -1643,8 +1672,7 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
             check_matmul_shape(device, gen, dtype, n_test, n_mels, n_cand,
                                prefix, out["nt_matmul"])
 
-        for conv in ((batch, 270, 320, T - 18, 1, 3),
-                     (batch, 320, 320, T - 18, 2, 3))[:2 * with_conv]:
+        for conv in conv_shapes:
             _, Cin, O, Tc, d, k = conv
             x, w, cot = _conv_case(conv, dtype, device, gen)
             got = conv_bn.conv_stats(x, w, d)
@@ -2656,6 +2684,273 @@ def run_words_phase(device: torch.device, card_name: str, work: Path
     return {"regression_words": launches}, shapes
 
 
+#: phase 12: the encode task and ConvRNN on phase 9's gwilliams2022 tree
+#: (KEPT_STUDY), each at its preset's published widths, B=256, one epoch.
+#: The convrnn preset's Wav2VecTransformer features wait for a wav2vec 2.0
+#: config in the repository, so it encodes MelSpectrum (120 mels); the rest
+#: of each preset is as published
+ENCODE_COMMON = ("optim.batch_size=256", "optim.epochs=1",
+                 "dset.n_recordings=2", f"dset.selections=[{KEPT_STUDY!r}]")
+ENCODE_RUNS = {
+    "encode_convrnn": ("preset=convrnn", 'dset.features=["MelSpectrum"]'),
+    "decoder_convrnn": ("preset=decoder_convrnn",),
+    "encode_simpleconv": ("preset=clip_conv", "task.type=encode",
+                          "optim.loss=l1", "simpleconv.fused_conv_bn=True",
+                          'dset.features=["MelSpectrum"]')}
+#: each run's model: its class, inputs, hidden widths and outputs, and
+#: ConvRNN's LSTM cells, their width and the subject embedding's
+ENCODE_WIDTHS = {
+    "encode_convrnn": ("ConvRNN", {"meg": 208, "features": 120},
+                       {"meg": 512, "features": 12}, 208, 4, 524, 64),
+    "decoder_convrnn": ("ConvRNN", {"meg": 208}, {"meg": 512}, 2, 8, 512,
+                        64),
+    "encode_simpleconv": ("SimpleConv", {"meg": 208, "features": 120},
+                          {"meg": 320, "features": 320}, 208, None, None,
+                          None)}
+#: the B=HELD_B steps held against the CPU: (run, extra overrides, the
+#: gradients compared, whether the gradients are held in float64). With
+#: attention, ConvRNN's fp32 gradients at B=HELD_B are not a function of
+#: the inputs to STEP_TOL on any device: the attention block's BatchNorm
+#: divides channels whose means reach 67 times their spread, leaving the
+#: estimate 2.6e-5 (relative) off in fp32, enough to flip ReLU units of
+#: the decoder that sit at the edge of 0, and each flipped unit moves a
+#: gradient by about 2e-2 of its largest entry (on the CPU, against
+#: float64: 8 units of 771,328 apart, gradients 2.0e-2 off;
+#: scripts/torch_convrnn_conditioning.py). Its loss is held in fp32, and
+#: its gradients in float64 from the same fp32-wired inputs.
+CONVRNN_LEAVES = ("subject_embedding.embedding.weight",
+                  "encoders.meg.sequence.0.0.weight",
+                  "encoders.features.sequence.1.0.weight",
+                  "lstm.cells.0.input.i", "lstm.cells.0.hidden.f",
+                  "lstm.cells.3.bias.g", "decoder.sequence.0.0.weight",
+                  "decoder.sequence.1.0.bias")
+ENCODE_HELD = (
+    ("encode_convrnn", (), CONVRNN_LEAVES, False),
+    ("encode_convrnn", ("convrnn.attention=1",
+                        "convrnn.bidirectional_lstm=True",
+                        "convrnn.flip_lstm=True"),
+     CONVRNN_LEAVES + ("lstm.cells.7.hidden.o", "lstm.linear.weight",
+                       "attentions.0.embedding", "attentions.0.query.weight",
+                       "attentions.0.scale"), True),
+    ("encode_simpleconv", (),
+     ("merger.heads", "subject_layers.weights",
+      "encoders.meg.sequence.0.0.weight",
+      "encoders.features.sequence.0.0.weight",
+      "encoders.features.sequence.9.1.weight",
+      "encoders.features.glus.9.0.weight", "final.2.weight"), False))
+
+
+def encode_held_step(where, args, solver, batch,
+                     float64: bool = False) -> tuple:
+    """One Trainer.step of `args` on `where`, from seeds (the weights, the
+    dropout generator) and the solver's normalization arrays, features and
+    scaler, at the solver's model widths: (loss, model). With `float64`,
+    the step's forward wires the model's inputs, targets and weights in
+    fp32 as the step does, then the model runs in float64 on them, with
+    the loss and its backward (no update)."""
+    from brainmagick_tpu_torch.dataset import to_device
+    from brainmagick_tpu_torch.precision import exact_fp32
+    from brainmagick_tpu_torch.train import Trainer
+
+    model = solver.model
+    n_subjects = 1 + max(d.recording.subject_index
+                         for d in solver.datasets.train.datasets)
+    trainer = Trainer(
+        args, model.in_channels["meg"], model.out_channels, n_subjects,
+        None, None, {k: v.cpu() for k, v in solver.norm_arrays.items()},
+        where, generator=torch.Generator().manual_seed(SEED),
+        used_features=solver.used_features, scaler=solver.scaler,
+        features_channels=model.in_channels.get("features"))
+    if not float64:
+        return trainer.step(batch)["loss"].item(), trainer.model
+    seen = {}
+    hook = trainer.model.register_forward_pre_hook(
+        lambda module, inputs: seen.update(inputs=inputs))
+    weight = torch.ones(len(batch.meg), device=trainer.device)
+    with torch.no_grad(), exact_fp32():
+        _, output, mask, keep, _ = trainer.solver._forward(
+            to_device(batch, trainer.device, None), weight, train=True)
+    hook.remove()
+    inputs, subjects = seen["inputs"][:2]
+    model = trainer.model.double()
+    estimate = model({k: v.double() for k, v in inputs.items()}, subjects)
+    limit = trainer.solver._prompt_limit()
+    loss = trainer.solver._loss_value(estimate[..., limit:], output.double(),
+                                      mask, keep.double(), True)
+    loss.backward()
+    return loss.item(), model
+
+
+def profile_step_split(solver, batch, calls: int = 3) -> dict:
+    """A Solver.step of `solver`'s configuration on `batch`, resident on
+    the card, in torch.profiler after a warm one: ms a step of kernel
+    time in all, in the LSTM's forward (aten::_cudnn_rnn) and backward
+    (aten::_cudnn_rnn_backward), in the convs (forward, transposed and
+    backward), and the rest; and the longest kernels. The kernel times
+    are summed over streams: cuDNN runs the LSTM's layers on streams of
+    its own at once, so they add up to more than the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from brainmagick_tpu_torch.dataset import to_device
+
+    arrays = to_device(batch, solver.device, None)
+    pad = torch.ones(len(batch.meg), device=solver.device)
+    solver.step(arrays, pad, True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            solver.step(arrays, pad, True)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    total = sum(device_us(e) for e in events
+                if e.device_type != torch.autograd.DeviceType.CPU)
+
+    def under(*names):
+        return sum(device_us(e, own=False) for e in events
+                   if e.key in names)
+    split = dict(
+        lstm_forward=under("aten::_cudnn_rnn"),
+        lstm_backward=under("aten::_cudnn_rnn_backward"),
+        convs=under("aten::cudnn_convolution",
+                    "aten::cudnn_convolution_transpose",
+                    "aten::convolution_backward"))
+    split["other"] = total - sum(split.values())
+    split = {k: v / calls / 1e3 for k, v in split.items()}
+    split["total"] = total / calls / 1e3
+    split["kernels"] = device_activities(prof, calls)[:6]
+    return split
+
+
+def run_encode_phase(device: torch.device, card_name: str, work: Path
+                     ) -> tuple:
+    """Phase 12: ``train.main`` of each ENCODE_RUNS entry on the kept
+    gwilliams2022 tree in `work` at its preset's widths (ENCODE_WIDTHS),
+    B=256, one epoch: finite losses, history-torch.json and
+    done-torch.json, the test stage's corr_meg finite or acc_WordSegment
+    in [0, 1]; normalize once a forward, conv_stats 20 times a train step
+    (fp32 on "tc") for SimpleConv's two fused encoders and never for
+    ConvRNN's, nt_matmul never (no CLIP scoring). Then the ENCODE_HELD
+    steps against the CPU at STEP_TOL, and the convrnn step's profile.
+    Returns ({path: launch counts}, {path: ``check_cli_shapes``
+    arguments})."""
+    from brainmagick_tpu_torch import dataset
+    from brainmagick_tpu_torch.env import env
+    from brainmagick_tpu_torch.train import parse_overrides
+
+    studies = {KEPT_STUDY: work / KEPT_STUDY}
+    common = [*ENCODE_COMMON, f"cache={work}/cache_{KEPT_STUDY}",
+              f"out_dir={work}/outputs"]
+    launches_by_path, solvers, argvs = {}, {}, {}
+    for path, overrides in ENCODE_RUNS.items():
+        t0 = time.perf_counter()
+        argv = [*overrides, *common]
+        with env.temporary(studies=studies):
+            launches, routes, by_dtype, spy, wall, peak_gb = run_cli(
+                argv, path, card_name)
+        args = parse_overrides(argv)
+        solver = spy.solver
+        model = solver.model
+        name, inputs, hidden, outputs, cells, width, emb = ENCODE_WIDTHS[
+            path]
+        lstm = getattr(model, "lstm", None)
+        got = (type(model).__name__, model.in_channels, model.hidden,
+               model.out_channels, lstm and len(lstm.cells),
+               lstm and lstm.hidden_size,
+               getattr(model, "subject_embedding", None)
+               and model.subject_embedding.embedding.embedding_dim)
+        if got != ENCODE_WIDTHS[path]:
+            raise AssertionError(f"{path}: model {got}, want "
+                                 f"{ENCODE_WIDTHS[path]}")
+        fused = 0
+        if name == "SimpleConv":
+            fused = sum(sum(e.fused) for e in model.encoders.values())
+            if fused != 20:
+                raise AssertionError(f"{path}: {fused} fused layers")
+        steps = _check_cli_launches(path, launches, routes, by_dtype, spy,
+                                    "float32", scored=False, fused=fused)
+        history = _read_history(Path(args.xp_folder), 1, path)
+        test = history[0].get("test", {})
+        if path == "decoder_convrnn":
+            ok = set(test) == {"acc_WordSegment"} \
+                and 0 <= test["acc_WordSegment"] <= 1
+        else:
+            ok = set(test) == {"corr_meg"} and np.isfinite(test["corr_meg"])
+        if not ok:
+            raise AssertionError(f"{path} test metrics {test}")
+        step_ms = spy.train_step_ms()
+        tracks_s = sum(d.track_seconds for split in solver.datasets
+                       for d in split.datasets)
+        print(f"{path} ({card_name}): train step device time "
+              f"{[round(x, 2) for x in step_ms]} ms over {steps} steps "
+              f"(warm {step_ms[-1]:.2f}), peak device memory "
+              f"{peak_gb:.2f} GB, track render {tracks_s:.2f} s, scaler "
+              f"{solver.build_timings['scaler']:.2f} s, dataset build "
+              f"{solver.build_timings['datasets']:.2f} s, run {wall:.1f} s, "
+              f"phase {time.perf_counter() - t0:.1f} s; history {history}")
+        launches_by_path[path] = launches
+        solvers[path], argvs[path] = solver, argv
+        del spy
+
+    t0 = time.perf_counter()
+    batches = {}
+    for path, extra, leaves, float64 in ENCODE_HELD:
+        solver = solvers[path]
+        if path not in batches:
+            loader = iter(solver.make_loader(solver.datasets.train))
+            batches[path] = next(loader)[0]
+            loader.close()
+        small = types.SimpleNamespace(**{
+            name: getattr(batches[path], name)[:HELD_B]
+            for name in dataset.ARRAY_FIELDS})
+        args = parse_overrides(argvs[path] + list(extra))
+        what = " ".join((path,) + extra)
+        card, cpu = (encode_held_step(where, args, solver, small)
+                     for where in (device, "cpu"))
+        errors, note = _step_errors(card, cpu, False, leaves)
+        print(f"{what} train B={HELD_B} against the CPU: " + ", ".join(
+            f"{key} {value:.2e}" for key, value in errors.items())
+            + f" (tol {STEP_TOL:.2e}" + ("; the loss held, the gradients "
+                                          "shown" if float64 else "")
+            + f"; {note})")
+        if float64:
+            _check_errors({"loss": errors["loss"]}, STEP_TOL,
+                          f"{what} train step")
+            card, cpu = (encode_held_step(where, args, solver, small, True)
+                         for where in (device, "cpu"))
+            errors, note = _step_errors(card, cpu, False, leaves)
+            print(f"{what} B={HELD_B} in float64 against the CPU: "
+                  + ", ".join(f"{key} {value:.2e}"
+                              for key, value in errors.items())
+                  + f" (tol {STEP_TOL:.2e}; {note})")
+        _check_errors(errors, STEP_TOL, f"{what} train step")
+        del card, cpu
+    print(f"encode held steps: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    solver = solvers["encode_convrnn"]
+    split = profile_step_split(solver, batches["encode_convrnn"])
+    print(f"encode_convrnn train step B={len(batches['encode_convrnn'].meg)}"
+          f" in torch.profiler ({card_name}): "
+          f"{split['total']:.2f} ms of kernel time summed over streams "
+          f"(cuDNN runs the LSTM's layers at once), LSTM forward "
+          f"{split['lstm_forward']:.2f}, LSTM backward "
+          f"{split['lstm_backward']:.2f}, convs {split['convs']:.2f}, other "
+          f"{split['other']:.2f}; longest kernels (name, launches, µs a "
+          f"step) {split['kernels']} ({time.perf_counter() - t0:.1f} s)")
+    if not split["lstm_forward"] > 0 < split["lstm_backward"]:
+        raise AssertionError(f"no cuDNN LSTM in the profile: {split}")
+    shapes = {
+        "encode_convrnn": dict(batch=256, n_test=0, n_mels=1, channels=208,
+                               with_conv=False, with_matmul=False),
+        "encode_simpleconv": dict(
+            batch=256, n_test=0, n_mels=1, channels=208, with_matmul=False,
+            convs=((256, 120, 320, T - 18, 1, 3),))}
+    del solvers, solver
+    torch.cuda.empty_cache()
+    return launches_by_path, shapes
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -2701,8 +2996,8 @@ def main() -> None:
     recipe_train, recipe_types, recipe_train_warm = run_train(
         device, card_name, batch, RECIPE)
     phase_s["7"] = time.perf_counter() - t0
-    # phases 8-10 share one folder: phase 10 trains on phase 9's
-    # gwilliams2022 tree and evaluates phase 8's recipe XP
+    # phases 8-12 share one folder: phases 10-12 train on phase 9's
+    # gwilliams2022 tree, and phase 10 evaluates phase 8's recipe XP
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fake_cache_") as tmp:
         work = Path(tmp)
         t0 = time.perf_counter()
@@ -2721,6 +3016,10 @@ def main() -> None:
         words_launches, words_shapes = run_words_phase(device, card_name,
                                                        work)
         phase_s["11"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        encode_launches, encode_shapes = run_encode_phase(device, card_name,
+                                                          work)
+        phase_s["12"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     with exact_fp32():
         cli_shapes = check_cli_shapes(device, **cli_shape)
@@ -2729,7 +3028,8 @@ def main() -> None:
                     device, **shape, with_conv=k == 0,
                     prefix=f"{selection}: ").items():
                 cli_shapes[name].update(shapes)
-        for path, shape in {**deepmel_shapes, **words_shapes}.items():
+        for path, shape in {**deepmel_shapes, **words_shapes,
+                            **encode_shapes}.items():
             for name, shapes in check_cli_shapes(
                     device, **shape, prefix=f"{path}: ").items():
                 cli_shapes[name].update(shapes)
@@ -2758,7 +3058,8 @@ def main() -> None:
                           for path, counts in {**cli_launches,
                                                **study_launches,
                                                **deepmel_launches,
-                                               **words_launches}.items()})
+                                               **words_launches,
+                                               **encode_launches}.items()})
         entry["other_shapes"].update(cli_shapes[entry["name"]])
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path

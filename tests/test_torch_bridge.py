@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 
 from brainmagick_tpu import convert as jconvert
+from brainmagick_tpu.models.convrnn import ConvRNN as JaxConvRNN
 from brainmagick_tpu.models.features import DeepMel as JaxDeepMel
 from brainmagick_tpu.models.simpleconv import SimpleConv as JaxSimpleConv
 from brainmagick_tpu_torch import convert
+from brainmagick_tpu_torch.models.convrnn import ConvRNN
 from brainmagick_tpu_torch.models.features import DeepMel
 from brainmagick_tpu_torch.models.simpleconv import SimpleConv
 
@@ -54,14 +56,29 @@ def _as_port_rule(rule):
     return rule
 
 
+#: the encode task's two branches (the features' encoder beside the
+#: MEG's), the subject embedding, and one concatenated branch
+BRANCHES = [dict(in_channels={"meg": 20, "features": 6},
+                 hidden={"meg": 24, "features": 8}),
+            dict(subject_dim=4),
+            dict(in_channels={"meg": 20, "features": 6},
+                 hidden={"meg": 24, "features": 8}, subject_dim=4),
+            dict(in_channels={"meg": 20, "features": 6},
+                 hidden={"meg": 24, "features": 8}, subject_dim=4,
+                 concatenate=True, linear_out=True, complex_out=False),
+            dict(in_channels={"meg": 20, "features": 6},
+                 hidden={"meg": 24, "features": 8}, concatenate=True,
+                 complex_out=False)]
+
+
 def _pair(fused=False, **overrides):
-    kw = dict(in_channels={"meg": 20}, out_channels=8, n_subjects=2,
-              **{**BASE, **overrides})
+    kw = {"in_channels": {"meg": 20}, "out_channels": 8, "n_subjects": 2,
+          **BASE, **overrides}
     return (JaxSimpleConv(**kw),
             SimpleConv(**kw, fused_conv_bn=fused))
 
 
-@pytest.mark.parametrize("overrides", OPTIONS + RECIPE, ids=str)
+@pytest.mark.parametrize("overrides", OPTIONS + RECIPE + BRANCHES, ids=str)
 def test_rules_equal_the_jax_packages(overrides):
     """Unfused, the port's own rules are the JAX package's rules for the
     same architecture (a bias-less BatchNorm'd conv's running mean read as
@@ -76,18 +93,62 @@ def test_rules_equal_the_jax_packages(overrides):
         k for k in port.state_dict() if not k.endswith("num_batches_tracked")}
 
 
-@pytest.mark.parametrize("overrides", OPTIONS[:9] + RECIPE[:3], ids=str)
+@pytest.mark.parametrize("overrides", OPTIONS[:9] + RECIPE[:3]
+                         + BRANCHES[:3], ids=str)
 def test_fused_rules_unchanged(overrides):
-    """Fused, the rules above the encoder are the JAX package's for the
-    unfused model, and the encoder's come from the port's own walk."""
+    """Fused, the rules above the encoders are the JAX package's for the
+    unfused model, and the encoders' come from the port's own walk."""
     jmodel, port = _pair(fused=True, **overrides)
     want = [r for r in jconvert.simpleconv_rules(jmodel, tprefix="")
             if not r[0].startswith("encoders.")]
-    want += convert.conv_sequence_rules(port.encoders["meg"],
-                                        "encoders.meg.",
-                                        ("model", "encoder_meg"))
+    for name, encoder in port.encoders.items():
+        want += convert.conv_sequence_rules(encoder, f"encoders.{name}.",
+                                            ("model", f"encoder_{name}"))
     assert any(r[1][2].startswith("FusedConvBN_") for r in want)
     assert sorted(convert.simpleconv_rules(port)) == sorted(want)
+
+
+#: ConvRNN's structural options at small widths
+CONVRNN_BASE = dict(in_channels=dict(meg=5, features=3), out_channels=5,
+                    hidden=dict(meg=8, features=4), n_subjects=3,
+                    subject_dim=4, lstm=2)
+CONVRNN_OPTIONS = [
+    dict(), dict(batch_norm=True, attention=2, bidirectional_lstm=True),
+    dict(concatenate=True, subject_layers=True, linear_out=True,
+         embedding_location=("input", "lstm")),
+    dict(subject_dim=0, lstm=0, complex_out=True, depth=3),
+    dict(in_channels=dict(meg=5), hidden=dict(meg=8), lstm=1,
+         subject_layers=True, subject_layers_dim="hidden")]
+
+
+@pytest.mark.parametrize("overrides", CONVRNN_OPTIONS, ids=str)
+def test_convrnn_rules_name_every_leaf(overrides):
+    """The port's ConvRNN rules name exactly the port's weights, and
+    exactly the leaves and shapes of the flax module's trees (its init
+    traced by jax.eval_shape), each once."""
+    import jax
+    import jax.numpy as jnp
+
+    kw = {**CONVRNN_BASE, **overrides}
+    port = ConvRNN(**kw)
+    rules = convert.convrnn_rules(port)
+    state = port.state_dict()
+    assert sorted(r[0] for r in rules) == sorted(
+        k for k in state if not k.endswith("num_batches_tracked"))
+    inputs = {name: jnp.zeros((2, c, 47))
+              for name, c in kw["in_channels"].items()}
+    shapes = jax.eval_shape(JaxConvRNN(**kw).init, jax.random.PRNGKey(0),
+                            inputs, jnp.zeros(2, jnp.int32))
+    want = {(coll,) + tuple(p.key for p in path): leaf.shape
+            for coll, tree in shapes.items()
+            for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
+    got = {}
+    for tkey, fpath, kind, coll in rules:
+        value = convert._untransform(kind, np.zeros(want[(coll,)
+                                                         + fpath[1:]]))
+        assert value.shape == tuple(state[tkey].shape), tkey
+        got[(coll,) + fpath[1:]] = want[(coll,) + fpath[1:]]
+    assert got == want
 
 
 @pytest.mark.parametrize("overrides", [

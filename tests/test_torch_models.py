@@ -280,7 +280,7 @@ def test_bridge_consumes_every_leaf():
 @pytest.mark.parametrize("option", [
     dict(dual_path=1), dict(n_fft=4), dict(conv_impl="dots"),
     dict(rewrite=True), dict(post_skip=True),
-    dict(scale=0.1), dict(concatenate=True), dict(subject_dim=4),
+    dict(scale=0.1), dict(dropout=0.1), dict(subsample_meg_channels=4),
     dict(merger_per_subject=True), dict(output_layout="btc")], ids=str)
 def test_unsupported_options_raise(option):
     kw = {**TINY, **option}
@@ -358,6 +358,11 @@ def test_build_model_seeded_and_eval_only():
         make().train()({"meg": _t(meg)}, _t(subjects).long(),
                        _t(rec_positions[rec_index]))
     args.simpleconv.update(conv_dropout=0.)
+    # the encode task reads the features beside the MEG, each through its
+    # own encoder, into the MEG's width
     args.task.type = "encode"
-    with pytest.raises(NotImplementedError, match="encode"):
+    with pytest.raises(ValueError, match="encode"):
         make()
+    model = make(features_channels=6)
+    assert sorted(model.encoders) == ["features", "meg"]
+    assert model.in_channels == {"meg": 20, "features": 6}
