@@ -67,5 +67,18 @@ class Env:
         with self.temporary(**kwargs):
             yield
 
+    def environ(self) -> tp.Dict[str, str]:
+        """``os.environ`` with the paths as they are now
+        (``BM_TPU_CACHE``, ``BM_TPU_STUDY_<NAME>``): what a subprocess
+        needs to see the same data as this process."""
+        out = {key: val for key, val in os.environ.items()
+               if not key.startswith("BM_TPU_STUDY_")
+               and key != "BM_TPU_CACHE"}
+        out.update({f"BM_TPU_STUDY_{name.upper()}": str(path)
+                    for name, path in self.studies.items()})
+        if self.cache is not None:
+            out["BM_TPU_CACHE"] = str(self.cache)
+        return out
+
 
 env = Env()

@@ -16,11 +16,13 @@ optionally ``word_hash`` [B, T] and ``pad_weight`` [B]:
                               data["trues_segment_hashes"], topk=1)
     run_eval(solver, None, output_dir)       # all of it, to files
 
-The command line evaluates a trained XP by its signature:
+The command line evaluates a trained XP by its signature, or every
+trained XP of a grid (``brainmagick_tpu_torch.grids``):
 
     python -m brainmagick_tpu_torch.eval sig=<sig> [out_dir=./outputs]
         [n_negatives=20000] [output=<dir>] [test_study=<study>]
         [device=cpu]
+    python -m brainmagick_tpu_torch.eval grid=<grid> [workers=N] [...]
 
 It reads the port's checkpoint in ``<out_dir>/xps/<sig>/`` and writes
 into ``<out_dir>/eval/<sig>-torch`` unless ``output`` says otherwise (the
@@ -39,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import dataclasses
+import gc
 import hashlib
 import logging
 import os
@@ -358,14 +361,32 @@ TOKENS = ("sig", "out_dir", "n_negatives", "output", "test_study", "device",
           "workers")
 
 
-def main(argv: tp.Optional[tp.Sequence[str]] = None) -> tp.Dict[int, float]:
-    """The command line: ``sig=<xp>`` evaluated by ``run_eval`` into
-    ``output`` (``<out_dir>/eval/<sig>-torch`` by default); returns its
-    accuracies. ``compilation_cache`` (XLA's, in the JAX package) is
-    accepted and read nowhere; ``grid`` and ``workers`` wait for the grid
-    runner's port."""
+def _eval_sig(sig: str, tokens: tp.Mapping[str, str], out_dir: str,
+              output: tp.Optional[str] = None) -> tp.Dict[int, float]:
+    """``run_eval`` of the XP `sig` into `output` (``<out_dir>/eval/<sig>
+    -torch`` when None)."""
     from .play import get_solver_from_sig
 
+    output = output or str(Path(out_dir) / "eval" / tagged(sig))
+    overrides = {"device": tokens["device"]} if "device" in tokens else {}
+    solver = get_solver_from_sig(sig, out_dir=out_dir,
+                                 override_args=overrides, training=False)
+    return run_eval(solver, None, output,
+                    n_negatives=int(tokens.get("n_negatives", 20_000)),
+                    test_study=tokens.get("test_study"))
+
+
+def main(argv: tp.Optional[tp.Sequence[str]] = None) -> dict:
+    """The command line. ``sig=<xp>``: that XP evaluated by ``run_eval``
+    into ``output`` (``<out_dir>/eval/<sig>-torch`` by default); returns
+    its accuracies. ``grid=<name>``: every XP of the grid that holds a
+    checkpoint-torch.pt, each into ``eval/<sig>-torch``, one after the
+    other in this process (returns {sig: accuracies}), or with
+    ``workers=N`` as N subprocesses of ``python -m brainmagick_tpu_torch.eval
+    sig=<sig>`` at once, each logging to ``<out_dir>/eval/logs/<sig>.log``
+    and seeing this process's data paths (returns {sig: return code}, and
+    exits non-zero when one failed). ``compilation_cache`` (XLA's, in the
+    JAX package) is accepted and read nowhere."""
     logging.basicConfig(level=logging.INFO,
                         format="%(levelname)s %(name)s: %(message)s")
     tokens = {}
@@ -375,22 +396,49 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> tp.Dict[int, float]:
             raise ValueError(f"Expected one of {', '.join(TOKENS)} as "
                              f"key=value, got {token!r}")
         tokens[key] = value
-    for key in ("grid", "workers"):
-        if key in tokens:
-            raise NotImplementedError(
-                f"{key}=: evaluating a grid's XPs waits for 'The grid "
-                f"runner and the paper tables' (ROADMAP.md, section 1)")
-    if "sig" not in tokens:
-        raise ValueError("sig=<xp signature> is required")
-    sig = tokens["sig"]
     out_dir = tokens.get("out_dir", "./outputs")
-    output = tokens.get("output", str(Path(out_dir) / "eval" / tagged(sig)))
-    overrides = {"device": tokens["device"]} if "device" in tokens else {}
-    solver = get_solver_from_sig(sig, out_dir=out_dir,
-                                 override_args=overrides, training=False)
-    return run_eval(solver, None, output,
-                    n_negatives=int(tokens.get("n_negatives", 20_000)),
-                    test_study=tokens.get("test_study"))
+    if "grid" not in tokens:
+        if "workers" in tokens:
+            raise ValueError("workers= fans out the XPs of a grid=")
+        if "sig" not in tokens:
+            raise ValueError("sig=<xp signature> or grid=<name> is required")
+        return _eval_sig(tokens["sig"], tokens, out_dir,
+                         tokens.get("output"))
+    if "sig" in tokens or "output" in tokens:
+        raise ValueError("grid= evaluates each XP into eval/<sig>-torch; it "
+                         "takes no sig= or output=")
+    from .grids import get_grid
+    from .grids.runner import build_kernels, run_commands_with_logs
+
+    _, jobs = get_grid(tokens["grid"])
+    xps = Path(out_dir) / "xps"
+    sigs = [sig for sig in (job.sig for job in jobs)
+            if (xps / sig / tagged("checkpoint.pt")).exists()]
+    logger.info("Evaluating %d trained XPs of grid %s", len(sigs),
+                tokens["grid"])
+    workers = int(tokens.get("workers", 1))
+    if workers <= 1:
+        results = {}
+        for sig in sigs:
+            results[sig] = _eval_sig(sig, tokens, out_dir)
+            gc.collect()
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+        return results
+    build_kernels([tokens.get("device", "cuda")])
+    passed = [f"n_negatives={tokens.get('n_negatives', 20_000)}"] + [
+        f"{key}={tokens[key]}" for key in ("test_study", "device")
+        if key in tokens]
+    commands = [(sig, [sys.executable, "-m", "brainmagick_tpu_torch.eval",
+                       f"sig={sig}", f"out_dir={out_dir}", *passed])
+                for sig in sigs]
+    codes = run_commands_with_logs(commands, Path(out_dir) / "eval" / "logs",
+                                   workers)
+    failed = {sig: rc for sig, rc in codes.items() if rc}
+    if failed:
+        raise SystemExit(f"eval grid={tokens['grid']}: {len(failed)} of "
+                         f"{len(codes)} XPs failed: {failed}")
+    return codes
 
 
 if __name__ == "__main__":

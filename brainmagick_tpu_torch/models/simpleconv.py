@@ -1,15 +1,17 @@
 """SimpleConv, the paper's brain decoder.
 
-Port of ``brainmagick_tpu/models/simpleconv.py``. Forward pipeline:
-ChannelMerger spatial attention -> initial 1x1 conv stack -> per-subject
-SubjectLayers -> the subject embedding (``subject_dim``) -> a dilated
-ConvSequence encoder per input (the MEG, and in the encode task the
-features, whose branch skips the MEG's head), or one over the
+Port of ``brainmagick_tpu/models/simpleconv.py``. Forward pipeline: a
+fixed subset of the sensors (``subsample_meg_channels``, the others
+zeroed) -> ChannelMerger spatial attention -> initial 1x1 conv stack ->
+per-subject SubjectLayers -> the subject embedding (``subject_dim``) ->
+a dilated ConvSequence encoder per input (the MEG, and in the encode
+task the features, whose branch skips the MEG's head), or one over the
 concatenated inputs (``concatenate``) -> final (linear / complex) 1x1
 head over the encoders' concatenated outputs -> crop to the input
 length. Layout [B, C, T] in and [B, F, T] out, as the flax module's public
-call. With `fused_head` the first three run as one gathered matrix per
-recording (``_fused_head``).
+call. With `fused_head` the merger, the initial conv and the subject
+layers run as one gathered matrix per recording (``_fused_head``), on the
+subset's MEG.
 
 The constructor takes the flax module's keyword arguments and keeps them
 as attributes of the same names, so ``brainmagick_tpu.convert
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import typing as tp
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -43,8 +46,9 @@ from .common import (ChannelMerger, Conv1d, ConvSequence, ConvTranspose1d,
 #: option -> value the slice supports; any other value raises
 _SUPPORTED = dict(post_skip=False, scale=None, rewrite=False, dual_path=0,
                   n_fft=None, merger_per_subject=False, dropout=0.,
-                  subsample_meg_channels=0, output_layout="bct",
-                  conv_impl="conv")
+                  output_layout="bct", conv_impl="conv")
+#: the seed of the fixed sensor subset of ``subsample_meg_channels``
+SUBSAMPLE_SEED = 1234
 
 
 class SimpleConv(nn.Module):
@@ -83,7 +87,6 @@ class SimpleConv(nn.Module):
         given = dict(post_skip=post_skip, scale=scale, rewrite=rewrite,
                      dual_path=dual_path, n_fft=n_fft,
                      merger_per_subject=merger_per_subject, dropout=dropout,
-                     subsample_meg_channels=subsample_meg_channels,
                      output_layout=output_layout, conv_impl=conv_impl)
         for name, value in given.items():
             if value != _SUPPORTED[name]:
@@ -127,6 +130,17 @@ class SimpleConv(nn.Module):
         self.fused_head = fused_head
         self.concatenate = concatenate
         self.subject_dim = subject_dim
+        self.subsample_meg_channels = subsample_meg_channels
+        mask = None
+        if subsample_meg_channels:
+            # the flax module's fixed sensor subset, [C_in, 1]: a constant
+            # that moves with the model and stays out of the state dict
+            mask = np.zeros((in_channels["meg"], 1), np.float32)
+            order = np.random.RandomState(SUBSAMPLE_SEED).permutation(
+                in_channels["meg"])
+            mask[order[:subsample_meg_channels]] = 1.
+            mask = torch.from_numpy(mask)
+        self.register_buffer("meg_mask", mask, persistent=False)
         for name, value in given.items():
             setattr(self, name, value)
         dt = torch_dtype(dtype)
@@ -222,20 +236,21 @@ class SimpleConv(nn.Module):
         module's ``_fused_head``): by associativity on the same
         parameters, ((x A_r^T) W1 + b1) S_s = x (A_r^T W1 S_s) + b1 S_s,
         with S_s the subject matrix of recording r's subject
-        ``rec_subjects[r]``. The operands are cast to meg's dtype (the bias
-        to it as well, as the flax module reads it through the conv) and
-        contracted with an fp32 accumulator; the result [B, dim, T] is
-        fp32."""
+        ``rec_subjects[r]``. W1 and b1 are rounded to the compute dtype,
+        as the flax module reads them through the conv, then the operands
+        are cast to meg's dtype and contracted with an fp32 accumulator;
+        the result [B, dim, T] is fp32."""
         cd = meg.dtype
         attention = self.merger.attention(
             positions, pos_emb, rec_index, rec_positions, generator,
             dtype=cd, gather=False)                            # [R, O_m, C]
         conv = self.initial_linear[0]
-        w1 = conv.weight[:, :, 0].t()                          # [O_m, O1]
+        wd = self.compute_dtype or torch.float32
+        w1 = conv.weight[:, :, 0].t().to(wd)                   # [O_m, O1]
         subj = self.subject_layers.weights[rec_subjects]       # [R, O1, D]
         t1 = einsum_fp32("roc,ok->rck", attention, w1, dtype=cd)
         fold = einsum_fp32("rck,rkd->rcd", t1, subj, dtype=cd)
-        bias = einsum_fp32("k,rkd->rd", conv.bias.to(cd), subj)
+        bias = einsum_fp32("k,rkd->rd", conv.bias.to(wd), subj)
         out = einsum_fp32("bct,bcd->bdt", meg, fold[rec_index], dtype=cd)
         return out + bias[rec_index][:, :, None]
 
@@ -270,6 +285,10 @@ class SimpleConv(nn.Module):
             inputs = {name: x.to(self.compute_dtype)
                       for name, x in inputs.items()}
         meg = inputs["meg"]
+        if self.meg_mask is not None:
+            # an fp32 constant, as in the flax module: a bf16 meg comes out
+            # fp32
+            meg = meg * self.meg_mask
         penalty = torch.zeros((), device=meg.device)
         fused_head = (
             self.fused_head and self.merger is not None

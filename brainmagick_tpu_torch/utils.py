@@ -1,13 +1,18 @@
 """Shared helpers of the data path.
 
 Port of ``brainmagick_tpu/utils/misc.py``: ``Frequency``, ``roundrobin``
-and ``write_and_rename``; and ``dump_yaml``, which writes a config as
-PyYAML's ``safe_dump`` does (the card's host has no PyYAML).
+and ``write_and_rename``; ``dump_yaml``, which writes a config as
+PyYAML's ``safe_dump`` does (the card's host has no PyYAML); and
+``records_csv``, which writes a list of dicts as pandas' ``to_csv``
+does (nor pandas).
 """
 
 from __future__ import annotations
 
+import csv
+import io
 import itertools
+import math
 import os
 import re
 import threading
@@ -59,6 +64,42 @@ def write_and_rename(path: tp.Union[str, Path], mode: str = "wb"):
     with open(tmp_path, mode) as f:
         yield f
     os.rename(tmp_path, str(path))
+
+
+def _is_missing(value: tp.Any) -> bool:
+    return value is None or (isinstance(value, float) and math.isnan(value))
+
+
+def _csv_column(values: tp.List[tp.Any]) -> tp.List[str]:
+    """One column's cells as pandas writes the column it infers from
+    `values`: ints (none missing) as ints, numbers as float64 (an int as
+    ``3.0``, a missing value empty), anything else as ``str`` (a missing
+    value empty)."""
+    present = [v for v in values if not _is_missing(v)]
+    numbers = [v for v in present if not isinstance(v, bool)
+               and isinstance(v, (int, float, np.integer, np.floating))]
+    if present and len(numbers) == len(values) and all(
+            isinstance(v, (int, np.integer)) for v in numbers):
+        return [str(int(v)) for v in values]
+    if present and len(numbers) == len(present):
+        return ["" if _is_missing(v) else repr(float(v)) for v in values]
+    return ["" if _is_missing(v) else str(v) for v in values]
+
+
+def records_csv(rows: tp.Sequence[tp.Mapping[str, tp.Any]]) -> str:
+    """The text of ``pd.DataFrame(rows).to_csv(index=False)``: the columns
+    in the order their keys first appear, a key a row lacks as missing,
+    each column typed as ``_csv_column`` says, quoted as the csv module
+    quotes."""
+    keys: tp.List[str] = []
+    for row in rows:
+        keys.extend(k for k in row if k not in keys)
+    columns = [_csv_column([row.get(k) for row in rows]) for k in keys]
+    buf = io.StringIO()
+    writer = csv.writer(buf, lineterminator="\n")
+    writer.writerow(keys)
+    writer.writerows(zip(*columns))
+    return buf.getvalue()
 
 
 #: the scalars YAML 1.1 resolves to another type than str when plain

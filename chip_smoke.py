@@ -1,6 +1,7 @@
 """Drive the PyTorch port's serving, training and evaluation paths on one
 CUDA card, in the paper recipe's fp32 and in its bf16 clip_conv_tpu form,
-Table 2's DeepMel cell, feature decoding, and the encode task and ConvRNN.
+Table 2's DeepMel cell, feature decoding, the encode task and ConvRNN,
+and the paper's grid chain (grid runner, grid evaluation, paper table).
 
 Run from the repository root, with no arguments:
 
@@ -146,7 +147,23 @@ check raises, so the script exits non-zero and prints no result:
    torch.profiler, split into the LSTM's forward and backward, the convs
    and the rest; normalize, and conv_stats at the features encoder's
    first layer [256, 120, 343], against their plain versions, added to
-   their other_shapes.
+   their other_shapes;
+13. the paper's grid chain through the port's CLI layer on the same tree
+   (GRID, GRID_EXTRA): the rehearsal grid (clip_conv_tpu at the paper's
+   width, B=16, MelSpectrum at 120 mels, one epoch of GRID_BATCHES
+   batches, fused_conv_bn) trained by ``grids.runner.run_jobs`` in this
+   process (conv_stats 10 times a train step in bf16 on "tc", normalize
+   once a forward, nt_matmul in the test stage, the TF32 flags and the
+   card's memory handed back; grid_train); its 128-sensor variant
+   (GRID_SUBSAMPLE) by ``--run --workers=2`` in a subprocess; a second
+   --run that skips both on done-torch.json; --table and --sbatch as
+   text; ``eval grid=rehearsal`` of the first in this process (grid_eval)
+   and of the second with workers=2, into eval/<sig>-torch;
+   ``paper_tables table`` of each (accuracy in [0, 1]); GRID_STEPS warm
+   train steps of the second, restored by signature, its mask on the card
+   (grid_subsample_steps); each XP's warm step in device time and peak
+   memory, the phase's wall seconds; each kernel against its plain
+   version at the phase's shapes, added to its other_shapes.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it raises at once.
@@ -2951,6 +2968,344 @@ def run_encode_phase(device: torch.device, card_name: str, work: Path
     return launches_by_path, shapes
 
 
+#: phase 13: the paper's grid chain through the port's CLI layer, on phase
+#: 9's gwilliams2022 tree (KEPT_STUDY), in the folder phases 8-12 share: the
+#: port's rehearsal grid (clip_conv_tpu at the paper's width: depth 10,
+#: hidden 320, merger pos_dim 2048, B=16), configured through its own hooks
+#: (BM_REHEARSAL_CACHE, BM_REHEARSAL_EXTRA): MelSpectrum targets (the
+#: wav2vec 2.0 ones wait for a config in the repository) at Table 2's 120
+#: mels, the tree's two recordings, one epoch of GRID_BATCHES batches, and
+#: fused_conv_bn (conv_stats on the train step); a second variant keeps 128
+#: of the 208 sensors (nmi.fair_compare_meg_eeg's option)
+GRID = "rehearsal"
+GRID_BATCHES = 3
+GRID_EXTRA = {
+    "dset.features": ["MelSpectrum"],
+    "dset.features_params": {"MelSpectrum": dict(
+        n_fft=512, n_mels=120, normalized=True, use_log_scale=True,
+        log_scale_eps=1e-5)},
+    "dset.n_recordings": 2, "optim.epochs": 1,
+    "optim.max_batches": GRID_BATCHES, "simpleconv.fused_conv_bn": True}
+GRID_SUBSAMPLE = {"simpleconv.subsample_meg_channels": 128}
+#: the grid's model at the paper's width, in the clip_conv_tpu recipe
+GRID_MODEL = dict(hidden=320, depth=10, merger_pos_dim=2048,
+                  dtype="bfloat16", fused_head=True, fused_conv_bn=True)
+#: warm steps timed on the subsampled XP, restored by signature
+GRID_STEPS = 3
+
+
+def _grid_cli(argv: list) -> str:
+    """``grids.runner.main(argv)`` in this process; returns what it
+    printed (also printed here, a failure's output too)."""
+    import contextlib
+    import io
+
+    from brainmagick_tpu_torch.grids import runner
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runner.main(argv)
+    finally:
+        print(buf.getvalue(), end="")
+    return buf.getvalue()
+
+
+def _log_tail(path: Path, lines: int = 40) -> str:
+    return "\n".join(path.read_text().splitlines()[-lines:]) \
+        if path.exists() else f"(no {path})"
+
+
+def run_grid_phase(device: torch.device, card_name: str, work: Path
+                   ) -> tuple:
+    """Phase 13: the rehearsal grid's chain on the kept gwilliams2022 tree
+    in `work`: the GRID_EXTRA XP trained by ``runner.run_jobs`` in this
+    process (conv_stats 10 times a train step, bf16 on "tc", normalize
+    once a forward, nt_matmul in the test stage; no solver alive after
+    it); the GRID_SUBSAMPLE variant by ``--run --workers=2``
+    (a subprocess, the kernel library built here first); a second
+    ``--run`` of each that skips it on done-torch.json; ``--table`` and
+    ``--sbatch --force`` (text only, nothing submitted); ``eval
+    grid=rehearsal`` of the first in this process (normalize once a
+    forward, nt_matmul as build_probs' loop implies, conv_stats never) and
+    of the second with workers=2, each into eval/<sig>-torch; ``paper_tables
+    table`` of each, accuracy in [0, 1]; GRID_STEPS warm train steps of the
+    second XP, restored by signature (its 128-sensor mask on the card).
+    Returns ({path: launch counts}, {path: ``check_cli_shapes``
+    arguments})."""
+    import csv
+    import gc
+    import os
+    import weakref
+
+    from brainmagick_tpu_torch import eval as port_eval
+    from brainmagick_tpu_torch import ops, paper_tables, play
+    from brainmagick_tpu_torch.dataset import to_device
+    from brainmagick_tpu_torch.env import env
+    from brainmagick_tpu_torch.grids import runner
+
+    t_phase = time.perf_counter()
+    cache = work / f"cache_{KEPT_STUDY}"
+    out_dir = str(work / "grid_outputs")
+    variants = {"base": GRID_EXTRA, "subsample": {**GRID_EXTRA,
+                                                  **GRID_SUBSAMPLE}}
+    hooks = ("BM_REHEARSAL_CACHE", "BM_REHEARSAL_EXTRA")
+    saved = {key: os.environ.get(key) for key in hooks}
+    os.environ["BM_REHEARSAL_CACHE"] = str(cache)
+
+    def grid_job(variant: str):
+        os.environ["BM_REHEARSAL_EXTRA"] = json.dumps(variants[variant])
+        _, jobs = runner.get_grid(GRID)
+        if len(jobs) != 1:
+            raise AssertionError(f"grid {GRID}: {len(jobs)} jobs, want 1")
+        return jobs[0]
+
+    def counts() -> tuple:
+        return ({k.__name__: k.launches for k in ops.KERNELS},
+                dict(ops.conv_stats.launches_by_route),
+                dict(ops.conv_stats.launches_by_dtype))
+
+    launches_by_path: dict = {}
+    try:
+        jobs = {name: grid_job(name) for name in variants}
+        cfg = jobs["base"].to_config()
+        paper = {k: cfg.simpleconv[k] for k in GRID_MODEL}
+        if paper != GRID_MODEL or jobs["subsample"].to_config().simpleconv[
+                    "subsample_meg_channels"] != 128:
+            raise AssertionError(f"grid {GRID}: model {paper}")
+        sigs = {name: job.sig for name, job in jobs.items()}
+        print(f"grid {GRID}: XPs {sigs}, cache {cache}, out_dir {out_dir}")
+
+        # 1. the first variant in this process
+        grid_job("base")
+        with env.temporary(studies={KEPT_STUDY: work / KEPT_STUDY}):
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            flags = tf32_flags()
+            with SolverSpy() as spy:
+                t0 = time.perf_counter()
+                results = runner.run_jobs([jobs["base"]], out_dir, workers=1)
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+            launches, routes, by_dtype = counts()
+        if results != {sigs["base"]: 0} or tf32_flags() != flags:
+            raise AssertionError(f"grid in-process run: {results}, TF32 "
+                                 f"flags {tf32_flags()} after {flags}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # one fused conv_stats layer a block of the encoder
+        fused = sum(sum(e.fused) for e in spy.solver.model.encoders.values())
+        if fused != GRID_MODEL["depth"]:
+            raise AssertionError(f"grid base: {fused} fused layers")
+        steps = _check_cli_launches("grid base", launches, routes, by_dtype,
+                                    spy, "bfloat16", fused=fused)
+        step_ms = spy.train_step_ms()
+        history = _read_history(Path(out_dir) / "xps" / sigs["base"], 1,
+                                "grid base")
+        build = dict(spy.solver.build_timings)
+        solver_ref = weakref.ref(spy.solver)
+        spy.solver = None
+        del spy
+        gc.collect()
+        torch.cuda.empty_cache()
+        kept_gb = (torch.cuda.memory_allocated() - before) / 1e9
+        print(f"grid base, in process ({card_name}): {steps} train steps, "
+              f"device time {[round(x, 2) for x in step_ms]} ms (warm "
+              f"{step_ms[-1]:.2f}), peak device memory {peak_gb:.2f} GB, "
+              f"{kept_gb:.3f} GB still allocated after it, dataset build "
+              f"{build['datasets']:.2f} s, scaler {build['scaler']:.2f} s, "
+              f"run_jobs {train_s:.1f} s; kernel launches {launches}; "
+              f"history {history}")
+        # nothing keeps the XP's solver alive, and what stays allocated
+        # is the libraries' (cuBLAS workspaces: 0.07 GB in a fresh
+        # process), not the XP's
+        if solver_ref() is not None or kept_gb > 0.25 * peak_gb:
+            raise AssertionError(f"the in-process XP kept {kept_gb:.3f} GB "
+                                 f"of the card's memory, its solver "
+                                 f"{solver_ref()}")
+        launches_by_path["grid_train"] = launches
+
+        # 2. the second variant in a subprocess
+        grid_job("subsample")
+        t0 = time.perf_counter()
+        with env.temporary(studies={KEPT_STUDY: work / KEPT_STUDY}):
+            try:
+                _grid_cli([GRID, "--run", "--workers=2",
+                           f"--out_dir={out_dir}"])
+            except SystemExit:
+                print(_log_tail(Path(out_dir) / "logs"
+                                / f"{sigs['subsample']}.log"))
+                raise
+        sub_s = time.perf_counter() - t0
+        history = _read_history(Path(out_dir) / "xps" / sigs["subsample"],
+                                1, "grid subsample")
+        print(f"grid subsample, --run --workers=2 ({card_name}): "
+              f"{sub_s:.1f} s (the subprocess's start, set-up and run); "
+              f"history {history}; log tail:\n"
+              + _log_tail(Path(out_dir) / "logs"
+                          / f"{sigs['subsample']}.log", 3))
+
+        # 3-4. --run skips both, --table, --sbatch
+        for name in variants:
+            grid_job(name)
+            text = _grid_cli([GRID, "--run", "--workers=2",
+                              f"--out_dir={out_dir}"])
+            if f"skipping {sigs[name]}" not in text:
+                raise AssertionError(f"--run did not skip {name}")
+            table = _grid_cli([GRID, "--table",
+                               f"--out_dir={out_dir}"]).splitlines()
+            row = dict(zip(table[0].split(), table[1].split()))
+            if row.get("sig") != sigs[name] or row.get("epoch") != "1" \
+                    or row.get("wer_vocab", "-") == "-":
+                raise AssertionError(f"--table of {name}: {row}")
+        _grid_cli([GRID, "--sbatch", "--force", f"--out_dir={out_dir}"])
+        script = (Path(out_dir) / f"grid_{GRID}.sbatch").read_text()
+        if script.count(";;") != 2 \
+                or "-m brainmagick_tpu_torch.train" not in script:
+            raise AssertionError(f"the sbatch script:\n{script}")
+
+        # 5. the grid's evaluation, in this process and in a subprocess
+        with env.temporary(cache=cache,
+                           studies={KEPT_STUDY: work / KEPT_STUDY}):
+            grid_job("base")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            with SolverSpy() as spy:
+                t0 = time.perf_counter()
+                accs = port_eval.main([f"grid={GRID}", f"out_dir={out_dir}"])
+                torch.cuda.synchronize()
+                eval_s = time.perf_counter() - t0
+            launches, _, _ = counts()
+            eval_gb = torch.cuda.max_memory_allocated() / 1e9
+            forwards = spy.forwards
+            del spy
+            grid_job("subsample")
+            t0 = time.perf_counter()
+            try:
+                codes = port_eval.main([f"grid={GRID}", f"out_dir={out_dir}",
+                                        "workers=2"])
+            except SystemExit:
+                print(_log_tail(Path(out_dir) / "eval" / "logs"
+                                / f"{sigs['subsample']}.log"))
+                raise
+            eval_sub_s = time.perf_counter() - t0
+        if list(accs) != [sigs["base"]] or codes != {sigs["subsample"]: 0}:
+            raise AssertionError(f"eval grid=: {accs}, {codes}")
+        probs = {}
+        for name, sig in sigs.items():
+            folder = Path(out_dir) / "eval" / f"{sig}-torch"
+            missing = [f for f in EVAL_FILES if not (folder / f).exists()]
+            if missing or (Path(out_dir) / "eval" / sig).exists():
+                raise AssertionError(f"eval {name}: {missing} missing from "
+                                     f"{folder}, or eval/<sig> written")
+            probs[name] = np.load(folder / "probs_segment.npy")
+            vocab = np.load(folder / "vocab_segment.npy")
+            _check_eval_probs(probs[name], (len(probs[name]), len(vocab)),
+                              f"eval grid {name}")
+        acc = accs[sigs["base"]]
+        want = dict(normalize_clamp_peak=forwards, conv_stats=0,
+                    nt_matmul=scoring_calls(*probs["base"].shape))
+        if forwards < 1 or any(launches[k] != v for k, v in want.items()) \
+                or not all(0 <= v <= 1 for v in acc.values()):
+            raise AssertionError(f"eval grid base: launches {launches}, "
+                                 f"want {want}; accuracies {acc}")
+        print(f"eval grid={GRID} ({card_name}): base in process "
+              f"{eval_s:.2f} s (the solver's datasets and checkpoint "
+              f"included), top-1/5/10 {acc}, {probs['base'].shape[0]} "
+              f"predictions x {probs['base'].shape[1]} candidates, peak "
+              f"device memory {eval_gb:.2f} GB, kernel launches {launches}; "
+              f"subsample with workers=2 {eval_sub_s:.1f} s")
+        launches_by_path["grid_eval"] = launches
+
+        # 6. the paper table of each variant
+        for name in variants:
+            grid_job(name)
+            dest = paper_tables.main(["table", f"grid={GRID}",
+                                      f"out_dir={out_dir}"])
+            with open(dest) as f:
+                rows = list(csv.DictReader(f))
+            if len(rows) != 1 or rows[0]["dataset"] != KEPT_STUDY \
+                    or not 0 <= float(rows[0]["mean"]) <= 1 \
+                    or rows[0]["count"] != "1":
+                raise AssertionError(f"paper table of {name}: {rows}")
+            print(f"paper table of {name}: {rows[0]}")
+
+        # 7. warm steps of the subsampled XP, restored by signature
+        with env.temporary(cache=cache,
+                           studies={KEPT_STUDY: work / KEPT_STUDY}):
+            solver = play.get_solver_from_sig(sigs["subsample"],
+                                              out_dir=out_dir, training=True)
+        mask = solver.model.meg_mask
+        if mask is None or mask.device.type != device.type \
+                or int(mask.sum()) != 128:
+            raise AssertionError(f"the subsampled XP's mask: {mask}")
+        loader = iter(solver.make_loader(solver.datasets.train))
+        batch, weight = next(loader)
+        loader.close()
+        arrays = to_device(batch, device, solver.args.parallel.transfer_dtype)
+        weight = torch.as_tensor(weight, dtype=torch.float32, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        sub_ms = []
+        for _ in range(GRID_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = solver.step(arrays, weight, True)["loss"]
+            end.record()
+            sub_ms.append((start, end))
+        torch.cuda.synchronize()
+        sub_ms = [a.elapsed_time(b) for a, b in sub_ms]
+        launches, routes, by_dtype = counts()
+        sub_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = dict(normalize_clamp_peak=GRID_STEPS, nt_matmul=0,
+                    conv_stats=fused * GRID_STEPS)
+        if launches != want or routes != {"tc": fused * GRID_STEPS} \
+                or by_dtype["bfloat16"] != fused * GRID_STEPS \
+                or not torch.isfinite(loss):
+            raise AssertionError(f"grid subsample steps: launches "
+                                 f"{launches}, routes {routes}, {by_dtype}, "
+                                 f"loss {loss}")
+        launches_by_path["grid_subsample_steps"] = launches
+        # the same steps in torch.profiler (their launches uncounted): the
+        # kernels' time a step against the warm step's event time, which
+        # holds the card's idle gaps too
+        rows = device_rows(lambda: solver.step(arrays, weight, True),
+                           GRID_STEPS)
+        kernel_ms = sum(row[2] for row in rows) / 1e3
+        print(f"grid subsample, {GRID_STEPS} train steps B="
+              f"{len(batch.meg)} restored by signature ({card_name}): "
+              f"device time {[round(x, 2) for x in sub_ms]} ms (warm "
+              f"{sub_ms[-1]:.2f}), peak device memory {sub_gb:.2f} GB; "
+              f"kernel launches {launches}; in torch.profiler "
+              f"{kernel_ms:.2f} ms of kernel time a step in "
+              f"{sum(row[1] for row in rows):.0f} device activities "
+              f"(device busy {100 * kernel_ms / sub_ms[-1]:.0f}% of the "
+              f"warm step); longest (name, "
+              f"launches, µs a step) {rows[:4]}")
+        del solver, arrays, batch, weight, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    print(f"grid phase: {time.perf_counter() - t_phase:.1f} s "
+          f"({card_name})")
+    shapes = {"grid": dict(batch=cfg.optim.batch_size,
+                           n_test=probs["base"].shape[0],
+                           n_cand=probs["base"].shape[1],
+                           n_mels=GRID_EXTRA["dset.features_params"][
+                               "MelSpectrum"]["n_mels"], channels=208)}
+    return launches_by_path, shapes
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -3020,6 +3375,9 @@ def main() -> None:
         encode_launches, encode_shapes = run_encode_phase(device, card_name,
                                                           work)
         phase_s["12"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        grid_launches, grid_shapes = run_grid_phase(device, card_name, work)
+        phase_s["13"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     with exact_fp32():
         cli_shapes = check_cli_shapes(device, **cli_shape)
@@ -3029,7 +3387,7 @@ def main() -> None:
                     prefix=f"{selection}: ").items():
                 cli_shapes[name].update(shapes)
         for path, shape in {**deepmel_shapes, **words_shapes,
-                            **encode_shapes}.items():
+                            **encode_shapes, **grid_shapes}.items():
             for name, shapes in check_cli_shapes(
                     device, **shape, prefix=f"{path}: ").items():
                 cli_shapes[name].update(shapes)
@@ -3059,7 +3417,8 @@ def main() -> None:
                                                **study_launches,
                                                **deepmel_launches,
                                                **words_launches,
-                                               **encode_launches}.items()})
+                                               **encode_launches,
+                                               **grid_launches}.items()})
         entry["other_shapes"].update(cli_shapes[entry["name"]])
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path

@@ -1,12 +1,14 @@
 """Evaluation by signature (``python -m brainmagick_tpu_torch.eval
 sig=<sig>``) against the JAX package's, both packages evaluating one XP
 from one output folder on the same weights, with and without the DeepMel
-feature model; the YAML writer against PyYAML; and the port's XP files
+feature model; the grid fan-out (``grid=``, ``workers=``) over the port's
+checkpoints; the YAML writer against PyYAML; and the port's XP files
 kept apart from the JAX package's, so that the JAX grid runner does not
 take a port-only XP for a trained one."""
 
 import io
 import pickle
+import sys
 import types
 from pathlib import Path
 
@@ -27,6 +29,8 @@ from brainmagick_tpu_torch import config, convert, train
 from brainmagick_tpu_torch import eval as port_eval
 from brainmagick_tpu_torch.cache import tagged
 from brainmagick_tpu_torch.env import env
+from brainmagick_tpu_torch.grids import get_grid
+from brainmagick_tpu_torch.grids import runner as port_runner
 from brainmagick_tpu_torch.utils import dump_yaml
 
 #: the evaluated XPs: tiny on the fake study, one epoch, with and without
@@ -160,17 +164,22 @@ def test_eval_by_signature_matches_jax(tmp_path, cache, case):
 
 
 def test_eval_cli_tokens(tmp_path):
-    """The command line refuses unknown tokens and a missing sig, sends
-    grid= and workers= to the grid runner's port, and an XP that holds
-    only the JAX package's checkpoint.pkl to the jax-free checkpoint
-    reader (ROADMAP.md)."""
+    """The command line refuses unknown tokens, a missing sig or grid,
+    workers= without grid=, and grid= with sig= or output=; a grid with
+    no trained XP evaluates nothing; an XP that holds only the JAX
+    package's checkpoint.pkl goes to the jax-free checkpoint reader
+    (ROADMAP.md)."""
     with pytest.raises(ValueError, match="bogus"):
         port_eval.main(["sig=x", "bogus=1"])
     with pytest.raises(ValueError, match="sig"):
         port_eval.main(["out_dir=x"])
-    for token in ("grid=nmi.main_table", "workers=4"):
-        with pytest.raises(NotImplementedError, match="grid runner"):
-            port_eval.main(["sig=x", token])
+    with pytest.raises(ValueError, match="workers"):
+        port_eval.main(["sig=x", "workers=4"])
+    for token in ("sig=x", "output=y"):
+        with pytest.raises(ValueError, match="grid"):
+            port_eval.main(["grid=nmi.main_table", token])
+    assert port_eval.main(["grid=nmi.main_table",
+                           f"out_dir={tmp_path}"]) == {}
     folder = tmp_path / "xps" / "abcd1234"
     folder.mkdir(parents=True)
     (folder / "checkpoint.pkl").write_bytes(b"")
@@ -207,6 +216,43 @@ def test_port_xp_files_are_tagged_and_not_skipped(tmp_path, cache,
     (folder / "done.json").write_text("{}")
     assert runner.run_jobs([job], out_dir=str(out)) == {sig: None}
     assert ran == [sig]
+
+
+def test_eval_grid_takes_the_ports_checkpoints(tmp_path, monkeypatch):
+    """``grid=``: of nmi.wordlists' three XPs, the one with
+    checkpoint-torch.pt is evaluated (in this process, into
+    eval/<sig>-torch), the one with only the JAX package's checkpoint.pkl
+    and the untrained one are not; with workers=2 each such XP becomes
+    ``python -m brainmagick_tpu_torch.eval sig=<sig>`` with the command
+    line's options, logging under eval/logs."""
+    sigs = [job.sig for job in get_grid("nmi.wordlists")[1]]
+    for sig, name in zip(sigs, ("checkpoint-torch.pt", "checkpoint.pkl")):
+        (tmp_path / "xps" / sig).mkdir(parents=True)
+        (tmp_path / "xps" / sig / name).write_bytes(b"")
+    seen, commands = [], []
+
+    def eval_sig(sig, tokens, out_dir, output=None):
+        seen.append((sig, out_dir, output))
+        return {1: 0.5}
+
+    def run_commands(cmds, log_dir, workers):
+        commands.append((cmds, log_dir, workers))
+        return {name: 0 for name, _ in cmds}
+    monkeypatch.setattr(port_eval, "_eval_sig", eval_sig)
+    common = ["grid=nmi.wordlists", f"out_dir={tmp_path}", "device=cpu"]
+    assert port_eval.main(common) == {sigs[0]: {1: 0.5}}
+    assert seen == [(sigs[0], str(tmp_path), None)]
+    monkeypatch.setattr(port_runner, "run_commands_with_logs", run_commands)
+    assert port_eval.main(common + ["workers=2", "n_negatives=30",
+                                    "test_study=fake"]) == {sigs[0]: 0}
+    assert commands == [([(sigs[0], [
+        sys.executable, "-m", "brainmagick_tpu_torch.eval", f"sig={sigs[0]}",
+        f"out_dir={tmp_path}", "n_negatives=30", "test_study=fake",
+        "device=cpu"])], tmp_path / "eval" / "logs", 2)]
+    monkeypatch.setattr(port_runner, "run_commands_with_logs",
+                        lambda cmds, log_dir, workers: {sigs[0]: -9})
+    with pytest.raises(SystemExit, match="1 of 1 XPs failed"):
+        port_eval.main(common + ["workers=2"])
 
 
 # -- dump_yaml ----------------------------------------------------------------

@@ -233,6 +233,79 @@ def test_simpleconv_matches_jax(overrides, per_recording):
                                atol=1e-4)
 
 
+#: simpleconv.subsample_meg_channels: keep 12 of the 20 sensors
+SUBSAMPLE = dict(subsample_meg_channels=12)
+
+
+@pytest.mark.parametrize("per_recording", [True, False])
+def test_subsample_meg_channels_matches_jax(per_recording):
+    """The flax module's fixed subset (RandomState(1234)'s permutation, the
+    other sensors zeroed before the merger) on the unfused model, bridged
+    weights: rtol/atol 1e-4. The mask is a constant buffer, out of the
+    state dict and moved with the model; a dropped sensor moves nothing
+    and a kept one moves the output."""
+    jmodel, port = _tiny_pair(**SUBSAMPLE)
+    params, stats = _tiny_jax_variables(jmodel)
+    convert.load_jax_params(port, params, stats)
+    assert "meg_mask" not in port.state_dict()
+    keep = np.zeros(20, np.float32)
+    keep[np.random.RandomState(1234).permutation(20)[:12]] = 1
+    np.testing.assert_array_equal(port.meg_mask.numpy()[:, 0], keep)
+    assert port.double().meg_mask.dtype == torch.float64
+    port.float()
+    meg, rec_positions, rec_index, subjects = _tiny_inputs()
+    positions = rec_positions[rec_index]
+    jkw, kw = {}, {}
+    if per_recording:
+        pos_emb = jcommon.fourier_emb(jnp.asarray(rec_positions), 32)
+        jkw = dict(pos_emb=pos_emb, rec_index=jnp.asarray(rec_index),
+                   rec_positions=jnp.asarray(rec_positions))
+        kw = dict(pos_emb=_t(pos_emb), rec_index=_t(rec_index),
+                  rec_positions=_t(rec_positions))
+    want = jmodel.apply({"params": params["model"],
+                         "batch_stats": stats["model"]},
+                        {"meg": jnp.asarray(meg)}, jnp.asarray(subjects),
+                        jnp.asarray(positions), **jkw)
+    with torch.no_grad():
+        run = functools.partial(port, subject_index=_t(subjects).long(),
+                                positions=_t(positions), **kw)
+        got = run({"meg": _t(meg)})
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-4)
+        moved = meg.copy()
+        moved[:, keep == 0] += 10.
+        assert torch.equal(run({"meg": _t(moved)}), got)
+        moved[:, np.flatnonzero(keep)[0]] += 1.
+        assert not torch.allclose(run({"meg": _t(moved)}), got)
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"], ids=["fp32", "bf16"])
+def test_subsample_meg_channels_fused_head_matches_jax(dtype):
+    """The fused head on the subset's MEG against the flax module's
+    (tests/test_torch_recipe.py's case, three subjects, a batch whose
+    subject overrides its recording's): what the encoder receives, fp32 on
+    both sides (the mask is fp32, so a bf16 MEG comes out of it fp32 in
+    both frameworks), rtol/atol 1e-4 in fp32 and CAST_TOL in bf16; then
+    the whole model in fp32 to 1e-4."""
+    from test_torch_recipe import CAST_TOL, _encoder_inputs, _max_err
+    from test_torch_recipe import _model_case
+
+    jmodel, port, variables, jcall, call = _model_case(
+        fused_head=True, dtype=dtype, **SUBSAMPLE)
+    got, want = _encoder_inputs(jmodel, port, variables, jcall, call)
+    assert got.dtype == torch.float32
+    if dtype is None:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+        with torch.no_grad():
+            out = port(*call[0], **call[1])
+        np.testing.assert_allclose(
+            out.numpy(), np.asarray(jmodel.apply(variables, *jcall[0],
+                                                 **jcall[1])),
+            rtol=1e-4, atol=1e-4)
+    else:
+        assert _max_err(got, want) <= CAST_TOL
+
+
 @pytest.mark.parametrize("paper", [False, True])
 def test_convert_rules_read_the_port_model(paper):
     """brainmagick_tpu.convert.simpleconv_rules reads the port module as it
@@ -280,7 +353,7 @@ def test_bridge_consumes_every_leaf():
 @pytest.mark.parametrize("option", [
     dict(dual_path=1), dict(n_fft=4), dict(conv_impl="dots"),
     dict(rewrite=True), dict(post_skip=True),
-    dict(scale=0.1), dict(dropout=0.1), dict(subsample_meg_channels=4),
+    dict(scale=0.1), dict(dropout=0.1),
     dict(merger_per_subject=True), dict(output_layout="btc")], ids=str)
 def test_unsupported_options_raise(option):
     kw = {**TINY, **option}
