@@ -180,12 +180,41 @@ class TaskConfig:
 
 @dataclass
 class ParallelConfig:
-    """The wire-format fields of ``brainmagick_tpu.config.ParallelConfig``
-    (the mesh and sharding fields are not ported)."""
+    """``brainmagick_tpu.config.ParallelConfig`` for data-parallel runs
+    over the cards of one host (``parallel``: one process a card under
+    ``python -m torch.distributed.run``). ``data_axis`` and
+    ``donate_state`` (a mesh axis and a buffer donation of the JAX step)
+    are accepted and read by nothing; ``scoped_vmem_limit_kib`` and
+    ``compilation_cache`` (XLA's) are not copied."""
+    data_axis: str = "data"
+    #: contrastive candidates stay within contiguous groups of this many
+    #: ranks: 1 = each rank's own rows (the reference's per-GPU pools),
+    #: k = the rows of a group of k ranks gathered, 0 = every rank's rows.
+    #: Must divide the number of ranks
+    negatives_group_size: int = 1
+    #: the train CLI joins the launcher's ranks
+    #: (``python -m torch.distributed.run``) into one data-parallel run;
+    #: with several ranks it cannot be turned off (each rank would train
+    #: the whole batch alone)
+    auto_mesh: bool = True
+    #: accepted: the train CLI always reads the launcher's environment
+    distributed_init: bool = False
+    donate_state: bool = True
     #: cast meg/features to this dtype on the host before the copy to the
     #: card (``dataset.to_device``): 'bfloat16' halves the bytes, and the
     #: compute upcasts on the card
     transfer_dtype: tp.Optional[str] = None
+    #: the test stage's and the evaluation's retrieval scores with the
+    #: candidate pool split over the ranks and passed around their ring
+    #: (``losses.ring_scores``) instead of streamed whole to every rank;
+    #: not for a pool past the per-rank budget, nor for a configuration
+    #: with a trim window or a transform
+    ring_scoring: bool = False
+    #: with negatives_group_size k > 1, pass each rank's candidate rows
+    #: around its group's ring one hop at a time, each block scored as it
+    #: arrives, instead of gathering the group's rows at once: the same
+    #: loss and gradients, candidate memory of one rank's rows
+    ring_negatives: bool = False
     #: the dtype the train and valid loaders assemble meg and features
     #: in, in their pinned buffers on a CUDA device (``loader.Loader``)
     assemble_dtype: tp.Optional[str] = None
@@ -294,7 +323,10 @@ def apply_preset(cfg: MainConfig, name: str) -> MainConfig:
     """The ``clip_conv`` preset (the paper recipe), ``clip_conv_tpu``
     (the paper recipe with bf16 compute, estimates and scores, no
     BatchNorm-cancelled conv biases, the fused head, tanh GELU and the
-    bf16 wire), ``tiny`` (a CPU-sized SimpleConv), ``deep_mel`` (the
+    bf16 wire), ``clip_conv_v5e8`` and ``clip_conv_v5e8_paper`` (that
+    recipe over 8 cards: a local batch of 256 and per-card pools, or the
+    paper's global batch of 256 in pools of 4 cards), ``tiny`` (a
+    CPU-sized SimpleConv), ``deep_mel`` (the
     DeepMel feature model on the ground truth, Table 2's "MelSpectrum +
     DeepMel" cell), ``convrnn`` (the encode task: a ConvRNN predicts the
     MEG from the features and a MEG prompt, under an L1 loss) or
@@ -308,6 +340,23 @@ def apply_preset(cfg: MainConfig, name: str) -> MainConfig:
         cfg.clip.compute_dtype = "bfloat16"
         cfg.parallel.transfer_dtype = "bfloat16"
         cfg.parallel.assemble_dtype = "bfloat16"
+        return cfg
+    if name == "clip_conv_v5e8":
+        # weak scaling: each of 8 cards keeps the recipe's local batch of
+        # 256 (global 2048) and a per-card pool of 256 candidates
+        apply_preset(cfg, "clip_conv_tpu")
+        cfg.optim.batch_size = 2048
+        cfg.parallel.negatives_group_size = 1
+        cfg.optim.lr = cfg.optim.lr * 2
+        return cfg
+    if name == "clip_conv_v5e8_paper":
+        # the paper's global batch of 256 on 8 cards: groups of 4 cards x
+        # 32 rows rebuild the two 128-candidate pools of its 2 GPUs,
+        # passed around each group's ring
+        apply_preset(cfg, "clip_conv_tpu")
+        cfg.optim.batch_size = 256
+        cfg.parallel.negatives_group_size = 4
+        cfg.parallel.ring_negatives = True
         return cfg
     if name == "tiny":
         cfg.simpleconv.update(

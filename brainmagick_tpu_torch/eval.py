@@ -31,9 +31,12 @@ two evaluations of one XP compare file by file). It runs on the card
 unless ``device=cpu``.
 
 The forwards run through ``forward_batch`` and the scoring through
-``losses.streamed_scores`` (``nt_matmul`` on a CUDA device), inside
+``losses.pool_scores`` (``nt_matmul`` on a CUDA device), inside
 ``precision.exact_fp32``. The probabilities are a softmax on the host, as
-in the JAX package.
+in the JAX package. Under ``python -m torch.distributed.run
+--nproc_per_node=N``, ``eval sig=`` runs as N ranks of the solver's group
+(``Solver.set_group``): the forwards and the scoring split over the
+ranks, every rank gets every row, and rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ import torch
 
 from .cache import tagged
 from .dataset import ARRAY_FIELDS, ConcatDataset
-from .losses import ClipLoss, refuse_int8_pool, streamed_scores
+from .losses import ClipLoss, pool_scores, refuse_int8_pool
 from .precision import exact_fp32
 from .utils import dump_yaml
 
@@ -240,8 +243,9 @@ def build_probs(server: tp.Any, preds: np.ndarray, trues: np.ndarray,
     """[N_pred, N_true] probabilities: the CLIP scores of each prediction
     against every candidate, streamed through the server's device in
     chunks of `batch_size` predictions and candidate blocks of 2048
-    (``losses.streamed_scores``, which fills `stats`), then a softmax over
-    each row on the host. `tmin`/`tmax` trim both sides to that window
+    (``losses.pool_scores``: split over the ranks of a solver's group;
+    ``streamed_scores`` fills `stats`), then a softmax over each row on
+    the host. `tmin`/`tmax` trim both sides to that window
     (seconds relative to the event)."""
     dset_args = server.args.dset
     trim_min = trim_max = None
@@ -257,8 +261,8 @@ def build_probs(server: tp.Any, preds: np.ndarray, trues: np.ndarray,
         clip = ClipLoss(dset_tmin=dset_args.tmin,
                         dset_sample_rate=dset_args.sample_rate)
     refuse_int8_pool(server.args, clip)
-    scores = streamed_scores(clip, preds, trues, server.device,
-                             chunk=batch_size, stats=stats)
+    scores = pool_scores(server, clip, preds, trues, chunk=batch_size,
+                         stats=stats)
     scores -= scores.max(axis=1, keepdims=True)
     np.exp(scores, out=scores)
     scores /= scores.sum(axis=1, keepdims=True)
@@ -312,11 +316,15 @@ def run_eval(server: tp.Any, batches: tp.Optional[tp.Iterable[tp.Any]],
     ``yaml.safe_dump`` writes it), then probs_segment.npy,
     vocab_segment.npy, metadata.csv, acc.csv and negative_stats.csv into
     `output_dir` (the CSV files as the JAX package's pandas writes them)
-    and returns the top-1, 5 and 10 segment accuracies."""
+    and returns the top-1, 5 and 10 segment accuracies. A solver in a
+    group computes on every rank; rank 0 writes while the others wait."""
     output_dir = Path(output_dir)
-    output_dir.mkdir(exist_ok=True, parents=True)
-    with _write_and_rename(output_dir / "solver_config.yaml", "w") as f:
-        dump_yaml(dataclasses.asdict(server.args), f)
+    group = getattr(server, "group", None)
+    lead = group is None or group.lead
+    if lead:
+        output_dir.mkdir(exist_ok=True, parents=True)
+        with _write_and_rename(output_dir / "solver_config.yaml", "w") as f:
+            dump_yaml(dataclasses.asdict(server.args), f)
     data = load_test_data(server, batches, n_recordings=n_recordings,
                           test_study=test_study)
     logger.info("Loaded %d predictions, %d candidate segments",
@@ -326,20 +334,23 @@ def run_eval(server: tp.Any, batches: tp.Optional[tp.Iterable[tp.Any]],
     vocab_segment = data["trues_segment_hashes"]
     segment_hashes = data["segment_hashes"]
 
-    with _write_and_rename(output_dir / "probs_segment.npy") as f:
-        np.save(f, probs_segment)
-    with _write_and_rename(output_dir / "vocab_segment.npy") as f:
-        np.save(f, vocab_segment)
-    _write_csv(output_dir / "metadata.csv", ("",) + METADATA_KEYS,
-               ([i] + [data[k][i] for k in METADATA_KEYS]
-                for i in range(len(segment_hashes))))
+    if lead:
+        with _write_and_rename(output_dir / "probs_segment.npy") as f:
+            np.save(f, probs_segment)
+        with _write_and_rename(output_dir / "vocab_segment.npy") as f:
+            np.save(f, vocab_segment)
+        _write_csv(output_dir / "metadata.csv", ("",) + METADATA_KEYS,
+                   ([i] + [data[k][i] for k in METADATA_KEYS]
+                    for i in range(len(segment_hashes))))
 
     acc = {}
     for k in (1, 5, 10):
         acc[k] = accuracy_from_probs(probs_segment, segment_hashes,
                                      vocab_segment, topk=k)
         logger.info("Top-%d segment acc: %.2f%%", k, 100 * acc[k])
-    _write_csv(output_dir / "acc.csv", ("topk", "acc_segment"), acc.items())
+    if lead:
+        _write_csv(output_dir / "acc.csv", ("topk", "acc_segment"),
+                   acc.items())
 
     stats_rows = {
         "n_test_samples": len(data["word_hashes"]),
@@ -350,8 +361,11 @@ def run_eval(server: tp.Any, batches: tp.Optional[tp.Iterable[tp.Any]],
     }
     for key, val in stats_rows.items():
         logger.info("%s: %d", key, val)
-    _write_csv(output_dir / "negative_stats.csv", ("", "0"),
-               stats_rows.items())
+    if lead:
+        _write_csv(output_dir / "negative_stats.csv", ("", "0"),
+                   stats_rows.items())
+    if group is not None:
+        group.barrier()
     return acc
 
 
@@ -364,13 +378,18 @@ TOKENS = ("sig", "out_dir", "n_negatives", "output", "test_study", "device",
 def _eval_sig(sig: str, tokens: tp.Mapping[str, str], out_dir: str,
               output: tp.Optional[str] = None) -> tp.Dict[int, float]:
     """``run_eval`` of the XP `sig` into `output` (``<out_dir>/eval/<sig>
-    -torch`` when None)."""
+    -torch`` when None); under a launcher, as the ranks of one group."""
     from .play import get_solver_from_sig
+    from .train import join_launcher, parse_overrides
 
     output = output or str(Path(out_dir) / "eval" / tagged(sig))
     overrides = {"device": tokens["device"]} if "device" in tokens else {}
+    group = join_launcher(parse_overrides(
+        [f"device={tokens['device']}"] if "device" in tokens else []),
+        check_batch=False)
     solver = get_solver_from_sig(sig, out_dir=out_dir,
-                                 override_args=overrides, training=False)
+                                 override_args=overrides, training=False,
+                                 group=group)
     return run_eval(solver, None, output,
                     n_negatives=int(tokens.get("n_negatives", 20_000)),
                     test_study=tokens.get("test_study"))

@@ -12,6 +12,11 @@ JAX package's does. With one it yields the batch's ``ARRAY_FIELDS`` and
 batch is copied into one of two page-locked buffer sets and sent with
 non-blocking copies, and a set is written again only after the CUDA event
 recorded behind its copies has completed.
+
+With ``rows`` (a slice), each batch holds only those rows of the global
+batch the loader would build otherwise: the rank's block of a
+data-parallel run (``Solver.set_group``), whose ranks all draw the same
+seeded index order.
 """
 
 from __future__ import annotations
@@ -78,6 +83,8 @@ class Loader:
         torch_dtype(assemble_dtype)           # refuses an unknown name
         self.assemble_dtype = assemble_dtype
         self.epoch = 0
+        #: the rows of each global batch this loader builds (all if None)
+        self.rows: tp.Optional[slice] = None
 
     def set_epoch(self, epoch: int) -> None:
         """The epoch whose shuffle the next iteration draws."""
@@ -105,6 +112,8 @@ class Loader:
             pad = self.batch_size - len(chunk)
             pad_weight[len(chunk):] = 0.
             chunk = np.concatenate([chunk, chunk[-1:].repeat(pad)])
+        if self.rows is not None:
+            chunk, pad_weight = chunk[self.rows], pad_weight[self.rows]
         return self.dataset.get_batch(chunk, with_events=self.with_events), \
             pad_weight
 

@@ -9,7 +9,9 @@ weighted cross-entropy of each estimate against its own candidate.
 flattened [B, F*T] x [N, F*T] operands through the ``nt_matmul`` kernel;
 ``streamed_scores`` runs it over a candidate pool streamed to the device
 in blocks (``candidate_blocks``, ``iter_device_groups``,
-``EstimateCache``), as the offline evaluation and WER do.
+``EstimateCache``), as the offline evaluation and WER do; as a rank of a
+data-parallel run (``pool_scores``), on this rank's rows, or with the pool
+passed around the ranks' ring (``ring_scores``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import typing as tp
 import numpy as np
 import torch
 
+from . import parallel
 from .ops.matmul import nt_matmul
 from .precision import torch_dtype
 
@@ -476,3 +479,96 @@ def streamed_scores(clip: ClipLoss, rows: tp.Any, pool: tp.Any,
                            ("commit_bytes", cache.committed_bytes)):
             stats[key] = stats.get(key, 0) + value
     return scores
+
+
+def ring_scores(group: tp.Any, estimates: tp.Any, pool: tp.Any,
+                compute_dtype: tp.Optional[torch.dtype],
+                device: torch.device) -> np.ndarray:
+    """[n, P] fp32 retrieval scores on every rank of `group`
+    (``parallel.DataGroup``) with the pool split over the ranks and passed
+    around their ring: each rank holds one block of the estimates' rows
+    and one block of the pool, scores its rows against the block it holds
+    (``nt_matmul``, norms of the compute-dtype values, as
+    ``retrieval_scores``), then passes that block to its left neighbour,
+    until it has scored every block; the score rows are then gathered.
+    The host-to-card traffic of the pool is one copy over all the ranks,
+    and each card holds a rank's share of it. Rows and pool are padded to
+    multiples of the ranks with zero rows, whose scores are dropped."""
+    size, rank = group.size, group.rank
+    est = torch.as_tensor(np.asarray(estimates))
+    cand = torch.as_tensor(np.asarray(pool))
+    n, p = len(est), len(cand)
+    n_loc, p_loc = -(-n // size), -(-p // size)
+
+    def block(x: torch.Tensor, per: int) -> torch.Tensor:
+        part = x[rank * per:(rank + 1) * per]
+        part = part.reshape(len(part), -1)
+        pad = per - len(part)
+        if pad:
+            part = torch.cat([part, part.new_zeros((pad, part.shape[1]))])
+        part = part.to(device)
+        return part.to(compute_dtype) if compute_dtype is not None \
+            else part.contiguous()
+
+    e_loc, c_cur = block(est, n_loc), block(cand, p_loc)
+    inv = block_inv_norms(c_cur)
+    out = torch.empty((n_loc, size * p_loc), dtype=torch.float32,
+                      device=device)
+    pool_group = group.pool(size)
+    for hop in range(size):
+        # after `hop` passes this rank holds the block of rank + hop
+        origin = (rank + hop) % size
+        out[:, origin * p_loc:(origin + 1) * p_loc] = \
+            nt_matmul(e_loc, c_cur) * inv[None, :]
+        if hop + 1 < size:
+            c_cur, inv = parallel.exchange([c_cur, inv], pool_group.left,
+                                           pool_group.right, group.backend)
+    return group.all_gather(out)[:n, :p].cpu().numpy()
+
+
+def maybe_ring_scores(server: tp.Any, clip: ClipLoss, estimates: tp.Any,
+                      pool: tp.Any, budget_bytes: int = 4 << 30
+                      ) -> tp.Optional[np.ndarray]:
+    """``ring_scores`` when ``parallel.ring_scoring`` is on and the
+    configuration qualifies, else None (the caller streams the pool): a
+    group of more than one rank, the fast-path ClipLoss (no trim window or
+    transform: the flattened contraction), non-empty operands, and each
+    rank's share (its pool block, its estimate rows and its fp32 score
+    rows) within `budget_bytes`."""
+    group = getattr(server, "group", None)
+    if not server.args.parallel.ring_scoring or group is None \
+            or group.size < 2 or not int8_retrieval_ok(clip):
+        return None
+    if not len(estimates) or not len(pool):
+        return None
+    itemsize = torch.empty((), dtype=clip.compute_dtype).element_size() \
+        if clip.compute_dtype is not None else np.asarray(pool).itemsize
+    k = int(np.prod(np.shape(pool)[1:]))
+    n, p = len(estimates), len(pool)
+    per_rank = (p * k * itemsize + n * k * itemsize + n * p * 4) / group.size
+    if per_rank > budget_bytes:
+        return None
+    return ring_scores(group, estimates, pool, clip.compute_dtype,
+                       server.device)
+
+
+def pool_scores(server: tp.Any, clip: ClipLoss, rows: tp.Any, pool: tp.Any,
+                chunk: int = 2048,
+                stats: tp.Optional[tp.Dict[str, int]] = None) -> np.ndarray:
+    """[len(rows), len(pool)] fp32 retrieval scores on the host, as
+    ``wer.get_wer`` and ``eval.build_probs`` take them: alone,
+    ``streamed_scores`` on the server's device; as a rank of a group
+    (``server.group``), ``maybe_ring_scores``, or each rank's block of the
+    rows (``DataGroup.split``) streamed against the whole pool and the
+    blocks gathered, so that every rank has every row's scores."""
+    group = getattr(server, "group", None)
+    if group is None or group.size == 1:
+        return streamed_scores(clip, rows, pool, server.device, chunk=chunk,
+                               stats=stats)
+    ring = maybe_ring_scores(server, clip, rows, pool)
+    if ring is not None:
+        return ring
+    mine = streamed_scores(clip, rows[group.split(len(rows))], pool,
+                           server.device, chunk=chunk, stats=stats)
+    return group.gather_split(torch.from_numpy(mine).to(server.device),
+                              len(rows)).cpu().numpy()

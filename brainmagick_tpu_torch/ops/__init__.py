@@ -8,6 +8,12 @@ from .norm import normalize_clamp_peak  # noqa
 KERNELS = (normalize_clamp_peak, nt_matmul, conv_stats)
 
 
+def launch_counts() -> dict:
+    """{kernel name: its launches since the process started or the last
+    ``reset_launch_counts``}."""
+    return {kernel.__name__: kernel.launches for kernel in KERNELS}
+
+
 def reset_launch_counts() -> None:
     for kernel in KERNELS:
         kernel.launches = 0

@@ -5,7 +5,8 @@ Port of ``get_solver_from_sig`` and ``get_test_metrics`` of
 config delta its port checkpoint stores (datasets, model, feature model)
 with the best state loaded. ``get_test_metrics`` runs each test
 recording's batches through ``Solver.forward_batch`` on the solver's
-device, and the metrics stream over the kept rows on the host.
+device (split over the ranks of a solver's group), and the metrics
+stream over the kept rows on the host.
 """
 
 from __future__ import annotations
@@ -22,9 +23,10 @@ from .cache import tagged
 from .config import MainConfig
 
 
-def get_solver_from_args(args: tp.Any, training: bool = False) -> tp.Any:
+def get_solver_from_args(args: tp.Any, training: bool = False,
+                         group: tp.Any = None) -> tp.Any:
     from .train import get_solver
-    return get_solver(args, training=training)
+    return get_solver(args, training=training, group=group)
 
 
 def _apply_delta(args: MainConfig, delta: tp.Dict[str, tp.Any]
@@ -35,14 +37,16 @@ def _apply_delta(args: MainConfig, delta: tp.Dict[str, tp.Any]
 
 def get_solver_from_sig(sig: str, out_dir: str = "./outputs",
                         override_args: tp.Optional[dict] = None,
-                        training: bool = False) -> tp.Any:
+                        training: bool = False, group: tp.Any = None
+                        ) -> tp.Any:
     """The solver of the XP `sig` in `out_dir`: its config rebuilt from
     the delta stored in ``xps/<sig>/checkpoint-torch.pt`` (a JSON string,
     where the JAX package's is a dict), `override_args` ({dotted key:
     value}) on top, then ``train.get_solver``, which restores the
-    checkpoint and, without `training`, loads the best state. An override
-    that changes the signature raises, since the solver would restore
-    another XP's folder."""
+    checkpoint and, without `training`, loads the best state; with `group`
+    (``train.join_launcher``) a rank of it. An override that changes the
+    signature raises, since the solver would restore another XP's
+    folder."""
     folder = Path(out_dir) / "xps" / sig
     checkpoint = folder / tagged("checkpoint.pt")
     if not checkpoint.exists():
@@ -61,7 +65,7 @@ def get_solver_from_sig(sig: str, out_dir: str = "./outputs",
     if args.sig != sig:
         raise ValueError(f"the overrides {override_args} change the "
                          f"signature {sig} to {args.sig}")
-    return get_solver_from_args(args, training=training)
+    return get_solver_from_args(args, training=training, group=group)
 
 
 def get_test_metrics(solver: tp.Any, trim_offset: int = 0,
@@ -71,10 +75,17 @@ def get_test_metrics(solver: tp.Any, trim_offset: int = 0,
                      ) -> tp.Dict[str, tp.Any]:
     """{metric name: value} over the test recordings (each recording's
     metric, then ``reduce`` over the recordings when `reduce`), the
-    samples before `trim_offset` left out."""
+    samples before `trim_offset` left out. As a rank of a group, every
+    rank takes the recordings in rank 0's order, so that each batch's
+    forward (split over the ranks) meets the same batch on every rank, and
+    gets the one-card metrics (on one host the JAX package's average over
+    processes has nothing to average)."""
     test_datasets = datasets or solver.datasets.test.datasets
     order = list(range(len(test_datasets)))
     random.shuffle(order)
+    group = getattr(solver, "group", None)
+    if group is not None:
+        order = group.broadcast_object(order)
     if metrics_constructor is None:
         metrics_constructor = solver.get_metric_constructors()
     results: tp.Dict[str, tp.List[tp.Any]] = {

@@ -1,8 +1,10 @@
 """The solver: normalize -> task wiring -> model -> loss, the training
 step, and the epoch loop over datasets.
 
-Port of ``brainmagick_tpu/solver.py`` on one device, without sampled
-negatives or meshes. ``Solver(args, model, norm_arrays, ...)`` is the
+Port of ``brainmagick_tpu/solver.py`` without sampled negatives, on one
+device or as one rank of a data-parallel run (``set_group``, the
+counterpart of the JAX solver's ``set_mesh``). ``Solver(args, model,
+norm_arrays, ...)`` is the
 per-batch engine that ``serve.Server`` and ``train.Trainer`` hold: its
 normalization arrays keep the JAX solver's ``norm_arrays`` layout
 (``meg_center``/``meg_scale`` [R, C], ``feat_center``/``feat_scale``
@@ -21,13 +23,14 @@ from __future__ import annotations
 import json
 import logging
 import time
+import types
 import typing as tp
 
 import numpy as np
 import torch
 
 from .cache import Cache, tagged
-from .dataset import to_device
+from .dataset import ARRAY_FIELDS, to_device
 from .loader import Loader
 from .logging_utils import MetricSinks
 from .losses import ClipLoss, FeatureDecodingLoss, masked_l1, masked_l2
@@ -36,6 +39,8 @@ from .models.simpleconv import SimpleConv
 from .norm import BatchScaler
 from .ops.dsp import DSP_VERSION, lowpass_filter
 from .ops.norm import INPUT_TYPES, normalize_clamp_peak
+from .parallel import (DataGroup, all_gather, gather_rows, rank_seed,
+                       replicate, ring_hop)
 from .precision import exact_fp32
 from .studies.api import INVALID_POSITION
 from .utils import write_and_rename
@@ -117,6 +122,8 @@ class Solver:
         self.scaler = scaler
         #: the epoch loop's datasets (``from_datasets``)
         self.datasets: tp.Any = None
+        #: the data-parallel run this solver is a rank of (``set_group``)
+        self.group: tp.Optional[DataGroup] = None
         self.clip_loss: tp.Optional[ClipLoss] = None
         if optim.loss == "clip":
             c = args.clip
@@ -281,40 +288,198 @@ class Solver:
         fn = {"l1": masked_l1, "mse": masked_l2}[self.args.optim.loss]
         return fn(estimate, output, mask, sample_weight=keep)
 
+    def _gathered_clip_loss(self, estimate: torch.Tensor,
+                            output: torch.Tensor, keep: torch.Tensor,
+                            pool: tp.Any, train: bool) -> torch.Tensor:
+        """CLIP loss with the rows of this rank's pool of ranks gathered as
+        extra candidates (``parallel.gather_rows``), this rank's own block
+        among them weighted 0, as the JAX solver's all_gather branch
+        lays them out."""
+        all_out = gather_rows(output, pool)
+        all_keep = all_gather(keep.detach(), pool.group)
+        other = torch.ones(pool.size, dtype=all_keep.dtype,
+                           device=all_keep.device)
+        other[pool.position] = 0
+        extra_w = (all_keep.view(pool.size, -1) * other[:, None]).reshape(-1)
+        return self.clip_loss(estimate, torch.cat([output, all_out]),
+                              sample_weight=keep,
+                              candidate_weight=torch.cat([keep, extra_w]),
+                              train=train)
+
+    def _ring_clip_loss(self, estimate: torch.Tensor, output: torch.Tensor,
+                        keep: torch.Tensor, pool: tp.Any, train: bool
+                        ) -> torch.Tensor:
+        """CLIP loss with the other ranks' rows of the pool passed around
+        its ring (``parallel.ring_negatives``): each of the k - 1 blocks is
+        scored as it arrives, so candidate memory stays at one rank's
+        rows; the columns are those of the JAX solver's ring (this rank's
+        block, then one block a hop), and the loss and its gradients equal
+        the gathered layout's."""
+        clip = self.clip_loss
+        scores = [clip.get_scores(estimate, output, train=train)]
+        weights = [keep]
+        block, weight = output, keep.detach()
+        for _ in range(pool.size - 1):
+            block, weight = ring_hop(block, weight, pool)
+            scores.append(clip.get_scores(estimate, block, train=train))
+            weights.append(weight)
+        return clip.loss_from_scores(torch.cat(scores, dim=1),
+                                     sample_weight=keep,
+                                     candidate_weight=torch.cat(weights))
+
     def _loss_and_aux(self, arrays: tp.Mapping[str, torch.Tensor],
                       pad_weight: torch.Tensor, train: bool
                       ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-        """Forward + loss (+ the merger penalty in training) on the batch.
+        """Forward + loss (+ the merger penalty in training) on the batch,
+        this rank's rows under a group, whose CLIP candidates then take in
+        the other rows of its pool of ``negatives_group_size`` ranks.
         Returns (loss, keep weights [B])."""
         estimate, output, mask, keep, penalty = self._forward(
             arrays, pad_weight, train)
-        loss = self._loss_value(estimate, output, mask, keep, train)
+        k = self._negatives_group_size()
+        if self.clip_loss is not None and k > 1:
+            pool = self.group.pool(k)
+            if self.args.parallel.ring_negatives:
+                loss = self._ring_clip_loss(estimate, output, keep, pool,
+                                            train)
+            else:
+                loss = self._gathered_clip_loss(estimate, output, keep, pool,
+                                                train)
+        else:
+            loss = self._loss_value(estimate, output, mask, keep, train)
         if train:
             loss = loss + penalty
         return loss, keep
+
+    def _trained_modules(self) -> tp.List[torch.nn.Module]:
+        return [m for m in (self.model, self.feature_model) if m is not None]
+
+    def _synchronize(self, loss: torch.Tensor, keep: torch.Tensor,
+                     count: torch.Tensor, grads: bool = False,
+                     stats: bool = False) -> tp.Dict[str, torch.Tensor]:
+        """{"loss", "keep", "count"} over the group, in one all-reduce
+        with, when asked, the gradients and the BatchNorm running
+        statistics: the loss, the gradients and the statistics averaged
+        over the ranks (the JAX step's pmean), keep and count summed. A
+        parameter keeps no gradient when no rank gave it one."""
+        if self.group is None:
+            return {"loss": loss, "keep": keep, "count": count}
+        params = [p for m in self._trained_modules()
+                  for p in m.parameters() if p.requires_grad] if grads else []
+        buffers = [b for m in self._trained_modules() for mod in m.modules()
+                   if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm)
+                   and mod.running_mean is not None
+                   for b in (mod.running_mean, mod.running_var)] \
+            if stats else []
+        # one buffer: the scalars, which parameters have a gradient, the
+        # gradients (zeros where missing), the statistics
+        head = torch.stack([loss.float(), keep.float(), count.float()])
+        have = torch.tensor([p.grad is not None for p in params],
+                            dtype=torch.float32, device=loss.device)
+        parts = [torch.zeros(p.numel(), device=loss.device) if p.grad is None
+                 else p.grad.reshape(-1).float() for p in params]
+        parts += [b.reshape(-1).float() for b in buffers]
+        flat = self.group.all_reduce(torch.cat([head, have, *parts]))
+        size = self.group.size
+        (loss_sum, keep_sum, count_sum), had, *values = flat.split(
+            [3, len(params)] + [t.numel() for t in params + buffers])
+        # read back (a sync) only when this rank lacks a gradient
+        had = had.tolist() if any(p.grad is None for p in params) \
+            else [1.] * len(params)
+        for param, value, any_rank in zip(params, values, had):
+            value = value.view(param.shape) / size
+            if param.grad is not None:
+                param.grad.copy_(value)
+            elif any_rank > 0:
+                param.grad = value.to(param.dtype)
+        for buffer, value in zip(buffers, values[len(params):]):
+            buffer.copy_(value.view(buffer.shape) / size)
+        return {"loss": (loss_sum / size).to(loss.dtype), "keep": keep_sum,
+                "count": count_sum}
+
+    @exact_fp32()
+    def loss_and_grad(self, arrays: tp.Mapping[str, torch.Tensor],
+                      pad_weight: torch.Tensor, train: bool = True
+                      ) -> tp.Dict[str, torch.Tensor]:
+        """Forward (in train mode with `train`), loss and backward, with no
+        update: each parameter's ``.grad`` then holds the gradient of the
+        loss, under a group of the mean of the ranks' losses, and in
+        train mode the BatchNorm running statistics moved (under a group,
+        to their mean over the ranks). Returns device scalars {"loss",
+        "keep", "count"}, the loss averaged and keep and count summed over
+        the ranks."""
+        for module in self._trained_modules():
+            module.zero_grad(set_to_none=True)
+        loss, keep = self._loss_and_aux(arrays, pad_weight, train)
+        loss.backward()
+        return self._synchronize(loss.detach(), keep.sum(), pad_weight.sum(),
+                                 grads=True, stats=train)
 
     @exact_fp32()
     def step(self, arrays: tp.Mapping[str, torch.Tensor],
              pad_weight: torch.Tensor, train: bool
              ) -> tp.Dict[str, torch.Tensor]:
-        """One step on a batch: with `train`, forward in train mode, loss,
-        backward and an optimizer update (BatchNorm running statistics
-        move during the forward); without, the eval-mode loss and no
-        update. Returns device scalars {"loss", "keep", "count"}; after a
+        """One step on a batch (this rank's rows under a group): with
+        `train`, ``loss_and_grad`` in train mode and an optimizer update;
+        without, the eval-mode loss and no update. Returns device scalars
+        {"loss", "keep", "count"} (over the ranks under a group); after a
         training step each parameter's ``.grad`` holds its gradient. All
         of it runs with TF32 off (``precision.exact_fp32``)."""
         if train:
             if self.optimizer is None:
                 raise ValueError("a training step needs an optimizer")
-            self.optimizer.zero_grad(set_to_none=True)
-            loss, keep = self._loss_and_aux(arrays, pad_weight, True)
-            loss.backward()
+            metrics = self.loss_and_grad(arrays, pad_weight, True)
             self.optimizer.step()
-            loss = loss.detach()
-        else:
-            with torch.no_grad():
-                loss, keep = self._loss_and_aux(arrays, pad_weight, False)
-        return {"loss": loss, "keep": keep.sum(), "count": pad_weight.sum()}
+            return metrics
+        with torch.no_grad():
+            loss, keep = self._loss_and_aux(arrays, pad_weight, False)
+        return self._synchronize(loss, keep.sum(), pad_weight.sum())
+
+    # -- ranks ----------------------------------------------------------------
+
+    def set_group(self, group: tp.Optional[DataGroup]) -> None:
+        """Train and evaluate as one rank of `group` (``parallel.
+        DataGroup``; None: alone), the counterpart of the JAX solver's
+        ``set_mesh``. Every rank starts from rank 0's weights and buffers
+        (``parallel.replicate``); a step takes this rank's rows of the
+        global batch (the loaders of ``from_datasets`` then build only
+        those) and averages the loss, the gradients and the BatchNorm
+        running statistics over the ranks, each rank's BatchNorm
+        normalizing with its own batch statistics as under the JAX
+        step's shard_map; the CLIP candidates are the rows of this rank's
+        pool of ``negatives_group_size`` ranks; ``forward_batch`` splits a
+        batch over the ranks and gives each rank all its rows; the merger
+        draws its dropout on each rank from its own stream
+        (``parallel.rank_seed``)."""
+        self.group = group
+        if group is not None:
+            self._negatives_group_size()
+            replicate(self._trained_modules(), group)
+        for name, loader in getattr(self, "loaders", {}).items():
+            if name in ("train", "valid"):
+                loader.rows = None if group is None else \
+                    group.rows(loader.batch_size)
+
+    def _negatives_group_size(self) -> int:
+        """Ranks per CLIP candidate pool: ``negatives_group_size`` with 0
+        for all of them, checked against the group (1 alone)."""
+        k = self.args.parallel.negatives_group_size
+        if self.group is None:
+            return 1
+        d = self.group.size
+        if k == 0:
+            return d
+        if not (1 <= k <= d and d % k == 0):
+            raise ValueError(f"parallel.negatives_group_size={k} must divide "
+                             f"the number of ranks {d}")
+        return k
+
+    def local_rows(self, n_global: int) -> slice:
+        """This rank's row block of a global batch of `n_global` rows (all
+        of them alone, or when they do not divide over the ranks)."""
+        if self.group is None or n_global % self.group.size:
+            return slice(0, n_global)
+        return self.group.rows(n_global)
 
     # -- the epoch loop ------------------------------------------------------
 
@@ -419,21 +584,33 @@ class Solver:
         ``parallel.transfer_dtype``). `pad_weight` [B] (ones when None) is
         0 for the rows a loader adds to fill its last batch; those rows
         are not kept."""
+        n = len(batch.meg)
+        rows = self.local_rows(n)
+        split = rows != slice(0, n)
+        if split:
+            # this rank's rows cross to the card; every rank gets all rows
+            batch = types.SimpleNamespace(**{
+                name: getattr(batch, name)[rows] for name in ARRAY_FIELDS})
         arrays = to_device(batch, self.device, transfer_dtype)
         if pad_weight is None:
             pad_weight = torch.ones(arrays["meg"].shape[0],
                                     dtype=torch.float32, device=self.device)
         else:
-            pad_weight = _on(pad_weight, self.device).float()
-        estimate, output, mask, keep, _ = self._forward(arrays, pad_weight)
+            pad_weight = _on(pad_weight[rows] if split else pad_weight,
+                             self.device).float()
+        out = self._forward(arrays, pad_weight)[:4]
+        if split:
+            out = [self.group.all_gather(t) for t in out]
+        estimate, output, mask, keep = out
         return estimate, output, mask, keep > 0.5
 
     def _run_one_epoch(self, training: bool) -> tp.Dict[str, float]:
         """One pass of the train or valid loader (at most
         ``optim.max_batches`` batches); the losses stay on the device
         until the epoch's end. The merger's dropout generator is seeded
-        from (seed, epoch, phase), so that a resumed run draws the disks
-        the uninterrupted one would."""
+        by ``dropout_seed``, so that a resumed run draws the disks the
+        uninterrupted one would. Under a group the loaders give this
+        rank's rows (``set_group``)."""
         args = self.args
         phase = "train" if training else "valid"
         loader = self.loaders[phase]
@@ -442,8 +619,7 @@ class Solver:
         if args.optim.max_batches:
             total = min(total, args.optim.max_batches)
         if self.generator is not None:
-            self.generator.manual_seed(args.seed + self.epoch * 1000
-                                       + (0 if training else 1))
+            self.generator.manual_seed(self.dropout_seed(training))
         train = training and self.optimizer is not None
         losses, keeps, counts = [], [], []
         for idx, (batch, pad_weight) in enumerate(loader):
@@ -472,6 +648,20 @@ class Solver:
             self.best_state = self._copy_params()
         return metrics
 
+    def dropout_seed(self, training: bool) -> int:
+        """The merger's dropout seed for this epoch's train or valid pass:
+        from (seed, epoch, phase), and under a group this rank's own
+        stream of it (``parallel.rank_seed``)."""
+        seed = self.args.seed + self.epoch * 1000 + (0 if training else 1)
+        return seed if self.group is None else rank_seed(seed,
+                                                         self.group.rank)
+
+    @property
+    def lead(self) -> bool:
+        """Whether this solver writes the XP folder: alone, or as rank 0
+        of its group."""
+        return self.group is None or self.group.lead
+
     def train(self) -> float:
         """Epochs ``self.epoch`` .. ``optim.epochs``: train, valid, and the
         test stage every ``eval_every`` epochs (and at the last) with the
@@ -479,7 +669,8 @@ class Solver:
         the last test; early stopping after ``early_stop_patience`` epochs
         without a better valid loss; a checkpoint after every epoch, and
         ``done-torch.json`` at the end (the loop never reads it to skip a
-        run). Returns the best valid loss."""
+        run), written under a group by rank 0 while the others wait.
+        Returns the best valid loss."""
         args = self.args
         if self.history:
             logger.info("Replaying %d past epochs of metrics",
@@ -525,9 +716,13 @@ class Solver:
             self.commit()
             if will_stop:
                 break
-        with write_and_rename(self.folder / tagged("done.json"), "w") as f:
-            json.dump({"epochs": self.epoch,
-                       "best_loss": float(self.best_loss)}, f)
+        if self.lead:
+            with write_and_rename(self.folder / tagged("done.json"),
+                                  "w") as f:
+                json.dump({"epochs": self.epoch,
+                           "best_loss": float(self.best_loss)}, f)
+        if self.group is not None:
+            self.group.barrier()
         return self.best_loss
 
     @property
@@ -607,7 +802,10 @@ class Solver:
         optimizer's state dicts, the best state, the history and the
         loop's counters) and ``history-torch.json``, each through a
         rename. The port writes as the epoch ends (``checkpoint_async`` is
-        not read)."""
+        not read); under a group rank 0 writes while the others wait."""
+        if not self.lead:
+            self.group.barrier()
+            return
         payload = dict(
             model=self.model.state_dict(),
             feature_model=(None if self.feature_model is None
@@ -625,6 +823,8 @@ class Solver:
         with write_and_rename(self.folder / tagged("history.json"),
                               "w") as f:
             json.dump(self.history, f, indent=1, default=float)
+        if self.group is not None:
+            self.group.barrier()
 
     def _load_checkpoint(self, path: tp.Any) -> tp.Dict[str, tp.Any]:
         with open(path, "rb") as f:

@@ -16,6 +16,21 @@ It runs on the CUDA card (``device``, "cuda" by default); ``device=cpu``
 is the only way onto the CPU, and without a CUDA device the CLI raises at
 once.
 
+On N cards of one host, one rank a card, NCCL between them (gloo with
+``device=cpu``):
+
+    python -m torch.distributed.run --standalone --nproc_per_node=N \
+        -m brainmagick_tpu_torch.train preset=clip_conv_v5e8 ...
+
+Every rank draws the same seeded global batch of ``optim.batch_size``
+and trains on its block of it (``Solver.set_group``); the batch must
+divide over the ranks. A launch of several ranks always trains as one
+run: ``parallel.auto_mesh=false`` is refused there, and no rank falls
+back to training alone. ``parallel.distributed_init`` is accepted (the
+launcher's environment is always read). Rank 0 builds the datasets first
+(the others then read its caches) and alone writes the XP folder; a
+resume loads the checkpoint on every rank.
+
 ``Trainer`` is the counterpart of ``get_solver`` for a caller that brings
 its own batches:
 
@@ -35,7 +50,9 @@ import ast
 import dataclasses
 import hashlib
 import itertools
+import json
 import logging
+import os
 import sys
 import time
 import typing as tp
@@ -43,7 +60,7 @@ import typing as tp
 import torch
 
 from . import dataset as dset
-from . import models
+from . import models, ops, parallel
 from .config import DELETED, MainConfig, apply_preset
 from .convert import load_jax_params
 from .dataset import to_device
@@ -140,7 +157,8 @@ class Trainer:
 
 def get_device(args: tp.Any) -> torch.device:
     """``args.device``: "cuda" (the default), refused when no CUDA device
-    is visible, or "cpu"."""
+    is visible, or "cpu". Under a launcher, "cuda" is this rank's card,
+    ``cuda:LOCAL_RANK``."""
     try:
         device = torch.device(args.device)
     except RuntimeError:
@@ -151,7 +169,37 @@ def get_device(args: tp.Any) -> torch.device:
         raise RuntimeError(
             f"device={args.device!r} but no CUDA device is visible; "
             f"pass device=cpu to run on the CPU")
+    if device.type == "cuda" and device.index is None \
+            and parallel.launched():
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
     return device
+
+
+def join_launcher(args: tp.Any, check_batch: bool = True
+                  ) -> tp.Optional[parallel.DataGroup]:
+    """Under ``python -m torch.distributed.run``: this process joins the
+    launcher's ranks on its device (``parallel.init_distributed``: its
+    own card over NCCL, or the CPU over gloo) and the run's
+    ``DataGroup`` is returned; without a launcher, None. With several
+    ranks, ``parallel.auto_mesh=false`` and (`check_batch`) an
+    ``optim.batch_size`` that does not divide over them raise: the
+    launcher started one run."""
+    if not parallel.launched():
+        return None
+    world = int(os.environ["WORLD_SIZE"])
+    if not args.parallel.auto_mesh:
+        if world > 1:
+            raise ValueError(
+                f"parallel.auto_mesh=false under a launcher of {world} "
+                f"ranks: each rank would train the whole batch alone")
+        return None
+    if check_batch and args.optim.batch_size % world:
+        raise ValueError(
+            f"auto_mesh: batch_size {args.optim.batch_size} does not divide "
+            f"over {world} devices. Set a divisible optim.batch_size or "
+            f"launch another number of ranks.")
+    parallel.init_distributed(get_device(args))
+    return parallel.DataGroup()
 
 
 def build_datasets(args: tp.Any) -> dset.Datasets:
@@ -198,29 +246,35 @@ def build_model(args: tp.Any, datasets: dset.Datasets,
                               device, generator, features_dimension)
 
 
-def get_solver(args: tp.Any, training: bool = True) -> Solver:
+def get_solver(args: tp.Any, training: bool = True,
+               group: tp.Optional[parallel.DataGroup] = None) -> Solver:
     """Datasets, model and feature model (each initialized from a
     generator seeded with ``seed``), Adam over both when `training`, and
-    the dataset-driven solver (``Solver.from_datasets``)."""
+    the dataset-driven solver (``Solver.from_datasets``); with `group`
+    (``join_launcher``), built on rank 0 first and then on the others,
+    and a rank of that group (``Solver.set_group``)."""
     device = get_device(args)
-    t0 = time.perf_counter()
-    datasets = build_datasets(args)
-    t_datasets = time.perf_counter() - t0
-    if args.download_only:
-        sys.exit(0)
-    model = build_model(args, datasets, device,
-                        torch.Generator().manual_seed(args.seed))
-    feature_model = models.build_feature_model(
-        args, model_widths(args, datasets)[1], device,
-        torch.Generator().manual_seed(args.seed))
-    optimizer = build_optimizer(
-        args, trained_parameters(model, feature_model)) if training \
-        else None
-    solver = Solver.from_datasets(
-        args, datasets, model, optimizer,
-        generator=torch.Generator(device=device).manual_seed(args.seed),
-        feature_model=feature_model)
+    with parallel.lead_first(group):
+        t0 = time.perf_counter()
+        datasets = build_datasets(args)
+        t_datasets = time.perf_counter() - t0
+        if args.download_only:
+            sys.exit(0)
+        model = build_model(args, datasets, device,
+                            torch.Generator().manual_seed(args.seed))
+        feature_model = models.build_feature_model(
+            args, model_widths(args, datasets)[1], device,
+            torch.Generator().manual_seed(args.seed))
+        optimizer = build_optimizer(
+            args, trained_parameters(model, feature_model)) if training \
+            else None
+        solver = Solver.from_datasets(
+            args, datasets, model, optimizer,
+            generator=torch.Generator(device=device).manual_seed(args.seed),
+            feature_model=feature_model)
     solver.build_timings["datasets"] = t_datasets
+    if group is not None:
+        solver.set_group(group)
     return solver
 
 
@@ -231,16 +285,24 @@ def run(args: tp.Any) -> float:
 
 
 def _run(args: tp.Any) -> float:
+    group = join_launcher(args)
     level = logging.DEBUG if args.verbose else logging.INFO
+    rank = "" if group is None else f"[rank {group.rank}] "
     logging.basicConfig(level=level,
-                        format="%(levelname)s %(name)s: %(message)s")
-    solver = get_solver(args)
+                        format=f"%(levelname)s {rank}%(name)s: %(message)s")
+    solver = get_solver(args, group=group)
+    if group is not None:
+        logger.info("Data-parallel run over %d rank(s) (%s); contrastive "
+                    "negative groups of %d", group.size, group.backend,
+                    solver._negatives_group_size())
     logger.info("Model hash: %s", model_hash(solver.model))
     if args.show:
         n_params = sum(p.numel() for p in solver.model.parameters())
         logger.info("Size: %.1f MB", n_params * 4 / 2 ** 20)
         return 0.0
-    return solver.train()
+    best = solver.train()
+    logger.info("Kernel launches: %s", json.dumps(ops.launch_counts()))
+    return best
 
 
 def parse_overrides(argv: tp.Sequence[str],

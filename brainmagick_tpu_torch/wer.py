@@ -8,8 +8,11 @@ caller builds. Every estimate is ranked against up to
 ``test.wer_negatives`` outputs drawn with the config's seed, its own output
 taking the last negative's place; the result is the top-``test.wer_topx``
 error over samples and over the word vocabulary. The pool is scored by
-``losses.streamed_scores`` (``nt_matmul`` on a CUDA device), inside
-``precision.exact_fp32``.
+``losses.pool_scores`` (``nt_matmul`` on a CUDA device), inside
+``precision.exact_fp32``. As a rank of a data-parallel run, a solver's
+forwards split each batch over the ranks (``Solver.forward_batch``) and
+so does the scoring; every rank gets every row, and so the one-card
+metrics.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from .eval import check_index, host_array, solver_batches
-from .losses import commit_rows, refuse_int8_pool, streamed_scores
+from .losses import commit_rows, pool_scores, refuse_int8_pool
 from .precision import exact_fp32
 
 logger = logging.getLogger(__name__)
@@ -59,7 +62,8 @@ def get_wer(server: tp.Any, batches: tp.Iterable[tp.Any],
             ) -> tp.Dict[str, float]:
     """{"wer", "wer_vocab", "wer_n_vocab"} over the batches' kept rows.
     `stats`, when given, gains the transfer counts of
-    ``losses.streamed_scores`` and the own-output pass's commits."""
+    ``losses.streamed_scores`` (this rank's, under a group) and the
+    own-output pass's commits."""
     args = server.args
     test_args = args.test
     clip = server.clip
@@ -103,8 +107,8 @@ def get_wer(server: tp.Any, batches: tp.Iterable[tp.Any],
     fixed_hashes = negative_hashes[:-1]
     n = len(estimates)
     scores = np.empty((n, len(fixed_all) + 1), dtype=np.float32)
-    scores[:, :-1] = streamed_scores(clip, estimates, fixed_all, device,
-                                     chunk=CHUNK, stats=stats)
+    scores[:, :-1] = pool_scores(server, clip, estimates, fixed_all,
+                                 chunk=CHUNK, stats=stats)
     for lo in range(0, n, CHUNK):
         est = commit_rows(estimates[lo:lo + CHUNK], device)
         own = commit_rows(outputs[lo:lo + CHUNK], device)

@@ -163,7 +163,23 @@ check raises, so the script exits non-zero and prints no result:
    train steps of the second, restored by signature, its mask on the card
    (grid_subsample_steps); each XP's warm step in device time and peak
    memory, the phase's wall seconds; each kernel against its plain
-   version at the phase's shapes, added to its other_shapes.
+   version at the phase's shapes, added to its other_shapes;
+14. data-parallel training through torch.distributed on the same tree
+   (``run_parallel_phase``): the train CLI under ``python -m
+   torch.distributed.run --standalone --nproc_per_node=1`` (one rank,
+   NCCL) with ``preset=clip_conv_v5e8 optim.batch_size=256`` for
+   PARALLEL_BATCHES batches, a valid and a test stage, against the same
+   overrides without the launcher (losses and test metrics within
+   LAUNCHER_TOL, the same launches; parallel_launcher, parallel_cli);
+   then two ranks sharing the card over gloo (NCCL takes one rank a
+   card) at PARALLEL_RANK_B a rank in the clip_conv_tpu recipe:
+   negatives_group_size=0's eval-mode loss and gradients against one
+   rank at twice the batch, PARALLEL_STEPS train steps with the
+   negatives gathered over both ranks and passed around their ring (the
+   ring's held to the gathered), ``losses.ring_scores`` against one
+   card's scores, each rank's step device time, peak memory, launches
+   (parallel_ranks) and the collectives' share of a profiled step; each
+   kernel at the per-rank shapes, added to its other_shapes.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it raises at once.
@@ -3306,6 +3322,425 @@ def run_grid_phase(device: torch.device, card_name: str, work: Path
     return launches_by_path, shapes
 
 
+#: phase 14: data-parallel training over torch.distributed. The CLI under
+#: the launcher (one rank, NCCL) trains the weak-scaling 8-card preset at
+#: B=256 for PARALLEL_BATCHES batches on the kept gwilliams2022 tree,
+#: beside the same overrides without the launcher
+PARALLEL_ARGS = ("preset=clip_conv_v5e8", "optim.batch_size=256",
+                 "simpleconv.fused_conv_bn=True",
+                 'dset.features=["MelSpectrum"]', "optim.epochs=1",
+                 "dset.n_recordings=2", f"dset.selections=[{KEPT_STUDY!r}]")
+PARALLEL_BATCHES = 3
+#: the launcher's run against the same run without it: each loss
+#: relative, each test metric absolute (two processes, one card, the same
+#: seeds: only the order of the card's float sums may differ)
+LAUNCHER_TOL = 1e-3
+#: two ranks sharing the card over gloo, the clip_conv_tpu recipe at this
+#: batch a rank: PARALLEL_STEPS train steps each with negatives gathered
+#: over both ranks and passed around their ring
+PARALLEL_RANK_B = 128
+PARALLEL_STEPS = 2
+#: the ranks' ring scoring: estimates x candidates, at SCORE_K
+PARALLEL_RING = (64, 256)
+
+
+def _rank_run(device, group, arrays, weight, out: dict, **parallel) -> dict:
+    """PARALLEL_STEPS recipe train steps of a rank of `group` on its rows,
+    timed with CUDA events (the host clock on the CPU, where a rehearsal
+    runs); the first step's held gradients. Before the first run's steps,
+    the eval-mode loss and gradients with negatives_group_size=0 into
+    `out`["eval"], and the fused layers into `out`["fused"]."""
+    cuda = device.type == "cuda"
+    trainer = build_trainer(device, RECIPE)
+    trainer.solver.set_group(group)
+    if "eval" not in out:
+        out["fused"] = sum(trainer.model.encoders["meg"].fused)
+        trainer.args.parallel.negatives_group_size = 0
+        metrics = trainer.solver.loss_and_grad(arrays, weight, train=False)
+        out["eval"] = dict(loss=metrics["loss"].item(), grads={
+            name: _grad(trainer.model, name) for name in HELD_LEAVES})
+    for key, value in parallel.items():
+        setattr(trainer.args.parallel, key, value)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, grads = [], [], None
+    for _ in range(PARALLEL_STEPS):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        losses.append(trainer.solver.step(arrays, weight, True)["loss"])
+        if cuda:
+            end.record()
+            end.synchronize()
+        step_ms.append(start.elapsed_time(end) if cuda
+                       else (time.perf_counter() - t0) * 1e3)
+        if grads is None:
+            grads = {name: _grad(trainer.model, name) for name in HELD_LEAVES}
+    return dict(losses=[x.item() for x in losses], grads=grads,
+                step_ms=step_ms, trainer=trainer,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda
+                else float("nan"))
+
+
+def _rank_body(device_type: str) -> dict:
+    """One rank of phase 14's two ranks on the card: the k=0 eval-mode
+    loss and gradients, the gathered and the ring train steps, one warm
+    gathered step in torch.profiler (the collectives' ``parallel.*``
+    ranges), and the ring scoring of PARALLEL_RING; the launch counts of
+    all but the profiled step."""
+    from brainmagick_tpu_torch import dataset, losses, ops, parallel
+
+    device = parallel.init_distributed(device_type, backend="gloo")
+    group = parallel.DataGroup()
+    norm_arrays, _ = seeded_arrays()
+    batch = make_request(np.random.RandomState(SEED + 14),
+                         group.size * PARALLEL_RANK_B,
+                         norm_arrays["rec_positions"])
+    local, weight = parallel.slice_global_batch(
+        {name: getattr(batch, name) for name in dataset.ARRAY_FIELDS},
+        np.ones(len(batch.meg), np.float32), group.rank, group.size)
+    arrays = dataset.to_device(types.SimpleNamespace(**local), device,
+                               "bfloat16")
+    weight = torch.from_numpy(weight).to(device)
+    out: dict = {"rank": group.rank}
+    ops.reset_launch_counts()
+    runs = {name: _rank_run(device, group, arrays, weight, out,
+                            negatives_group_size=2, ring_negatives=ring)
+            for name, ring in (("gathered", False), ("ring", True))}
+    gen = torch.Generator().manual_seed(SEED + 15)
+    est, pool = (torch.randn((n, SCORE_K), generator=gen).numpy()
+                 for n in PARALLEL_RING)
+    scores = losses.ring_scores(group, est, pool, torch.bfloat16, device)
+    out["launches"] = ops.launch_counts()
+    out["routes"] = dict(ops.conv_stats.launches_by_route)
+    out["by_dtype"] = dict(ops.conv_stats.launches_by_dtype)
+    if group.lead:
+        clip = losses.ClipLoss(compute_dtype="bfloat16")
+        want = losses.retrieval_scores(
+            clip, torch.from_numpy(est).to(device),
+            torch.from_numpy(pool).to(device)).cpu().numpy()
+        # MATMUL_TOL's measure: a score is a_m . b_n / |b_n|
+        out["ring_scores_err"] = float((np.abs(scores - want) / np.linalg.norm(
+            est, axis=1)[:, None]).max())
+    # one warm gathered step, profiled on every rank (the collectives
+    # meet), its collectives' ranges against the step's host time
+    trainer = runs["gathered"].pop("trainer")
+    runs["ring"].pop("trainer")
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        trainer.solver.step(arrays, weight, True)
+        sync()
+        step_s = time.perf_counter() - t0
+    # a range's CUDA-side annotation has the same key and no host time
+    ranges: dict = {}
+    for event in prof.key_averages():
+        if event.key.startswith("parallel."):
+            ranges[event.key] = max(ranges.get(event.key, 0.),
+                                    event.cpu_time_total / 1e3)
+    out.update(runs=runs, profiled_step_ms=step_s * 1e3,
+               collective_ms=ranges)
+    return out
+
+
+def _rank_main(rank: int, world: int, port: int, device_type: str,
+               out: str) -> None:
+    """A spawned rank of phase 14 (the card shared, gloo between the
+    ranks): its ``_rank_body`` or its traceback, pickled into
+    `out`.<rank>."""
+    import os
+    import pickle
+    import traceback
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    torch.set_num_threads(2)
+    try:
+        from brainmagick_tpu_torch.ops import _build
+        if device_type == "cuda":
+            _build.library()
+        result = (True, _rank_body(device_type))
+    except BaseException:  # noqa: BLE001 - sent to the parent
+        result = (False, traceback.format_exc())
+    with open(f"{out}.{rank}.tmp", "wb") as f:
+        pickle.dump(result, f)
+    os.replace(f"{out}.{rank}.tmp", f"{out}.{rank}")
+
+
+def _check_rank_launches(result: dict) -> None:
+    """A rank of phase 14 launched normalize once a forward, conv_stats
+    once a fused layer a train step, all bf16 on "tc" (none in the
+    eval-mode step), and nt_matmul once a ring hop."""
+    convs = result["fused"] * 2 * PARALLEL_STEPS
+    want = dict(conv_stats=convs, normalize_clamp_peak=1 + 2 * PARALLEL_STEPS,
+                nt_matmul=2)
+    if result["launches"] != want or result["routes"] != {"tc": convs} \
+            or result["by_dtype"]["bfloat16"] != convs:
+        raise AssertionError(f"rank {result['rank']} launched "
+                             f"{result['launches']} ({result['routes']}, "
+                             f"{result['by_dtype']}), want {want}")
+
+
+def run_ranks_on_one_card(device: torch.device, card_name: str,
+                          work: Path, world: int = 2,
+                          timeout: float = 300.) -> list:
+    """`world` spawned ranks of ``_rank_body`` sharing the card; their
+    results, or AssertionError with a failing rank's traceback. Every rank
+    still running at `timeout` is killed."""
+    import pickle
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out = str(work / "parallel_rank")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, world, port, device.type, out))
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    end = time.monotonic() + timeout
+    try:
+        for proc in procs:
+            proc.join(max(0., end - time.monotonic()))
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    results = []
+    for r, proc in enumerate(procs):
+        path = Path(f"{out}.{r}")
+        if not path.exists():
+            raise AssertionError(f"phase 14 rank {r}: no result (exit code "
+                                 f"{proc.exitcode})")
+        ok, value = pickle.loads(path.read_bytes())
+        if not ok:
+            raise AssertionError(f"phase 14 rank {r} ({card_name}):\n{value}")
+        results.append(value)
+    return results
+
+
+def _launcher_run(device: torch.device, card_name: str, work: Path,
+                  argv: list) -> tuple:
+    """``python -m torch.distributed.run --standalone --nproc_per_node=1
+    -m brainmagick_tpu_torch.train <argv>`` in a subprocess, the card's
+    rank over NCCL (gloo on the CPU); returns (the launch counts its log
+    ends with, its log, its wall seconds)."""
+    import os
+    import re
+    import sys
+
+    from brainmagick_tpu_torch.env import env
+
+    repo = Path(__file__).resolve().parent
+    environ = dict(env.environ(), PYTHONPATH=str(repo), OMP_NUM_THREADS="4")
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        environ.pop(key, None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", "-m", "brainmagick_tpu_torch.train", *argv],
+        cwd=repo, env=environ, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    found = re.findall(r"Kernel launches: (\{.*\})", log)
+    if proc.returncode or not found or \
+            f"Data-parallel run over 1 rank(s) ({backend})" not in log:
+        print(log[-6000:])
+        raise AssertionError(f"the launcher's run exited {proc.returncode}"
+                             f" ({card_name})")
+    return json.loads(found[-1]), log, wall
+
+
+def run_parallel_phase(device: torch.device, card_name: str, work: Path,
+                       study_shape: tp.Optional[dict] = None) -> tuple:
+    """Phase 14: data-parallel training through torch.distributed.
+
+    1. The train CLI under the launcher (one rank on the card over NCCL)
+       with PARALLEL_ARGS for PARALLEL_BATCHES batches, a valid and a test
+       stage on the kept gwilliams2022 tree, against the same overrides
+       without the launcher (``run_cli``): the losses and the test metrics
+       within LAUNCHER_TOL, the same launches of every kernel, conv_stats
+       10 times a train step in bf16 on "tc", nt_matmul in the test
+       stage.
+    2. Two ranks sharing the card over gloo (NCCL takes one rank a card;
+       gloo carries the CUDA tensors through host copies), the recipe at
+       PARALLEL_RANK_B a rank: negatives_group_size=0's eval-mode loss and
+       gradients against one rank at 2 x PARALLEL_RANK_B on the same batch
+       at RECIPE_TOL / RECIPE_GRAD_TOL; PARALLEL_STEPS train steps with the
+       negatives gathered over both ranks and passed around their ring,
+       the ring's against the gathered at the same tolerances, and every
+       rank's weights alike; ring_scores over the ranks against one
+       card's scores; each rank's warm step, peak memory and launches,
+       and the collectives' share of a profiled step.
+
+    `study_shape` is phase 9's gwilliams2022 run's ``check_cli_shapes``
+    arguments, which part 1's must equal. Returns ({path: launch counts},
+    {path: ``check_cli_shapes`` arguments})."""
+    from brainmagick_tpu_torch import dataset
+    from brainmagick_tpu_torch.env import env
+    from brainmagick_tpu_torch.train import parse_overrides
+
+    t_phase = time.perf_counter()
+    cpu = [] if device.type == "cuda" else ["device=cpu"]
+    common = [*PARALLEL_ARGS, f"optim.max_batches={PARALLEL_BATCHES}",
+              f"cache={work}/cache_{KEPT_STUDY}", *cpu]
+    histories, launches_by_path = {}, {}
+    with env.temporary(studies={KEPT_STUDY: work / KEPT_STUDY}):
+        launched, log, launcher_s = _launcher_run(
+            device, card_name, work,
+            common + [f"out_dir={work}/parallel_launcher"])
+        alone = common + [f"out_dir={work}/parallel_alone"]
+        launches, routes, by_dtype, spy, alone_s, peak_gb = run_cli(
+            alone, "parallel: the same run without the launcher", card_name)
+    solver = spy.solver
+    fused = sum(sum(e.fused) for e in solver.model.encoders.values())
+    steps = _check_cli_launches("parallel alone", launches, routes, by_dtype,
+                                spy, "bfloat16", fused=fused)
+    step_ms = spy.train_step_ms()
+    n_test = len(solver.datasets.test)
+    channels = solver.datasets.train[0].meg.shape[0]
+    n_mels = solver.used_features["MelSpectrum"].n_mels
+    del solver, spy
+    torch.cuda.empty_cache()
+    if launched != launches:
+        raise AssertionError(f"the launcher's run launched {launched}, the "
+                             f"run without it {launches}")
+    for name, out_dir in (("launcher", "parallel_launcher"),
+                          ("alone", "parallel_alone")):
+        folder = Path(parse_overrides(
+            common + [f"out_dir={work}/{out_dir}"]).xp_folder)
+        histories[name] = _read_history(folder, 1, f"parallel {name}")[0]
+    diffs = {}
+    for stage, metrics in histories["alone"].items():
+        for key, value in metrics.items():
+            got = histories["launcher"][stage][key]
+            diffs[f"{stage} {key}"] = abs(got - value) / abs(value) \
+                if stage != "test" else abs(got - value)
+    backend = "NCCL" if device.type == "cuda" else "gloo"
+    print(f"parallel, the CLI under the launcher ({card_name}): one rank "
+          f"over {backend}, {launcher_s:.1f} s (the launcher's start, the "
+          f"datasets from the cache, {steps} train steps, valid and test); "
+          f"history {histories['launcher']}; without the launcher "
+          f"{alone_s:.1f} s, history {histories['alone']}, train step "
+          f"device time {[round(x, 2) for x in step_ms]} ms, peak device "
+          f"memory {peak_gb:.2f} GB; differences {diffs} (tol "
+          f"{LAUNCHER_TOL}); kernel launches {launched} in both")
+    if not all(d <= LAUNCHER_TOL for d in diffs.values()):
+        raise AssertionError(f"the launcher's run against the run without "
+                             f"it: {diffs}")
+    launches_by_path["parallel_launcher"] = launched
+    launches_by_path["parallel_cli"] = launches
+
+    # 2. two ranks on the card; the reference: one rank at the whole batch
+    norm_arrays, _ = seeded_arrays()
+    batch = make_request(np.random.RandomState(SEED + 14),
+                         2 * PARALLEL_RANK_B, norm_arrays["rec_positions"])
+    trainer = build_trainer(device, RECIPE)
+    metrics = trainer.solver.loss_and_grad(
+        dataset.to_device(batch, device, "bfloat16"),
+        torch.ones(2 * PARALLEL_RANK_B, device=device), train=False)
+    want = dict(loss=metrics["loss"].item(), grads={
+        name: _grad(trainer.model, name) for name in HELD_LEAVES})
+    del trainer, metrics
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks_on_one_card(device, card_name, work)
+    ranks_s = time.perf_counter() - t0
+
+    def errors(got: dict, ref: dict) -> dict:
+        errs = {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"])}
+        errs.update({f"grad {name}": _norm_err(got["grads"][name],
+                                               ref["grads"][name])
+                     for name in HELD_LEAVES})
+        return errs
+
+    for result in ranks:
+        r = result["rank"]
+        errs = errors(result["eval"], want)
+        _check_errors(errs, RECIPE_TOL, f"rank {r} k=0 eval-mode step",
+                      RECIPE_GRAD_TOL)
+        gathered, ring = result["runs"]["gathered"], result["runs"]["ring"]
+        ring_errs = {f"step {i} loss": abs(a - b) / abs(b) for i, (a, b)
+                     in enumerate(zip(ring["losses"], gathered["losses"]))}
+        ring_errs.update(errors(dict(loss=ring["losses"][0],
+                                     grads=ring["grads"]),
+                                dict(loss=gathered["losses"][0],
+                                     grads=gathered["grads"])))
+        _check_errors(ring_errs, RECIPE_TOL, f"rank {r} ring against "
+                      f"gathered", RECIPE_GRAD_TOL)
+        _check_rank_launches(result)
+        if not all(np.isfinite(x) for x in gathered["losses"]
+                   + ring["losses"]):
+            raise AssertionError(f"rank {r} losses {gathered['losses']} "
+                                 f"{ring['losses']}")
+        share = sum(result["collective_ms"].values()) \
+            / result["profiled_step_ms"]
+        print(f"parallel, rank {r} of 2 on the one card over gloo "
+              f"({card_name}): k=0 eval-mode step against one rank at "
+              f"B={2 * PARALLEL_RANK_B}: " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in errs.items())
+              + f"; ring against gathered (k=2): " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in ring_errs.items())
+              + f" (tol {RECIPE_TOL:.2e}, gradients {RECIPE_GRAD_TOL:.2e} "
+              f"in norm); gathered losses {gathered['losses']}, step device "
+              f"time {[round(x, 2) for x in gathered['step_ms']]} ms, peak "
+              f"{gathered['peak_gb']:.2f} GB; ring losses {ring['losses']}, "
+              f"step device time {[round(x, 2) for x in ring['step_ms']]} "
+              f"ms, peak {ring['peak_gb']:.2f} GB; a profiled warm gathered "
+              f"step {result['profiled_step_ms']:.1f} ms (host clock), its "
+              f"collectives' ranges (ms) {result['collective_ms']}, "
+              f"{100 * share:.0f}% of it (gloo through host copies: two "
+              f"ranks sharing one card, not NVLink); launches "
+              f"{result['launches']}")
+    lead = ranks[0]
+    if not lead["ring_scores_err"] <= MATMUL_TOL:
+        raise AssertionError(f"ring_scores over the ranks against one card:"
+                             f" {lead['ring_scores_err']}")
+    print(f"parallel: ring_scores over 2 ranks, {PARALLEL_RING[0]} "
+          f"estimates x {PARALLEL_RING[1]} candidates x {SCORE_K} in bf16, "
+          f"against one card's retrieval_scores: max |diff| / |a_m| "
+          f"{lead['ring_scores_err']:.2e}; two ranks' run {ranks_s:.1f} s "
+          f"(their start included)")
+    print("parallel: what one card leaves out: NCCL ran one rank (part 1: "
+          "its all-reduce, broadcast and barrier); between two ranks gloo "
+          "carried every collective through a host copy (all-reduce, "
+          "all-gather, broadcast, the ring's P2P). NCCL's all-gather, P2P "
+          "and reduce-scatter between cards, and a gradient through the "
+          "gathered or ring-passed rows (the recipe's candidates are its "
+          "targets, which take none), are held on the CPU by "
+          "tests/test_torch_parallel.py over gloo")
+    launches_by_path["parallel_ranks"] = {
+        name: sum(r["launches"][name] for r in ranks)
+        for name in ranks[0]["launches"]}
+    print(f"parallel phase: {time.perf_counter() - t_phase:.1f} s "
+          f"({card_name})")
+    shapes = {"parallel_ranks": dict(batch=PARALLEL_RANK_B, n_test=0,
+                                     n_mels=F, with_matmul=False),
+              "parallel_ring": dict(batch=PARALLEL_RANK_B, with_conv=False,
+                                    n_test=PARALLEL_RING[0] // 2, n_mels=F,
+                                    n_cand=PARALLEL_RING[1] // 2)}
+    # part 1's shapes are phase 9's gwilliams2022 run's (the same tree,
+    # batch and test split), whose kernels main holds at them
+    got = dict(batch=256, n_test=n_test, n_mels=n_mels, channels=channels)
+    if study_shape is not None and got != study_shape:
+        raise AssertionError(f"parallel: the CLI's shapes {got}, phase 9's "
+                             f"{study_shape}")
+    return launches_by_path, shapes
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -3378,6 +3813,10 @@ def main() -> None:
         t0 = time.perf_counter()
         grid_launches, grid_shapes = run_grid_phase(device, card_name, work)
         phase_s["13"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parallel_launches, parallel_shapes = run_parallel_phase(
+            device, card_name, work, study_shapes[KEPT_STUDY])
+        phase_s["14"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     with exact_fp32():
         cli_shapes = check_cli_shapes(device, **cli_shape)
@@ -3387,7 +3826,8 @@ def main() -> None:
                     prefix=f"{selection}: ").items():
                 cli_shapes[name].update(shapes)
         for path, shape in {**deepmel_shapes, **words_shapes,
-                            **encode_shapes, **grid_shapes}.items():
+                            **encode_shapes, **grid_shapes,
+                            **parallel_shapes}.items():
             for name, shapes in check_cli_shapes(
                     device, **shape, prefix=f"{path}: ").items():
                 cli_shapes[name].update(shapes)
@@ -3418,7 +3858,8 @@ def main() -> None:
                                                **deepmel_launches,
                                                **words_launches,
                                                **encode_launches,
-                                               **grid_launches}.items()})
+                                               **grid_launches,
+                                               **parallel_launches}.items()})
         entry["other_shapes"].update(cli_shapes[entry["name"]])
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path

@@ -211,15 +211,18 @@ def _fields(obj, prefix=""):
 @pytest.mark.parametrize("preset", [
     None, "clip_conv", "clip_conv_tpu", "tiny", "deep_mel",
     ("clip_conv", "deep_mel"), ("clip_conv_tpu", "deep_mel"), "convrnn",
-    "decoder_convrnn", ("clip_conv", "convrnn")])
+    "decoder_convrnn", ("clip_conv", "convrnn"), "clip_conv_v5e8",
+    "clip_conv_v5e8_paper"])
 def test_config_copy_equals_original(preset):
     """Every field of the port's config copy, by default and under the
-    clip_conv, clip_conv_tpu, tiny, deep_mel, convrnn and decoder_convrnn
-    presets (deep_mel alone and after each recipe, convrnn after
-    clip_conv), equals the JAX package's MainConfig, except ``device``:
-    the port's runs on the card ("cuda"), the JAX package's on a TPU. It
-    is not in the XP signature. The copied model defaults equal theirs,
-    and so do the signatures."""
+    clip_conv, clip_conv_tpu, tiny, deep_mel, convrnn, decoder_convrnn,
+    clip_conv_v5e8 and clip_conv_v5e8_paper presets (deep_mel alone and
+    after each recipe, convrnn after clip_conv), equals the JAX package's
+    MainConfig, except ``device``: the port's runs on the card ("cuda"),
+    the JAX package's on a TPU. It is not in the XP signature. The copied
+    model defaults equal theirs, and so do the signatures. The port's
+    ParallelConfig has every field of the JAX package's but XLA's two
+    (``scoped_vmem_limit_kib``, ``compilation_cache``)."""
     port, original = config.MainConfig(), jconfig.MainConfig()
     for name in (preset,) if isinstance(preset, str) else preset or ():
         config.apply_preset(port, name)
@@ -228,6 +231,9 @@ def test_config_copy_equals_original(preset):
     assert config.CONVRNN_DEFAULTS == jconfig.CONVRNN_DEFAULTS
     assert port.sig == original.sig
     assert (port.device, original.device) == ("cuda", "tpu")
+    assert {f.name for f in dataclasses.fields(original.parallel)} \
+        - {f.name for f in dataclasses.fields(port.parallel)} \
+        == {"scoped_vmem_limit_kib", "compilation_cache"}
     assert "device" in config.MainConfig._SIG_EXCLUDE
     for dotted, value in _fields(port).items():
         if dotted == "device":
