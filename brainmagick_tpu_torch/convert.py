@@ -1,5 +1,5 @@
-"""Weight bridge: JAX SimpleConv, ConvRNN and DeepMel parameter trees ->
-the port's modules.
+"""Weight bridge: JAX SimpleConv, ConvRNN, DeepMel and wav2vec 2.0
+parameter trees -> the port's modules.
 
 The reverse half of ``brainmagick_tpu/convert.py``, with its own copy of
 the rules: each rule ``(state-dict key, flax path, transform,
@@ -27,6 +27,12 @@ the decoder and the head. ``deepmel_rules`` walks a DeepMel, one
 ConvSequence under flax's ``fm`` scope. The tests hold these rules to the
 JAX package's, and the ConvRNN's to the flax module's outputs.
 
+``wav2vec2_rules`` is the inverse of the JAX package's
+``models.wav2vec2.convert_torch_weights`` (per-layer ``layers_{i}`` or
+nn.scan's stacked ``layers/layer`` with a leading [L] axis), and
+``load_wav2vec2_state_dict`` loads an HF-named state dict, the
+positional conv's weight-norm pair under either of torch's names.
+
 The module imports nothing of the JAX package: a JAX tree arrives as
 nested dicts of numpy arrays.
 """
@@ -41,6 +47,7 @@ import torch
 from torch import nn
 
 from .models.convrnn import ConvRNN
+from .models.wav2vec2 import Wav2Vec2Model
 
 
 def _leaf_paths(tree: Mapping, prefix: tp.Tuple[str, ...] = ()
@@ -79,6 +86,12 @@ def _untransform(kind: str, value: np.ndarray) -> np.ndarray:
     raise ValueError(f"cannot invert transform {kind}")
 
 
+#: state-dict keys with no flax counterpart, which keep their values:
+#: BatchNorm's step counter (no effect in eval) and wav2vec 2.0's mask
+#: embedding (the features never mask)
+_NO_FLAX_COUNTERPART = ("num_batches_tracked", "masked_spec_embed")
+
+
 def load_by_rules(module: nn.Module, rules: tp.Sequence[tuple],
                   params: Mapping, batch_stats: Mapping) -> None:
     """Load flax trees into `module` by rules ``(state_dict key, flax
@@ -97,9 +110,8 @@ def load_by_rules(module: nn.Module, rules: tp.Sequence[tuple],
     if leftovers:
         raise ValueError(f"{len(leftovers)} JAX leaves map onto no port "
                          f"weight: {leftovers[:8]}")
-    # BatchNorm's step counter has no flax counterpart and no effect in eval
     for key, value in module.state_dict().items():
-        if key.endswith("num_batches_tracked"):
+        if key.endswith(_NO_FLAX_COUNTERPART):
             state[key] = value
     module.load_state_dict(state, strict=True)
 
@@ -311,3 +323,97 @@ def load_jax_params(model: nn.Module, params: Mapping,
     load_by_rules(model, model_rules(model), params, batch_stats)
     load_by_rules(feature_model, deepmel_rules(feature_model), fm_params,
                   fm_stats)
+
+
+def _layernorm_rules(tkey: str, fpath: tp.Tuple[str, ...]) -> tp.List[tuple]:
+    return [(f"{tkey}.weight", fpath + ("scale",), "copy", "params"),
+            (f"{tkey}.bias", fpath + ("bias",), "copy", "params")]
+
+
+def _dense_rules(tkey: str, fpath: tp.Tuple[str, ...]) -> tp.List[tuple]:
+    return [(f"{tkey}.weight", fpath + ("kernel",), "dense_w", "params"),
+            (f"{tkey}.bias", fpath + ("bias",), "copy", "params")]
+
+
+def wav2vec2_rules(model: Wav2Vec2Model) -> tp.List[tuple]:
+    """Rules for a port ``Wav2Vec2Model`` from the flax tree of the JAX
+    package's ``Wav2Vec2Model`` in its per-layer layout (``layers_{i}``):
+    the inverse of ``convert_torch_weights``. The weight-norm pair reads
+    flax's ``weight_g`` [k, 1, 1] and ``weight_v`` [k, I/g, O], the convs
+    flax's [k, I, O] kernels."""
+    rules: tp.List[tuple] = []
+    for i, layer in enumerate(model.feature_extractor.conv_layers):
+        t = f"feature_extractor.conv_layers.{i}"
+        f = ("feature_extractor", f"conv_layers_{i}")
+        rules.append((f"{t}.conv.weight", f + ("conv", "kernel"), "conv_w",
+                      "params"))
+        if layer.conv.bias is not None:
+            rules.append((f"{t}.conv.bias", f + ("conv", "bias"), "copy",
+                          "params"))
+        if layer.layer_norm is not None:
+            rules += _layernorm_rules(f"{t}.layer_norm", f + ("layer_norm",))
+    rules += _layernorm_rules("feature_projection.layer_norm",
+                              ("feature_projection_layer_norm",))
+    rules += _dense_rules("feature_projection.projection",
+                          ("feature_projection",))
+    pos = "encoder.pos_conv_embed.conv"
+    rules += [(f"{pos}.weight_g", ("pos_conv_embed", "weight_g"), "conv_w",
+               "params"),
+              (f"{pos}.weight_v", ("pos_conv_embed", "weight_v"), "conv_w",
+               "params"),
+              (f"{pos}.bias", ("pos_conv_embed", "bias"), "copy", "params")]
+    rules += _layernorm_rules("encoder.layer_norm", ("encoder_layer_norm",))
+    for i in range(len(model.encoder.layers)):
+        t, f = f"encoder.layers.{i}", (f"layers_{i}",)
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            rules += _dense_rules(f"{t}.attention.{proj}",
+                                  f + ("attention", proj))
+        rules += _layernorm_rules(f"{t}.layer_norm", f + ("layer_norm",))
+        rules += _layernorm_rules(f"{t}.final_layer_norm",
+                                  f + ("final_layer_norm",))
+        for dense in ("intermediate_dense", "output_dense"):
+            rules += _dense_rules(f"{t}.feed_forward.{dense}", f + (dense,))
+    return rules
+
+
+def _unstack_layers(params: Mapping) -> dict:
+    """nn.scan's ``layers/layer`` tree (a leading [L] axis on every leaf)
+    as per-layer ``layers_{i}`` trees; a per-layer tree as it is."""
+    if "layers" not in params:
+        return dict(params)
+
+    def take(tree: Mapping, i: int) -> dict:
+        return {k: take(v, i) if isinstance(v, Mapping) else
+                np.asarray(v)[i] for k, v in tree.items()}
+
+    stacked = params["layers"]["layer"]
+    n = len(_get(stacked, next(_leaf_paths(stacked))))
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out.update({f"layers_{i}": take(stacked, i) for i in range(n)})
+    return out
+
+
+def load_wav2vec2_flax(model: Wav2Vec2Model, params: Mapping) -> None:
+    """Load the JAX package's flax wav2vec 2.0 ``params`` (nested dicts of
+    numpy arrays, per-layer or stacked) into `model` by
+    ``wav2vec2_rules``; every leaf must be consumed. ``masked_spec_embed``
+    has no flax counterpart and keeps its value."""
+    load_by_rules(model, wav2vec2_rules(model), _unstack_layers(params), {})
+
+
+#: torch's two names of the positional conv's weight-norm pair
+_WEIGHT_NORM_NAMES = {"parametrizations.weight.original0": "weight_g",
+                      "parametrizations.weight.original1": "weight_v"}
+
+
+def load_wav2vec2_state_dict(model: Wav2Vec2Model,
+                             state: Mapping[str, tp.Any]) -> None:
+    """Load an HF-named ``Wav2Vec2Model`` state dict (numpy arrays or
+    tensors) into `model`, strictly. The weight-norm pair may be named
+    ``weight_g``/``weight_v`` or ``parametrizations.weight.original0/1``."""
+    renamed = {}
+    for key, value in state.items():
+        for old, new in _WEIGHT_NORM_NAMES.items():
+            key = key.replace(old, new)
+        renamed[key] = torch.as_tensor(np.asarray(value, dtype=np.float32))
+    model.load_state_dict(renamed, strict=True)

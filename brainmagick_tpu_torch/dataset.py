@@ -149,7 +149,8 @@ class SegmentDataset:
                  tmin: float, tmax: float,
                  baseline: tp.Optional[tp.Tuple[tp.Optional[float], float]],
                  event_mask: bool,
-                 meg_dimension: tp.Optional[int]) -> None:
+                 meg_dimension: tp.Optional[int],
+                 device: tp.Union[str, torch.device] = "cpu") -> None:
         self.recording = recording
         self.raw = raw
         self.sample_rate = Frequency(raw.sample_rate)
@@ -165,7 +166,7 @@ class SegmentDataset:
         self.features = FeaturesBuilder(
             events, features, features_params=self.features_params,
             sample_rate=self.sample_rate, event_mask=event_mask,
-            study=recording.study_name())
+            study=recording.study_name(), device=device)
         self.blocks: tp.Optional[tp.List[tp.Tuple[float, float]]] = None
         self._start_offset = self.sample_rate.to_ind(tmin)
         self._n_times = self.sample_rate.to_ind(tmax - tmin) + 1
@@ -404,7 +405,8 @@ class _DatasetFactory:
                  event_mask: bool = False,
                  split_wav_as_block: bool = False,
                  meg_dimension: tp.Optional[int] = None,
-                 autoreject: bool = False) -> None:
+                 autoreject: bool = False,
+                 device: tp.Union[str, torch.device] = "cpu") -> None:
         assert tmin < tmax
         assert decim == 1, "Decimation factor is not supported"
         self.autoreject = autoreject
@@ -421,6 +423,8 @@ class _DatasetFactory:
         self.split_wav_as_block = split_wav_as_block
         self.tmin = tmin
         self.tmax = tmax
+        #: where the features' models run (wav2vec 2.0)
+        self.device = device
 
     def apply(self, recording: studies.Recording,
               blocks: tp.Optional[tp.List[tp.Tuple[float, float]]] = None
@@ -477,7 +481,8 @@ class _DatasetFactory:
             recording, raw, sample_positions=samples, events=events,
             features=self.features, features_params=self.features_params,
             tmin=self.tmin, tmax=self.tmax, baseline=self.baseline,
-            event_mask=self.event_mask, meg_dimension=self.meg_dimension)
+            event_mask=self.event_mask, meg_dimension=self.meg_dimension,
+            device=self.device)
         dset.blocks = blocks
         if self.autoreject:
             self._apply_autoreject(dset, raw)
@@ -649,7 +654,8 @@ def get_datasets(
         **factory_kwargs: tp.Any) -> Datasets:
     """The train, valid and test splits of the selections' recordings, each
     a ConcatDataset of per-recording SegmentDatasets. The recordings are
-    preprocessed on `device`, in a thread pool of `num_workers`."""
+    preprocessed on `device`, in a thread pool of `num_workers`, and the
+    features' models (wav2vec 2.0) run there."""
     features = list(features or [])
     extra_test_features = list(extra_test_features or [])
     test = dict(test or {})
@@ -669,7 +675,7 @@ def get_datasets(
 
     meg_dimension = max(r.meg_dimension for r in all_recordings)
     factory_kwargs.update(sample_rate=sample_rate, highpass=highpass,
-                          meg_dimension=meg_dimension,
+                          meg_dimension=meg_dimension, device=device,
                           baseline=(None, 0) if apply_baseline else None)
     fact = SegmentDataset.Factory(features=features, **factory_kwargs)
     for key, value in test.items():

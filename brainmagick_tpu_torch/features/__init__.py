@@ -2,8 +2,8 @@
 
 Port of ``brainmagick_tpu/features``: the builder, the word and phoneme
 features, the word embeddings and part of speech (``embeddings``), the
-mel spectrogram and the YIN pitch. The wav2vec 2.0 features are not
-ported yet (see ``audio``).
+mel spectrogram, the YIN pitch and the wav2vec 2.0 features with
+random=True (``audio``).
 """
 
 from .base import Feature, FeaturesBuilder  # noqa

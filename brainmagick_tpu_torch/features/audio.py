@@ -9,12 +9,14 @@ the FFT (``torch.fft.rfft``) and the filterbank product in fp32 torch on
 the host; ``compute_yin`` is float64 numpy. A feature is painted once per
 recording into a track that the datasets keep as a host memmap, as the
 JAX package does, so both resample a CPU tensor. The wav2vec 2.0
-features are not ported: they raise NotImplementedError.
+features (random=True) run the port's encoder (``models.wav2vec2``) on
+the run's device and cache its outputs per sound event.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 import typing as tp
 import wave
 from functools import lru_cache
@@ -24,8 +26,10 @@ import numpy as np
 import torch
 
 from .. import events
-from ..cache import Cache
+from ..cache import Cache, MemoryCache
+from ..models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model, seed_of
 from ..ops.dsp import resample
+from ..precision import exact_fp32
 from ..utils import Frequency
 from . import base
 
@@ -262,25 +266,161 @@ class Pitch(base.Feature):
         return _interp_nearest(np.asarray(pitches), n)[None]
 
 
-class _NotPorted(base.Feature):
-    """A feature of the JAX package that the port does not have yet."""
+#: one wav2vec 2.0 forward at a time in the process: ``exact_fp32`` sets
+#: process-wide flags, and the scaler fit renders tracks in a thread per
+#: recording, so another thread's exit would turn TF32 back on under a
+#: convolution of this one
+_FORWARD_LOCK = threading.Lock()
+
+
+class _BaseWav2Vec(base.Feature):
+    """Shared wav2vec 2.0 machinery: the sound event's waveform at 16 kHz
+    through the port's encoder (``models.wav2vec2``), its outputs cached
+    as memmaps per (file, start, stop, output, layers).
+
+    Only ``random=True`` is ported: the xlsr-53 architecture from literal
+    values, its weights drawn as HF draws them, seeded from the model name
+    as the JAX package seeds them, so both packages compute the same
+    network (bit for bit at the weights). ``random=False`` needs the
+    pretrained checkpoint, which the port does not read: it raises
+    RuntimeError, as the JAX package does without the checkpoint.
+
+    The encoder runs in fp32 (``precision.exact_fp32``) on ``self.device``,
+    which the datasets set to the run's ``device`` (the card by default;
+    ``FeaturesBuilder(device=...)``). The ``device`` parameter is the JAX
+    package's key, which places HF's model there; the port keeps it for
+    the config's sake (the same overrides give the same XP signature in
+    both packages) and it places nothing."""
 
     event_kind = "sound"
-    waits_for = ""
+    model_name = "facebook/wav2vec2-large-xlsr-53"
+    model_sr = 16_000
 
-    def __init__(self, sample_rate: Frequency, **kwargs: tp.Any) -> None:
-        raise NotImplementedError(
-            f"{self.name} is not ported to brainmagick_tpu_torch: it waits "
-            f"for {self.waits_for}")
+    def __init__(self, sample_rate: Frequency, normalized: bool = True,
+                 random: bool = False, device: str = "cpu") -> None:
+        super().__init__(sample_rate)
+        # "seeded" marks the seeded random network, as in the JAX package
+        args: tp.Any = ((self.model_name, random, "seeded")
+                        if random else self.model_name)
+        self.cache = Cache("Wav2VecEmbedding", args, mode="memmap")
+        self.normalized = normalized
+        self.random = random
+        self.device = torch.device("cpu")
+        # one model a process for each (name, random)
+        self._model_cache = MemoryCache(
+            "Wav2VecEmbedding", ("model", self.model_name, random))
+
+    def place(self, device: tp.Union[str, torch.device]) -> None:
+        self.device = torch.device(device)
+
+    def _load_model(self) -> Wav2Vec2Model:
+        if not self.random:
+            raise RuntimeError(
+                f"wav2vec2 checkpoint '{self.model_name}' is not read by "
+                "brainmagick_tpu_torch (no checkpoint ships with the "
+                "repository and none can be downloaded). Use random=True "
+                "or MelSpectrum features.")
+        return Wav2Vec2Model(Wav2Vec2Config.xlsr53(), torch.Generator(
+            ).manual_seed(seed_of(self.model_name))).eval()
+
+    @property
+    def model(self) -> Wav2Vec2Model:
+        return self._model_cache.get(self._load_model)
+
+    def _preprocess_wav(self, filepath: str, start: float, stop: float
+                        ) -> torch.Tensor:
+        """[1, T] fp32 mono waveform at 16 kHz, zero-mean unit-variance
+        when ``normalized`` (as HF's Wav2Vec2FeatureExtractor)."""
+        wav, sr = _extract_wav_part(filepath, start, stop)
+        wav = wav.mean(axis=0)
+        wav = resample(torch.from_numpy(np.ascontiguousarray(wav)), int(sr),
+                       self.model_sr).numpy()
+        if self.normalized:
+            wav = (wav - wav.mean()) / np.sqrt(wav.var() + 1e-7)
+        return torch.from_numpy(wav.astype(np.float32))[None]
+
+    def _compute_hidden_states(self, name: str, filepath: str, start: float,
+                               stop: float,
+                               layers: tp.Optional[tp.List[int]] = None
+                               ) -> np.ndarray:
+        wav = self._preprocess_wav(filepath, start, stop)
+        with _FORWARD_LOCK, torch.no_grad(), exact_fp32():
+            model = self.model.to(self.device)
+            wav = wav.to(self.device)
+            if name == "hidden_states":
+                out = torch.stack(model(wav, layers)[2])
+                if layers is not None:
+                    out = out.mean(0)
+            elif name == "extract_features":
+                out = model.frontend(wav)[1]
+            else:
+                raise KeyError(name)
+            return out.cpu().numpy()
+
+    def _get_cached(self, event: events.Sound, overlap, name: str,
+                    layers: tp.Optional[tp.List[int]] = None) -> np.ndarray:
+        outputs = self.cache.get(
+            self._compute_hidden_states, start=event.offset,
+            stop=event.offset + event.duration,
+            filepath=str(event.filepath), name=name, layers=layers)
+        embd_sr = outputs.shape[-2] / event.duration
+        if event.duration >= 0.5:
+            assert 42 < embd_sr < 52, \
+                f"Unexpected embedding sampling rate {embd_sr}"
+        sr = Frequency(embd_sr)
+        start, stop = [sr.to_ind(x - event.start)
+                       for x in (overlap.start, overlap.stop)]
+        start = min(start, outputs.shape[-2] - 1)
+        stop = max(start + 1, stop)
+        return np.array(outputs[..., start:stop, :], copy=True)
+
+    def get(self, event: tp.Any) -> tp.Any:
+        raise RuntimeError(
+            f"Only get_on_overlap is available for {self.name}")
 
 
-class Wav2VecTransformer(_NotPorted):
-    waits_for = "a wav2vec 2.0 model and its configuration in the repository"
+class Wav2VecTransformer(_BaseWav2Vec):
+    """Mean of transformer hidden-state layers (default 14-18), dim
+    1024."""
+    dimension = 1024
+
+    def __init__(self, sample_rate: Frequency, normalized: bool = True,
+                 layers: tp.Tuple[int, ...] = (14, 15, 16, 17, 18),
+                 random: bool = False, device: str = "cpu") -> None:
+        super().__init__(sample_rate=sample_rate, normalized=normalized,
+                         device=device, random=random)
+        self.layers = tuple(layers)
+
+    def get_on_overlap(self, event: events.Sound, overlap) -> np.ndarray:
+        out = self._get_cached(event, overlap, "hidden_states",
+                               list(self.layers))
+        out = out[0].T  # [1, T, D] -> [D, T]
+        return _interp_nearest(out, overlap.duration_ind)
 
 
-class Wav2VecConvolution(_NotPorted):
-    waits_for = "a wav2vec 2.0 model and its configuration in the repository"
+class Wav2VecConvolution(_BaseWav2Vec):
+    """Output of the conv feature encoder (after the projection's
+    LayerNorm, HF's extract_features), dim 512."""
+    dimension = 512
+
+    def get_on_overlap(self, event: events.Sound, overlap) -> np.ndarray:
+        out = self._get_cached(event, overlap, "extract_features")
+        out = out[0].T
+        return _interp_nearest(out, overlap.duration_ind)
 
 
-class Wav2VecChunk(_NotPorted):
-    waits_for = "a wav2vec 2.0 model and its configuration in the repository"
+class Wav2VecChunk(_BaseWav2Vec):
+    """Raw 16 kHz waveform chunk for end-to-end wav2vec feature models.
+    Forces its own 16 kHz sample rate; runs no model."""
+    dimension = 1
+    normalizable = False
+
+    def __init__(self, sample_rate: Frequency, normalized: bool = True,
+                 random: bool = False, device: str = "cpu") -> None:
+        super().__init__(sample_rate=Frequency(16_000),
+                         normalized=normalized, device=device, random=random)
+
+    def get(self, event: events.Sound) -> np.ndarray:
+        wav = self._preprocess_wav(str(event.filepath), event.offset,
+                                   event.offset + event.duration)
+        return wav.numpy()

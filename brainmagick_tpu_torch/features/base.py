@@ -13,6 +13,8 @@ Port of ``brainmagick_tpu/features/base.py``, on an ``events.EventTable``:
     timeline; ``event_mask=True`` paints the word-occupancy mask;
   * ``render_track`` paints a whole recording once (the datasets cache it
     as a memmap and slice it per segment);
+  * a feature with a model (wav2vec 2.0) runs it on the builder's
+    ``device`` (``Feature.place``), the run's device in the datasets;
   * a feature with an ``allow_fallback`` of None (the word embeddings and
     the part of speech) may use its offline stand-in only on a synthetic
     study (``_FALLBACK_STUDIES``) or outside any study; an explicit
@@ -114,6 +116,10 @@ class Feature:
     def post_process(self, block: np.ndarray) -> None:
         """In-place transform of the painted rows."""
 
+    def place(self, device: tp.Any) -> None:
+        """Where the feature's model runs (a feature without one paints
+        on the host and ignores it)."""
+
 
 class FeaturesBuilder(OrderedDict):
     """Ordered mapping name -> Feature, with the painter."""
@@ -127,7 +133,8 @@ class FeaturesBuilder(OrderedDict):
     def __init__(self, events: EventTable, features: tp.Sequence[str],
                  features_params: tp.Optional[dict],
                  sample_rate: Frequency, event_mask: bool = False,
-                 study: tp.Optional[str] = None) -> None:
+                 study: tp.Optional[str] = None,
+                 device: tp.Any = None) -> None:
         super().__init__()
         features = list(features)
         self.features_params = dict(features_params or {})
@@ -151,6 +158,8 @@ class FeaturesBuilder(OrderedDict):
         for feature in self.values():
             if getattr(feature, "allow_fallback", False) is None:
                 feature.allow_fallback = auto_allowed
+            if device is not None:
+                feature.place(device)
 
         event_kinds = {f.event_kind for f in self.values()}
         if self.event_mask:

@@ -285,7 +285,7 @@ def refuse_int8_pool(args: tp.Any, clip: ClipLoss) -> None:
     if getattr(args.test, "pool_int8", False) and int8_retrieval_ok(clip):
         raise NotImplementedError(
             "test.pool_int8=True: int8 candidate pools are not ported "
-            "(ROADMAP.md, queue 1 item 10)")
+            "(ROADMAP.md, queue 1 item 8)")
 
 
 def retrieval_scores(clip: ClipLoss, estimates: torch.Tensor,

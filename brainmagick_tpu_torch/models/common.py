@@ -50,6 +50,25 @@ def normal_(tensor: torch.Tensor, std: float,
         tensor.copy_(torch.randn(tensor.shape, generator=generator) * std)
 
 
+#: the standard deviation of a unit normal truncated to [-2, 2]
+TRUNCATED_STD = 0.87962566103423978
+
+
+def lecun_normal_(tensor: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> None:
+    """flax's ``lecun_normal``: a normal truncated at two standard
+    deviations, scaled to the variance 1/fan_in, drawn on the CPU from
+    `generator` as flax draws it, by the inverse CDF of one fp32 uniform
+    a weight (the inverse in float64). Not ``nn.init.trunc_normal_``,
+    whose algorithm, and so its draws at a seed, changed between torch
+    2.11 and 2.13."""
+    lo, hi = math.erf(-2 / math.sqrt(2)), math.erf(2 / math.sqrt(2))
+    with torch.no_grad():
+        u = torch.rand(tensor.shape, generator=generator).double()
+        draw = (torch.erfinv(lo + (hi - lo) * u) * math.sqrt(2)).clamp(-2, 2)
+        tensor.copy_(draw * (fan_in ** -0.5 / TRUNCATED_STD))
+
+
 def init_conv_(conv: nn.Module, generator: torch.Generator) -> None:
     """LeCun-normal kernel (fan_in = in_channels/groups x k, as flax's
     default) and a zero bias. ConvTranspose1d stores [in, out, k]."""
@@ -57,7 +76,7 @@ def init_conv_(conv: nn.Module, generator: torch.Generator) -> None:
         fan_in = conv.weight.shape[0] * conv.weight.shape[2]
     else:
         fan_in = conv.weight.shape[1] * conv.weight.shape[2]
-    normal_(conv.weight, fan_in ** -0.5, generator)
+    lecun_normal_(conv.weight, fan_in, generator)
     if conv.bias is not None:
         nn.init.zeros_(conv.bias)
 

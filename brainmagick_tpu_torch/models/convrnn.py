@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .common import (BatchNorm, Conv1d, ConvSequence, ScaledEmbedding,
-                     SubjectLayers, init_conv_, normal_)
+                     SubjectLayers, init_conv_, lecun_normal_)
 
 #: flax OptimizedLSTMCell's gates, in torch's order of the LSTM weights
 GATES = ("i", "f", "g", "o")
@@ -55,7 +55,7 @@ class LSTMCell(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         for g in GATES:
             weight = self.input[g]
-            normal_(weight, weight.shape[1] ** -0.5, generator)
+            lecun_normal_(weight, weight.shape[1], generator)
             with torch.no_grad():
                 self.hidden[g].copy_(nn.init.orthogonal_(
                     torch.empty(self.hidden[g].shape), generator=generator))
@@ -100,8 +100,8 @@ class StackedLSTM(nn.Module):
         for cell in self.cells:
             cell.reset_parameters(generator)
         if self.linear is not None:
-            normal_(self.linear.weight, self.linear.weight.shape[1] ** -0.5,
-                    generator)
+            lecun_normal_(self.linear.weight, self.linear.weight.shape[1],
+                          generator)
             nn.init.zeros_(self.linear.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Drive the PyTorch port's serving, training and evaluation paths on one
 CUDA card, in the paper recipe's fp32 and in its bf16 clip_conv_tpu form,
 Table 2's DeepMel cell, feature decoding, the encode task and ConvRNN,
-and the paper's grid chain (grid runner, grid evaluation, paper table).
+the paper's grid chain (grid runner, grid evaluation, paper table),
+data-parallel training, and the wav2vec 2.0 targets (random=True) with
+the planted-map rehearsal.
 
 Run from the repository root, with no arguments:
 
@@ -131,8 +133,8 @@ check raises, so the script exits non-zero and prints no result:
    this run's shapes, added to their other_shapes;
 12. the encode task and ConvRNN on the same tree, each ``train.main`` at
    its preset's published widths, B=256, one epoch (ENCODE_RUNS): the
-   convrnn preset over MelSpectrum (its wav2vec 2.0 features wait for a
-   config in the repository; encode_convrnn), decoder_convrnn
+   convrnn preset over MelSpectrum (phase 15 trains it on its default
+   wav2vec 2.0 features; encode_convrnn), decoder_convrnn
    (decoder_convrnn) and clip_conv with task.type=encode, optim.loss=l1
    and fused_conv_bn (encode_simpleconv): finite losses,
    history-torch.json and done-torch.json, a finite corr_meg or an
@@ -179,7 +181,23 @@ check raises, so the script exits non-zero and prints no result:
    ring's held to the gathered), ``losses.ring_scores`` against one
    card's scores, each rank's step device time, peak memory, launches
    (parallel_ranks) and the collectives' share of a profiled step; each
-   kernel at the per-rank shapes, added to its other_shapes.
+   kernel at the per-rank shapes, added to its other_shapes;
+15. the wav2vec 2.0 features with random=True (``run_wav2vec_phase``):
+   (a) the features' seeded xlsr-53 network, built on the host, against
+   the per-tensor SHA-256 digest of HF's seeded init (W2V_GOLDEN); (b) a
+   rehearsal recording's Wav2VecTransformer track rendered on the card
+   (s per s of audio, peak memory) and W2V_CPU_EVENTS of its sound events
+   through the same weights on the CPU, each collected hidden state
+   within W2V_TOL of the card's; (c) the JAX package's planted-map
+   rehearsal (scripts/rehearsal.py) written with the port's writers: 4
+   KIT subjects whose MEG is a seeded mix of that track plus noise, the
+   rehearsal grid trained by ``runner.run_jobs`` in this process at the
+   paper's width with its own run length (wav2vec_rehearsal), evaluated
+   by signature with REHEARSAL_NEGATIVES negatives (wav2vec_eval) and
+   tabulated by ``paper_tables``: top-1 at least max(0.15, 5 x chance);
+   (d) two train steps of the convrnn preset on its default
+   Wav2VecTransformer on the kept gwilliams2022 tree (wav2vec_convrnn);
+   each kernel at the rehearsal's shapes, added to its other_shapes.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it raises at once.
@@ -2414,15 +2432,17 @@ EVAL_SIG_TOL = 1e-4
 
 
 def eval_by_sig(xp: dict, what: str, card_name: str,
-                studies: tp.Optional[dict] = None) -> dict:
-    """``eval.main(["sig=...", "out_dir=..."])`` in this process, with
+                studies: tp.Optional[dict] = None,
+                extra: tp.Sequence[str] = ()) -> dict:
+    """``eval.main(["sig=...", "out_dir=...", *extra])`` in this process, with
     every launch count set to 0 just before it and the XP's cache (and
     `studies`) in the env: the six files in ``eval/<sig>-torch`` and none
     in the JAX package's ``eval/<sig>``, finite probability rows, top-1,
     5 and 10 in [0, 1], normalize once a forward, nt_matmul as often as
     build_probs' loop implies and conv_stats never. Returns the launch
-    counts, the probabilities and vocabulary, run_eval's seconds and the
-    call's peak device memory, and the dtypes nt_matmul scored in."""
+    counts, the top-1, 5 and 10 accuracies, the probabilities and
+    vocabulary, run_eval's seconds and the call's peak device memory, and
+    the dtypes nt_matmul scored in."""
     from brainmagick_tpu_torch import eval as port_eval
     from brainmagick_tpu_torch import losses, ops
     from brainmagick_tpu_torch.env import env
@@ -2452,7 +2472,7 @@ def eval_by_sig(xp: dict, what: str, card_name: str,
             with SolverSpy() as spy:
                 t0 = time.perf_counter()
                 acc = port_eval.main([f"sig={xp['sig']}",
-                                      f"out_dir={xp['out_dir']}"])
+                                      f"out_dir={xp['out_dir']}", *extra])
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
     finally:
@@ -2480,7 +2500,7 @@ def eval_by_sig(xp: dict, what: str, card_name: str,
           f"{seconds['run_eval']:.2f} s, the whole call {wall:.2f} s (the "
           f"solver's datasets and checkpoint included), peak device memory "
           f"{peak_gb:.2f} GB ({card_name}); kernel launches {launches}")
-    return dict(launches=launches, probs=probs, vocab=vocab,
+    return dict(launches=launches, acc=acc, probs=probs, vocab=vocab,
                 seconds=seconds["run_eval"], peak_gb=peak_gb, dtypes=dtypes)
 
 
@@ -2719,9 +2739,9 @@ def run_words_phase(device: torch.device, card_name: str, work: Path
 
 #: phase 12: the encode task and ConvRNN on phase 9's gwilliams2022 tree
 #: (KEPT_STUDY), each at its preset's published widths, B=256, one epoch.
-#: The convrnn preset's Wav2VecTransformer features wait for a wav2vec 2.0
-#: config in the repository, so it encodes MelSpectrum (120 mels); the rest
-#: of each preset is as published
+#: The convrnn preset encodes MelSpectrum (120 mels) here, so that these
+#: numbers stay comparable with earlier runs (phase 15 trains it on its
+#: default Wav2VecTransformer); the rest of each preset is as published
 ENCODE_COMMON = ("optim.batch_size=256", "optim.epochs=1",
                  "dset.n_recordings=2", f"dset.selections=[{KEPT_STUDY!r}]")
 ENCODE_RUNS = {
@@ -2988,9 +3008,10 @@ def run_encode_phase(device: torch.device, card_name: str, work: Path
 #: 9's gwilliams2022 tree (KEPT_STUDY), in the folder phases 8-12 share: the
 #: port's rehearsal grid (clip_conv_tpu at the paper's width: depth 10,
 #: hidden 320, merger pos_dim 2048, B=16), configured through its own hooks
-#: (BM_REHEARSAL_CACHE, BM_REHEARSAL_EXTRA): MelSpectrum targets (the
-#: wav2vec 2.0 ones wait for a config in the repository) at Table 2's 120
-#: mels, the tree's two recordings, one epoch of GRID_BATCHES batches, and
+#: (BM_REHEARSAL_CACHE, BM_REHEARSAL_EXTRA): MelSpectrum targets (kept so
+#: that its numbers stay comparable; phase 15 runs the grid on its wav2vec
+#: 2.0 targets) at Table 2's 120 mels, the tree's two recordings, one
+#: epoch of GRID_BATCHES batches, and
 #: fused_conv_bn (conv_stats on the train step); a second variant keeps 128
 #: of the 208 sensors (nmi.fair_compare_meg_eeg's option)
 GRID = "rehearsal"
@@ -3741,6 +3762,456 @@ def run_parallel_phase(device: torch.device, card_name: str, work: Path,
     return launches_by_path, shapes
 
 
+#: phase 15: the wav2vec 2.0 features with random=True (the JAX package's
+#: default ``dset.features``, the paper's 1024-dim target), on the card.
+#: The seeded xlsr-53 init is held to the per-tensor SHA-256 digest of
+#: HF's (W2V_GOLDEN, written by scripts/torch_wav2vec2_digest.py)
+W2V_GOLDEN = Path("tests") / "golden" / "wav2vec2_xlsr53_init_sha256.json"
+W2V_LAYERS = [14, 15, 16, 17, 18]
+#: the SHA-256 of the port's truncated LeCun draws
+#: (``models.common.lecun_normal_``) of a [256, 320, 3] kernel at seed
+#: 2036, as the CPU tests draw them (tests/test_torch_models.py): the
+#: card machine's torch must draw the weights the tests draw at a seed
+LECUN_SHA256 = ("1c2bf42d7c313a3d4014ecc7927d22ee"
+                "4b6ec5287cfab3a49ee500549dd5d95d")
+#: each collected hidden state of the card against the CPU's on the same
+#: weights and waveform: max |diff| / max |value| (fp32, TF32 off)
+W2V_TOL = 1e-4
+W2V_CPU_EVENTS = 2
+#: the planted-map rehearsal: a copy of the JAX package's study
+#: (scripts/rehearsal.py): 4 subjects, 48 sentences (16 written out, 32
+#: drawn from a word bank with a seeded RandomState), a word every
+#: REHEARSAL_WORD_STEP s, REHEARSAL_GAP s between sentences, 208 KIT
+#: channels at 1000 Hz, MEG = a RandomState(777) mix of the centered
+#: Wav2VecTransformer track plus 0.3 x noise; the rehearsal grid trains
+#: on it with its own run length (8 epochs x 24 batches at B=16) and only
+#: fused_conv_bn added (so conv_stats runs on the path)
+REHEARSAL_SENTENCES = [
+    "the quick brown fox jumps over the lazy dog",
+    "she sells sea shells by the sea shore today",
+    "a stitch in time saves nine they always say",
+    "every good boy deserves fudge and fruit at noon",
+    "the rain in spain falls mainly on the plain",
+    "pack my box with five dozen brown liquor jugs",
+    "how quickly daft jumping zebras vex the old judge",
+    "we watched the bright stars fade before cold dawn",
+    "small rivers carve deep valleys through patient stone walls",
+    "the baker sold warm bread before the town woke",
+    "tall ships crossed rough seas under heavy grey skies",
+    "her garden grew wild roses beside the old gate",
+    "the children chased bright kites across the open field",
+    "old clocks tick slowly in the quiet dusty hall",
+    "fresh snow covered every roof in the sleeping village",
+    "long trains carried coal north through the frozen hills"]
+REHEARSAL_WORD_BANK = (
+    "time river stone light cloud dream horse paper garden winter "
+    "summer candle window forest meadow copper silver branch valley "
+    "thunder breeze harbor lantern marble pebble saddle tunnel velvet "
+    "whisper yellow anchor basket cradle dagger ember feather goblet "
+    "hollow island jungle kettle ladder mirror needle orchard puzzle "
+    "quiver ribbon shadow timber urchin violet walnut yonder zephyr "
+    "bridge castle desert engine flower").split()
+REHEARSAL_SUBJECTS, REHEARSAL_CHANNELS, REHEARSAL_SR = 4, 208, 1000
+REHEARSAL_WORD_STEP, REHEARSAL_GAP = 0.4, 2.0
+REHEARSAL_EXTRA = {"simpleconv.fused_conv_bn": True}
+REHEARSAL_NEGATIVES = 200
+#: phase 15 (d): the convrnn preset on its default features, random=True
+W2V_CONVRNN = ("preset=convrnn", "dset.features_params=" + repr({
+    "Wav2VecTransformer": dict(layers=W2V_LAYERS, device="cpu",
+                               random=True)}), "optim.max_batches=2")
+
+
+def rehearsal_sentences() -> list:
+    rng = np.random.RandomState(20260819)
+    return REHEARSAL_SENTENCES + [
+        " ".join(rng.choice(REHEARSAL_WORD_BANK, 8, replace=False))
+        for _ in range(32)]
+
+
+def _write_rehearsal_wav(path: Path, seconds: float) -> None:
+    """The JAX rehearsal's story: a gliding tone under an envelope plus
+    seeded wideband noise, so that every slice of it is a distinct
+    waveform (``mockdata.write_speech_wav`` repeats an 8 s clip, which
+    would give segments 8 s apart the same targets), 16-bit at 16 kHz."""
+    import wave
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    sr = 16_000
+    n = int(sr * seconds)
+    t = np.arange(n) / sr
+    sig = (np.sin(2 * np.pi * (220 + 40 * np.sin(0.5 * t)) * t)
+           * (0.6 + 0.4 * np.sin(2 * np.pi * 3.1 * t)))
+    sig = 0.7 * sig + 0.3 * np.random.RandomState(123).randn(n)
+    sig = (np.clip(sig, -1.9, 1.9) * 2 ** 13).astype("<i2")
+    with wave.open(str(path), "w") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes(sig.tobytes())
+
+
+def write_rehearsal_tree(root: Path) -> float:
+    """The rehearsal study's BIDS tree without its MEG: participants.tsv,
+    each subject's events.tsv (a sound per sentence at its own offset of
+    one story wav, its words) and the story. Returns the story's
+    seconds."""
+    import csv
+
+    download = root / "download"
+    download.mkdir(parents=True)
+    subjects = [f"sub-{k + 1:02d}" for k in range(REHEARSAL_SUBJECTS)]
+    with open(download / "participants.tsv", "w", newline="") as f:
+        writer = csv.writer(f, delimiter="\t")
+        writer.writerow(["participant_id"])
+        writer.writerows([s] for s in subjects)
+    rows, t = [], 1.0
+    for seq_id, sentence in enumerate(rehearsal_sentences()):
+        words = sentence.split()
+        rows.append((t, len(words) * REHEARSAL_WORD_STEP, repr(dict(
+            kind="sound", offset=t, sound="stimuli/audio/story0.WAV.wav"))))
+        for word in words:
+            rows.append((t, 0.3, repr(dict(
+                kind="word", word=word, sequence_id=seq_id,
+                condition="sentence"))))
+            t += REHEARSAL_WORD_STEP
+        t += REHEARSAL_GAP
+    total = t + 2.0
+    _write_rehearsal_wav(download / "stimuli" / "audio" / "story0.wav", total)
+    for sub in subjects:
+        meg = download / sub / "ses-0" / "meg"
+        meg.mkdir(parents=True)
+        with open(meg / f"{sub}_ses-0_task-0_events.tsv", "w",
+                  newline="") as f:
+            writer = csv.writer(f, delimiter="\t")
+            writer.writerow(["onset", "duration", "trial_type"])
+            writer.writerows(rows)
+    return total
+
+
+def plant_rehearsal_meg(root: Path, track: np.ndarray, total: float) -> None:
+    """Each subject's KIT .con: a RandomState(777) mix of the centered
+    [1024, T@120 Hz] `track` onto the sensors, upsampled to 1000 Hz by
+    nearest neighbour, unit std, plus 0.3 x RandomState(100 + subject)
+    noise, at tesla scale."""
+    from brainmagick_tpu_torch.studies import api, kit
+
+    track = track - track.mean(axis=1, keepdims=True)
+    mix = np.random.RandomState(777).randn(
+        REHEARSAL_CHANNELS, track.shape[0]).astype(np.float32)
+    mix /= np.sqrt(track.shape[0])
+    signal_120 = mix @ track
+    n = int(REHEARSAL_SR * total)
+    idx = np.minimum(np.arange(n) * 120 // REHEARSAL_SR,
+                     signal_120.shape[1] - 1)
+    signal = signal_120[:, idx]
+    signal /= max(signal.std(), 1e-9)
+    positions = np.random.RandomState(0).rand(REHEARSAL_CHANNELS,
+                                              2).astype(np.float32)
+    for k in range(REHEARSAL_SUBJECTS):
+        sub = f"sub-{k + 1:02d}"
+        noise = np.random.RandomState(100 + k).randn(
+            REHEARSAL_CHANNELS, n).astype(np.float32)
+        raw = api.RawData(
+            data=((signal + 0.3 * noise) * 1e-13).astype(np.float32),
+            sample_rate=float(REHEARSAL_SR),
+            ch_names=[f"MEG{c:03d}" for c in range(REHEARSAL_CHANNELS)],
+            positions=positions, ch_kinds=[kit.KIND_MEG] * REHEARSAL_CHANNELS)
+        kit.write_kit(root / "download" / sub / "ses-0" / "meg"
+                      / f"{sub}_ses-0_task-0_meg.con", raw)
+
+
+def _max_share(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+def check_w2v_init(card_name: str) -> float:
+    """(a) The features' seeded xlsr-53 network, built on the host as the
+    features build it (and kept for them), against W2V_GOLDEN tensor by
+    tensor; the first tensor that differs stops the run. Returns the host
+    seconds of the init."""
+    from brainmagick_tpu_torch.features import audio
+    from brainmagick_tpu_torch.models.wav2vec2 import state_digest
+    from brainmagick_tpu_torch.utils import Frequency
+
+    golden = json.loads((Path(__file__).resolve().parent / W2V_GOLDEN
+                         ).read_text())
+    feature = audio.Wav2VecTransformer(Frequency(120.), layers=W2V_LAYERS,
+                                       random=True)
+    t0 = time.perf_counter()
+    model = feature.model
+    init_s = time.perf_counter() - t0
+    got = state_digest(model.state_dict())
+    for name, digest in golden["sha256"].items():
+        if got.get(name) != digest:
+            raise AssertionError(
+                f"wav2vec2 seeded init: tensor {name} differs from HF's "
+                f"(golden {digest[:16]}, here {str(got.get(name))[:16]}; "
+                f"torch {torch.__version__} here, {golden['torch']} for the "
+                f"golden)")
+    if set(got) != set(golden["sha256"]):
+        raise AssertionError(f"wav2vec2 tensors {set(got) ^ set(golden)}")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"wav2vec2 seeded init ({golden['model']}, seed "
+          f"{golden['seed']}): {n_params:,} parameters in "
+          f"{init_s:.2f} s on the host, {len(got)} tensors equal to HF's "
+          f"digest (torch {torch.__version__}, golden from "
+          f"{golden['torch']}) ({card_name})")
+    return init_s
+
+
+def check_lecun_init() -> None:
+    """The port's truncated LeCun draws at a seed against LECUN_SHA256."""
+    import hashlib
+
+    from brainmagick_tpu_torch.models.common import lecun_normal_
+
+    kernel = torch.empty(256, 320, 3)
+    lecun_normal_(kernel, 320 * 3, torch.Generator().manual_seed(2036))
+    got = hashlib.sha256(kernel.numpy().tobytes()).hexdigest()
+    if got != LECUN_SHA256:
+        raise AssertionError(f"lecun_normal_ at seed 2036: {got[:16]}, the "
+                             f"CPU tests' {LECUN_SHA256[:16]} (torch "
+                             f"{torch.__version__})")
+    print(f"the port's truncated LeCun draws at seed 2036 equal the CPU "
+          f"tests' digest (torch {torch.__version__})")
+
+
+def check_w2v_render(device: torch.device, card_name: str, root: Path,
+                     total: float) -> np.ndarray:
+    """(b) One rehearsal recording's Wav2VecTransformer track rendered by
+    FeaturesBuilder on the card (s per s of audio, peak memory), then
+    W2V_CPU_EVENTS of its sound events through the same weights on the
+    CPU, each collected hidden state held to the card's at W2V_TOL.
+    Returns the [1024, T@120 Hz] track."""
+    import copy
+
+    from brainmagick_tpu_torch.env import env
+    from brainmagick_tpu_torch.features import FeaturesBuilder
+    from brainmagick_tpu_torch.precision import exact_fp32
+    from brainmagick_tpu_torch.studies.gwilliams2022 import (
+        Gwilliams2022Recording)
+    from brainmagick_tpu_torch.utils import Frequency
+
+    with env.temporary(studies={KEPT_STUDY: root}):
+        events = Gwilliams2022Recording(subject_uid="01", session="0",
+                                        story="0")._load_events()
+    builder = FeaturesBuilder(
+        events, ["Wav2VecTransformer"], {"Wav2VecTransformer": dict(
+            layers=W2V_LAYERS, device="cpu", random=True)},
+        Frequency(120.), study=KEPT_STUDY, device=device)
+    sounds = list(builder.events[builder.events.kind_mask("sound")].iter())
+    audio_s = sum(s.duration for s in sounds)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    track, _, _ = builder(0.0, total)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not np.isfinite(track).all() or track.shape[0] != 1024 \
+            or not (track != 0).any():
+        raise AssertionError(f"the rehearsal track {track.shape}")
+    model = builder["Wav2VecTransformer"].model
+    if next(model.parameters()).device.type != device.type:
+        raise AssertionError(f"the encoder did not run on {device}")
+    cpu_model = copy.deepcopy(model).cpu()
+    errs, cpu_s, cpu_audio = [], 0., 0.
+    for sound in sounds[:W2V_CPU_EVENTS]:
+        wav = builder["Wav2VecTransformer"]._preprocess_wav(
+            str(sound.filepath), sound.offset, sound.offset + sound.duration)
+        with torch.no_grad(), exact_fp32():
+            card_states = model(wav.to(device), W2V_LAYERS)[2]
+            t0 = time.perf_counter()
+            cpu_states = cpu_model(wav, W2V_LAYERS)[2]
+            cpu_s += time.perf_counter() - t0
+        cpu_audio += sound.duration
+        errs += [_max_share(c.cpu(), h) for c, h in zip(card_states,
+                                                         cpu_states)]
+    del cpu_model
+    print(f"wav2vec2 render ({card_name}): one recording's "
+          f"Wav2VecTransformer track, {len(sounds)} sound events, "
+          f"{audio_s:.1f} s of audio (longest {max(s.duration for s in sounds):.1f}"
+          f" s) in {card_s:.2f} s on the card ({card_s / audio_s:.4f} s per s "
+          f"of audio), peak device memory {peak_gb:.2f} GB; on the CPU "
+          f"{cpu_s / cpu_audio:.4f} s per s over {W2V_CPU_EVENTS} events; "
+          f"layers {W2V_LAYERS} card against CPU, max|diff|/max|x| "
+          f"{[f'{e:.2e}' for e in errs]} (tol {W2V_TOL:.0e})")
+    if not max(errs) <= W2V_TOL:
+        raise AssertionError(f"wav2vec2 card against CPU: {errs}")
+    return track
+
+
+def run_wav2vec_phase(device: torch.device, card_name: str, work: Path
+                      ) -> tuple:
+    """Phase 15: (a) the seeded init against HF's digest, and the port's
+    LeCun draws against the CPU tests' (``check_lecun_init``); (b) a rehearsal
+    recording's track on the card against the CPU (``check_w2v_render``);
+    (c) the planted-map rehearsal: the study written and planted from
+    that track, the rehearsal grid (REHEARSAL_EXTRA) trained by
+    ``runner.run_jobs`` in this process (conv_stats 10 times a train step
+    in bf16 on "tc", normalize once a forward, nt_matmul in the test
+    stage; wav2vec_rehearsal), evaluated by signature with
+    REHEARSAL_NEGATIVES negatives (wav2vec_eval) and tabulated by
+    ``paper_tables``, its top-1 at least max(0.15, 5 x chance), the JAX
+    rehearsal's gate; (d) two train steps of the convrnn preset on its
+    default features (W2V_CONVRNN) on the kept gwilliams2022 tree, its
+    sound events (the story's sound split into blocks, the longest about
+    20 s) rendered on the card (wav2vec_convrnn). Returns
+    ({path: launch counts}, {path: ``check_cli_shapes`` arguments})."""
+    import csv
+    import gc
+    import os
+
+    from brainmagick_tpu_torch import ops, paper_tables
+    from brainmagick_tpu_torch.env import env
+    from brainmagick_tpu_torch.grids import runner
+    from brainmagick_tpu_torch.train import parse_overrides
+
+    t_phase = time.perf_counter()
+    check_w2v_init(card_name)
+    check_lecun_init()
+    root = work / "rehearsal"
+    cache = work / "cache_rehearsal"
+    out_dir = str(work / "rehearsal_outputs")
+    t0 = time.perf_counter()
+    total = write_rehearsal_tree(root)
+    with env.temporary(cache=cache):
+        track = check_w2v_render(device, card_name, root, total)
+    plant_rehearsal_meg(root, track, total)
+    print(f"rehearsal study: {REHEARSAL_SUBJECTS} subjects x "
+          f"{total:.1f} s, {len(rehearsal_sentences())} sentences, written "
+          f"and planted in {time.perf_counter() - t0:.1f} s")
+
+    hooks = ("BM_REHEARSAL_CACHE", "BM_REHEARSAL_EXTRA")
+    saved = {key: os.environ.get(key) for key in hooks}
+    os.environ["BM_REHEARSAL_CACHE"] = str(cache)
+    os.environ["BM_REHEARSAL_EXTRA"] = json.dumps(REHEARSAL_EXTRA)
+    launches_by_path: dict = {}
+    try:
+        _, jobs = runner.get_grid(GRID)
+        cfg = jobs[0].to_config()
+        if len(jobs) != 1 or cfg.dset.features != ["Wav2VecTransformer"] \
+                or not cfg.dset.features_params["Wav2VecTransformer"][
+                    "random"]:
+            raise AssertionError(f"grid {GRID}: {len(jobs)} jobs, "
+                                 f"{cfg.dset.features}")
+        sig = jobs[0].sig
+        with env.temporary(studies={KEPT_STUDY: root}):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            with SolverSpy() as spy:
+                t0 = time.perf_counter()
+                results = runner.run_jobs(jobs, out_dir, workers=1)
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+            launches = {k.__name__: k.launches for k in ops.KERNELS}
+            routes = dict(ops.conv_stats.launches_by_route)
+            by_dtype = dict(ops.conv_stats.launches_by_dtype)
+        if results != {sig: 0}:
+            raise AssertionError(f"rehearsal run: {results}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        fused = sum(sum(e.fused) for e in spy.solver.model.encoders.values())
+        steps = _check_cli_launches("wav2vec rehearsal", launches, routes,
+                                    by_dtype, spy, "bfloat16", fused=fused)
+        step_ms = spy.train_step_ms()
+        history = _read_history(Path(out_dir) / "xps" / sig,
+                                cfg.optim.epochs, "wav2vec rehearsal")
+        build = dict(spy.solver.build_timings)
+        spy.solver = None
+        del spy
+        print(f"rehearsal grid ({card_name}): {steps} train steps B="
+              f"{cfg.optim.batch_size}, run_jobs {train_s:.1f} s, warm step "
+              f"{step_ms[-1]:.2f} ms of device time (median "
+              f"{statistics.median(step_ms):.2f}), peak device memory "
+              f"{peak_gb:.2f} GB, dataset build {build['datasets']:.2f} s, "
+              f"scaler {build['scaler']:.2f} s; kernel launches "
+              f"{launches}; losses "
+              f"{[(round(h['train']['loss'], 4), round(h['valid']['loss'], 4)) for h in history]}")
+        launches_by_path["wav2vec_rehearsal"] = launches
+
+        xp = dict(sig=sig, out_dir=out_dir, cache=cache)
+        got = eval_by_sig(xp, "wav2vec rehearsal", card_name,
+                          studies={KEPT_STUDY: root},
+                          extra=(f"n_negatives={REHEARSAL_NEGATIVES}",))
+        launches_by_path["wav2vec_eval"] = got["launches"]
+        n_cand = len(got["vocab"])
+        chance = 1. / max(n_cand, 1)
+        top1 = got["acc"][1]
+        print(f"rehearsal top-1 segment accuracy (planted wav2vec2 -> MEG "
+              f"map) {100 * top1:.1f}% over {n_cand} candidates, chance "
+              f"{100 * chance:.2f}%, gate {100 * max(0.15, 5 * chance):.1f}% "
+              f"({card_name})")
+        if not top1 >= max(0.15, 5 * chance):
+            raise AssertionError(f"the rehearsal did not learn the planted "
+                                 f"map: top-1 {top1:.3f}, chance {chance:.3f}")
+        dest = paper_tables.main(["table", f"grid={GRID}",
+                                  f"out_dir={out_dir}"])
+        with open(dest) as f:
+            rows = list(csv.DictReader(f))
+        if len(rows) != 1 or not 0 <= float(rows[0]["mean"]) <= 1 \
+                or rows[0]["count"] != "1":
+            raise AssertionError(f"paper table of the rehearsal: {rows}")
+        print(f"paper table of the rehearsal: {rows[0]}")
+        n_test = got["probs"].shape[0]
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (d) the convrnn preset on its default features
+    t0 = time.perf_counter()
+    argv = [*W2V_CONVRNN, *ENCODE_COMMON, f"cache={work}/cache_{KEPT_STUDY}",
+            f"out_dir={work}/outputs"]
+    with env.temporary(studies={KEPT_STUDY: work / KEPT_STUDY}):
+        launches, routes, by_dtype, spy, wall, peak_gb = run_cli(
+            argv, "wav2vec convrnn", card_name)
+    solver = spy.solver
+    model = solver.model
+    if type(model).__name__ != "ConvRNN" \
+            or model.in_channels != {"meg": 208, "features": 1024} \
+            or list(solver.used_features) != ["Wav2VecTransformer"]:
+        raise AssertionError(f"wav2vec convrnn: {type(model).__name__} "
+                             f"{model.in_channels}")
+    steps = _check_cli_launches("wav2vec convrnn", launches, routes,
+                                by_dtype, spy, "float32", scored=False,
+                                fused=0)
+    history = _read_history(Path(parse_overrides(argv).xp_folder), 1,
+                            "wav2vec convrnn")
+    test = history[0].get("test", {})
+    if steps != 2 or set(test) != {"corr_meg"} \
+            or not np.isfinite(test["corr_meg"]):
+        raise AssertionError(f"wav2vec convrnn: {steps} steps, {test}")
+    sounds = [d.events for d in solver.datasets.train.datasets]
+    longest = max(float(e["duration"].max()) for e in (
+        t[t.kind_mask("sound")] for t in sounds))
+    tracks_s = sum(d.track_seconds for split in solver.datasets
+                   for d in split.datasets)
+    step_ms = spy.train_step_ms()
+    print(f"wav2vec convrnn ({card_name}): {steps} train steps B=256 on "
+          f"Wav2VecTransformer (random=True), device time "
+          f"{[round(x, 2) for x in step_ms]} ms, peak device memory "
+          f"{peak_gb:.2f} GB with the longest sound event {longest:.1f} s "
+          f"rendered on the card, track render {tracks_s:.2f} s, run "
+          f"{wall:.1f} s ({time.perf_counter() - t0:.1f} s); history "
+          f"{history}")
+    launches_by_path["wav2vec_convrnn"] = launches
+    del solver, model, spy
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"wav2vec phase: {time.perf_counter() - t_phase:.1f} s "
+          f"({card_name})")
+    shapes = {"wav2vec_rehearsal": dict(
+        batch=cfg.optim.batch_size, n_test=n_test, n_cand=n_cand,
+        n_mels=1024, channels=REHEARSAL_CHANNELS)}
+    return launches_by_path, shapes
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -3817,6 +4288,10 @@ def main() -> None:
         parallel_launches, parallel_shapes = run_parallel_phase(
             device, card_name, work, study_shapes[KEPT_STUDY])
         phase_s["14"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wav2vec_launches, wav2vec_shapes = run_wav2vec_phase(
+            device, card_name, work)
+        phase_s["15"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     with exact_fp32():
         cli_shapes = check_cli_shapes(device, **cli_shape)
@@ -3827,7 +4302,7 @@ def main() -> None:
                 cli_shapes[name].update(shapes)
         for path, shape in {**deepmel_shapes, **words_shapes,
                             **encode_shapes, **grid_shapes,
-                            **parallel_shapes}.items():
+                            **parallel_shapes, **wav2vec_shapes}.items():
             for name, shapes in check_cli_shapes(
                     device, **shape, prefix=f"{path}: ").items():
                 cli_shapes[name].update(shapes)
@@ -3859,7 +4334,8 @@ def main() -> None:
                                                **words_launches,
                                                **encode_launches,
                                                **grid_launches,
-                                               **parallel_launches}.items()})
+                                               **parallel_launches,
+                                               **wav2vec_launches}.items()})
         entry["other_shapes"].update(cli_shapes[entry["name"]])
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path

@@ -221,8 +221,29 @@ def test_no_import_of_the_jax_package():
     package = REPO / "brainmagick_tpu_torch"
     assert {package / "grids" / "runner.py",
             package / "grids" / "nmi" / "main_table.py",
-            package / "paper_tables.py", package / "parallel.py"} \
-        <= set(files)
+            package / "paper_tables.py", package / "parallel.py",
+            package / "models" / "wav2vec2.py",
+            package / "features" / "audio.py"} <= set(files)
     bad = {str(f.relative_to(REPO)): hits for f in files
            if (hits := _imports_of_the_jax_package(f.read_text()))}
     assert not bad
+
+
+def test_the_wav2vec_path_imports_no_transformers():
+    """The wav2vec 2.0 encoder, its features, the bridge and chip_smoke.py
+    run on the card's machine, which has no ``transformers`` (the word
+    features import it only to read a model on disk)."""
+    package = REPO / "brainmagick_tpu_torch"
+    files = [package / "models" / "wav2vec2.py",
+             package / "features" / "audio.py", package / "convert.py",
+             REPO / "chip_smoke.py"]
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            assert not [n for n in names
+                        if n.split(".")[0] == "transformers"], path

@@ -521,6 +521,78 @@ def test_groups_of_two_on_four_ranks_match_two_ranks(setup, tmp_path):
         run_ranks("_case_trainer", 4, bad, tmp_path)
 
 
+def _clip_loss(estimate: torch.Tensor, output: torch.Tensor,
+               keep: torch.Tensor) -> torch.Tensor:
+    """The solver's CLIP loss (no projection, pooling, centering or trim)
+    in the inputs' own type: ``ClipLoss`` casts its operands to fp32."""
+    from brainmagick_tpu_torch.losses import ClipLoss
+    e = estimate.reshape(len(estimate), -1)
+    c = output.reshape(len(output), -1)
+    inv = 1 / (1e-8 + torch.sqrt((c * c).sum(dim=1)))
+    return ClipLoss.loss_from_scores((e @ c.T) * inv[None, :], keep, keep)
+
+
+def deepmel_bn_gradients(trainer, local) -> tuple:
+    """The train-mode loss's gradient of the feature model's (a
+    BatchNorm'd DeepMel's) parameters on one rank's rows `local` of a
+    local pool (k=1): in fp32 by ``Solver.loss_and_grad``, and in float64
+    from the same fp32-wired inputs (the estimate, the keep weights and
+    the DeepMel's input), the DeepMel and the loss in float64. Returns
+    ({name: fp32 gradient}, {name: float64 gradient}) in the port's
+    names."""
+    from brainmagick_tpu_torch.dataset import to_device
+    from brainmagick_tpu_torch.models.common import ConvSequence
+
+    solver, fm = trainer.solver, trainer.feature_model
+    arrays = to_device(local, "cpu")
+    weight = torch.ones(len(local.meg))
+    seen = {}
+    hook = fm.register_forward_pre_hook(
+        lambda module, inputs: seen.setdefault("targets",
+                                               inputs[0].detach().clone()))
+    solver.loss_and_grad(arrays, weight, train=True)
+    hook.remove()
+    fp32 = {k: p.grad.clone() for k, p in fm.named_parameters()}
+    with torch.no_grad():
+        estimate, output, _, keep, _ = solver._forward(arrays, weight,
+                                                       train=True)
+    # the float64 loss in fp32 is the solver's loss
+    torch.testing.assert_close(
+        _clip_loss(estimate, output, keep),
+        solver._loss_value(estimate, output, None, keep, True))
+    fm64 = copy.deepcopy(fm).double().train()
+    # DeepMel.forward returns fp32; its ConvSequence keeps float64
+    out64 = ConvSequence.forward(fm64, seen["targets"].double())
+    _clip_loss(estimate.double(), out64, keep.double()).backward()
+    return fp32, {k: p.grad for k, p in fm64.named_parameters()}
+
+
+def test_port_deepmel_bn_gradients_match_float64(setup):
+    """The claim behind JAX_DEEPMEL, for the port: on the 4-row shards of
+    the first batch (the rows a rank of 2 gets), a local pool each, the
+    port's fp32 gradients of every layer of the BatchNorm'd DeepMel, over
+    the shards as the ranks average them, lie within GRAD_ATOL of
+    float64's (``scripts/torch_deepmel_bn_float64.py`` prints both
+    packages' distances)."""
+    widths = _widths(setup.solvers["base"][0])
+    trainer = _port_trainer(setup.args["deepmel_bn"], widths,
+                            setup.norm_arrays)
+    assert any(isinstance(m, torch.nn.BatchNorm1d)
+               for m in trainer.feature_model.modules())
+    sums = [{}, {}]
+    for rank in range(2):
+        for total, grads in zip(sums, deepmel_bn_gradients(
+                trainer, _local(setup.arrays[0], rank, 2))):
+            for key, value in grads.items():
+                total[key] = total.get(key, 0) + value / 2
+    fp32, f64 = sums
+    assert set(fp32) == set(f64) and len(fp32) >= 6
+    worst = {k: float((fp32[k].double() - f64[k]).abs().max())
+             for k in f64}
+    assert max(worst.values()) <= GRAD_ATOL, worst
+    assert max(float(g.abs().max()) for g in f64.values()) > 100 * GRAD_ATOL
+
+
 def test_ring_negatives_match_gathered(setup, tmp_path):
     """(d) ring_negatives against the gathered pool on 4 ranks, groups of
     2 and of all 4, with the small BatchNorm'd DeepMel (whose gradient
