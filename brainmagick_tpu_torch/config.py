@@ -331,7 +331,7 @@ def apply_preset(cfg: MainConfig, name: str) -> MainConfig:
     DeepMel" cell), ``convrnn`` (the encode task: a ConvRNN predicts the
     MEG from the features and a MEG prompt, under an L1 loss) or
     ``decoder_convrnn`` (a bidirectional ConvRNN decoding the word
-    segments), on the copied fields."""
+    segments) or ``none`` (no feature model), on the copied fields."""
     if name == "clip_conv_tpu":
         apply_preset(cfg, "clip_conv")
         cfg.simpleconv.update(dtype="bfloat16", output_dtype="bfloat16",
@@ -388,6 +388,9 @@ def apply_preset(cfg: MainConfig, name: str) -> MainConfig:
         cfg.dset.features = ["WordSegment"]
         cfg.optim.loss = "regression_classification"
         cfg.task.type = "decode"
+        return cfg
+    if name == "none":
+        cfg.feature_model_name = None
         return cfg
     if name != "clip_conv":
         raise NotImplementedError(f"preset {name!r}")

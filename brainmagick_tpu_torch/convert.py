@@ -1,5 +1,6 @@
 """Weight bridge: JAX SimpleConv, ConvRNN, DeepMel and wav2vec 2.0
-parameter trees -> the port's modules.
+parameter trees, and the CLIP loss's projection, -> the port's
+modules.
 
 The reverse half of ``brainmagick_tpu/convert.py``, with its own copy of
 the rules: each rule ``(state-dict key, flax path, transform,
@@ -13,7 +14,9 @@ encoder through ``conv_sequence_rules``, which also walks
 ``fused_conv_bn`` layers (flax's ``FusedConvBN_{n}`` holds the conv
 kernel and the BatchNorm scale, bias and running statistics of a fused
 layer, and flax's ``Conv_{i}`` counter skips fused layers, so the GLU
-convs behind them are renumbered) and the bias-less BatchNorm'd convs of
+convs behind them are renumbered), each layer's rewrite and post-skip
+1x1 convs (the next ``Conv_{i}`` after the layer's own) and LayerScale
+(``LayerScale_{n}``), and the bias-less BatchNorm'd convs of
 ``bn_conv_bias=False`` (their running mean loads as it is: the JAX
 package's bias fold is for reference torch checkpoints, whose convs have a
 bias), and a decoder's transposed convs (flax's ``ConvTranspose_{i}``).
@@ -24,7 +27,9 @@ package's rules do not cover: its subject layers and embedding, encoders,
 LSTM cells (flax's ``StackedLSTM_0/OptimizedLSTMCell_{j}``, one leaf per
 gate), the bidirectional stack's ``Dense_0``, the local attention blocks,
 the decoder and the head. ``deepmel_rules`` walks a DeepMel, one
-ConvSequence under flax's ``fm`` scope. The tests hold these rules to the
+ConvSequence under flax's ``fm`` scope. ``clip_loss_rules`` walks a
+``losses.ClipLoss``'s projection (flax's ``loss`` scope: ``linear_est``,
+and ``linear_gt`` without ``twin``). The tests hold these rules to the
 JAX package's, and the ConvRNN's to the flax module's outputs.
 
 ``wav2vec2_rules`` is the inverse of the JAX package's
@@ -46,6 +51,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.common import LayerScale
 from .models.convrnn import ConvRNN
 from .models.wav2vec2 import Wav2Vec2Model
 
@@ -133,12 +139,13 @@ def _batch_norm_rules(tkey: str, fpath: tp.Tuple[str, ...]
 def conv_sequence_rules(seq: nn.Module, tprefix: str,
                         fprefix: tp.Tuple[str, ...]) -> tp.List[tuple]:
     """Rules for a port ``ConvSequence`` (fused layers or not, transposed
-    or not), walking flax's ``Conv_{i}``, ``ConvTranspose_{i}``,
-    ``BatchNorm_{j}`` and ``FusedConvBN_{n}`` counters as
+    or not, with rewrite, LayerScale and post-skip convs or not), walking
+    flax's ``Conv_{i}``, ``ConvTranspose_{i}``, ``BatchNorm_{j}``,
+    ``FusedConvBN_{n}`` and ``LayerScale_{n}`` counters as
     ``brainmagick_tpu.models.common.ConvSequence`` creates them."""
     rules: tp.List[tuple] = []
     counters = {"Conv": 0, "ConvTranspose": 0, "BatchNorm": 0,
-                "FusedConvBN": 0}
+                "FusedConvBN": 0, "LayerScale": 0}
     convs = (nn.Conv1d, nn.ConvTranspose1d)
 
     def name(kind: str) -> str:
@@ -149,6 +156,8 @@ def conv_sequence_rules(seq: nn.Module, tprefix: str,
         pos = next(i for i, m in enumerate(layer) if isinstance(m, convs))
         conv_key = f"{tprefix}sequence.{k}.{pos}"
         bn_key = f"{tprefix}sequence.{k}.{pos + 1}"
+        has_bn = pos + 1 < len(layer) and isinstance(layer[pos + 1],
+                                                     nn.BatchNorm1d)
         if seq.fused[k]:
             f = fprefix + (name("FusedConvBN"),)
             rules.append((f"{conv_key}.weight", f + ("kernel",), "conv_w",
@@ -163,10 +172,22 @@ def conv_sequence_rules(seq: nn.Module, tprefix: str,
                 # without bn_conv_bias a BatchNorm'd conv has no bias leaf
                 rules.append((f"{conv_key}.bias", f + ("bias",), "copy",
                               "params"))
-            if pos + 1 < len(layer) and isinstance(layer[pos + 1],
-                                                   nn.BatchNorm1d):
+            if has_bn:
                 rules += _batch_norm_rules(
                     bn_key, fprefix + (name("BatchNorm"),))
+        # the rewrite conv, LayerScale and the post-skip conv, in order
+        for t in range(pos + 1 + has_bn, len(layer)):
+            key = f"{tprefix}sequence.{k}.{t}"
+            if isinstance(layer[t], nn.Conv1d):
+                f = fprefix + (name("Conv"),)
+                rules.append((f"{key}.weight", f + ("kernel",), "conv_w",
+                              "params"))
+                if layer[t].bias is not None:
+                    rules.append((f"{key}.bias", f + ("bias",), "copy",
+                                  "params"))
+            elif isinstance(layer[t], LayerScale):
+                rules.append((f"{key}.scale", fprefix + (
+                    name("LayerScale"), "scale"), "copy", "params"))
         if glu is not None:
             rules += _conv_rules(f"{tprefix}glus.{k}.0",
                                  fprefix + (name("Conv"),))
@@ -293,10 +314,21 @@ def deepmel_rules(feature_model: nn.Module) -> tp.List[tuple]:
     return conv_sequence_rules(feature_model, "", ("fm", "ConvSequence_0"))
 
 
-def _split_fm(tree: Mapping) -> tp.Tuple[dict, dict]:
-    """A JAX solver tree as (everything but ``fm``, ``{"fm": ...}``)."""
-    rest = {k: v for k, v in tree.items() if k != "fm"}
-    return rest, ({"fm": tree["fm"]} if "fm" in tree else {})
+def clip_loss_rules(clip_loss: nn.Module) -> tp.List[tuple]:
+    """Rules for a port ``losses.ClipLoss``: its projection's Dense layers
+    under flax's ``loss`` scope (``linear_est``, and ``linear_gt`` without
+    ``twin``); none without ``linear``."""
+    rules: tp.List[tuple] = []
+    for name in ("linear_est", "linear_gt"):
+        if getattr(clip_loss, name, None) is not None:
+            rules += _dense_rules(name, ("loss", name))
+    return rules
+
+
+def _split(tree: Mapping, scope: str) -> tp.Tuple[dict, dict]:
+    """A JAX solver tree as (everything but `scope`, ``{scope: ...}``)."""
+    rest = {k: v for k, v in tree.items() if k != scope}
+    return rest, ({scope: tree[scope]} if scope in tree else {})
 
 
 def model_rules(model: nn.Module) -> tp.List[tuple]:
@@ -307,19 +339,25 @@ def model_rules(model: nn.Module) -> tp.List[tuple]:
 
 def load_jax_params(model: nn.Module, params: Mapping,
                     batch_stats: Mapping,
-                    feature_model: tp.Optional[nn.Module] = None) -> None:
+                    feature_model: tp.Optional[nn.Module] = None,
+                    clip_loss: tp.Optional[nn.Module] = None) -> None:
     """Load the JAX solver's ``params`` and ``batch_stats`` trees
     (``{"model": ...}`` nested dicts of numpy arrays, as
     ``jax.device_get(solver.state[...])`` gives them) into a port
     SimpleConv or ConvRNN, by the rules ``model_rules`` derives from the
-    port model's own attributes, and their ``fm`` sub-trees into
-    `feature_model` (``deepmel_rules``). Every leaf must be consumed: an
-    ``fm`` sub-tree without a `feature_model` raises."""
+    port model's own attributes, their ``fm`` sub-trees into
+    `feature_model` (``deepmel_rules``) and their ``loss`` sub-tree into
+    `clip_loss` (``clip_loss_rules``). Every leaf must be consumed: an
+    ``fm`` sub-tree without a `feature_model`, or a trained projection
+    without a `clip_loss`, raises."""
+    if clip_loss is not None:
+        params, loss_params = _split(params, "loss")
+        load_by_rules(clip_loss, clip_loss_rules(clip_loss), loss_params, {})
     if feature_model is None:
         load_by_rules(model, model_rules(model), params, batch_stats)
         return
-    (params, fm_params), (batch_stats, fm_stats) = map(
-        _split_fm, (params, batch_stats))
+    (params, fm_params), (batch_stats, fm_stats) = (
+        _split(tree, "fm") for tree in (params, batch_stats))
     load_by_rules(model, model_rules(model), params, batch_stats)
     load_by_rules(feature_model, deepmel_rules(feature_model), fm_params,
                   fm_stats)

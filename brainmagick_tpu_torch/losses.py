@@ -2,7 +2,8 @@
 
 Port of ``brainmagick_tpu/losses.py``: the masked L1/L2 losses,
 ``FeatureDecodingLoss`` (per-feature regression and classification), and
-``ClipLoss``, which scores estimates [B, F, T] against candidates
+``ClipLoss`` (an ``nn.Module``: the learned projection of ``clip.linear``
+is its parameters), which scores estimates [B, F, T] against candidates
 [N, F, T] with the candidate norms folded in and, as a loss, takes the
 weighted cross-entropy of each estimate against its own candidate.
 ``retrieval_scores`` is the no-grad fast path that contracts the
@@ -20,8 +21,10 @@ import typing as tp
 
 import numpy as np
 import torch
+from torch import nn
 
 from . import parallel
+from .models.common import lecun_normal_
 from .ops.matmul import nt_matmul
 from .precision import torch_dtype
 
@@ -142,32 +145,52 @@ class FeatureDecodingLoss:
 
 def block_inv_norms(block: torch.Tensor) -> torch.Tensor:
     """Per-candidate inverse norms of a (possibly bf16) candidate block,
-    accumulated in fp32."""
+    accumulated in fp32. The JAX package's values; the gradient of an
+    all-zero candidate's norm is 0 here, where the JAX package's square
+    root at 0 makes it NaN (the zero-weight padding of the sampled
+    negatives through ``clip.linear``'s projection, at its zero initial
+    bias, then turns the projection's gradients into NaN there)."""
     cf = block.reshape(block.shape[0], -1).float()
-    return 1 / (1e-8 + torch.sqrt(torch.sum(cf * cf, dim=1)))
+    squares = torch.sum(cf * cf, dim=1)
+    positive = squares > 0
+    norms = torch.where(positive, torch.sqrt(torch.where(
+        positive, squares, torch.ones_like(squares))), 0.)
+    return 1 / (1e-8 + norms)
 
 
-class ClipLoss:
+class ClipLoss(nn.Module):
     """CLIP scoring over candidate segments: trimming to a [tmin, tmax]
-    window (``tmin_train``/``tmax_train`` in training), optional time
+    window (``tmin_train``/``tmax_train`` in training), the learned
+    ``linear`` projection over the trimmed time axis, optional time
     pooling and centering, an optional matmul compute dtype (bf16
-    operands, fp32 accumulation and norms). The learned ``linear``
-    projection is not ported yet."""
+    operands, fp32 accumulation and norms).
 
-    def __init__(self, linear: tp.Optional[int] = None, pool: bool = False,
-                 center: bool = False, tmin: tp.Optional[float] = None,
+    With `linear`, the projection is flax's lazy ``Dense`` over time: its
+    input width is the eval-mode trim of the targets' `length` (flax
+    creates it in ``init``, which runs in eval mode), and in training the
+    ``tmin_train``/``tmax_train`` trim must give the same width. It maps
+    the estimates through ``linear_est`` and the candidates through the
+    same layer with `twin`, else through ``linear_gt``, each initialized
+    by ``reset_parameters`` (``solver.build_clip_loss`` calls it), its
+    product in its input's type promoted with fp32. `est_layout` "btc"
+    takes the estimates as [B, T, F]."""
+
+    def __init__(self, linear: tp.Optional[int] = None, twin: bool = True,
+                 pool: bool = False, center: bool = False,
+                 tmin: tp.Optional[float] = None,
                  tmax: tp.Optional[float] = None,
                  tmin_train: tp.Optional[float] = None,
                  tmax_train: tp.Optional[float] = None,
                  dset_tmin: float = -0.5,
                  dset_sample_rate: float = 120.,
                  compute_dtype: tp.Optional[str] = None,
-                 est_layout: str = "bct") -> None:
-        if linear:
-            raise NotImplementedError(f"clip.linear={linear!r}")
-        if est_layout != "bct":
-            raise NotImplementedError(f"est_layout={est_layout!r}")
+                 est_layout: str = "bct",
+                 length: tp.Optional[int] = None) -> None:
+        super().__init__()
+        if est_layout not in ("bct", "btc"):
+            raise ValueError(f"est_layout={est_layout!r}: 'bct' or 'btc'")
         self.linear = linear
+        self.twin = twin
         self.pool = pool
         self.center = center
         self.tmin, self.tmax = tmin, tmax
@@ -175,34 +198,73 @@ class ClipLoss:
         self.dset_tmin = dset_tmin
         self.dset_sample_rate = dset_sample_rate
         self.compute_dtype = torch_dtype(compute_dtype)
+        self.est_layout = est_layout
+        self.linear_est: tp.Optional[nn.Linear] = None
+        self.linear_gt: tp.Optional[nn.Linear] = None
+        if linear:
+            if length is None:
+                raise ValueError("clip.linear needs the targets' length "
+                                 "(the projection's input width)")
+            lo, hi = self._bounds(length, False)
+            width = len(range(length)[lo:hi])
+            self.linear_est = nn.Linear(width, linear)
+            if not twin:
+                self.linear_gt = nn.Linear(width, linear)
 
-    def trim_samples(self, estimates: torch.Tensor, candidates: torch.Tensor,
-                     train: bool = False
-                     ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-        """Restrict scoring to [tmin, tmax] relative to the event, or to
-        [tmin_train, tmax_train] in training when either is set."""
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax ``Dense``'s initialization of the projection: a LeCun
+        normal kernel drawn from `generator`, a zero bias."""
+        for layer in (self.linear_est, self.linear_gt):
+            if layer is not None:
+                lecun_normal_(layer.weight, layer.in_features, generator)
+                nn.init.zeros_(layer.bias)
+
+    def _bounds(self, length: int, train: bool) -> tp.Tuple[int, int]:
+        """The [lo, hi) sample window of the trim for `length` samples."""
         if train and (self.tmin_train is not None
                       or self.tmax_train is not None):
             tmin, tmax = self.tmin_train, self.tmax_train
         else:
             tmin, tmax = self.tmin, self.tmax
-        trim_min, trim_max = 0, estimates.shape[-1]
+        trim_min, trim_max = 0, length
         if tmin is not None:
             if tmin < self.dset_tmin:
                 raise ValueError("clip.tmin must be >= dset.tmin")
             trim_min = int((-self.dset_tmin + tmin) * self.dset_sample_rate)
         if tmax is not None:
             trim_max = int((-self.dset_tmin + tmax) * self.dset_sample_rate)
-        return (estimates[..., trim_min:trim_max],
-                candidates[..., trim_min:trim_max])
+        return trim_min, trim_max
+
+    def trim_samples(self, estimates: torch.Tensor, candidates: torch.Tensor,
+                     train: bool = False
+                     ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        """Restrict scoring to [tmin, tmax] relative to the event, or to
+        [tmin_train, tmax_train] in training when either is set; [B, F, T]
+        estimates and candidates."""
+        lo, hi = self._bounds(estimates.shape[-1], train)
+        return estimates[..., lo:hi], candidates[..., lo:hi]
+
+    @staticmethod
+    def _project(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """flax ``Dense`` with ``dtype=None`` over the last axis: input and
+        parameters promoted to one type."""
+        dt = torch.promote_types(x.dtype, layer.weight.dtype)
+        return torch.nn.functional.linear(x.to(dt), layer.weight.to(dt),
+                                          layer.bias.to(dt))
 
     def _flat_operands(self, estimates: torch.Tensor,
                        candidates: torch.Tensor, train: bool
                        ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-        """The trimmed, pooled, centered and compute-dtype cast operands,
-        flattened to [B, F*T'] and [N, F*T'] in fp32."""
+        """The trimmed, projected, pooled, centered and compute-dtype cast
+        operands, flattened to [B, F*T'] and [N, F*T'] in fp32."""
+        if self.est_layout == "btc":
+            estimates = estimates.transpose(1, 2)
         estimates, candidates = self.trim_samples(estimates, candidates,
                                                   train)
+        if self.linear_est is not None:
+            estimates = self._project(self.linear_est, estimates)
+            candidates = self._project(self.linear_gt or self.linear_est,
+                                       candidates)
         if self.pool:
             estimates = estimates.mean(dim=2, keepdim=True)
             candidates = candidates.mean(dim=2, keepdim=True)
@@ -220,7 +282,8 @@ class ClipLoss:
 
     def get_scores(self, estimates: torch.Tensor, candidates: torch.Tensor,
                    train: bool = False) -> torch.Tensor:
-        """[B, F, T] x [N, F, T] -> [B, N] candidate-norm-scaled scores."""
+        """[B, F, T] (or [B, T, F] with est_layout "btc") x [N, F, T] ->
+        [B, N] candidate-norm-scaled scores."""
         e2, c2 = self._flat_operands(estimates, candidates, train)
         return (e2 @ c2.T) * block_inv_norms(c2)[None, :]
 
@@ -237,10 +300,10 @@ class ClipLoss:
                           candidates: torch.Tensor) -> torch.Tensor:
         return torch.softmax(self.get_scores(estimates, candidates), dim=1)
 
-    def __call__(self, estimate: torch.Tensor, candidate: torch.Tensor,
-                 sample_weight: tp.Optional[torch.Tensor] = None,
-                 candidate_weight: tp.Optional[torch.Tensor] = None,
-                 train: bool = False) -> torch.Tensor:
+    def forward(self, estimate: torch.Tensor, candidate: torch.Tensor,
+                sample_weight: tp.Optional[torch.Tensor] = None,
+                candidate_weight: tp.Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
         """Cross-entropy over candidates; estimate i's positive is
         candidate i. `sample_weight` [B] masks estimates out of the loss,
         `candidate_weight` [N] masks candidates out of the softmax."""

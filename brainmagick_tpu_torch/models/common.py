@@ -1,14 +1,17 @@
 """Shared model blocks: subject layers and embeddings, spatial attention
-over sensor positions, dilated conv stacks (strided, and transposed for a
-decoder), in eval and train mode.
+over sensor positions, the spatial channel dropout, dilated conv stacks
+(strided, and transposed for a decoder) with LayerScale and the rewrite
+and post-skip 1x1 convs, in eval and train mode.
 
 Port of ``brainmagick_tpu/models/common.py`` in torch's natural [B, C, T]
 Conv1d layout. Submodules carry the reference ``bm`` names
 (``sequence.{k}.{i}``, ``glus.{k}.0``, ``heads``, ``weights``), which are
 the keys ``brainmagick_tpu.convert`` maps flax leaves onto. Train mode
 follows flax: BatchNorm normalizes with the biased batch variance and
-keeps it in its running average, and the merger's dropout disk comes from
-an explicit ``torch.Generator`` (or a centre the caller passes).
+keeps it in its running average, and every random draw of train mode
+(the merger's and ChannelDropout's disk centres, the conv stacks' dropout
+masks) comes from an explicit ``torch.Generator``, or is one the caller
+passes (the tests replay flax's draws so).
 
 A compute dtype (bf16) follows flax's ``dtype=`` rule: parameters,
 BatchNorm statistics and softmaxes stay fp32, and each op casts its
@@ -103,7 +106,10 @@ def fourier_emb(positions: torch.Tensor, dimension: int = 256,
 class Conv1d(nn.Conv1d):
     """``nn.Conv1d`` with flax ``nn.Conv``'s `compute_dtype` (``dtype=``):
     input, weight and bias cast to it at use, the result in it; with None,
-    ``nn.Conv1d`` itself. The parameters stay fp32."""
+    ``nn.Conv1d`` itself on an input of the weights' type, else flax's
+    ``dtype=None`` rule: the input and the weights promoted to one type
+    (a bf16 input meets fp32 weights in fp32). The parameters stay
+    fp32."""
 
     def __init__(self, *args, compute_dtype: tp.Optional[torch.dtype] = None,
                  **kwargs) -> None:
@@ -112,8 +118,10 @@ class Conv1d(nn.Conv1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        if dt is None:
+        if dt is None and x.dtype == self.weight.dtype:
             return super().forward(x)
+        if dt is None:
+            dt = torch.promote_types(x.dtype, self.weight.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
@@ -163,7 +171,7 @@ class SubjectLayers(nn.Module):
                 ) -> torch.Tensor:
         # x: [B, C_in, T], subjects: [B] -> [B, C_out, T] fp32 (a bf16 x
         # meets the fp32 weights in fp32, as in the flax module)
-        return torch.einsum("bct,bcd->bdt", x.float(), self.weights[subjects])
+        return einsum_fp32("bct,bcd->bdt", x, self.weights[subjects])
 
 
 class ScaledEmbedding(nn.Module):
@@ -183,6 +191,135 @@ class ScaledEmbedding(nn.Module):
     def forward(self, subjects: torch.Tensor) -> torch.Tensor:
         """subjects [B] -> [B, features]."""
         return self.embedding(subjects) * self.scale
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout`` on an explicit generator: in train mode each
+    element is kept with probability ``1 - rate`` and the kept ones are
+    divided by that probability in the input's own type (a bf16 input
+    rounds in bf16, as flax's ``inputs / keep_prob`` does: the probability
+    rounded to the input's type, then the division). The keep mask is the
+    `mask` given (bool, the input's shape), else drawn from `generator`
+    (uniforms below the keep probability, drawn on the generator's device);
+    with neither, train mode raises. Eval mode, or a rate of 0, returns
+    the input."""
+
+    def __init__(self, rate: float) -> None:
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: tp.Optional[torch.Generator] = None,
+                mask: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not self.training or not self.rate:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        if mask is None:
+            if generator is None:
+                raise ValueError("dropout in train mode needs a generator "
+                                 "or a mask")
+            mask = torch.rand(x.shape, generator=generator,
+                              device=generator.device) < keep
+        # a divisor on the input's device: a CPU scalar would turn the
+        # division into a product by its reciprocal on CUDA
+        divisor = torch.full((), keep, dtype=x.dtype, device=x.device)
+        return torch.where(mask.to(x.device), x / divisor,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
+
+
+def run_layers(modules: tp.Iterable[nn.Module], x: torch.Tensor,
+               generator: tp.Optional[torch.Generator] = None,
+               masks: tp.Optional[tp.Iterator[torch.Tensor]] = None
+               ) -> torch.Tensor:
+    """`modules` in turn on `x`, each ``Dropout`` with `generator` and the
+    next of `masks` when given."""
+    for module in modules:
+        if isinstance(module, Dropout):
+            mask = None
+            if masks is not None and module.training and module.rate:
+                mask = next(masks)
+            x = module(x, generator, mask)
+        else:
+            x = module(x)
+    return x
+
+
+def _disk_keep_probability(positions: torch.Tensor, radius: float,
+                           grid: int = 10) -> torch.Tensor:
+    """P(a centre uniform in [0, 1]^2 lies farther than `radius` from each
+    position), by the midpoint rule on a `grid` x `grid` lattice: [..., 2]
+    -> [...] in the positions' type."""
+    steps = (torch.arange(grid, dtype=positions.dtype,
+                          device=positions.device) + 0.5) / grid
+    cx, cy = torch.meshgrid(steps, steps, indexing="ij")
+    centers = torch.stack([cx.reshape(-1), cy.reshape(-1)], dim=-1)
+    dist = torch.linalg.vector_norm(positions[..., None, :] - centers,
+                                    dim=-1)
+    return (dist > radius).to(positions.dtype).mean(dim=-1)
+
+
+class ChannelDropout(nn.Module):
+    """Spatial dropout of train mode: every sensor within `dropout` of a
+    disk centre uniform in [0, 1]^2 is zeroed, and with `rescale` each
+    sensor is divided by its keep probability (``_disk_keep_probability``).
+    Invalid (padded) sensors are zeroed in eval mode too. The centre is
+    the one given, else drawn from `generator` in the meg's type."""
+
+    def __init__(self, dropout: float = 0.1, rescale: bool = True) -> None:
+        super().__init__()
+        self.dropout = dropout
+        self.rescale = rescale
+
+    def forward(self, meg: torch.Tensor, positions: torch.Tensor,
+                generator: tp.Optional[torch.Generator] = None,
+                center: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+        """meg [B, C, T], positions [B, C, 2] -> [B, C, T]; a rescaled
+        meg takes the positions' type, as in flax."""
+        if not self.dropout:
+            return meg
+        valid = ~is_invalid_position(positions)
+        meg = meg * valid[:, :, None]
+        if not self.training:
+            return meg
+        if center is None:
+            if generator is None:
+                raise ValueError("channel dropout in train mode needs a "
+                                 "generator or a disk centre")
+            center = torch.rand(2, generator=generator,
+                                device=generator.device, dtype=meg.dtype)
+        dist = torch.linalg.vector_norm(
+            positions - center.to(positions.device), dim=-1)   # [B, C]
+        meg = meg * (dist > self.dropout)[:, :, None]
+        if self.rescale:
+            kept = _disk_keep_probability(positions, self.dropout)
+            meg = meg / (1e-8 + kept[:, :, None])
+        return meg
+
+
+class LayerScale(nn.Module):
+    """Diagonal rescaling of a residual branch, with a learning-rate
+    boost: the parameter starts at ``init / boost`` and the forward is
+    ``boost * scale * x`` (a bf16 x comes out fp32, as in flax)."""
+
+    def __init__(self, channels: int, init: float = 0.1,
+                 boost: float = 5.) -> None:
+        super().__init__()
+        self.init = init
+        self.boost = boost
+        self.scale = nn.Parameter(torch.empty(channels))
+        self.reset_parameters()
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.scale.fill_(self.init / self.boost)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (self.boost * self.scale)[:, None] * x
 
 
 class ChannelMerger(nn.Module):
@@ -325,10 +462,13 @@ class BatchNorm(nn.BatchNorm1d):
 
 
 class ConvSequence(nn.Module):
-    """Stack of dilated 1D convs with BatchNorm, activation, residual
-    skips and interleaved GLU gates. Layer k is ``sequence[k]`` = (conv,
-    BatchNorm, activation) and its gate is ``glus[k]`` = (conv, GLU) or
-    None.
+    """Stack of dilated 1D convs with BatchNorm, activation, dropout,
+    residual skips and interleaved GLU gates. Layer k is ``sequence[k]``,
+    in the reference ``bm`` order: (input dropout at k = 0, conv,
+    BatchNorm, activation, dropout, with `rewrite` a 1x1 conv and a leaky
+    ReLU, with `scale` a LayerScale and with `post_skip` a depthwise 1x1
+    conv without bias; the last two only when the layer keeps its width
+    and `skip`), and its gate is ``glus[k]`` = (conv, GLU) or None.
 
     Each conv pads ``kernel // 2 * dilation`` on both sides, as flax's
     ``ConvSequence`` does, and steps by `stride` (1 here by default; the
@@ -343,21 +483,28 @@ class ConvSequence(nn.Module):
     With `fused_conv_bn`, every layer that flax's ConvSequence runs as a
     ``FusedConvBN`` (BatchNorm'd, and ungrouped or the first) has a conv
     without bias, and in train mode runs ``ops.conv_bn.conv_stats``: the
-    conv and its batch sums in one pass, normalized from those sums. In
-    eval mode such a layer is the plain conv and BatchNorm on the running
+    conv and its batch sums in one pass, normalized from those sums; the
+    modules before and after it (input dropout; activation, dropout,
+    rewrite, LayerScale, post-skip conv) run as they are. In eval mode
+    such a layer is the plain conv and BatchNorm on the running
     statistics. The key layout is the same for both settings. As in flax,
     only a stride-1 conv with an odd kernel, not transposed, fuses.
     Without `bn_conv_bias`, no BatchNorm'd conv has a bias (BatchNorm
     cancels it). The convs run in `compute_dtype` (bf16 or None for the
-    input's)."""
+    input's), the post-skip conv in its input's type promoted with its
+    weights' (flax's ``dtype=None``). In train mode the dropouts draw
+    their masks from the `generator` ``forward`` takes, or take the
+    `masks` it is given, in order (the input dropout's, then each layer's)."""
 
     def __init__(self, channels: tp.Sequence[int], kernel: int = 4,
                  dilation_growth: int = 1,
                  dilation_period: tp.Optional[int] = None,
                  stride: int = 1, decode: bool = False,
-                 dropout: float = 0.0, groups: int = 1,
-                 batch_norm: bool = False, dropout_input: float = 0.0,
-                 skip: bool = False, activation_on_last: bool = True,
+                 dropout: float = 0.0, leakiness: float = 0.0,
+                 groups: int = 1, batch_norm: bool = False,
+                 dropout_input: float = 0.0, skip: bool = False,
+                 scale: tp.Optional[float] = None, rewrite: bool = False,
+                 activation_on_last: bool = True, post_skip: bool = False,
                  glu: int = 0, glu_context: int = 0, glu_glu: bool = True,
                  activation: tp.Callable[[], nn.Module] = nn.ReLU,
                  fused_conv_bn: bool = False, bn_conv_bias: bool = True,
@@ -380,7 +527,7 @@ class ConvSequence(nn.Module):
             self.fused.append(fused)
             layers: tp.List[nn.Module] = []
             if k == 0 and dropout_input:
-                layers.append(nn.Dropout(dropout_input))
+                layers.append(Dropout(dropout_input))
             if dilation_period and k % dilation_period == 0:
                 dilation = 1
             pad = kernel // 2 * dilation
@@ -407,7 +554,17 @@ class ConvSequence(nn.Module):
                     layers.append(BatchNorm(chout))
                 layers.append(activation())
                 if dropout:
-                    layers.append(nn.Dropout(dropout))
+                    layers.append(Dropout(dropout))
+                if rewrite:
+                    layers += [Conv1d(chout, chout, 1,
+                                      compute_dtype=compute_dtype),
+                               nn.LeakyReLU(leakiness)]
+            if chin == chout and skip:
+                if scale is not None:
+                    layers.append(LayerScale(chout, scale))
+                if post_skip:
+                    layers.append(Conv1d(chout, chout, 1, groups=chout,
+                                         bias=False))
             self.sequence.append(nn.Sequential(*layers))
             if glu and (k + 1) % glu == 0:
                 width = 1 + 2 * glu_context
@@ -419,27 +576,38 @@ class ConvSequence(nn.Module):
                 self.glus.append(None)
 
     @staticmethod
-    def _fused_train(layer: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    def _fused_train(layer: nn.Sequential, x: torch.Tensor,
+                     generator: tp.Optional[torch.Generator],
+                     masks: tp.Optional[tp.Iterator[torch.Tensor]]
+                     ) -> torch.Tensor:
         """(conv, BatchNorm) in train mode through conv_stats on operands
         in the conv's compute dtype (x's when None), the rest of the layer
-        (input dropout before, activation after) as it is."""
+        (input dropout before; activation, dropout, rewrite, LayerScale
+        and post-skip conv after) as it is."""
         pos = next(i for i, m in enumerate(layer)
                    if isinstance(m, nn.Conv1d))
         conv, bn = layer[pos], layer[pos + 1]
-        x = layer[:pos](x)
+        x = run_layers(layer[:pos], x, generator, masks)
         dt = x.dtype if conv.compute_dtype is None else conv.compute_dtype
         y, s, ss = conv_stats(x.to(dt), conv.weight.to(dt), conv.dilation[0])
         mean, var = batch_mean_var(s, ss, y.shape[0] * y.shape[2])
         x = bn.normalize_train(y.float(), mean, var).to(y.dtype)
-        return layer[pos + 2:](x)
+        return run_layers(layer[pos + 2:], x, generator, masks)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: tp.Optional[torch.Generator] = None,
+                masks: tp.Optional[tp.Iterable[torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """x [B, C, T] -> [B, C', T']. In train mode the dropouts draw
+        from `generator`, or take the next of `masks` (bool keep masks of
+        their inputs' shapes, in the order the layers draw them)."""
+        masks = None if masks is None else iter(masks)
         for layer, glu, fused in zip(self.sequence, self.glus, self.fused):
             old_x = x
             if fused and self.training:
-                x = self._fused_train(layer, x)
+                x = self._fused_train(layer, x, generator, masks)
             else:
-                x = layer(x)
+                x = run_layers(layer, x, generator, masks)
             # residual when shapes match (stride-1 stacks)
             if self.skip and x.shape == old_x.shape:
                 x = x + old_x

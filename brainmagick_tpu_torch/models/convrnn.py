@@ -180,8 +180,10 @@ class ConvRNN(nn.Module):
     attributes of the same names (``convert.convrnn_rules`` reads them);
     ``subject_layers``, ``subject_embedding``, ``encoders``, ``lstm``,
     ``attentions``, ``decoder`` and ``final`` hold the submodules (None
-    when off). ``conv_dropout`` and ``dropout_input`` raise in train mode
-    (``nn.Dropout`` draws from torch's global generator)."""
+    when off). In train mode ``conv_dropout`` and ``dropout_input`` draw
+    their masks from the `generator` ``forward`` takes, or take the
+    `masks` it is given (the encoders' in sorted order, then the
+    decoder's)."""
 
     def __init__(self, in_channels: tp.Mapping[str, int], out_channels: int,
                  hidden: tp.Mapping[str, int], depth: int = 2,
@@ -297,17 +299,15 @@ class ConvRNN(nn.Module):
 
     def forward(self, inputs: tp.Mapping[str, torch.Tensor],
                 subject_index: torch.Tensor,
-                positions: tp.Optional[torch.Tensor] = None
+                positions: tp.Optional[torch.Tensor] = None,
+                generator: tp.Optional[torch.Generator] = None,
+                masks: tp.Optional[tp.Iterable[torch.Tensor]] = None
                 ) -> torch.Tensor:
         """inputs {name: [B, C_name, T]} (the encode task's 'meg' and
-        'features', or 'meg'), subject_index [B]; `positions` is not read.
-        Returns [B, out_channels, T] fp32."""
-        if self.training:
-            for name in ("conv_dropout", "dropout_input"):
-                if getattr(self, name):
-                    raise NotImplementedError(
-                        f"convrnn.{name}={getattr(self, name)!r} in train "
-                        f"mode")
+        'features', or 'meg'), subject_index [B]; `positions` is not read;
+        `generator` and `masks` as ``ConvSequence.forward``'s. Returns
+        [B, out_channels, T] fp32."""
+        masks = None if masks is None else iter(masks)
         length = next(iter(inputs.values())).shape[-1]
         inputs = dict(inputs)
         emb = None
@@ -324,7 +324,8 @@ class ConvRNN(nn.Module):
                 [inputs[name] for name in sorted(inputs)], dim=1)}
         valid = self.valid_length(length)
         parts = [self.encoders[name](F.pad(inputs[name],
-                                           (0, valid - length)))
+                                           (0, valid - length)),
+                                     generator, masks)
                  for name in sorted(inputs)]
         if emb is not None and "lstm" in self.embedding_location:
             parts.append(emb.expand(-1, -1, parts[0].shape[-1]))
@@ -339,7 +340,7 @@ class ConvRNN(nn.Module):
             x = x.transpose(1, 2)
         for attention in self.attentions:
             x = x + attention(x)
-        x = self.decoder(x)
+        x = self.decoder(x, generator, masks)
         if self.final is not None:
             x = self.final(x)
         return x[..., :length]

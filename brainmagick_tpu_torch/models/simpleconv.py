@@ -2,14 +2,16 @@
 
 Port of ``brainmagick_tpu/models/simpleconv.py``. Forward pipeline: a
 fixed subset of the sensors (``subsample_meg_channels``, the others
-zeroed) -> ChannelMerger spatial attention -> initial 1x1 conv stack ->
+zeroed) -> ChannelDropout (``dropout``; padded sensors zeroed in eval mode
+too) -> ChannelMerger spatial attention -> initial 1x1 conv stack ->
 per-subject SubjectLayers -> the subject embedding (``subject_dim``) ->
 a dilated ConvSequence encoder per input (the MEG, and in the encode
 task the features, whose branch skips the MEG's head), or one over the
 concatenated inputs (``concatenate``) -> final (linear / complex) 1x1
 head over the encoders' concatenated outputs -> crop to the input
 length. Layout [B, C, T] in and [B, F, T] out, as the flax module's public
-call. With `fused_head` the merger, the initial conv and the subject
+call, or [B, T, F] with ``output_layout="btc"``. With `fused_head` the
+merger, the initial conv and the subject
 layers run as one gathered matrix per recording (``_fused_head``), on the
 subset's MEG.
 
@@ -21,8 +23,10 @@ weights under them: ``merger``, ``initial_linear`` and ``subject_layers``
 hold the module when the option is on and None when it is off (the rules
 only test them for truth); the embedding is ``subject_embedding``.
 Options outside the ported slices raise NotImplementedError naming the
-option. In train mode the merger's dropout disk is drawn from the
-`generator` passed to ``forward``, and ``fused_conv_bn`` runs the
+option. In train mode ChannelDropout's and the merger's disks and the
+encoders' dropout masks (``dropout_input``, ``conv_dropout``) are drawn
+from the `generator` passed to ``forward``, or replayed from the
+`centers` and `masks` it is given, and ``fused_conv_bn`` runs the
 encoders' conv + BatchNorm layers through ``ops.conv_bn.conv_stats``.
 `dtype` ('bfloat16') is the compute dtype of the convs, the merger's
 contractions and the fused head (parameters and statistics stay fp32,
@@ -39,14 +43,13 @@ import torch
 from torch import nn
 
 from ..precision import einsum_fp32, torch_dtype
-from .common import (ChannelMerger, Conv1d, ConvSequence, ConvTranspose1d,
-                     ScaledEmbedding, SubjectLayers, get_activation,
-                     init_conv_)
+from .common import (ChannelDropout, ChannelMerger, Conv1d, ConvSequence,
+                     ConvTranspose1d, LayerScale, ScaledEmbedding,
+                     SubjectLayers, get_activation, init_conv_)
 
-#: option -> value the slice supports; any other value raises
-_SUPPORTED = dict(post_skip=False, scale=None, rewrite=False, dual_path=0,
-                  n_fft=None, merger_per_subject=False, dropout=0.,
-                  output_layout="bct", conv_impl="conv")
+#: option -> value the port supports; any other value raises
+_SUPPORTED = dict(dual_path=0, n_fft=None, merger_per_subject=False,
+                  conv_impl="conv")
 #: the seed of the fixed sensor subset of ``subsample_meg_channels``
 SUBSAMPLE_SEED = 1234
 
@@ -84,10 +87,9 @@ class SimpleConv(nn.Module):
                  fused_conv_bn: bool = False,
                  fused_head: bool = False) -> None:
         super().__init__()
-        given = dict(post_skip=post_skip, scale=scale, rewrite=rewrite,
-                     dual_path=dual_path, n_fft=n_fft,
-                     merger_per_subject=merger_per_subject, dropout=dropout,
-                     output_layout=output_layout, conv_impl=conv_impl)
+        given = dict(dual_path=dual_path, n_fft=n_fft,
+                     merger_per_subject=merger_per_subject,
+                     conv_impl=conv_impl)
         for name, value in given.items():
             if value != _SUPPORTED[name]:
                 raise NotImplementedError(f"simpleconv.{name}={value!r}")
@@ -97,6 +99,9 @@ class SimpleConv(nn.Module):
         if "meg" not in in_channels:
             raise NotImplementedError(f"inputs without 'meg': "
                                       f"{dict(in_channels)}")
+        if output_layout not in ("bct", "btc"):
+            raise ValueError(f"output_layout={output_layout!r}: 'bct' or "
+                             f"'btc'")
         if linear_out and complex_out:
             raise ValueError("linear_out and complex_out are exclusive")
         use_final = linear_out or complex_out
@@ -131,6 +136,12 @@ class SimpleConv(nn.Module):
         self.concatenate = concatenate
         self.subject_dim = subject_dim
         self.subsample_meg_channels = subsample_meg_channels
+        self.post_skip = post_skip
+        self.scale = scale
+        self.rewrite = rewrite
+        self.dropout = dropout
+        self.dropout_rescale = dropout_rescale
+        self.output_layout = output_layout
         mask = None
         if subsample_meg_channels:
             # the flax module's fixed sensor subset, [C_in, 1]: a constant
@@ -149,6 +160,9 @@ class SimpleConv(nn.Module):
 
         act = get_activation(gelu, relu_leakiness, gelu_exact)
         chin = in_channels["meg"]
+        self.channel_dropout = None
+        if dropout:
+            self.channel_dropout = ChannelDropout(dropout, dropout_rescale)
         self.merger = None
         if merger:
             # merger_dropout and merger_penalty act only in training
@@ -195,8 +209,9 @@ class SimpleConv(nn.Module):
         self.encoders = nn.ModuleDict({name: ConvSequence(
             size, kernel=kernel_size, dilation_growth=dilation_growth,
             dilation_period=dilation_period, dropout=conv_dropout,
-            groups=groups, batch_norm=batch_norm,
-            dropout_input=dropout_input, skip=skip,
+            leakiness=relu_leakiness, groups=groups, batch_norm=batch_norm,
+            dropout_input=dropout_input, skip=skip, scale=scale,
+            rewrite=rewrite, post_skip=post_skip,
             activation_on_last=use_final, glu=glu, glu_context=glu_context,
             glu_glu=glu_glu, activation=act, fused_conv_bn=fused_conv_bn,
             bn_conv_bias=bn_conv_bias, compute_dtype=dt)
@@ -217,11 +232,11 @@ class SimpleConv(nn.Module):
         """Initialize every weight from `generator` (drawn on the CPU):
         LeCun-normal convs with zero bias, N(0, 1/pos_dim) merger heads,
         N(0, 1/C_in) subject matrices, N(0, 1/scale^2) subject embeddings,
-        BatchNorm at identity."""
+        BatchNorm at identity, LayerScale at init / boost."""
         for module in self.modules():
             if isinstance(module, (nn.Conv1d, nn.ConvTranspose1d)):
                 init_conv_(module, generator)
-            elif isinstance(module, nn.BatchNorm1d):
+            elif isinstance(module, (nn.BatchNorm1d, LayerScale)):
                 module.reset_parameters()
             elif isinstance(module, (ChannelMerger, SubjectLayers,
                                      ScaledEmbedding)):
@@ -230,7 +245,8 @@ class SimpleConv(nn.Module):
     def _fused_head(self, meg: torch.Tensor, positions: torch.Tensor,
                     pos_emb: torch.Tensor, rec_index: torch.Tensor,
                     rec_positions: torch.Tensor, rec_subjects: torch.Tensor,
-                    generator: tp.Optional[torch.Generator]) -> torch.Tensor:
+                    generator: tp.Optional[torch.Generator],
+                    center: tp.Optional[torch.Tensor]) -> torch.Tensor:
         """The merger's mix, the initial 1x1 conv and the subject matrix
         as one gathered [C_in, dim] matrix per recording (the flax
         module's ``_fused_head``): by associativity on the same
@@ -242,10 +258,10 @@ class SimpleConv(nn.Module):
         the result [B, dim, T] is fp32."""
         cd = meg.dtype
         attention = self.merger.attention(
-            positions, pos_emb, rec_index, rec_positions, generator,
+            positions, pos_emb, rec_index, rec_positions, generator, center,
             dtype=cd, gather=False)                            # [R, O_m, C]
         conv = self.initial_linear[0]
-        wd = self.compute_dtype or torch.float32
+        wd = self.compute_dtype or conv.weight.dtype
         w1 = conv.weight[:, :, 0].t().to(wd)                   # [O_m, O1]
         subj = self.subject_layers.weights[rec_subjects]       # [R, O1, D]
         t1 = einsum_fp32("roc,ok->rck", attention, w1, dtype=cd)
@@ -261,7 +277,9 @@ class SimpleConv(nn.Module):
                 rec_positions: tp.Optional[torch.Tensor] = None,
                 rec_subjects: tp.Optional[torch.Tensor] = None,
                 generator: tp.Optional[torch.Generator] = None,
-                with_penalty: bool = False):
+                with_penalty: bool = False,
+                centers: tp.Optional[tp.Iterable[torch.Tensor]] = None,
+                masks: tp.Optional[tp.Iterable[torch.Tensor]] = None):
         """inputs {'meg': [B, C, T]} (and 'features' [B, F, T] in the
         encode task), subject_index [B], positions [B, C, 2];
         pos_emb/rec_index/rec_positions, and the dropout's generator, as in
@@ -270,17 +288,17 @@ class SimpleConv(nn.Module):
         module's does: with `fused_head`, the merger, one initial conv with
         no activation after it, the subject layers, no merger penalty, and
         the per-recording arrays given; otherwise the unfused ops run.
-        Returns [B, out_channels, T] in `output_dtype` (fp32 when None), or
+        In train mode, `centers` replays the disk centres (ChannelDropout's,
+        then the merger's) and `masks` the encoders' dropout masks
+        ([B, C, T] each, the encoders in sorted order), in the order the
+        flax module draws them, in place of draws from `generator`.
+        Returns [B, out_channels, T] ([B, T, out_channels] with
+        ``output_layout="btc"``) in `output_dtype` (fp32 when None), or
         with `with_penalty` that and the train-mode merger usage penalty (a
         scalar, 0 in eval)."""
-        if self.training:
-            for name in ("conv_dropout", "dropout_input"):
-                if getattr(self, name):
-                    # nn.Dropout draws from torch's global generator
-                    raise NotImplementedError(
-                        f"simpleconv.{name}={getattr(self, name)!r} in "
-                        f"train mode")
         length = inputs["meg"].shape[-1]
+        centers = None if centers is None else iter(centers)
+        masks = None if masks is None else iter(masks)
         if self.compute_dtype is not None:
             inputs = {name: x.to(self.compute_dtype)
                       for name, x in inputs.items()}
@@ -289,6 +307,15 @@ class SimpleConv(nn.Module):
             # an fp32 constant, as in the flax module: a bf16 meg comes out
             # fp32
             meg = meg * self.meg_mask
+        if self.channel_dropout is not None:
+            center = None
+            if centers is not None and self.training:
+                center = next(centers)
+            meg = self.channel_dropout(meg, positions, generator, center)
+        merger_center = None
+        if centers is not None and self.training and self.merger is not None \
+                and self.merger.dropout:
+            merger_center = next(centers)
         penalty = torch.zeros((), device=meg.device)
         fused_head = (
             self.fused_head and self.merger is not None
@@ -299,13 +326,14 @@ class SimpleConv(nn.Module):
             and rec_subjects is not None)
         if fused_head:
             meg = self._fused_head(meg, positions, pos_emb, rec_index,
-                                   rec_positions, rec_subjects, generator)
+                                   rec_positions, rec_subjects, generator,
+                                   merger_center)
         else:
             if self.merger is not None:
                 weights = self.merger.attention(
                     positions, pos_emb=pos_emb, rec_index=rec_index,
                     rec_positions=rec_positions, generator=generator,
-                    dtype=meg.dtype)
+                    center=merger_center, dtype=meg.dtype)
                 meg = einsum_fp32("bct,boc->bot", meg, weights,
                                   dtype=meg.dtype)
                 if self.training and self.merger_penalty > 0:
@@ -322,9 +350,11 @@ class SimpleConv(nn.Module):
         if self.concatenate:
             inputs = {"concat": torch.cat(
                 [inputs[name] for name in sorted(inputs)], dim=1)}
-        x = torch.cat([self.encoders[name](inputs[name])
+        x = torch.cat([self.encoders[name](inputs[name], generator, masks)
                        for name in sorted(inputs)], dim=1)
         if self.final is not None:
             x = self.final(x)
         x = x[..., :length].to(self.estimate_dtype)
+        if self.output_layout == "btc":
+            x = x.transpose(1, 2)
         return (x, penalty) if with_penalty else x

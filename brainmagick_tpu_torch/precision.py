@@ -41,10 +41,12 @@ def einsum_fp32(equation: str, *operands: torch.Tensor,
     given), then contracted in fp32. The products of bf16 values are exact
     in fp32, so this is a bf16 contraction with an fp32 accumulator and an
     fp32 result; on the card it runs as fp32 (exact inside
-    ``exact_fp32``)."""
+    ``exact_fp32``). Float64 operands stay float64."""
     if dtype is not None:
         operands = tuple(op.to(dtype) for op in operands)
-    return torch.einsum(equation, *(op.float() for op in operands))
+    return torch.einsum(equation, *(
+        op.to(torch.promote_types(op.dtype, torch.float32))
+        for op in operands))
 
 
 @contextlib.contextmanager

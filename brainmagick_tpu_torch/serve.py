@@ -55,6 +55,13 @@ class Server:
             # task trains through Solver and Trainer
             raise NotImplementedError(f"task.type={args.task.type!r} in "
                                       f"Server")
+        # a training option, and a trained projection the server does not
+        # load: such an XP is scored through its solver
+        # (play.get_solver_from_sig, eval by signature)
+        for name, value in (("optim.negatives", args.optim.negatives),
+                            ("clip.linear", args.clip.linear)):
+            if value is not None:
+                raise NotImplementedError(f"{name}={value!r} in Server")
         self.args = args
         self.device = torch.device(device)
         self.model = build_model(args, meg_channels, out_channels,

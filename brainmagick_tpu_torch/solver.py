@@ -1,9 +1,9 @@
 """The solver: normalize -> task wiring -> model -> loss, the training
 step, and the epoch loop over datasets.
 
-Port of ``brainmagick_tpu/solver.py`` without sampled negatives, on one
-device or as one rank of a data-parallel run (``set_group``, the
-counterpart of the JAX solver's ``set_mesh``). ``Solver(args, model,
+Port of ``brainmagick_tpu/solver.py``, on one device or as one rank of a
+data-parallel run (``set_group``, the counterpart of the JAX solver's
+``set_mesh``). ``Solver(args, model,
 norm_arrays, ...)`` is the
 per-batch engine that ``serve.Server`` and ``train.Trainer`` hold: its
 normalization arrays keep the JAX solver's ``norm_arrays`` layout
@@ -16,6 +16,13 @@ on the train split (through the disk cache), the normalization arrays
 exported from it, the loaders, and a restore from the XP folder's
 checkpoint; ``train`` then runs the epochs with validation, early
 stopping, the test stage and a checkpoint after each epoch.
+
+The train step's options: ``optim.negatives`` tops the CLIP candidates
+up from a pool of past targets per phase (kept on the host, updated from
+each step's targets newest first and cut to ``negative_pool_size``;
+sampled with a numpy ``RandomState`` seeded from seed, epoch and phase,
+the JAX solver's draws), and ``optim.svd`` adds the top-singular-value
+penalty of the model's weights (``svd.svd_penalty``) to the train loss.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import typing as tp
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .cache import Cache, tagged
 from .dataset import ARRAY_FIELDS, to_device
@@ -43,12 +51,25 @@ from .parallel import (DataGroup, all_gather, gather_rows, rank_seed,
                        replicate, ring_hop)
 from .precision import exact_fp32
 from .studies.api import INVALID_POSITION
+from .svd import svd_penalty
 from .utils import write_and_rename
 
 logger = logging.getLogger(__name__)
 
-#: the feature model's keys in a best state (``Solver._copy_params``)
+class _AlwaysApply:
+    """The SVD penalty's stand-in RNG: the step always applies it, as the
+    JAX step does."""
+
+    def random(self) -> float:
+        return 0.
+
+
+_ALWAYS = _AlwaysApply()
+
+#: the feature model's and the loss's keys in a best state
+#: (``Solver._copy_params``)
 FM_PREFIX = "fm."
+LOSS_PREFIX = "loss."
 
 
 def _on(value: tp.Any, device: torch.device) -> torch.Tensor:
@@ -72,19 +93,49 @@ def prepare_norm_arrays(model: torch.nn.Module,
     return na
 
 
+def build_clip_loss(args: tp.Any, device: tp.Union[str, torch.device],
+                    length: tp.Optional[int] = None
+                    ) -> tp.Optional[ClipLoss]:
+    """The CLIP loss of ``optim.loss='clip'`` on `device` (None for any
+    other loss). With ``clip.linear`` its projection's input width comes
+    from `length`, the targets' time length (a segment's samples less the
+    MEG offset), and its weights from a CPU generator seeded ``seed``."""
+    if args.optim.loss != "clip":
+        return None
+    c = args.clip
+    clip_loss = ClipLoss(
+        linear=c.linear, twin=c.twin, pool=c.pool, center=c.center,
+        tmin=c.tmin, tmax=c.tmax, tmin_train=c.tmin_train,
+        tmax_train=c.tmax_train, dset_tmin=args.dset.tmin,
+        dset_sample_rate=args.dset.sample_rate,
+        compute_dtype=c.compute_dtype, length=length)
+    clip_loss.reset_parameters(torch.Generator().manual_seed(args.seed))
+    return clip_loss.to(device)
+
+
+def target_length(args: tp.Any, features_length: int) -> int:
+    """The targets' time length for features of `features_length`
+    samples: less the MEG offset (``task.offset_meg_ms``)."""
+    off = int(args.task.offset_meg_ms / 1000 * args.dset.sample_rate)
+    return features_length - off
+
+
 class Solver:
     """Forward, loss and training step of a decode- or encode-task model
     (a SimpleConv, or a ConvRNN, which takes no positions and has no
     merger).
 
-    `args` is a port or JAX ``MainConfig``; options the slices do not
+    `args` is a port or JAX ``MainConfig``; options the port does not
     cover raise NotImplementedError here, at construction. `optimizer`
     (``train.build_optimizer``) is needed by a training step only;
-    `generator` draws the merger's dropout disk in train mode.
-    `feature_model` (``models.build_feature_model``), which
-    ``feature_model_name`` asks for, maps the ground truth to the targets
-    of the loss, and trains with the model. `used_features` (the
-    datasets' ``FeaturesBuilder``) lays out the targets of
+    `generator` draws the merger's and ChannelDropout's disks and the
+    dropout masks in train mode. `feature_model`
+    (``models.build_feature_model``), which ``feature_model_name`` asks
+    for, maps the ground truth to the targets of the loss, and trains with
+    the model. `clip_loss` (``build_clip_loss``) is the CLIP loss, whose
+    projection trains with the model; built here when None (without
+    ``clip.linear``, which needs the targets' length). `used_features`
+    (the datasets' ``FeaturesBuilder``) lays out the targets of
     ``optim.loss='regression_classification'``, and `scaler` (the fitted
     ``BatchScaler``) gives its class weights when
     ``optim.use_weighting``."""
@@ -95,7 +146,8 @@ class Solver:
                  generator: tp.Optional[torch.Generator] = None,
                  feature_model: tp.Optional[torch.nn.Module] = None,
                  used_features: tp.Any = None,
-                 scaler: tp.Optional[BatchScaler] = None) -> None:
+                 scaler: tp.Optional[BatchScaler] = None,
+                 clip_loss: tp.Optional[ClipLoss] = None) -> None:
         if args.task.type not in ("decode", "encode"):
             raise ValueError(f"Unknown task {args.task.type}")
         if (args.feature_model_name is None) != (feature_model is None):
@@ -106,11 +158,9 @@ class Solver:
         if optim.loss not in ("clip", "l1", "mse",
                               "regression_classification"):
             raise NotImplementedError(f"optim.loss={optim.loss!r}")
-        if optim.negatives is not None:
-            raise NotImplementedError(
-                f"optim.negatives={optim.negatives!r}")
-        if optim.svd:
-            raise NotImplementedError(f"optim.svd={optim.svd!r}")
+        if optim.negatives is not None and optim.loss != "clip":
+            raise ValueError(f"optim.negatives={optim.negatives!r} needs "
+                             f"optim.loss='clip'")
         self.args = args
         self.model = model
         self.feature_model = feature_model
@@ -124,15 +174,9 @@ class Solver:
         self.datasets: tp.Any = None
         #: the data-parallel run this solver is a rank of (``set_group``)
         self.group: tp.Optional[DataGroup] = None
-        self.clip_loss: tp.Optional[ClipLoss] = None
-        if optim.loss == "clip":
-            c = args.clip
-            self.clip_loss = ClipLoss(
-                linear=c.linear, pool=c.pool, center=c.center, tmin=c.tmin,
-                tmax=c.tmax, tmin_train=c.tmin_train,
-                tmax_train=c.tmax_train, dset_tmin=args.dset.tmin,
-                dset_sample_rate=args.dset.sample_rate,
-                compute_dtype=c.compute_dtype)
+        self.clip_loss: tp.Optional[ClipLoss] = clip_loss
+        if optim.loss == "clip" and clip_loss is None:
+            self.clip_loss = build_clip_loss(args, self.device)
         self.feature_loss: tp.Optional[FeatureDecodingLoss] = None
         if optim.loss == "regression_classification":
             if used_features is None or (optim.use_weighting
@@ -143,6 +187,17 @@ class Solver:
             self.feature_loss = FeatureDecodingLoss(
                 used_features, scaler if optim.use_weighting else None,
                 wire_dtype=args.parallel.transfer_dtype)
+        #: the pools of past targets each phase samples negatives from
+        #: (host arrays, newest first), resolved pool size (2 x negatives
+        #: by default; not written back into args, whose delta is the XP
+        #: signature) and the sampling RNG
+        self.negative_pool: tp.Dict[str, tp.Optional[np.ndarray]] = {
+            "train": None, "valid": None}
+        n_neg = optim.negatives
+        self.negative_pool_size = (
+            optim.negative_pool_size if optim.negative_pool_size is not None
+            else (2 * n_neg if n_neg else None))
+        self._neg_rng = np.random.RandomState(args.seed)
 
     def _offsets(self) -> tp.Tuple[int, int]:
         args = self.args
@@ -242,14 +297,17 @@ class Solver:
     def _run_model(self, inputs: tp.Mapping[str, torch.Tensor],
                    arrays: tp.Mapping[str, torch.Tensor]
                    ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-        """The model on the task's inputs -> (estimate, the merger usage
-        penalty). A SimpleConv takes the per-recording arrays and the
-        dropout generator; any other model (a ConvRNN) takes neither and
+        """The model on the task's inputs -> (estimate [B, F, T], the
+        merger usage penalty). A SimpleConv takes the per-recording arrays
+        and the dropout generator, and its [B, T, F] estimate of
+        ``output_layout="btc"`` is transposed back here, at the model's
+        boundary; any other model (a ConvRNN) takes the generator only and
         has no penalty."""
         na = self.norm_arrays
         if not isinstance(self.model, SimpleConv):
             estimate = self.model(inputs, arrays["subject_index"],
-                                  arrays["positions"])
+                                  arrays["positions"],
+                                  generator=self.generator)
             return estimate, torch.zeros((), device=estimate.device)
         model_kwargs = {}
         if na.get("pos_emb") is not None:
@@ -265,9 +323,12 @@ class Solver:
                 # computes with it, as the unfused subject layers would
                 model_kwargs["rec_subjects"] = na["rec_subjects"].long(
                     ).index_put((rec,), arrays["subject_index"])
-        return self.model(
+        estimate, penalty = self.model(
             inputs, arrays["subject_index"], arrays["positions"],
             generator=self.generator, with_penalty=True, **model_kwargs)
+        if self.model.output_layout == "btc":
+            estimate = estimate.transpose(1, 2)
+        return estimate, penalty
 
     def _output_dim(self, feat_dim: int) -> int:
         """The width of the loss's targets for features of `feat_dim`."""
@@ -277,11 +338,17 @@ class Solver:
         return feat_dim
 
     def _loss_value(self, estimate: torch.Tensor, output: torch.Tensor,
-                    mask: torch.Tensor, keep: torch.Tensor,
-                    train: bool) -> torch.Tensor:
+                    mask: torch.Tensor, keep: torch.Tensor, train: bool,
+                    negatives: tp.Optional[torch.Tensor] = None,
+                    negative_weight: tp.Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
         if self.clip_loss is not None:
-            return self.clip_loss(estimate, output, sample_weight=keep,
-                                  candidate_weight=keep, train=train)
+            candidates, weight = output, keep
+            if negatives is not None:
+                candidates = torch.cat([output, negatives])
+                weight = torch.cat([keep, negative_weight])
+            return self.clip_loss(estimate, candidates, sample_weight=keep,
+                                  candidate_weight=weight, train=train)
         if self.feature_loss is not None:
             return self.feature_loss(estimate, output, mask,
                                      sample_weight=keep, train=train)
@@ -290,31 +357,40 @@ class Solver:
 
     def _gathered_clip_loss(self, estimate: torch.Tensor,
                             output: torch.Tensor, keep: torch.Tensor,
-                            pool: tp.Any, train: bool) -> torch.Tensor:
+                            pool: tp.Any, train: bool,
+                            negatives: tp.Optional[torch.Tensor] = None,
+                            negative_weight: tp.Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
         """CLIP loss with the rows of this rank's pool of ranks gathered as
         extra candidates (``parallel.gather_rows``), this rank's own block
-        among them weighted 0, as the JAX solver's all_gather branch
-        lays them out."""
+        among them weighted 0, then the sampled `negatives`, as the JAX
+        solver's all_gather branch lays them out."""
         all_out = gather_rows(output, pool)
         all_keep = all_gather(keep.detach(), pool.group)
         other = torch.ones(pool.size, dtype=all_keep.dtype,
                            device=all_keep.device)
         other[pool.position] = 0
         extra_w = (all_keep.view(pool.size, -1) * other[:, None]).reshape(-1)
-        return self.clip_loss(estimate, torch.cat([output, all_out]),
+        candidates, weights = [output, all_out], [keep, extra_w]
+        if negatives is not None:
+            candidates.append(negatives)
+            weights.append(negative_weight)
+        return self.clip_loss(estimate, torch.cat(candidates),
                               sample_weight=keep,
-                              candidate_weight=torch.cat([keep, extra_w]),
+                              candidate_weight=torch.cat(weights),
                               train=train)
 
     def _ring_clip_loss(self, estimate: torch.Tensor, output: torch.Tensor,
-                        keep: torch.Tensor, pool: tp.Any, train: bool
+                        keep: torch.Tensor, pool: tp.Any, train: bool,
+                        negatives: tp.Optional[torch.Tensor] = None,
+                        negative_weight: tp.Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
         """CLIP loss with the other ranks' rows of the pool passed around
         its ring (``parallel.ring_negatives``): each of the k - 1 blocks is
         scored as it arrives, so candidate memory stays at one rank's
         rows; the columns are those of the JAX solver's ring (this rank's
-        block, then one block a hop), and the loss and its gradients equal
-        the gathered layout's."""
+        block, then one block a hop, then the sampled `negatives`), and
+        the loss and its gradients equal the gathered layout's."""
         clip = self.clip_loss
         scores = [clip.get_scores(estimate, output, train=train)]
         weights = [keep]
@@ -323,36 +399,54 @@ class Solver:
             block, weight = ring_hop(block, weight, pool)
             scores.append(clip.get_scores(estimate, block, train=train))
             weights.append(weight)
+        if negatives is not None:
+            scores.append(clip.get_scores(estimate, negatives, train=train))
+            weights.append(negative_weight)
         return clip.loss_from_scores(torch.cat(scores, dim=1),
                                      sample_weight=keep,
                                      candidate_weight=torch.cat(weights))
 
     def _loss_and_aux(self, arrays: tp.Mapping[str, torch.Tensor],
-                      pad_weight: torch.Tensor, train: bool
-                      ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-        """Forward + loss (+ the merger penalty in training) on the batch,
-        this rank's rows under a group, whose CLIP candidates then take in
-        the other rows of its pool of ``negatives_group_size`` ranks.
-        Returns (loss, keep weights [B])."""
+                      pad_weight: torch.Tensor, train: bool,
+                      negatives: tp.Optional[torch.Tensor] = None,
+                      negative_weight: tp.Optional[torch.Tensor] = None
+                      ) -> tp.Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+        """Forward + loss on the batch, this rank's rows under a group,
+        whose CLIP candidates then take in the other rows of its pool of
+        ``negatives_group_size`` ranks, and the sampled `negatives` (their
+        weights `negative_weight`); in training plus the merger penalty
+        and ``optim.svd`` times the SVD penalty. Returns (loss, keep
+        weights [B], the targets [B, F, T'])."""
         estimate, output, mask, keep, penalty = self._forward(
             arrays, pad_weight, train)
         k = self._negatives_group_size()
+        negs = dict(negatives=negatives, negative_weight=negative_weight)
         if self.clip_loss is not None and k > 1:
             pool = self.group.pool(k)
             if self.args.parallel.ring_negatives:
                 loss = self._ring_clip_loss(estimate, output, keep, pool,
-                                            train)
+                                            train, **negs)
             else:
                 loss = self._gathered_clip_loss(estimate, output, keep, pool,
-                                                train)
+                                                train, **negs)
         else:
-            loss = self._loss_value(estimate, output, mask, keep, train)
+            loss = self._loss_value(estimate, output, mask, keep, train,
+                                    **negs)
         if train:
             loss = loss + penalty
-        return loss, keep
+            if self.args.optim.svd:
+                # always applied, as the JAX step applies it (_AlwaysApply)
+                with record_function("solver.svd_penalty"):
+                    loss = loss + self.args.optim.svd * svd_penalty(
+                        self.model, rng=_ALWAYS)
+        return loss, keep, output
 
     def _trained_modules(self) -> tp.List[torch.nn.Module]:
-        return [m for m in (self.model, self.feature_model) if m is not None]
+        """The modules Adam updates: the model, the feature model and the
+        CLIP loss's projection, those that exist."""
+        return [m for m in (self.model, self.feature_model, self.clip_loss)
+                if m is not None]
 
     def _synchronize(self, loss: torch.Tensor, keep: torch.Tensor,
                      count: torch.Tensor, grads: bool = False,
@@ -399,7 +493,10 @@ class Solver:
 
     @exact_fp32()
     def loss_and_grad(self, arrays: tp.Mapping[str, torch.Tensor],
-                      pad_weight: torch.Tensor, train: bool = True
+                      pad_weight: torch.Tensor, train: bool = True,
+                      negatives: tp.Optional[torch.Tensor] = None,
+                      negative_weight: tp.Optional[torch.Tensor] = None,
+                      return_output: bool = False
                       ) -> tp.Dict[str, torch.Tensor]:
         """Forward (in train mode with `train`), loss and backward, with no
         update: each parameter's ``.grad`` then holds the gradient of the
@@ -407,33 +504,50 @@ class Solver:
         train mode the BatchNorm running statistics moved (under a group,
         to their mean over the ranks). Returns device scalars {"loss",
         "keep", "count"}, the loss averaged and keep and count summed over
-        the ranks."""
+        the ranks, and with `return_output` this rank's targets under
+        "output"."""
         for module in self._trained_modules():
             module.zero_grad(set_to_none=True)
-        loss, keep = self._loss_and_aux(arrays, pad_weight, train)
+        loss, keep, output = self._loss_and_aux(
+            arrays, pad_weight, train, negatives, negative_weight)
         loss.backward()
-        return self._synchronize(loss.detach(), keep.sum(), pad_weight.sum(),
-                                 grads=True, stats=train)
+        metrics = self._synchronize(loss.detach(), keep.sum(),
+                                    pad_weight.sum(), grads=True,
+                                    stats=train)
+        if return_output:
+            metrics["output"] = output.detach()
+        return metrics
 
     @exact_fp32()
     def step(self, arrays: tp.Mapping[str, torch.Tensor],
-             pad_weight: torch.Tensor, train: bool
-             ) -> tp.Dict[str, torch.Tensor]:
+             pad_weight: torch.Tensor, train: bool,
+             negatives: tp.Optional[torch.Tensor] = None,
+             negative_weight: tp.Optional[torch.Tensor] = None,
+             return_output: bool = False) -> tp.Dict[str, torch.Tensor]:
         """One step on a batch (this rank's rows under a group): with
         `train`, ``loss_and_grad`` in train mode and an optimizer update;
-        without, the eval-mode loss and no update. Returns device scalars
-        {"loss", "keep", "count"} (over the ranks under a group); after a
-        training step each parameter's ``.grad`` holds its gradient. All
-        of it runs with TF32 off (``precision.exact_fp32``)."""
+        without, the eval-mode loss and no update. `negatives` [N, F, T']
+        and `negative_weight` [N] join the CLIP candidates (the JAX step's
+        arguments of the same names). Returns device scalars {"loss",
+        "keep", "count"} (over the ranks under a group), and with
+        `return_output` this rank's targets [B, F, T'] under "output"
+        (the negative pool's update); after a training step each
+        parameter's ``.grad`` holds its gradient. All of it runs with TF32
+        off (``precision.exact_fp32``)."""
         if train:
             if self.optimizer is None:
                 raise ValueError("a training step needs an optimizer")
-            metrics = self.loss_and_grad(arrays, pad_weight, True)
+            metrics = self.loss_and_grad(arrays, pad_weight, True, negatives,
+                                         negative_weight, return_output)
             self.optimizer.step()
             return metrics
         with torch.no_grad():
-            loss, keep = self._loss_and_aux(arrays, pad_weight, False)
-        return self._synchronize(loss, keep.sum(), pad_weight.sum())
+            loss, keep, output = self._loss_and_aux(
+                arrays, pad_weight, False, negatives, negative_weight)
+        metrics = self._synchronize(loss, keep.sum(), pad_weight.sum())
+        if return_output:
+            metrics["output"] = output
+        return metrics
 
     # -- ranks ----------------------------------------------------------------
 
@@ -447,10 +561,11 @@ class Solver:
         running statistics over the ranks, each rank's BatchNorm
         normalizing with its own batch statistics as under the JAX
         step's shard_map; the CLIP candidates are the rows of this rank's
-        pool of ``negatives_group_size`` ranks; ``forward_batch`` splits a
-        batch over the ranks and gives each rank all its rows; the merger
-        draws its dropout on each rank from its own stream
-        (``parallel.rank_seed``)."""
+        pool of ``negatives_group_size`` ranks, and the sampled negatives
+        are the same on every rank (one pool, from every rank's targets);
+        ``forward_batch`` splits a batch over the ranks and gives each
+        rank all its rows; the dropouts draw on each rank from its own
+        stream (``parallel.rank_seed``)."""
         self.group = group
         if group is not None:
             self._negatives_group_size()
@@ -488,15 +603,16 @@ class Solver:
                       model: torch.nn.Module,
                       optimizer: tp.Optional[torch.optim.Optimizer] = None,
                       generator: tp.Optional[torch.Generator] = None,
-                      feature_model: tp.Optional[torch.nn.Module] = None
+                      feature_model: tp.Optional[torch.nn.Module] = None,
+                      clip_loss: tp.Optional[ClipLoss] = None
                       ) -> "Solver":
         """The solver of ``train.get_solver``: the scaler fitted on the
         train split's recordings (or read from the disk cache), the
         normalization arrays exported from it for every recording of the
         three splits, the loaders, and the state of the XP folder's
         checkpoint when there is one (else of ``continue_sig``'s). Without
-        `optimizer` the model (and `feature_model`) keeps the best state
-        found."""
+        `optimizer` the model (and `feature_model` and `clip_loss`) keeps
+        the best state found."""
         timings: tp.Dict[str, float] = {}
         t0 = time.perf_counter()
         used_features = datasets.train.datasets[0].features
@@ -524,7 +640,8 @@ class Solver:
                      prepare_norm_arrays(model, norm_arrays, device),
                      optimizer=optimizer, generator=generator,
                      feature_model=feature_model,
-                     used_features=used_features, scaler=scaler)
+                     used_features=used_features, scaler=scaler,
+                     clip_loss=clip_loss)
         timings["norm_arrays"] = time.perf_counter() - t0
         solver.build_timings = timings
         solver.datasets = datasets
@@ -607,10 +724,12 @@ class Solver:
     def _run_one_epoch(self, training: bool) -> tp.Dict[str, float]:
         """One pass of the train or valid loader (at most
         ``optim.max_batches`` batches); the losses stay on the device
-        until the epoch's end. The merger's dropout generator is seeded
-        by ``dropout_seed``, so that a resumed run draws the disks the
-        uninterrupted one would. Under a group the loaders give this
-        rank's rows (``set_group``)."""
+        until the epoch's end. The dropout generator is seeded by
+        ``dropout_seed``, so that a resumed run draws the disks and masks
+        the uninterrupted one would. With ``optim.negatives`` each step
+        tops its candidates up from the phase's pool, whose RNG is seeded
+        from (seed, epoch, phase), and its targets join the pool. Under a
+        group the loaders give this rank's rows (``set_group``)."""
         args = self.args
         phase = "train" if training else "valid"
         loader = self.loaders[phase]
@@ -621,16 +740,32 @@ class Solver:
         if self.generator is not None:
             self.generator.manual_seed(self.dropout_seed(training))
         train = training and self.optimizer is not None
+        n_neg = args.optim.negatives
+        if n_neg is not None:
+            # a fresh permutation a batch, seeded per (seed, epoch, phase)
+            # only: every rank draws the same negatives
+            self._neg_rng = np.random.RandomState(
+                (args.seed * 9176 + self.epoch * 2 + int(not training))
+                % (2 ** 31))
         losses, keeps, counts = [], [], []
         for idx, (batch, pad_weight) in enumerate(loader):
             if idx >= total:
                 break
             arrays = to_device(batch, self.device,
                                args.parallel.transfer_dtype)
-            metrics = self.step(arrays, pad_weight, train)
+            negatives = {}
+            if n_neg is not None:
+                negatives = dict(zip(
+                    ("negatives", "negative_weight"), self._sample_negatives(
+                        phase, arrays["features"].shape, n_neg,
+                        self._effective_candidates(len(pad_weight)))))
+            metrics = self.step(arrays, pad_weight, train, **negatives,
+                                return_output=n_neg is not None)
             losses.append(metrics["loss"])
             keeps.append(metrics["keep"])
             counts.append(metrics["count"])
+            if n_neg is not None:
+                self._update_negative_pool(phase, metrics["output"])
             if idx + 1 == total:
                 break
         if not losses:
@@ -648,8 +783,52 @@ class Solver:
             self.best_state = self._copy_params()
         return metrics
 
+    def _effective_candidates(self, local_batch: int) -> int:
+        """The in-batch CLIP candidates of this rank before the negatives
+        top them up: its `local_batch` rows times the ranks of its pool
+        (``negatives_group_size``)."""
+        return local_batch * self._negatives_group_size()
+
+    def _sample_negatives(self, phase: str, feat_shape: tp.Sequence[int],
+                          n_negatives: int, batch_size: int
+                          ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        """Candidates from `phase`'s pool topping `batch_size` up to
+        `n_negatives`: [n_negatives - batch_size, F', T'] and their
+        weights on the device, rows past the pool's size zero and weighted
+        0 (the JAX solver's static shapes and draws)."""
+        n_extra = max(0, n_negatives - batch_size)
+        shape = (n_extra, self._output_dim(feat_shape[1]),
+                 target_length(self.args, feat_shape[-1]))
+        buf = self.negative_pool[phase]
+        with record_function("solver.sample_negatives"):
+            negatives = np.zeros(shape, dtype=np.float32)
+            weight = np.zeros(n_extra, dtype=np.float32)
+            if buf is not None and len(buf) and n_extra:
+                take = min(n_extra, len(buf))
+                sel = self._neg_rng.permutation(len(buf))[:take]
+                negatives[:take] = buf[sel]
+                weight[:take] = 1.
+            return (torch.from_numpy(negatives).to(self.device),
+                    torch.from_numpy(weight).to(self.device))
+
+    def _update_negative_pool(self, phase: str,
+                              outputs: tp.Union[torch.Tensor, np.ndarray]
+                              ) -> None:
+        """`phase`'s pool with a step's targets in front, cut to
+        ``negative_pool_size``; under a group every rank's rows, gathered
+        in rank order (the global batch's), so that every rank keeps the
+        same pool. A tensor's rows come to the host (a synchronization)."""
+        with record_function("solver.negative_pool"):
+            if isinstance(outputs, torch.Tensor):
+                if self.group is not None:
+                    outputs = self.group.all_gather(outputs)
+                outputs = outputs.float().cpu().numpy()
+            buf = self.negative_pool[phase]
+            buf = outputs if buf is None else np.concatenate([outputs, buf])
+            self.negative_pool[phase] = buf[:self.negative_pool_size]
+
     def dropout_seed(self, training: bool) -> int:
-        """The merger's dropout seed for this epoch's train or valid pass:
+        """The dropout seed for this epoch's train or valid pass:
         from (seed, epoch, phase), and under a group this rank's own
         stream of it (``parallel.rank_seed``)."""
         seed = self.args.seed + self.epoch * 1000 + (0 if training else 1)
@@ -778,29 +957,37 @@ class Solver:
 
     # -- state ----------------------------------------------------------------
 
+    def _prefixed(self) -> tp.Dict[str, tp.Optional[torch.nn.Module]]:
+        """The modules of a best state besides the model, by key prefix."""
+        return {FM_PREFIX: self.feature_model, LOSS_PREFIX: self.clip_loss}
+
     def _copy_params(self) -> tp.Dict[str, torch.Tensor]:
         """A copy of the model's state dict (weights and the BatchNorm
-        running statistics) and the feature model's, its keys after
-        ``FM_PREFIX``."""
+        running statistics), the feature model's, its keys after
+        ``FM_PREFIX``, and the CLIP loss's projection, its keys after
+        ``LOSS_PREFIX``."""
         state = dict(self.model.state_dict())
-        if self.feature_model is not None:
-            state.update({FM_PREFIX + k: v for k, v in
-                          self.feature_model.state_dict().items()})
+        for prefix, module in self._prefixed().items():
+            if module is not None:
+                state.update({prefix + k: v for k, v in
+                              module.state_dict().items()})
         return {k: v.detach().clone() for k, v in state.items()}
 
     def _load_params(self, saved: tp.Mapping[str, torch.Tensor]) -> None:
-        n = len(FM_PREFIX)
+        prefixes = tuple(self._prefixed())
         self.model.load_state_dict(
-            {k: v for k, v in saved.items() if not k.startswith(FM_PREFIX)})
-        if self.feature_model is not None:
-            self.feature_model.load_state_dict(
-                {k[n:]: v for k, v in saved.items()
-                 if k.startswith(FM_PREFIX)})
+            {k: v for k, v in saved.items() if not k.startswith(prefixes)})
+        for prefix, module in self._prefixed().items():
+            if module is not None:
+                module.load_state_dict(
+                    {k[len(prefix):]: v for k, v in saved.items()
+                     if k.startswith(prefix)})
 
     def commit(self) -> None:
-        """Write the checkpoint (the model's, the feature model's and the
-        optimizer's state dicts, the best state, the history and the
-        loop's counters) and ``history-torch.json``, each through a
+        """Write the checkpoint (the model's, the feature model's, the CLIP
+        loss's and the optimizer's state dicts, the best state, the
+        negative pools, the history and the loop's counters) and
+        ``history-torch.json``, each through a
         rename. The port writes as the epoch ends (``checkpoint_async`` is
         not read); under a group rank 0 writes while the others wait."""
         if not self.lead:
@@ -810,8 +997,12 @@ class Solver:
             model=self.model.state_dict(),
             feature_model=(None if self.feature_model is None
                            else self.feature_model.state_dict()),
+            loss=(None if self.clip_loss is None
+                  else self.clip_loss.state_dict()),
             optimizer=(None if self.optimizer is None
                        else self.optimizer.state_dict()),
+            negative_pool={k: None if v is None else torch.from_numpy(v)
+                           for k, v in self.negative_pool.items()},
             best_state=self.best_state, history=list(self.history),
             epoch=self.epoch + 1, best_loss=self.best_loss,
             best_epoch=self.best_epoch,
@@ -853,6 +1044,11 @@ class Solver:
         self.model.load_state_dict(payload["model"])
         if self.feature_model is not None:
             self.feature_model.load_state_dict(payload["feature_model"])
+        if self.clip_loss is not None and payload.get("loss") is not None:
+            self.clip_loss.load_state_dict(payload["loss"])
+        self.negative_pool = {
+            k: None if v is None else v.cpu().numpy() for k, v in payload.get(
+                "negative_pool", {"train": None, "valid": None}).items()}
         if self.optimizer is not None and payload["optimizer"] is not None:
             self.optimizer.load_state_dict(payload["optimizer"])
         self.best_state = payload["best_state"]

@@ -40,8 +40,8 @@ its own batches:
     # optim.loss='regression_classification' also takes the datasets'
     # used_features= and, with optim.use_weighting, the fitted scaler=;
     # task.type='encode' takes features_channels= and the MEG's width as
-    # out_channels
-    metrics = trainer.step(batch)        # {"loss", "keep", "count"}
+    # out_channels; clip.linear takes the targets' length=
+    metrics = trainer.step(batch)        # {"loss", "keep", "count", ...}
 """
 
 from __future__ import annotations
@@ -65,7 +65,8 @@ from .config import DELETED, MainConfig, apply_preset
 from .convert import load_jax_params
 from .dataset import to_device
 from .env import env
-from .solver import Solver, prepare_norm_arrays
+from .solver import (Solver, build_clip_loss, prepare_norm_arrays,
+                     target_length)
 
 logger = logging.getLogger(__name__)
 
@@ -82,12 +83,15 @@ def build_optimizer(args: tp.Any, params: tp.Iterable[torch.nn.Parameter]
 
 
 def trained_parameters(model: torch.nn.Module,
-                       feature_model: tp.Optional[torch.nn.Module]
+                       feature_model: tp.Optional[torch.nn.Module],
+                       clip_loss: tp.Optional[torch.nn.Module] = None
                        ) -> tp.Iterator[torch.nn.Parameter]:
     """The parameters Adam updates: the model's, then the feature
-    model's (the JAX optimizer's state covers ``params["fm"]``)."""
-    return itertools.chain(model.parameters(), () if feature_model is None
-                           else feature_model.parameters())
+    model's, then the CLIP loss's projection (the JAX optimizer's state
+    covers ``params["fm"]`` and ``params["loss"]``)."""
+    return itertools.chain.from_iterable(
+        m.parameters() for m in (model, feature_model, clip_loss)
+        if m is not None)
 
 
 def model_hash(model: torch.nn.Module) -> str:
@@ -108,10 +112,13 @@ class Trainer:
     the feature model that ``feature_model_name`` asks for, built over
     `out_channels`); with `params` None the models keep the port's own
     initialization, seeded by `generator`, which then draws the merger's
-    dropout disks too (seed 0 when None). Adam updates both models'
-    parameters. `out_channels` and `features_channels` are
-    ``models.build_model``'s. `used_features` and `scaler` go to the
-    solver (``optim.loss='regression_classification'``)."""
+    dropout disks and masks too (seed 0 when None). Adam updates both
+    models' parameters and the CLIP loss's projection (``clip.linear``,
+    whose input width comes from `length`, the targets' time length, and
+    whose weights come from `params`' ``loss`` tree when given).
+    `out_channels` and `features_channels` are ``models.build_model``'s.
+    `used_features` and `scaler` go to the solver
+    (``optim.loss='regression_classification'``)."""
 
     def __init__(self, args: tp.Any, meg_channels: int, out_channels: int,
                  n_subjects: int, params: tp.Optional[tp.Mapping],
@@ -121,7 +128,8 @@ class Trainer:
                  generator: tp.Optional[torch.Generator] = None,
                  used_features: tp.Any = None,
                  scaler: tp.Any = None,
-                 features_channels: tp.Optional[int] = None) -> None:
+                 features_channels: tp.Optional[int] = None,
+                 length: tp.Optional[int] = None) -> None:
         self.args = args
         self.device = torch.device(device)
         if generator is None:
@@ -131,28 +139,34 @@ class Trainer:
                                         features_channels)
         self.feature_model = models.build_feature_model(
             args, out_channels, self.device, generator)
+        self.clip_loss = build_clip_loss(args, self.device, length)
         if params is not None:
             load_jax_params(self.model, params, batch_stats or {},
-                            self.feature_model)
+                            self.feature_model, self.clip_loss)
         self.optimizer = build_optimizer(
-            args, trained_parameters(self.model, self.feature_model))
+            args, trained_parameters(self.model, self.feature_model,
+                                     self.clip_loss))
         self.solver = Solver(
             args, self.model,
             prepare_norm_arrays(self.model, norm_arrays, self.device),
             optimizer=self.optimizer, generator=generator,
             feature_model=self.feature_model, used_features=used_features,
-            scaler=scaler)
+            scaler=scaler, clip_loss=self.clip_loss)
 
-    def step(self, batch: tp.Any, train: bool = True
+    def step(self, batch: tp.Any, train: bool = True,
+             negatives: tp.Optional[torch.Tensor] = None,
+             negative_weight: tp.Optional[torch.Tensor] = None
              ) -> tp.Dict[str, torch.Tensor]:
         """One step (``Solver.step``) on a batch with the
-        ``dataset.ARRAY_FIELDS`` arrays, every row weighted 1; meg and
-        features cross in ``parallel.transfer_dtype``."""
+        ``dataset.ARRAY_FIELDS`` arrays, every row weighted 1, with the
+        extra CLIP candidates `negatives` (weights `negative_weight`) when
+        given; meg and features cross in ``parallel.transfer_dtype``."""
         arrays = to_device(batch, self.device,
                            self.args.parallel.transfer_dtype)
         pad_weight = torch.ones(arrays["meg"].shape[0], dtype=torch.float32,
                                 device=self.device)
-        return self.solver.step(arrays, pad_weight, train)
+        return self.solver.step(arrays, pad_weight, train, negatives,
+                                negative_weight)
 
 
 def get_device(args: tp.Any) -> torch.device:
@@ -248,8 +262,9 @@ def build_model(args: tp.Any, datasets: dset.Datasets,
 
 def get_solver(args: tp.Any, training: bool = True,
                group: tp.Optional[parallel.DataGroup] = None) -> Solver:
-    """Datasets, model and feature model (each initialized from a
-    generator seeded with ``seed``), Adam over both when `training`, and
+    """Datasets, model, feature model and CLIP loss (each initialized
+    from a generator seeded with ``seed``), Adam over them when
+    `training`, and
     the dataset-driven solver (``Solver.from_datasets``); with `group`
     (``join_launcher``), built on rank 0 first and then on the others,
     and a rank of that group (``Solver.set_group``)."""
@@ -265,13 +280,15 @@ def get_solver(args: tp.Any, training: bool = True,
         feature_model = models.build_feature_model(
             args, model_widths(args, datasets)[1], device,
             torch.Generator().manual_seed(args.seed))
+        clip_loss = build_clip_loss(args, device, target_length(
+            args, datasets.train[0].features.shape[-1]))
         optimizer = build_optimizer(
-            args, trained_parameters(model, feature_model)) if training \
-            else None
+            args, trained_parameters(model, feature_model, clip_loss)) \
+            if training else None
         solver = Solver.from_datasets(
             args, datasets, model, optimizer,
             generator=torch.Generator(device=device).manual_seed(args.seed),
-            feature_model=feature_model)
+            feature_model=feature_model, clip_loss=clip_loss)
     solver.build_timings["datasets"] = t_datasets
     if group is not None:
         solver.set_group(group)

@@ -2,8 +2,8 @@
 CUDA card, in the paper recipe's fp32 and in its bf16 clip_conv_tpu form,
 Table 2's DeepMel cell, feature decoding, the encode task and ConvRNN,
 the paper's grid chain (grid runner, grid evaluation, paper table),
-data-parallel training, and the wav2vec 2.0 targets (random=True) with
-the planted-map rehearsal.
+data-parallel training, the wav2vec 2.0 targets (random=True) with
+the planted-map rehearsal, and the train step's remaining options.
 
 Run from the repository root, with no arguments:
 
@@ -197,7 +197,25 @@ check raises, so the script exits non-zero and prints no result:
    tabulated by ``paper_tables``: top-1 at least max(0.15, 5 x chance);
    (d) two train steps of the convrnn preset on its default
    Wav2VecTransformer on the kept gwilliams2022 tree (wav2vec_convrnn);
-   each kernel at the rehearsal's shapes, added to its other_shapes.
+   each kernel at the rehearsal's shapes, added to its other_shapes;
+16. the train step's options on the same tree (``run_options_phase``,
+   OPTIONS_RUNS): ``train.main`` of the clip_conv_tpu recipe at the
+   paper's width, B=256, with sampled negatives from the pool
+   (optim.negatives=512), the SVD penalty, the three dropouts on the
+   explicit generator, the rewrite conv, LayerScale, the post-skip conv
+   and the "btc" estimate, OPTIONS_BATCHES train batches, the valid pass
+   and the test stage (options_train: conv_stats 10 times a train step in
+   bf16 on "tc", normalize once a forward, nt_matmul in the test stage);
+   a B=HELD_B step of it with fp32 compute against the CPU at STEP_TOL
+   from the same weights, dropout draws and negatives; the SVD penalty on
+   the card against the CPU (SVD_TOL); the warm step with and without
+   the pool's work, the penalty alone, and their shares of the step in
+   torch.profiler (the pool's device-to-host copies and host time, the
+   penalty's forward); then clip.linear with twin off for 2 steps
+   (options_linear, nt_matmul never: the projection scores through
+   ClipLoss.get_scores) and its XP evaluated by signature through the
+   trained projection (options_eval_sig); each kernel at run 1's shapes,
+   added to its other_shapes.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it raises at once.
@@ -205,6 +223,7 @@ The line before the last is the kernels' JSON summary; the last line is
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import shutil
@@ -1516,12 +1535,12 @@ class SolverSpy:
         step, forward, test, send = self.saved
         spy = self
 
-        def timed_step(solver, arrays, pad_weight, train):
+        def timed_step(solver, arrays, pad_weight, train, **kwargs):
             spy.solver = solver
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = step(solver, arrays, pad_weight, train)
+            out = step(solver, arrays, pad_weight, train, **kwargs)
             end.record()
             spy.events.append((train, start, end))
             return out
@@ -2433,16 +2452,19 @@ EVAL_SIG_TOL = 1e-4
 
 def eval_by_sig(xp: dict, what: str, card_name: str,
                 studies: tp.Optional[dict] = None,
-                extra: tp.Sequence[str] = ()) -> dict:
+                extra: tp.Sequence[str] = (),
+                kernel_scoring: bool = True) -> dict:
     """``eval.main(["sig=...", "out_dir=...", *extra])`` in this process, with
     every launch count set to 0 just before it and the XP's cache (and
     `studies`) in the env: the six files in ``eval/<sig>-torch`` and none
     in the JAX package's ``eval/<sig>``, finite probability rows, top-1,
     5 and 10 in [0, 1], normalize once a forward, nt_matmul as often as
-    build_probs' loop implies and conv_stats never. Returns the launch
-    counts, the top-1, 5 and 10 accuracies, the probabilities and
-    vocabulary, run_eval's seconds and the call's peak device memory, and
-    the dtypes nt_matmul scored in."""
+    build_probs' loop implies (never without `kernel_scoring`: a scorer
+    that transforms its operands, such as clip.linear's projection,
+    scores through ``ClipLoss.get_scores``) and conv_stats never. Returns
+    the launch counts, the top-1, 5 and 10 accuracies, the probabilities
+    and vocabulary, run_eval's seconds and the call's peak device memory,
+    and the dtypes nt_matmul scored in."""
     from brainmagick_tpu_torch import eval as port_eval
     from brainmagick_tpu_torch import losses, ops
     from brainmagick_tpu_torch.env import env
@@ -2491,7 +2513,8 @@ def eval_by_sig(xp: dict, what: str, card_name: str,
                                             for v in acc.values()):
         raise AssertionError(f"eval {what}: accuracies {acc}")
     want = dict(normalize_clamp_peak=spy.forwards, conv_stats=0,
-                nt_matmul=scoring_calls(*probs.shape))
+                nt_matmul=scoring_calls(*probs.shape) if kernel_scoring
+                else 0)
     if spy.forwards < 1 or any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"eval {what} launched {launches}, want {want}")
     print(f"eval by signature, {what}: top-1/5/10 {acc}; "
@@ -4212,6 +4235,346 @@ def run_wav2vec_phase(device: torch.device, card_name: str, work: Path
     return launches_by_path, shapes
 
 
+#: phase 16: the train step's options on phase 9's gwilliams2022 tree
+#: (KEPT_STUDY), in the folder phases 8-15 share: the clip_conv_tpu recipe
+#: at the paper's width, B=256, fused conv_stats, MelSpectrum at 120 mels;
+#: run 1 with every option of the slice (sampled negatives from the pool,
+#: the SVD penalty, the three dropouts on the explicit generator, the
+#: rewrite conv, LayerScale, the post-skip conv, the "btc" estimate) for
+#: OPTIONS_BATCHES train batches, the valid pass and the test stage; run 2
+#: the learned projection (clip.linear, twin off) for 2 train steps, then
+#: its XP evaluated by signature
+OPTIONS_BATCHES = 3
+#: (the runs' own overrides follow OPTIONS_COMMON: its preset sets
+#: optim.max_batches)
+OPTIONS_COMMON = (f"preset={RECIPE}", "simpleconv.fused_conv_bn=True",
+                  'dset.features=["MelSpectrum"]', "optim.batch_size=256",
+                  "optim.epochs=1", "dset.n_recordings=2",
+                  f"dset.selections=[{KEPT_STUDY!r}]")
+OPTIONS_RUNS = {
+    "options_train": (
+        "optim.negatives=512", "optim.svd=0.01",
+        "simpleconv.conv_dropout=0.1", "simpleconv.dropout_input=0.1",
+        "simpleconv.dropout=0.1", "simpleconv.rewrite=True",
+        "simpleconv.scale=0.1", "simpleconv.post_skip=True",
+        "simpleconv.output_layout=btc",
+        f"optim.max_batches={OPTIONS_BATCHES}"),
+    "options_linear": ("clip.linear=256", "clip.twin=False",
+                       "optim.max_batches=2")}
+#: the held step's gradients: layer 0's conv (behind the input dropout),
+#: layer 9's conv, rewrite conv, LayerScale and post-skip conv
+OPTIONS_LEAVES = ("merger.heads", "subject_layers.weights",
+                  "encoders.meg.sequence.0.1.weight",
+                  "encoders.meg.sequence.9.0.weight",
+                  "encoders.meg.sequence.9.4.weight",
+                  "encoders.meg.sequence.9.6.scale",
+                  "encoders.meg.sequence.9.7.weight", "final.2.weight")
+#: the SVD penalty on the card against the CPU, relative
+SVD_TOL = 1e-5
+
+
+def _options_held_step(where, args, widths: tuple, norm_arrays: dict,
+                       batch, negatives, float64: bool = False) -> tuple:
+    """One Trainer.step of `args` at `widths` (the MEG's sensors, the
+    targets' width, the subjects) on `where` from seeds (the weights, and
+    the dropout generator on the CPU: the card's run draws the same disks
+    and masks as the CPU's, moved to the card) and `norm_arrays`, with the
+    same `negatives` (rows, weights; none when empty): (loss, model).
+    With `float64`, as ``encode_held_step``: the step's
+    forward wires the model's inputs and targets in fp32, then the model
+    runs in float64 on them (its fused layers unfused: the same
+    parameters, cuDNN's float64 convs in place of conv_stats, which takes
+    fp32 and bf16), with the CLIP loss, the SVD penalty and their
+    backward (no update)."""
+    from brainmagick_tpu_torch import svd
+    from brainmagick_tpu_torch.dataset import to_device
+    from brainmagick_tpu_torch.precision import exact_fp32
+    from brainmagick_tpu_torch.solver import target_length
+    from brainmagick_tpu_torch.train import Trainer
+
+    trainer = Trainer(
+        args, *widths, None, None, norm_arrays, where,
+        generator=torch.Generator().manual_seed(SEED),
+        length=target_length(args, batch.features.shape[-1]))
+    rows, weight = (torch.from_numpy(x).to(trainer.device)
+                    if len(x) else None for x in negatives)
+    if not float64:
+        loss = trainer.step(batch, negatives=rows, negative_weight=weight)
+        return loss["loss"].item(), trainer.model
+    seen = {}
+    hook = trainer.model.register_forward_pre_hook(
+        lambda module, args, kwargs: seen.update(args=args, kwargs=kwargs),
+        with_kwargs=True)
+    pad = torch.ones(len(batch.meg), device=trainer.device)
+    with torch.no_grad(), exact_fp32():
+        _, output, mask, keep, _ = trainer.solver._forward(
+            to_device(batch, trainer.device, None), pad, train=True)
+    hook.remove()
+
+    def wide(x):
+        return x.double() if torch.is_tensor(x) and x.is_floating_point() \
+            else x
+    inputs, subjects, positions = seen["args"][:3]
+    model = trainer.model.double()
+    for encoder in model.encoders.values():
+        encoder.fused = [False] * len(encoder.fused)
+    with exact_fp32():
+        estimate, penalty = model(
+            {k: v.double() for k, v in inputs.items()}, subjects,
+            wide(positions), **{k: wide(v) for k, v in
+                                seen["kwargs"].items()})
+        if model.output_layout == "btc":
+            estimate = estimate.transpose(1, 2)
+        loss = trainer.solver._loss_value(
+            estimate, output.double(), mask, keep.double(), True,
+            *(None if x is None else x.double() for x in (rows, weight))
+        ) + penalty
+        loss = loss + args.optim.svd * svd.svd_penalty(
+            model, rng=types.SimpleNamespace(random=lambda: 0.))
+        loss.backward()
+    return loss.item(), model
+
+
+def _options_profile(solver, batch, calls: int = 3) -> dict:
+    """The pool's loop on `batch` (resident on the card): sample the
+    negatives, a train step, the pool's update (its targets to the host),
+    after a warm one. Host ms a step with and without the pool's work
+    (synchronized), the SVD penalty's forward and backward alone (ms), and
+    in torch.profiler the device time of a step, of the device-to-host
+    copies, of the SVD penalty's forward (``solver.svd_penalty``), and the
+    host time of ``solver.negative_pool`` and
+    ``solver.sample_negatives``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from brainmagick_tpu_torch import svd
+    from brainmagick_tpu_torch.dataset import to_device
+
+    args = solver.args
+    arrays = to_device(batch, solver.device, args.parallel.transfer_dtype)
+    pad = torch.ones(len(batch.meg), device=solver.device)
+    n_neg = args.optim.negatives
+
+    def pooled():
+        negatives = solver._sample_negatives(
+            "train", arrays["features"].shape, n_neg,
+            solver._effective_candidates(len(batch.meg)))
+        out = solver.step(arrays, pad, True, *negatives, return_output=True)
+        solver._update_negative_pool("train", out["output"])
+
+    def timed(fn, runs=calls) -> float:
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    pooled()
+    negatives = solver._sample_negatives(
+        "train", arrays["features"].shape, n_neg,
+        solver._effective_candidates(len(batch.meg)))
+    step_ms = timed(lambda: solver.step(arrays, pad, True, *negatives))
+    pooled_ms = timed(pooled)
+
+    def penalty():
+        solver.model.zero_grad(set_to_none=True)
+        svd.svd_penalty(solver.model, rng=types.SimpleNamespace(
+            random=lambda: 0.)).backward()
+    penalty_ms = timed(penalty, 5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            pooled()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = [e for e in events
+              if e.device_type != torch.autograd.DeviceType.CPU]
+
+    def host_ms(name):
+        return sum(e.cpu_time_total for e in events if e.key == name) \
+            / calls / 1e3
+    return dict(
+        step_ms=step_ms, pooled_ms=pooled_ms, penalty_ms=penalty_ms,
+        device_ms=sum(device_us(e) for e in device) / calls / 1e3,
+        d2h_ms=sum(device_us(e) for e in device if "DtoH" in e.key)
+        / calls / 1e3,
+        h2d_ms=sum(device_us(e) for e in device if "HtoD" in e.key)
+        / calls / 1e3,
+        svd_forward_ms=sum(device_us(e, own=False) for e in events
+                           if e.key == "solver.svd_penalty") / calls / 1e3,
+        pool_host_ms=host_ms("solver.negative_pool"),
+        sample_host_ms=host_ms("solver.sample_negatives"))
+
+
+def run_options_phase(device: torch.device, card_name: str, work: Path
+                      ) -> tuple:
+    """Phase 16: ``train.main`` of each OPTIONS_RUNS entry on the kept
+    gwilliams2022 tree in `work`. Run 1: the options in the model (9
+    LayerScales, 10 fused layers with rewrite convs, ChannelDropout, the
+    "btc" layout), conv_stats 10 times a train step (bf16 on "tc"),
+    normalize once a forward, nt_matmul in the test stage; its pool at
+    its size; a B=HELD_B step with fp32 compute on the card against the
+    CPU at STEP_TOL from the same weights, dropout draws and negatives;
+    the SVD penalty of the trained model on the card against the CPU
+    (SVD_TOL); the pool's and the penalty's cost (``_options_profile``).
+    Run 2: the projection (``linear_gt`` beside ``linear_est``) trained,
+    in the checkpoint's best state under ``loss.``, nt_matmul never; the
+    XP evaluated by signature, scoring through the projection (nt_matmul
+    never). Returns ({path: launch counts}, {path: ``check_cli_shapes``
+    arguments})."""
+    from brainmagick_tpu_torch import dataset, svd
+    from brainmagick_tpu_torch.env import env
+    from brainmagick_tpu_torch.models.common import ChannelDropout, \
+        LayerScale
+    from brainmagick_tpu_torch.train import parse_overrides
+
+    studies = {KEPT_STUDY: work / KEPT_STUDY}
+    common = [*OPTIONS_COMMON, f"cache={work}/cache_{KEPT_STUDY}",
+              f"out_dir={work}/outputs"]
+    out, shapes = {}, {}
+    argv = [*common, *OPTIONS_RUNS["options_train"]]
+    with env.temporary(studies=studies):
+        launches, routes, by_dtype, spy, wall, peak_gb = run_cli(
+            argv, "options_train", card_name)
+    args = parse_overrides(argv)
+    solver = spy.solver
+    model = solver.model
+    encoder = model.encoders["meg"]
+    structure = dict(
+        fused=sum(encoder.fused),
+        layer_scales=sum(isinstance(m, LayerScale)
+                         for m in encoder.modules()),
+        channel_dropout=isinstance(model.channel_dropout, ChannelDropout),
+        layout=model.output_layout,
+        pool=len(solver.negative_pool["train"]),
+        pool_size=solver.negative_pool_size)
+    steps = _check_cli_launches("options_train", launches, routes, by_dtype,
+                                spy, "bfloat16")
+    pool_size = 2 * args.optim.negatives
+    want = dict(fused=10, layer_scales=9, channel_dropout=True,
+                layout="btc", pool_size=pool_size,
+                pool=min(pool_size, args.optim.batch_size * steps))
+    if structure != want:
+        raise AssertionError(f"options_train: {structure}, want {want}")
+    history = _read_history(Path(args.xp_folder), 1, "options_train")
+    step_ms = spy.train_step_ms()
+    print(f"options_train ({card_name}): {structure}; train step device "
+          f"time {[round(x, 2) for x in step_ms]} ms over {steps} steps "
+          f"(warm {step_ms[-1]:.2f}), peak device memory {peak_gb:.2f} GB, "
+          f"run {wall:.1f} s; history {history}")
+    out["options_train"] = launches
+    shapes["options_train"] = dict(
+        batch=args.optim.batch_size, n_test=len(solver.datasets.test),
+        n_mels=solver.used_features["MelSpectrum"].n_mels, channels=208)
+
+    loader = iter(solver.make_loader(solver.datasets.train))
+    batch = next(loader)[0]
+    loader.close()
+    t0 = time.perf_counter()
+    small = types.SimpleNamespace(**{
+        name: getattr(batch, name)[:HELD_B] for name in dataset.ARRAY_FIELDS})
+    n_extra = args.optim.negatives - HELD_B
+    rows = solver.negative_pool["train"][:n_extra].copy()
+    weight = np.ones(n_extra, np.float32)
+    rows[-4:], weight[-4:] = 0., 0.          # the pool's zero padding
+    held_args = parse_overrides(argv + ["simpleconv.dtype=None",
+                                        "simpleconv.output_dtype=None",
+                                        "clip.compute_dtype=None"])
+    widths = (model.in_channels["meg"], model.out_channels,
+              1 + max(d.recording.subject_index
+                      for d in solver.datasets.train.datasets))
+    norm_arrays = {k: v.cpu() for k, v in solver.norm_arrays.items()}
+    for float64 in (False, True):
+        card, cpu = (_options_held_step(where, held_args, widths,
+                                        norm_arrays, small, (rows, weight),
+                                        float64)
+                     for where in (device, "cpu"))
+        errors, note = _step_errors(card, cpu, False, OPTIONS_LEAVES)
+        print(f"options_train B={HELD_B} "
+              + ("in float64" if float64 else "with fp32 compute")
+              + f", {n_extra} negatives (4 zero-weight) against the CPU: "
+              + ", ".join(f"{key} {value:.2e}"
+                          for key, value in errors.items())
+              + f" (tol {STEP_TOL:.2e}"
+              + ("" if float64 else "; the loss held, the gradients shown")
+              + f"; {note}; {time.perf_counter() - t0:.1f} s)")
+        # in fp32 the rewrite's ReLU (relu_leakiness 0) flips within
+        # rounding, which moves the early layers' gradients by 1e-3 of
+        # their size between any two summation orders, the CPU's at 1 and
+        # 8 threads too (scripts/torch_options_conditioning.py): the
+        # gradients are held in float64, as phase 12 holds ConvRNN's
+        _check_errors(errors if float64 else {"loss": errors["loss"]},
+                      STEP_TOL, "options train step")
+        del card, cpu
+
+    always = types.SimpleNamespace(random=lambda: 0.)
+    with torch.no_grad():
+        on_card = svd.svd_penalty(model, rng=always).item()
+        on_cpu = svd.svd_penalty(copy.deepcopy(model).cpu(),
+                                 rng=always).item()
+    err = abs(on_card - on_cpu) / abs(on_cpu)
+    print(f"options_train SVD penalty over "
+          f"{len(list(svd.iter_weight_matrices(model)))} matrices: card "
+          f"{on_card:.6f}, CPU {on_cpu:.6f}, relative {err:.2e} (tol "
+          f"{SVD_TOL:.0e})")
+    if not err <= SVD_TOL:
+        raise AssertionError(f"SVD penalty, card vs CPU: {err}")
+    cost = _options_profile(solver, batch)
+
+    def share(part: str, whole: str) -> str:
+        return f"{cost[part]:.3f} ms ({cost[part] / cost[whole]:.1%})" \
+            if cost[whole] else f"{cost[part]:.3f} ms"
+    print(f"options_train B=256 pool and penalty cost ({card_name}): a "
+          f"step {cost['step_ms']:.2f} ms, with the pool's sampling and "
+          f"update {cost['pooled_ms']:.2f} ms (host clock, synchronized); "
+          f"the penalty's forward and backward alone "
+          f"{share('penalty_ms', 'step_ms')} of a step; in torch.profiler "
+          f"a pooled step {cost['device_ms']:.2f} ms of device time, "
+          f"device-to-host copies {share('d2h_ms', 'device_ms')}, "
+          f"host-to-device {cost['h2d_ms']:.3f} ms, the penalty's forward "
+          f"{share('svd_forward_ms', 'device_ms')}, host time of the "
+          f"pool's update {share('pool_host_ms', 'pooled_ms')} of the "
+          f"pooled step, of the sampling {cost['sample_host_ms']:.2f} ms")
+    del solver, spy, model, encoder, batch
+    torch.cuda.empty_cache()
+
+    argv = [*common, *OPTIONS_RUNS["options_linear"]]
+    with env.temporary(studies=studies):
+        launches, routes, by_dtype, spy, wall, peak_gb = run_cli(
+            argv, "options_linear", card_name)
+    args = parse_overrides(argv)
+    clip = spy.solver.clip_loss
+    steps = _check_cli_launches("options_linear", launches, routes,
+                                by_dtype, spy, "bfloat16", scored=False)
+    checkpoint = torch.load(Path(args.xp_folder) / "checkpoint-torch.pt",
+                            map_location="cpu", weights_only=True)
+    keys = sorted(k for k in checkpoint["best_state"]
+                  if k.startswith("loss."))
+    if clip.linear_gt is None or keys != [
+            f"loss.{n}.{p}" for n in ("linear_est", "linear_gt")
+            for p in ("bias", "weight")] \
+            or clip.linear_est.weight.device.type != device.type:
+        raise AssertionError(f"options_linear: projection {clip}, best "
+                             f"state's loss keys {keys}")
+    history = _read_history(Path(args.xp_folder), 1, "options_linear")
+    shape = tuple(clip.linear_est.weight.shape)
+    print(f"options_linear ({card_name}): the projection {shape} x 2 "
+          f"trained over {steps} steps, "
+          f"run {wall:.1f} s, peak device memory {peak_gb:.2f} GB; "
+          f"history {history}")
+    out["options_linear"] = launches
+    del spy, clip, checkpoint
+    xp = dict(sig=args.sig, out_dir=args.out_dir, cache=args.cache)
+    evaluated = eval_by_sig(xp, "options_linear", card_name, studies,
+                            kernel_scoring=False)
+    out["options_eval_sig"] = evaluated["launches"]
+    torch.cuda.empty_cache()
+    return out, shapes
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -4257,7 +4620,7 @@ def main() -> None:
     recipe_train, recipe_types, recipe_train_warm = run_train(
         device, card_name, batch, RECIPE)
     phase_s["7"] = time.perf_counter() - t0
-    # phases 8-12 share one folder: phases 10-12 train on phase 9's
+    # phases 8-16 share one folder: phases 10-16 train on phase 9's
     # gwilliams2022 tree, and phase 10 evaluates phase 8's recipe XP
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fake_cache_") as tmp:
         work = Path(tmp)
@@ -4292,6 +4655,10 @@ def main() -> None:
         wav2vec_launches, wav2vec_shapes = run_wav2vec_phase(
             device, card_name, work)
         phase_s["15"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        options_launches, options_shapes = run_options_phase(
+            device, card_name, work)
+        phase_s["16"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     with exact_fp32():
         cli_shapes = check_cli_shapes(device, **cli_shape)
@@ -4302,7 +4669,8 @@ def main() -> None:
                 cli_shapes[name].update(shapes)
         for path, shape in {**deepmel_shapes, **words_shapes,
                             **encode_shapes, **grid_shapes,
-                            **parallel_shapes, **wav2vec_shapes}.items():
+                            **parallel_shapes, **wav2vec_shapes,
+                            **options_shapes}.items():
             for name, shapes in check_cli_shapes(
                     device, **shape, prefix=f"{path}: ").items():
                 cli_shapes[name].update(shapes)
@@ -4335,7 +4703,8 @@ def main() -> None:
                                                **encode_launches,
                                                **grid_launches,
                                                **parallel_launches,
-                                               **wav2vec_launches}.items()})
+                                               **wav2vec_launches,
+                                               **options_launches}.items()})
         entry["other_shapes"].update(cli_shapes[entry["name"]])
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path

@@ -76,8 +76,8 @@ def patch_solver(dropout_on_cpu: bool, steps: int, losses: list) -> None:
         Solver.from_datasets = classmethod(on_cpu)
     step = Solver.step
 
-    def traced(self, arrays, pad_weight, train):
-        metrics = step(self, arrays, pad_weight, train)
+    def traced(self, arrays, pad_weight, train, **kwargs):
+        metrics = step(self, arrays, pad_weight, train, **kwargs)
         if train and len(losses) < steps:
             losses.append(float(metrics["loss"]))
         return metrics

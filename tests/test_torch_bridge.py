@@ -36,7 +36,18 @@ OPTIONS = [dict(), dict(merger=False), dict(initial_linear=0),
            dict(complex_out=False), dict(glu=0), dict(glu=1, glu_glu=False),
            dict(merger=False, initial_linear=0, subject_layers=False,
                 complex_out=False, batch_norm=False, glu=0),
-           dict(groups=2, dropout_input=0.1, conv_dropout=0.1)]
+           dict(groups=2, dropout_input=0.1, conv_dropout=0.1),
+           # the layer options: the rewrite conv, LayerScale, the post-skip
+           # conv, with the dropouts' slots before them and on a last layer
+           # without activation
+           dict(rewrite=True), dict(scale=0.1, post_skip=True),
+           dict(rewrite=True, scale=0.1, post_skip=True, relu_leakiness=0.1,
+                dropout_input=0.1, conv_dropout=0.1, dropout=0.1),
+           dict(rewrite=True, scale=0.1, post_skip=True, complex_out=False)]
+#: the layer options with fused conv_stats layers and bias-less convs
+LAYER = [dict(rewrite=True, scale=0.1, post_skip=True),
+         dict(rewrite=True, scale=0.1, post_skip=True, bn_conv_bias=False,
+              dropout_input=0.1, conv_dropout=0.1)]
 #: the clip_conv_tpu options: no bias on BatchNorm'd convs, the fused head
 #: (the same parameters) and the compute dtypes (no parameter)
 RECIPE = [dict(bn_conv_bias=False), dict(fused_head=True),
@@ -94,7 +105,7 @@ def test_rules_equal_the_jax_packages(overrides):
 
 
 @pytest.mark.parametrize("overrides", OPTIONS[:9] + RECIPE[:3]
-                         + BRANCHES[:3], ids=str)
+                         + BRANCHES[:3] + LAYER, ids=str)
 def test_fused_rules_unchanged(overrides):
     """Fused, the rules above the encoders are the JAX package's for the
     unfused model, and the encoders' come from the port's own walk."""
@@ -106,6 +117,48 @@ def test_fused_rules_unchanged(overrides):
                                             ("model", f"encoder_{name}"))
     assert any(r[1][2].startswith("FusedConvBN_") for r in want)
     assert sorted(convert.simpleconv_rules(port)) == sorted(want)
+
+
+@pytest.mark.parametrize("twin", [True, False], ids=["twin", "linear_gt"])
+def test_loss_rules_name_the_flax_loss_tree(twin):
+    """``clip_loss_rules`` name exactly the leaves and shapes of the flax
+    ClipLoss's projection (its ``init`` traced by jax.eval_shape) under
+    the ``loss`` scope, and exactly the port's parameters; a loss tree
+    loads with every leaf consumed, and a stray leaf raises."""
+    import jax
+    import jax.numpy as jnp
+
+    from brainmagick_tpu import losses as jlosses
+    from brainmagick_tpu_torch import losses
+
+    kw = dict(linear=5, twin=twin, tmin=-0.3, tmax=0.4, dset_tmin=-0.5,
+              dset_sample_rate=20.)
+    port = losses.ClipLoss(**kw, length=20)
+    jl = jlosses.ClipLoss(**kw)
+    shapes = jax.eval_shape(
+        lambda key, e, c: jl.init(key, e, c, method=jl.get_scores),
+        jax.random.PRNGKey(0), jnp.zeros((2, 6, 20)),
+        jnp.zeros((3, 6, 20)))["params"]
+    want = {("loss",) + tuple(p.key for p in path): leaf.shape
+            for path, leaf in jax.tree_util.tree_leaves_with_path(shapes)}
+    rules = convert.clip_loss_rules(port)
+    state = port.state_dict()
+    assert sorted(r[0] for r in rules) == sorted(state)
+    got = {}
+    for tkey, fpath, kind, coll in rules:
+        value = convert._untransform(kind, np.zeros(want[fpath]))
+        assert value.shape == tuple(state[tkey].shape), tkey
+        got[fpath] = want[fpath]
+    assert got == want
+    tree: dict = {}
+    for path, shape in want.items():
+        tree.setdefault(path[1], {})[path[2]] = np.ones(shape, np.float32)
+    fresh = losses.ClipLoss(**kw, length=20)
+    convert.load_by_rules(fresh, rules, {"loss": tree}, {})
+    assert all((p == 1).all() for p in fresh.parameters())
+    tree["stray"] = {"kernel": np.ones(2, np.float32)}
+    with pytest.raises(ValueError, match="stray"):
+        convert.load_by_rules(fresh, rules, {"loss": tree}, {})
 
 
 #: ConvRNN's structural options at small widths
@@ -223,7 +276,8 @@ def test_no_import_of_the_jax_package():
             package / "grids" / "nmi" / "main_table.py",
             package / "paper_tables.py", package / "parallel.py",
             package / "models" / "wav2vec2.py",
-            package / "features" / "audio.py"} <= set(files)
+            package / "features" / "audio.py",
+            package / "svd.py"} <= set(files)
     bad = {str(f.relative_to(REPO)): hits for f in files
            if (hits := _imports_of_the_jax_package(f.read_text()))}
     assert not bad

@@ -260,8 +260,12 @@ def test_convrnn_valid_length_and_refusals():
     inputs = {"meg": torch.zeros(2, 5, T), "features": torch.zeros(2, 3, T)}
     assert model.eval()(inputs, torch.zeros(2, dtype=torch.long)).shape \
         == (2, 5, T)
-    with pytest.raises(NotImplementedError, match="conv_dropout"):
+    # train mode's dropout masks need an explicit generator (or masks)
+    with pytest.raises(ValueError, match="generator"):
         model.train()(inputs, torch.zeros(2, dtype=torch.long))
+    out = model.train()(inputs, torch.zeros(2, dtype=torch.long),
+                        generator=torch.Generator().manual_seed(0))
+    assert out.shape == (2, 5, T) and torch.isfinite(out).all()
 
 
 def test_convrnn_seeded_initialization():

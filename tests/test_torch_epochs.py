@@ -69,7 +69,11 @@ def test_tiny_overrides_are_tiny_args(tmp_path):
 #: running means
 VARIANTS = {"unfused_no_bias": ["simpleconv.fused_conv_bn=False",
                                 "simpleconv.bn_conv_bias=False"],
-            "fused": ["simpleconv.fused_conv_bn=True"]}
+            "fused": ["simpleconv.fused_conv_bn=True"],
+            # 12 candidates a step at batch 8: each step tops up with 4
+            # negatives from its phase's pool of the last 24 targets
+            "negatives": ["simpleconv.fused_conv_bn=True",
+                          "optim.negatives=12"]}
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))

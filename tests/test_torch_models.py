@@ -352,9 +352,7 @@ def test_bridge_consumes_every_leaf():
 
 @pytest.mark.parametrize("option", [
     dict(dual_path=1), dict(n_fft=4), dict(conv_impl="dots"),
-    dict(rewrite=True), dict(post_skip=True),
-    dict(scale=0.1), dict(dropout=0.1),
-    dict(merger_per_subject=True), dict(output_layout="btc")], ids=str)
+    dict(merger_per_subject=True)], ids=str)
 def test_unsupported_options_raise(option):
     kw = {**TINY, **option}
     hidden = kw.pop("hidden")
@@ -426,10 +424,12 @@ def test_build_model_seeded_and_eval_only():
             _t(rec_positions[rec_index]),
             generator=torch.Generator().manual_seed(0))
     assert out.shape == (3, 8, 40) and torch.isfinite(out).all()
-    args.simpleconv.update(conv_dropout=0.1)
-    with pytest.raises(NotImplementedError, match="conv_dropout"):
+    args.simpleconv.update(conv_dropout=0.1, merger_dropout=0.)
+    # train mode's dropout masks need an explicit generator (or masks)
+    with pytest.raises(ValueError, match="generator"):
         make().train()({"meg": _t(meg)}, _t(subjects).long(),
                        _t(rec_positions[rec_index]))
+    args.simpleconv.update(merger_dropout=a.merger_dropout)
     args.simpleconv.update(conv_dropout=0.)
     # the encode task reads the features beside the MEG, each through its
     # own encoder, into the MEG's width

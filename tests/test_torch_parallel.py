@@ -198,6 +198,38 @@ def _case_trainer(rank: int, world: int, data: dict) -> dict:
     return out
 
 
+def _case_negative_pool(rank: int, world: int, data: dict) -> dict:
+    """STEPS train steps with ``optim.negatives``: each step tops its
+    candidates up from the train pool (``Solver._sample_negatives``, the
+    sampling RNG seeded alike on every rank), trains on this rank's rows,
+    and folds its targets into the pool (``_update_negative_pool``: every
+    rank's rows gathered in rank order). Returns the negatives drawn and
+    the pool after each step."""
+    from brainmagick_tpu_torch import parallel
+    from brainmagick_tpu_torch.dataset import to_device
+    from brainmagick_tpu_torch.train import Trainer
+    args = data["args"]
+    trainer = Trainer(args, *data["widths"], None, None,
+                      data["norm_arrays"], device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    solver = trainer.solver
+    solver.set_group(parallel.DataGroup())
+    solver._neg_rng = np.random.RandomState(7)
+    out: dict = {"negatives": [], "pools": []}
+    for batch in data["batches"]:
+        local = _local(batch, rank, world)
+        arrays = to_device(local, "cpu")
+        negatives, weight = solver._sample_negatives(
+            "train", arrays["features"].shape, args.optim.negatives,
+            solver._effective_candidates(len(local.meg)))
+        metrics = solver.step(arrays, torch.ones(len(local.meg)), True,
+                              negatives, weight, return_output=True)
+        solver._update_negative_pool("train", metrics["output"])
+        out["negatives"].append(negatives.numpy())
+        out["pools"].append(solver.negative_pool["train"].copy())
+    return out
+
+
 # -- the parent's side ------------------------------------------------------
 
 @pytest.fixture(autouse=True, scope="module")
@@ -499,6 +531,29 @@ def test_global_pool_matches_one_rank(setup, tmp_path):
     _compare_rank_runs(setup, results[0], _one_rank(setup, _rank_runs(
         setup)))
     _same_on_every_rank(results, "no_bn")
+
+
+def test_negative_pool_is_the_same_on_every_rank(setup, tmp_path):
+    """``optim.negatives`` over 2 ranks: after each step both ranks hold the
+    same pool (the global batch's targets, newest first), equal to one
+    rank's on the global batch, and draw the same negatives."""
+    from brainmagick_tpu_torch import train
+    args = train.parse_overrides(["optim.negatives=12"],
+                                 copy.deepcopy(setup.args["no_bn"]))
+    data = dict(args=args, widths=_widths(setup.solvers["base"][0]),
+                norm_arrays=setup.norm_arrays, batches=setup.arrays)
+    two = run_ranks("_case_negative_pool", 2, data, tmp_path)
+    one = run_ranks("_case_negative_pool", 1, data, tmp_path)
+    for step in range(STEPS):
+        np.testing.assert_array_equal(two[0]["pools"][step],
+                                      two[1]["pools"][step])
+        np.testing.assert_array_equal(two[0]["negatives"][step],
+                                      two[1]["negatives"][step])
+        np.testing.assert_array_equal(two[0]["pools"][step],
+                                      one[0]["pools"][step])
+    assert len(two[0]["pools"][-1]) == min(24, 8 * STEPS)
+    # the second step draws from the first step's 8 targets
+    assert two[0]["negatives"][1].any()
 
 
 def test_groups_of_two_on_four_ranks_match_two_ranks(setup, tmp_path):
