@@ -44,8 +44,11 @@ nested dicts of numpy arrays.
 
 from __future__ import annotations
 
+import logging
+import pickle
 import typing as tp
 from collections.abc import Mapping
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -53,7 +56,11 @@ from torch import nn
 
 from .models.common import LayerScale
 from .models.convrnn import ConvRNN
+from .models.features import DeepMel
+from .models.simpleconv import SimpleConv
 from .models.wav2vec2 import Wav2Vec2Model
+
+logger = logging.getLogger(__name__)
 
 
 def _leaf_paths(tree: Mapping, prefix: tp.Tuple[str, ...] = ()
@@ -455,3 +462,285 @@ def load_wav2vec2_state_dict(model: Wav2Vec2Model,
             key = key.replace(old, new)
         renamed[key] = torch.as_tensor(np.asarray(value, dtype=np.float32))
     model.load_state_dict(renamed, strict=True)
+
+
+# -- the JAX package's checkpoint.pkl ---------------------------------------
+
+#: the JAX package's checkpoint in an XP folder (``brainmagick_tpu/solver.py``
+#: writes it with ``pickle``)
+JAX_CHECKPOINT = "checkpoint.pkl"
+
+
+class _StateTuple(tuple):
+    """Stand-in for an optax state NamedTuple (``ScaleByAdamState``,
+    ``EmptyState``, ...): its fields, by position."""
+
+    def __new__(cls, *fields: tp.Any) -> "_StateTuple":
+        return super().__new__(cls, fields)
+
+
+class _FrozenDict(dict):
+    """Stand-in for flax's ``FrozenDict``: a plain dict."""
+
+    def __setstate__(self, state: tp.Mapping) -> None:
+        self.update(state.get("_dict", state))
+
+
+def _numpy_global(name: str) -> tp.Any:
+    """numpy's array and scalar reconstructors, whichever of numpy 1's
+    ``numpy.core`` and numpy 2's ``numpy._core`` this numpy has."""
+    import importlib
+    try:
+        module = importlib.import_module("numpy._core.multiarray")
+    except ImportError:
+        module = importlib.import_module("numpy.core.multiarray")
+    return getattr(module, name)
+
+
+class _JaxCheckpointUnpickler(pickle.Unpickler):
+    """Unpickles the classes a JAX package checkpoint names and no other:
+    numpy arrays, dtypes and scalars; optax's state tuples and flax's
+    ``FrozenDict`` as stand-ins (neither package is imported)."""
+
+    def find_class(self, module: str, name: str) -> tp.Any:
+        if module == "numpy" and name in ("ndarray", "dtype"):
+            return getattr(np, name)
+        if module in ("numpy._core.multiarray", "numpy.core.multiarray") \
+                and name in ("_reconstruct", "scalar"):
+            return _numpy_global(name)
+        if module.split(".")[0] == "optax":
+            return type(name, (_StateTuple,), {"__module__": __name__})
+        if (module, name) == ("flax.core.frozen_dict", "FrozenDict"):
+            return _FrozenDict
+        raise pickle.UnpicklingError(
+            f"{module}.{name} is not a class a checkpoint of the JAX "
+            f"package holds")
+
+
+def load_jax_checkpoint(path: tp.Union[str, Path]) -> tp.Dict[str, tp.Any]:
+    """The payload of the JAX package's ``checkpoint.pkl`` (``state``,
+    ``best_state``, ``history``, the epoch counters, ``negative_pool`` and
+    the config ``delta``), its trees nested dicts of numpy arrays, read
+    without jax, flax or optax (``_JaxCheckpointUnpickler``)."""
+    with open(path, "rb") as f:
+        try:
+            payload = _JaxCheckpointUnpickler(f).load()
+        except (EOFError, pickle.UnpicklingError) as exc:
+            raise ValueError(f"{path} is no readable checkpoint.pkl of the "
+                             f"JAX package: {exc}") from exc
+    if not isinstance(payload, dict) or not {"state", "delta"} <= set(
+            payload):
+        raise ValueError(f"{path} holds no JAX package checkpoint")
+    return payload
+
+
+# -- reference ``bm`` checkpoints -------------------------------------------
+
+#: the key prefixes of a reference checkpoint's ``nn.ModuleList([model,
+#: feature_model])`` state dict (``bm/solver.py:38``)
+REFERENCE_PREFIXES = ("0.", "1.")
+
+
+def _bias_folds(seq: nn.Module, prefix: str) -> tp.Dict[str, str]:
+    """{BatchNorm running-mean key: its conv's bias key} of the layers of
+    a ``ConvSequence`` whose conv has no bias before its BatchNorm
+    (``bn_conv_bias=False``): the reference conv has one, which the fold
+    moves into the running mean."""
+    folds = {}
+    for k, layer in enumerate(seq.sequence):
+        pos = next(i for i, m in enumerate(layer)
+                   if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)))
+        if layer[pos].bias is None and pos + 1 < len(layer) \
+                and isinstance(layer[pos + 1], nn.BatchNorm1d):
+            folds[f"{prefix}sequence.{k}.{pos + 1}.running_mean"] = \
+                f"{prefix}sequence.{k}.{pos}.bias"
+    return folds
+
+
+def reference_rules(model: nn.Module,
+                    feature_model: tp.Optional[nn.Module] = None
+                    ) -> tp.List[tuple]:
+    """Rules ``(reference key, (module index, port key), transform)``
+    mapping a reference ``bm`` checkpoint onto a port SimpleConv (index 0,
+    keys after ``0.``) and DeepMel (index 1, after ``1.``): the port's own
+    copy of the JAX package's ``model_rules`` walk. The port's modules
+    carry the reference names and layouts, so every weight and running
+    statistic is ``copy`` of the key that names it, but for the running
+    mean of a bias-less BatchNorm'd conv (``bn_conv_bias=False``),
+    ``bn_mean_fold_bias`` of ``"<conv bias key>|<running mean key>"``.
+    BatchNorm's step counters are not read. Refuses what the JAX
+    package's converter refuses: a ConvRNN, a feature model other than
+    DeepMel, and ``fused_conv_bn`` layers (DualPathRNN, ``n_fft`` and
+    ``conv_impl`` never build in the port)."""
+    if not isinstance(model, SimpleConv):
+        raise NotImplementedError(f"only SimpleConv checkpoints convert "
+                                  f"(got {type(model).__name__})")
+    if any(any(encoder.fused) for encoder in model.encoders.values()):
+        raise NotImplementedError(
+            "convert into fused_conv_bn=False targets (the flag is "
+            "checkpoint-compatible: flip it after loading)")
+    parts = [(model, {k: v for name, encoder in model.encoders.items()
+                      for k, v in _bias_folds(encoder,
+                                              f"encoders.{name}.").items()})]
+    if feature_model is not None:
+        if not isinstance(feature_model, DeepMel):
+            raise NotImplementedError(f"unsupported feature model "
+                                      f"{type(feature_model).__name__}")
+        parts.append((feature_model, _bias_folds(feature_model, "")))
+    rules = []
+    for index, (module, folds) in enumerate(parts):
+        prefix = REFERENCE_PREFIXES[index]
+        for key in module.state_dict():
+            if key.endswith(_NO_FLAX_COUNTERPART):
+                continue
+            if key in folds:
+                rules.append((f"{prefix}{folds[key]}|{prefix}{key}",
+                              (index, key), "bn_mean_fold_bias"))
+            else:
+                rules.append((prefix + key, (index, key), "copy"))
+    return rules
+
+
+def _host_tensor(value: tp.Any) -> torch.Tensor:
+    """A tensor or an array-like as a CPU tensor of its own."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().clone()
+    return torch.from_numpy(np.array(value, copy=True))
+
+
+def convert_state_dict(state_dict: tp.Mapping[str, tp.Any],
+                       model: nn.Module,
+                       feature_model: tp.Optional[nn.Module] = None,
+                       strict: bool = True
+                       ) -> tp.Tuple[tp.Dict[str, torch.Tensor],
+                                     tp.Optional[tp.Dict[str, torch.Tensor]]]:
+    """Reference ``bm`` state dict (tensors or arrays) -> the state dicts
+    of `model` and `feature_model` (None without one), by
+    ``reference_rules``; BatchNorm's step counters keep the modules' own
+    values. A missing key raises KeyError; a key no rule reads raises
+    ValueError when `strict` (``num_batches_tracked`` is ignored), else is
+    logged."""
+    modules = [model, feature_model]
+    states: tp.List[tp.Optional[tp.Dict[str, torch.Tensor]]] = [
+        None if m is None else {
+            k: v.detach().clone() for k, v in m.state_dict().items()
+            if k.endswith(_NO_FLAX_COUNTERPART)} for m in modules]
+    consumed: tp.Set[str] = set()
+    for tkey, (index, key), kind in reference_rules(model, feature_model):
+        if kind == "bn_mean_fold_bias":
+            bias_key, mean_key = tkey.split("|")
+            if mean_key not in state_dict:
+                raise KeyError(f"reference checkpoint misses {mean_key}")
+            # BN(x + b) with statistics (mean, var) == BN(x) with
+            # (mean - b, var)
+            value = _host_tensor(state_dict[mean_key])
+            if bias_key in state_dict:
+                value = value - _host_tensor(state_dict[bias_key])
+            consumed.update((bias_key, mean_key))
+        else:
+            if tkey not in state_dict:
+                raise KeyError(f"reference checkpoint misses {tkey}")
+            value = _host_tensor(state_dict[tkey])
+            consumed.add(tkey)
+        states[index][key] = value
+    leftovers = [k for k in state_dict if k not in consumed
+                 and not k.endswith(_NO_FLAX_COUNTERPART)]
+    if leftovers:
+        msg = (f"{len(leftovers)} reference tensors were not mapped: "
+               f"{sorted(leftovers)[:8]}...")
+        if strict:
+            raise ValueError(msg)
+        logger.warning(msg)
+    return states[0], states[1]
+
+
+def export_state_dict(model: nn.Module,
+                      feature_model: tp.Optional[nn.Module] = None
+                      ) -> tp.Dict[str, torch.Tensor]:
+    """The inverse direction: a reference-named state dict of CPU tensors
+    from the port's modules. Refuses ``bn_conv_bias=False`` models (the
+    folded conv biases cannot be reconstructed)."""
+    modules = [model, feature_model]
+    out: tp.Dict[str, torch.Tensor] = {}
+    for tkey, (index, key), kind in reference_rules(model, feature_model):
+        if kind == "bn_mean_fold_bias":
+            raise NotImplementedError(
+                "export from a bn_conv_bias=False model is lossy; re-load "
+                "the checkpoint into a bn_conv_bias=True config")
+        out[tkey] = _host_tensor(modules[index].state_dict()[key])
+    return out
+
+
+def load_reference_checkpoint(path: tp.Union[str, Path],
+                              best: bool = True) -> tp.Dict[str, tp.Any]:
+    """Read a reference checkpoint.th (torch pickle) and return the
+    ``all_models`` state dict (``best_state`` when there is one and
+    `best`); a bare state dict is taken as it is."""
+    payload = torch.load(str(path), map_location="cpu", weights_only=False)
+    if isinstance(payload, dict):
+        for key in (("best_state",) if best else ()) + ("all_models",
+                                                         "model"):
+            if key in payload and payload[key]:
+                return dict(payload[key])
+        if all(hasattr(v, "shape") for v in payload.values()):
+            return dict(payload)
+    raise ValueError(f"unrecognized reference checkpoint layout: {path}")
+
+
+def load_into_solver(solver: tp.Any, state_dict: tp.Mapping[str, tp.Any],
+                     strict: bool = True) -> None:
+    """Install converted reference weights as the solver's current AND
+    best state (ready for eval); every converted tensor must have its
+    module's shape. Refuses ``clip.linear``: a reference checkpoint holds
+    no projection."""
+    clip = getattr(solver, "clip_loss", None)
+    if clip is not None and clip.linear:
+        raise NotImplementedError(
+            f"clip.linear={clip.linear}: a reference checkpoint carries "
+            f"no CLIP projection")
+    states = convert_state_dict(state_dict, solver.model,
+                                solver.feature_model, strict=strict)
+    for module, state in zip((solver.model, solver.feature_model), states):
+        if module is None:
+            continue
+        for key, ours in module.state_dict().items():
+            if tuple(ours.shape) != tuple(state[key].shape):
+                raise ValueError(
+                    f"{key}: converted shape {tuple(state[key].shape)}, the "
+                    f"built model's {tuple(ours.shape)}; check that the "
+                    f"config reproduces the reference XP")
+        module.load_state_dict(state, strict=True)
+    solver.best_state = solver._copy_params()
+
+
+def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
+    """``python -m brainmagick_tpu_torch.convert in=checkpoint.th
+    [overrides]``: the XP of the overrides, its weights the reference
+    checkpoint's best state, written to ``checkpoint-torch.pt`` by the
+    solver's commit (ready for ``eval sig=`` and ``serve sig=``)."""
+    import sys
+
+    from .env import env
+    from .train import get_device, get_solver, parse_overrides
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(levelname)s %(name)s: %(message)s")
+    tokens = list(argv if argv is not None else sys.argv[1:])
+    path = next((t.split("=", 1)[1] for t in tokens
+                 if t.startswith("in=")), None)
+    if path is None:
+        print(__doc__)
+        return
+    args = parse_overrides([t for t in tokens if not t.startswith("in=")])
+    get_device(args)
+    with env.temporary_from_args(args):
+        solver = get_solver(args, training=False)
+    load_into_solver(solver, load_reference_checkpoint(path))
+    solver.commit()
+    logger.info("Converted %s -> %s (sig %s); ready for `python -m "
+                "brainmagick_tpu_torch.eval sig=%s`", path,
+                solver.checkpoint_path, args.sig, args.sig)
+
+
+if __name__ == "__main__":
+    main()

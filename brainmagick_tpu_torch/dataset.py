@@ -36,7 +36,7 @@ from .features import FeaturesBuilder
 from .ops.dsp import DSP_VERSION
 from .precision import torch_dtype
 from .studies.api import INVALID_POSITION
-from .utils import Frequency, roundrobin
+from .utils import Frequency, as_tensor, roundrobin, transfer
 
 logger = logging.getLogger(__name__)
 
@@ -54,39 +54,6 @@ _INDEX_FIELDS = ("subject_index", "recording_index")
 _WIRE_FIELDS = ("meg", "features")
 
 
-def _as_tensor(value: tp.Any) -> torch.Tensor:
-    if isinstance(value, torch.Tensor):
-        return value
-    arr = np.ascontiguousarray(np.asarray(value))
-    if arr.dtype.name == "bfloat16":
-        # ml_dtypes bfloat16 (the JAX package's wire format): torch's bits
-        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(arr)
-
-
-def transfer(value: tp.Any, device: torch.device,
-             dtype: tp.Optional[torch.dtype] = None,
-             buffers: tp.Optional[tp.Dict[str, torch.Tensor]] = None,
-             name: str = "") -> torch.Tensor:
-    """`value` (numpy or a tensor) on `device` in `dtype` (its own when
-    None). From the host to a CUDA device it is copied once on the host,
-    into page-locked memory, casting as it goes, and the transfer is
-    non-blocking on the current stream; `buffers` (by `name`) holds the
-    page-locked buffer to reuse, which the caller must not touch again
-    before that transfer has finished."""
-    tensor = _as_tensor(value)
-    dtype = dtype or tensor.dtype
-    if device.type != "cuda" or tensor.device.type == "cuda":
-        return tensor.to(device=device, dtype=dtype)   # itself when no-op
-    pinned = None if buffers is None else buffers.get(name)
-    if pinned is None or pinned.shape != tensor.shape \
-            or pinned.dtype != dtype:
-        pinned = torch.empty(tensor.shape, dtype=dtype, pin_memory=True)
-        if buffers is not None:
-            buffers[name] = pinned
-    return pinned.copy_(tensor).to(device, non_blocking=True)
-
-
 def to_device(batch: tp.Any, device: tp.Union[str, torch.device],
               transfer_dtype: tp.Optional[str] = None,
               buffers: tp.Optional[tp.Dict[str, torch.Tensor]] = None
@@ -102,7 +69,7 @@ def to_device(batch: tp.Any, device: tp.Union[str, torch.device],
     wire = torch_dtype(transfer_dtype)
     out = {}
     for name in ARRAY_FIELDS:
-        tensor = _as_tensor(getattr(batch, name))
+        tensor = as_tensor(getattr(batch, name))
         dtype = tensor.dtype
         if name in _INDEX_FIELDS:
             dtype = torch.int64

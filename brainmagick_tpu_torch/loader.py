@@ -30,8 +30,9 @@ from concurrent import futures
 import numpy as np
 import torch
 
-from .dataset import to_device, transfer
+from .dataset import to_device
 from .precision import torch_dtype
+from .utils import transfer
 
 
 class _Staging:

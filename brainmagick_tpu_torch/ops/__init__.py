@@ -1,4 +1,8 @@
-"""Hand-written Hopper kernels, each beside its plain PyTorch version."""
+"""Hand-written Hopper kernels, each beside its plain PyTorch version.
+
+``normalize_clamp_peak`` and ``nt_matmul`` are registered custom ops of
+the ``brainmagick`` namespace (``torch.ops.brainmagick.*``), which
+``torch.export`` artifacts name: importing this package registers them."""
 
 from .conv_bn import conv_stats  # noqa
 from .matmul import nt_matmul  # noqa

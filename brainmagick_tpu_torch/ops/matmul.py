@@ -6,7 +6,10 @@ over fp32, bf16 or mixed operands (``a`` is cast to ``b.dtype``). On a
 CUDA tensor it launches the hand-written TMA + ``wgmma`` GEMM of
 ``csrc/nt_matmul.cu`` (bf16 as it is, fp32 as 3xTF32; the design note is
 in that file); on a CPU tensor it runs the plain version,
-``_reference_impl``.
+``_reference_impl``. The wrapper calls the custom op
+``torch.ops.brainmagick.nt_matmul``, whose fake implementation gives
+``torch.export`` the output's shape, so an exported scorer keeps the op
+and, called on the card, launches the kernel.
 """
 
 from __future__ import annotations
@@ -85,8 +88,10 @@ def tma_operand(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def nt_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """[M, K] x [N, K] -> [M, N] fp32 (A @ B^T)."""
+def _nt_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The custom op's implementation: the checks, then the kernel for
+    CUDA operands (counted in ``nt_matmul.launches``) or the plain version
+    for CPU ones."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
         raise ValueError(f"nt_matmul needs [M, K] x [N, K], got "
                          f"{tuple(a.shape)} x {tuple(b.shape)}")
@@ -100,8 +105,7 @@ def nt_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         a = a.to(b.dtype)
     if a.device.type == "cpu":
         return _reference_impl(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"nt_matmul runs on cpu or cuda, not {a.device}")
+    _check_device(a)
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("nt_matmul needs contiguous operands")
     m, n = a.shape[0], b.shape[0]
@@ -126,6 +130,31 @@ def nt_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _build.check_status("nt_matmul", status)
     nt_matmul.launches += 1
     return out
+
+
+def _check_device(a: torch.Tensor) -> None:
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"nt_matmul runs on cpu or cuda, not {a.device}")
+
+
+#: the registered op: ``torch.export`` records it by this name, which
+#: saved artifacts keep
+OP = torch.library.custom_op(
+    "brainmagick::nt_matmul", _nt_matmul, mutates_args=(),
+    schema="(Tensor a, Tensor b) -> Tensor")
+
+
+@OP.register_fake
+def _(a, b):
+    return a.new_empty((a.shape[0], b.shape[0]), dtype=torch.float32)
+
+
+def nt_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[M, K] x [N, K] -> [M, N] fp32 (A @ B^T), through the registered op
+    (``OP``), which ``torch.export`` keeps in its graph: its checks run in
+    the op, where no symbolic size meets them."""
+    _check_device(a)
+    return OP(a, b)
 
 
 #: kernel launches since the last reset (the CPU path does not count)

@@ -17,7 +17,10 @@ stays NaN through the clamp; an inf gives an inf peak and is clamped to
 
 On a CUDA tensor it launches the hand-written kernel of
 ``csrc/normalize.cu`` (design note there); on a CPU tensor it runs the
-plain version, ``_reference_impl``.
+plain version, ``_reference_impl``. The wrapper calls the custom op
+``torch.ops.brainmagick.normalize_clamp_peak``, whose fake implementation
+gives ``torch.export`` the output shapes, so an exported forward keeps the
+op and, called on the card, launches the kernel.
 """
 
 from __future__ import annotations
@@ -96,13 +99,13 @@ def _kernel(meg: torch.Tensor, center: torch.Tensor, scale: torch.Tensor,
     _build.check_status("normalize_clamp_peak", status)
 
 
-def normalize_clamp_peak(meg: torch.Tensor, center: torch.Tensor,
-                         scale: torch.Tensor, limit: float,
-                         clip: bool = True,
-                         rec: tp.Optional[torch.Tensor] = None):
-    """meg [B, C, T] fp32 or bf16; center/scale fp32, [B, C] with `rec`
-    None, else [R, C] tables gathered through rec [B] int64 -> (out fp32
-    [B, C, T], clamped when `clip`; pre-clamp peak [B] fp32)."""
+def _normalize(meg: torch.Tensor, center: torch.Tensor,
+               scale: torch.Tensor, rec: tp.Optional[torch.Tensor],
+               limit: float, clip: bool
+               ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """The custom op's implementation: the checks, then the kernel for a
+    CUDA tensor (counted in ``normalize_clamp_peak.launches``) or the plain
+    version for a CPU tensor."""
     tables = center.shape[:1] if rec is None else (rec.shape[0],)
     if meg.dim() != 3 or center.dim() != 2 or scale.shape != center.shape \
             or center.shape[1] != meg.shape[1] or tables != meg.shape[:1]:
@@ -129,9 +132,7 @@ def normalize_clamp_peak(meg: torch.Tensor, center: torch.Tensor,
             raise ValueError(f"tensors on {meg.device} and {t.device}")
     if meg.device.type == "cpu":
         return _reference_impl(meg, center, scale, limit, clip, rec)
-    if meg.device.type != "cuda":
-        raise ValueError(f"normalize_clamp_peak runs on cpu or cuda, not "
-                         f"{meg.device}")
+    _check_device(meg)
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("normalize_clamp_peak needs contiguous tensors")
     batch, channels, times = meg.shape
@@ -145,6 +146,39 @@ def normalize_clamp_peak(meg: torch.Tensor, center: torch.Tensor,
     _kernel(meg, center, scale, rec, out, peak, limit, clip)
     normalize_clamp_peak.launches += 1
     return out, peak
+
+
+def _check_device(meg: torch.Tensor) -> None:
+    if meg.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"normalize_clamp_peak runs on cpu or cuda, not "
+                         f"{meg.device}")
+
+
+#: the registered op: ``torch.export`` records it by this name, which
+#: saved artifacts keep
+OP = torch.library.custom_op(
+    "brainmagick::normalize_clamp_peak", _normalize, mutates_args=(),
+    schema="(Tensor meg, Tensor center, Tensor scale, Tensor? rec, "
+           "float limit, bool clip) -> (Tensor, Tensor)")
+
+
+@OP.register_fake
+def _(meg, center, scale, rec, limit, clip):
+    return (meg.new_empty(meg.shape, dtype=torch.float32),
+            meg.new_empty(meg.shape[:1], dtype=torch.float32))
+
+
+def normalize_clamp_peak(meg: torch.Tensor, center: torch.Tensor,
+                         scale: torch.Tensor, limit: float,
+                         clip: bool = True,
+                         rec: tp.Optional[torch.Tensor] = None):
+    """meg [B, C, T] fp32 or bf16; center/scale fp32, [B, C] with `rec`
+    None, else [R, C] tables gathered through rec [B] int64 -> (out fp32
+    [B, C, T], clamped when `clip`; pre-clamp peak [B] fp32), through the
+    registered op (``OP``), which ``torch.export`` keeps in its graph: its
+    checks run in the op, where no symbolic size meets them."""
+    _check_device(meg)
+    return OP(meg, center, scale, rec, float(limit), bool(clip))
 
 
 #: kernel launches since the last reset (the CPU path does not count)

@@ -21,6 +21,7 @@ import torch
 
 from .cache import tagged
 from .config import MainConfig
+from .convert import JAX_CHECKPOINT, load_jax_checkpoint
 
 
 def get_solver_from_args(args: tp.Any, training: bool = False,
@@ -44,21 +45,27 @@ def get_solver_from_sig(sig: str, out_dir: str = "./outputs",
     where the JAX package's is a dict), `override_args` ({dotted key:
     value}) on top, then ``train.get_solver``, which restores the
     checkpoint and, without `training`, loads the best state; with `group`
-    (``train.join_launcher``) a rank of it. An override that changes the
+    (``train.join_launcher``) a rank of it. An XP folder with the JAX
+    package's ``checkpoint.pkl`` only is read without jax (its delta here,
+    its weights by ``Solver.restore``), for evaluation and serving: with
+    `training` it raises NotImplementedError. An override that changes the
     signature raises, since the solver would restore another XP's
     folder."""
     folder = Path(out_dir) / "xps" / sig
     checkpoint = folder / tagged("checkpoint.pt")
-    if not checkpoint.exists():
-        if (folder / "checkpoint.pkl").exists():
-            raise FileNotFoundError(
-                f"{folder} holds the JAX package's checkpoint.pkl only; "
-                f"reading it without JAX waits for 'Checkpoints on a "
-                f"jax-free host' (ROADMAP.md, section 1)")
+    if checkpoint.exists():
+        with open(checkpoint, "rb") as f:
+            payload = torch.load(f, map_location="cpu", weights_only=True)
+        delta = json.loads(payload["delta"])
+    elif (folder / JAX_CHECKPOINT).exists():
+        if training:
+            raise NotImplementedError(
+                f"{folder} holds the JAX package's {JAX_CHECKPOINT} only: "
+                f"resuming its training (its optax Adam moments) is not "
+                f"ported; it loads for evaluation and serving")
+        delta = dict(load_jax_checkpoint(folder / JAX_CHECKPOINT)["delta"])
+    else:
         raise FileNotFoundError(f"No checkpoint at {checkpoint}")
-    with open(checkpoint, "rb") as f:
-        payload = torch.load(f, map_location="cpu", weights_only=True)
-    delta = json.loads(payload["delta"])
     delta.update(override_args or {})
     args = _apply_delta(MainConfig(out_dir=out_dir), delta)
     args.out_dir = out_dir

@@ -38,6 +38,7 @@ import torch
 from torch.profiler import record_function
 
 from .cache import Cache, tagged
+from .convert import JAX_CHECKPOINT, load_jax_checkpoint, load_jax_params
 from .dataset import ARRAY_FIELDS, to_device
 from .loader import Loader
 from .logging_utils import MetricSinks
@@ -243,16 +244,20 @@ class Solver:
             features_mask
 
     def _forward(self, arrays: tp.Mapping[str, torch.Tensor],
-                 pad_weight: torch.Tensor, train: bool = False):
+                 pad_weight: torch.Tensor, train: bool = False,
+                 norm_arrays: tp.Optional[
+                     tp.Mapping[str, torch.Tensor]] = None):
         """Batch arrays (``dataset.to_device``) -> (estimate [B, F, T'] in
         ``simpleconv.output_dtype``, output [B, F, T'], mask [B, 1, T'],
         keep [B] fp32 weights, the merger usage penalty). The encode task
         leaves the prompt's samples out of all three. The model (and the
         feature model, which maps the output) runs in train mode when
         `train` (BatchNorm batch statistics, merger dropout) and in eval
-        mode otherwise."""
+        mode otherwise. `norm_arrays` (the solver's when None) are the
+        normalization arrays it reads: ``serve.export_forward`` passes its
+        module's buffers."""
         args = self.args
-        na = self.norm_arrays
+        na = self.norm_arrays if norm_arrays is None else norm_arrays
         meg = arrays["meg"]
         if meg.dtype not in INPUT_TYPES:
             meg = meg.float()
@@ -281,7 +286,7 @@ class Solver:
         inputs, output, mask = self._task_wiring(
             meg, features, arrays["features_mask"], train)
         self.model.train(train)
-        estimate, penalty = self._run_model(inputs, arrays)
+        estimate, penalty = self._run_model(inputs, arrays, na)
         limit = self._prompt_limit()
         if limit:
             estimate = estimate[..., limit:]
@@ -295,15 +300,15 @@ class Solver:
         return estimate, output, mask, keep, penalty
 
     def _run_model(self, inputs: tp.Mapping[str, torch.Tensor],
-                   arrays: tp.Mapping[str, torch.Tensor]
+                   arrays: tp.Mapping[str, torch.Tensor],
+                   na: tp.Mapping[str, torch.Tensor]
                    ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
         """The model on the task's inputs -> (estimate [B, F, T], the
         merger usage penalty). A SimpleConv takes the per-recording arrays
         and the dropout generator, and its [B, T, F] estimate of
         ``output_layout="btc"`` is transposed back here, at the model's
         boundary; any other model (a ConvRNN) takes the generator only and
-        has no penalty."""
-        na = self.norm_arrays
+        has no penalty. `na` are the normalization arrays."""
         if not isinstance(self.model, SimpleConv):
             estimate = self.model(inputs, arrays["subject_index"],
                                   arrays["positions"],
@@ -1023,14 +1028,22 @@ class Solver:
                               weights_only=True)
 
     def restore(self) -> bool:
-        """Resume from this XP's checkpoint. Without one, and with
-        ``continue_sig``: ``continue_best`` loads that XP's best weights,
-        as the JAX package does; otherwise the port resumes that XP's
-        whole training state (weights, optimizer, history, counters), so
-        that a run with more ``optim.epochs`` continues where the other
-        stopped. Returns whether this XP's checkpoint was found."""
+        """Resume from this XP's checkpoint. Without one, a solver without
+        an optimizer (evaluation, serving) reads the JAX package's
+        ``checkpoint.pkl`` in the same folder when there is one
+        (``_restore_jax``); a training run there starts its own. Without
+        either, and with ``continue_sig``: ``continue_best`` loads that
+        XP's best weights, as the JAX package does; otherwise the port
+        resumes that XP's whole training state (weights, optimizer,
+        history, counters), so that a run with more ``optim.epochs``
+        continues where the other stopped. Returns whether this XP's
+        checkpoint was found."""
         path = self.checkpoint_path
         own = path.exists()
+        jax_path = self.folder / JAX_CHECKPOINT
+        if not own and self.optimizer is None and jax_path.exists():
+            self._restore_jax(jax_path)
+            return True
         if not own:
             if not self.args.continue_sig:
                 return False
@@ -1059,6 +1072,29 @@ class Solver:
         self.last_test_epoch = payload["last_test_epoch"]
         logger.info("Restored checkpoint %s at epoch %d", path, self.epoch)
         return own
+
+    def _restore_jax(self, path: tp.Any) -> None:
+        """Load the JAX package's ``checkpoint.pkl`` (``convert
+        .load_jax_checkpoint``, without jax): its best state (its current
+        one when it has none) into the model, the feature model and the
+        CLIP loss's projection (``convert.load_jax_params``), as the
+        current and the best state, and its history, epoch counters and
+        negative pools. For evaluation and serving only: carrying optax's
+        Adam moments into ``torch.optim.Adam`` is not ported."""
+        payload = load_jax_checkpoint(path)
+        source = payload["best_state"] or payload["state"]
+        load_jax_params(self.model, source["params"], source["batch_stats"],
+                        self.feature_model, self.clip_loss)
+        self.best_state = self._copy_params()
+        self.history = payload["history"]
+        self.epoch = payload["epoch"]
+        self.best_loss = payload["best_loss"]
+        self.best_epoch = payload["best_epoch"]
+        self.last_test_epoch = payload["last_test_epoch"]
+        self.negative_pool = payload.get("negative_pool",
+                                         {"train": None, "valid": None})
+        logger.info("Restored the JAX package's checkpoint %s at epoch %d",
+                    path, self.epoch)
 
 
 def _norm_arrays(scaler: BatchScaler, datasets: tp.Any,

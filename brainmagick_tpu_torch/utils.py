@@ -2,9 +2,10 @@
 
 Port of ``brainmagick_tpu/utils/misc.py``: ``Frequency``, ``roundrobin``
 and ``write_and_rename``; ``dump_yaml``, which writes a config as
-PyYAML's ``safe_dump`` does (the card's host has no PyYAML); and
+PyYAML's ``safe_dump`` does (the card's host has no PyYAML);
 ``records_csv``, which writes a list of dicts as pandas' ``to_csv``
-does (nor pandas).
+does (nor pandas); and ``as_tensor``/``transfer``, the host -> device
+copy of the batches and of a serving artifact's inputs.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
+import torch
 
 X = tp.TypeVar("X")
 
@@ -228,3 +230,37 @@ def dump_yaml(obj: tp.Any, f: tp.TextIO) -> None:
         f.write("{}\n" if type(obj) is dict else "[]\n")
         return
     f.write("".join(line + "\n" for line in _yaml_block(obj, 0, set())))
+
+
+def as_tensor(value: tp.Any) -> torch.Tensor:
+    """A tensor as it is; an array-like as a CPU tensor of its bits
+    (ml_dtypes bfloat16, the JAX package's wire format, as torch's)."""
+    if isinstance(value, torch.Tensor):
+        return value
+    arr = np.ascontiguousarray(np.asarray(value))
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def transfer(value: tp.Any, device: torch.device,
+             dtype: tp.Optional[torch.dtype] = None,
+             buffers: tp.Optional[tp.Dict[str, torch.Tensor]] = None,
+             name: str = "") -> torch.Tensor:
+    """`value` (numpy or a tensor) on `device` in `dtype` (its own when
+    None). From the host to a CUDA device it is copied once on the host,
+    into page-locked memory, casting as it goes, and the transfer is
+    non-blocking on the current stream; `buffers` (by `name`) holds the
+    page-locked buffer to reuse, which the caller must not touch again
+    before that transfer has finished."""
+    tensor = as_tensor(value)
+    dtype = dtype or tensor.dtype
+    if device.type != "cuda" or tensor.device.type == "cuda":
+        return tensor.to(device=device, dtype=dtype)   # itself when no-op
+    pinned = None if buffers is None else buffers.get(name)
+    if pinned is None or pinned.shape != tensor.shape \
+            or pinned.dtype != dtype:
+        pinned = torch.empty(tensor.shape, dtype=dtype, pin_memory=True)
+        if buffers is not None:
+            buffers[name] = pinned
+    return pinned.copy_(tensor).to(device, non_blocking=True)

@@ -3,7 +3,8 @@ CUDA card, in the paper recipe's fp32 and in its bf16 clip_conv_tpu form,
 Table 2's DeepMel cell, feature decoding, the encode task and ConvRNN,
 the paper's grid chain (grid runner, grid evaluation, paper table),
 data-parallel training, the wav2vec 2.0 targets (random=True) with
-the planted-map rehearsal, and the train step's remaining options.
+the planted-map rehearsal, the train step's remaining options, and the
+serving export with the checkpoint readers.
 
 Run from the repository root, with no arguments:
 
@@ -215,7 +216,25 @@ check raises, so the script exits non-zero and prints no result:
    (options_linear, nt_matmul never: the projection scores through
    ClipLoss.get_scores) and its XP evaluated by signature through the
    trained projection (options_eval_sig); each kernel at run 1's shapes,
-   added to its other_shapes.
+   added to its other_shapes;
+17. the serving export and the checkpoint readers (``run_serve_phase``):
+   ``serve.main`` in this process on phase 8's fp32 XP (export_train) and
+   its clip_conv_tpu XP (export_recipe): the forward and scorer artifacts
+   with a symbolic batch, saved, reloaded and self-checked (normalize 5
+   times, nt_matmul 4); every artifact loaded and called in one fresh
+   process at B=2 and B=256 from one file (normalize once a forward
+   call, nt_matmul once a scorer call, conv_stats never; no model code
+   imported; the same bits with the caller's TF32 on), held to
+   Solver.forward_batch (EXPORT_TOL of max|x|) and Server.probabilities
+   (EXPORT_PROBS_TOL); the export seconds, artifact MB, load seconds and
+   the warm B=256 artifact call against Solver.forward_batch, the batch
+   on the host and on the card, with each one's device time; a
+   paper-width unfused clip_conv reference-named checkpoint (a seeded
+   model's ``convert.export_state_dict``, saved as {"best_state": ...})
+   through ``convert.main`` (bit for bit by signature) and ``serve.main``
+   (export_convert); the normalize and nt_matmul wrappers' times before
+   and after the custom-op registration at phase 3's shapes; each kernel
+   at the artifact calls' shapes, added to its other_shapes.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it raises at once.
@@ -229,6 +248,7 @@ import math
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 import types
@@ -1826,8 +1846,9 @@ def run_cli_phase(device: torch.device, card_name: str, work: Path
     clip_conv_tpu recipe, each XP in `work` (whose name holds
     "fake_cache"). Returns the kernel launch counts of the first run
     (cli_train) and of the recipe's (cli_recipe), the shapes the run gave
-    the kernels (``check_cli_shapes``' arguments), and the recipe's XP
-    (its signature, out_dir and cache) for phase 10."""
+    the kernels (``check_cli_shapes``' arguments), and the first run's
+    and the recipe's XPs (cli_train, cli_recipe: each signature, out_dir
+    and cache) for phases 10 and 17."""
     from brainmagick_tpu_torch.studies import api, fake
     from brainmagick_tpu_torch.train import parse_overrides
 
@@ -1926,11 +1947,12 @@ def run_cli_phase(device: torch.device, card_name: str, work: Path
                              f"{spy.sent_dtypes}, want bf16 only")
     _read_history(Path(parse_overrides(recipe).xp_folder), 1, RECIPE)
     out["cli_recipe"] = launches
-    recipe_xp = dict(sig=parse_overrides(recipe).sig,
-                     out_dir=f"{work}/outputs", cache=f"{work}/cache")
+    xps = {name: dict(sig=parse_overrides(argv).sig,
+                      out_dir=f"{work}/outputs", cache=f"{work}/cache")
+           for name, argv in (("cli_train", first), ("cli_recipe", recipe))}
     del solver, spy
     torch.cuda.empty_cache()
-    return out, shapes, recipe_xp
+    return out, shapes, xps
 
 
 #: phase 9: the paper's four studies, each a synthetic tree in the study's
@@ -4575,6 +4597,396 @@ def run_options_phase(device: torch.device, card_name: str, work: Path
     return out, shapes
 
 
+
+#: phase 17: the serving export (``serve.main`` in this process) of phase
+#: 8's two XPs and of a converted reference checkpoint; each artifact is
+#: loaded and called in a fresh process at these batch sizes
+EXPORT_BATCHES = (2, 256)
+#: the artifact's forward against Solver.forward_batch, a share of max|x|
+EXPORT_TOL = 1e-6
+#: the artifact's probabilities against Server.probabilities, absolute
+EXPORT_PROBS_TOL = 1e-5
+#: the unfused paper-width XP of phase 17's reference-named checkpoint
+#: (phase 8's data without fused_conv_bn), and the seed of the model that
+#: writes the checkpoint
+CONVERT_ARGS = ("preset=clip_conv", 'dset.selections=["fake"]',
+                'dset.features=["MelSpectrum"]', "optim.batch_size=64")
+CONVERT_SEED = 7
+#: a fresh process: for each job of the JSON file (forward and scorer
+#: artifacts, a batches' file, an output file) loads the artifacts (each
+#: job's load timed, the first one's imports included) and calls them at
+#: each batch size of the batches' file (launches counted per call; again
+#: with TF32 on, as the caller may leave it; and the module once without
+#: call_exported under TF32), writes the results and prints one JSON line
+ARTIFACT_CHILD = r"""
+import json, sys, time, types
+import numpy as np
+import torch
+from brainmagick_tpu_torch import ops, serve
+
+cuda = torch.cuda.is_available()
+backends = (torch.backends.cuda.matmul, torch.backends.cudnn)
+reports = {}
+
+
+def counted(launches, name, fn):
+    ops.reset_launch_counts()
+    result = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    launches[name] = ops.launch_counts()
+    return result
+
+
+for what, job in json.loads(open(sys.argv[1]).read()).items():
+    t0 = time.perf_counter()
+    module = serve.load_exported(job["forward"]).module()
+    scorer = serve.load_exported(job["scores"]).module()
+    load_s = time.perf_counter() - t0
+    data = np.load(job["batches"])
+    specs = [node.meta["val"] for node in serve._placeholders(module)]
+    out, launches, tf32_same, tf32_raw = {}, {}, {}, {}
+    for b in sorted({int(k.split("_")[0]) for k in data.files}):
+        batch = types.SimpleNamespace(**{n: data[f"{b}_{n}"]
+                                         for n in serve.ARG_FIELDS})
+        results = list(counted(launches, f"forward {b}",
+                               lambda: serve.call_exported(module, batch)))
+        results.append(counted(launches, f"scores {b}",
+                               lambda: serve.call_exported(
+                                   scorer, results[0], results[1])))
+        flags = [x.allow_tf32 for x in backends]
+        for x in backends:
+            x.allow_tf32 = True
+        try:
+            again = list(serve.call_exported(module, batch))
+            again.append(serve.call_exported(scorer, again[0], again[1]))
+            args = [torch.from_numpy(data[f"{b}_{n}"]).to(spec.device)
+                    for n, spec in zip(serve.ARG_FIELDS, specs)]
+            with torch.no_grad():
+                raw = module(*args)[0]
+        finally:
+            for x, flag in zip(backends, flags):
+                x.allow_tf32 = flag
+        tf32_same[b] = all(torch.equal(x, y)
+                           for x, y in zip(results, again))
+        tf32_raw[b] = float((raw.float() - results[0].float()).abs().max())
+        for name, value in zip(("estimate", "output", "mask", "keep",
+                                "probs"), results):
+            out[f"{b}_{name}"] = (value.float() if value.is_floating_point()
+                                  else value).cpu().numpy()
+    np.savez(job["out"], **out)
+    reports[what] = dict(load_s=load_s, launches=launches,
+                         tf32_same=tf32_same, tf32_raw=tf32_raw,
+                         dtypes=[str(spec.dtype) for spec in specs])
+print(json.dumps(dict(reports=reports, model_code=sorted(
+    m for m in sys.modules if m.split(".")[:2] in (
+        ["brainmagick_tpu_torch", "models"],
+        ["brainmagick_tpu_torch", "solver"])))))
+"""
+
+
+def _relative_err(got: np.ndarray, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|, in fp32 on the host."""
+    want = want.detach().float().cpu().numpy()
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _sum_counts(*counts: dict) -> dict:
+    return {name: sum(c[name] for c in counts) for name in counts[0]}
+
+
+def export_xp(device: torch.device, card_name: str, work: Path, xp: dict,
+              what: str) -> dict:
+    """``serve.main`` on the XP `xp` in this process (export, save, reload,
+    self-check at B=2 and 5: normalize 5 launches, nt_matmul 4 on the fast
+    route, conv_stats none), and EXPORT_BATCHES of its data written for
+    the artifact's process. Returns the job: the artifacts, the batches'
+    and output files, the solver, its batches, serve.main's launches and
+    whether its scorer takes the fast route."""
+    from brainmagick_tpu_torch import losses, ops, play, serve
+    from brainmagick_tpu_torch.env import env
+
+    with env.temporary(cache=xp["cache"]):
+        synchronize(device)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = serve.main([f"sig={xp['sig']}", f"out_dir={xp['out_dir']}",
+                             f"device={device}"])
+        synchronize(device)
+        main_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        solver = play.get_solver_from_sig(
+            xp["sig"], out_dir=xp["out_dir"],
+            override_args={"device": str(device)})
+    fast = losses.int8_retrieval_ok(solver.clip_loss)
+    # export_scores' eager forward; at each of the self-check's two sizes
+    # the artifact's and the solver's forward, the artifact's and the
+    # eager scorer
+    want = dict(normalize_clamp_peak=5, nt_matmul=4 if fast else 0,
+                conv_stats=0)
+    if launches != want:
+        raise AssertionError(f"serve.main {what} launched {launches}, "
+                             f"want {want}")
+    seconds = ", ".join(f"{k} {v:.2f} s"
+                        for k, v in result["seconds"].items())
+    print(f"serve.main {what} ({card_name}): {seconds}, artifacts "
+          f"{result['forward'].stat().st_size / 1e6:.1f} + "
+          f"{result['scores'].stat().st_size / 1e6:.2f} MB, the call "
+          f"{main_s:.1f} s with its self-check at B=2 and 5; launches "
+          f"{launches}")
+    batches = {b: serve.example_batch(solver, b) for b in EXPORT_BATCHES}
+    job = dict(forward=str(result["forward"]), scores=str(result["scores"]),
+               batches=str(work / f"{what}_batches.npz"),
+               out=str(work / f"{what}_out.npz"))
+    np.savez(job["batches"], **{
+        f"{b}_{name}": np.asarray(getattr(batch, name))
+        for b, batch in batches.items() for name in serve.ARG_FIELDS})
+    return dict(job=job, solver=solver, batches=batches, launches=launches,
+                fast=fast)
+
+
+def run_artifacts(card_name: str, work: Path, exported: dict) -> dict:
+    """One fresh process (ARTIFACT_CHILD) over every exported XP's
+    artifacts; each call's launches (normalize 1 a forward, nt_matmul 1 a
+    scorer call on the fast route, conv_stats never), no model code
+    imported, the same bits with the caller's TF32 on; its outputs against
+    Solver.forward_batch (EXPORT_TOL of max|x|) and Server.probabilities
+    (EXPORT_PROBS_TOL). Returns each XP's launches in that process."""
+    from brainmagick_tpu_torch import serve
+
+    jobs = work / "artifact_jobs.json"
+    jobs.write_text(json.dumps({what: e["job"]
+                                for what, e in exported.items()}))
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", ARTIFACT_CHILD, str(jobs)],
+        capture_output=True, text=True, timeout=600,
+        cwd=Path(__file__).resolve().parent)
+    child_s = time.perf_counter() - t0
+    if child.returncode:
+        raise AssertionError(f"the artifacts' process exited "
+                             f"{child.returncode}:\n{child.stderr[-3000:]}")
+    report = json.loads(child.stdout.strip().splitlines()[-1])
+    if report["model_code"]:
+        raise AssertionError(f"the artifacts' process imported "
+                             f"{report['model_code']}")
+    out = {}
+    for what, e in exported.items():
+        rep, solver = report["reports"][what], e["solver"]
+        got = np.load(e["job"]["out"])
+        calls = []
+        for b, batch in e["batches"].items():
+            counts = rep["launches"][f"forward {b}"], \
+                rep["launches"][f"scores {b}"]
+            if counts != (dict(normalize_clamp_peak=1, nt_matmul=0,
+                               conv_stats=0),
+                          dict(normalize_clamp_peak=0,
+                               nt_matmul=int(e["fast"]), conv_stats=0)):
+                raise AssertionError(f"{what} artifacts at B={b} launched "
+                                     f"{counts}")
+            calls += counts
+            est, output, mask, keep = solver.forward_batch(batch)
+            errs = dict(estimate=_relative_err(got[f"{b}_estimate"], est),
+                        output=_relative_err(got[f"{b}_output"], output))
+            probs = serve.Server.probabilities(
+                types.SimpleNamespace(clip=solver.clip_loss,
+                                      device=solver.device), est, output)
+            errs["probs"] = float(np.abs(got[f"{b}_probs"]
+                                         - probs.cpu().numpy()).max())
+            same = (np.array_equal(got[f"{b}_mask"], mask.cpu().numpy())
+                    and np.array_equal(got[f"{b}_keep"], keep.cpu().numpy()))
+            tf32_same, tf32_raw = rep["tf32_same"][str(b)], \
+                rep["tf32_raw"][str(b)]
+            print(f"{what} artifacts in a fresh process, B={b}: max|x - "
+                  f"solver| / max|x| estimate {errs['estimate']:.2e}, "
+                  f"output {errs['output']:.2e} (limit {EXPORT_TOL:.0e}); "
+                  f"probabilities against Server.probabilities "
+                  f"{errs['probs']:.2e} (limit {EXPORT_PROBS_TOL:.0e}); mask "
+                  f"and keep equal {same}; with the caller's TF32 on the "
+                  f"same bits {tf32_same}, the module called without "
+                  f"call_exported {tf32_raw:.2e} off")
+            if not (errs["estimate"] <= EXPORT_TOL
+                    and errs["output"] <= EXPORT_TOL
+                    and errs["probs"] <= EXPORT_PROBS_TOL and same
+                    and tf32_same):
+                raise AssertionError(f"{what} artifacts at B={b}: {errs}, "
+                                     f"mask and keep equal {same}, TF32 "
+                                     f"{tf32_same}")
+        print(f"{what} artifacts loaded in {rep['load_s']:.2f} s "
+              f"({card_name}); inputs {rep['dtypes']}")
+        out[what] = calls
+    print(f"the artifacts' process ({card_name}): {child_s:.1f} s for "
+          f"{len(exported)} XPs, no model code imported")
+    return out
+
+
+def time_artifact(device: torch.device, card_name: str, e: dict,
+                  what: str) -> None:
+    """The warm forward at the largest EXPORT_BATCHES through the artifact
+    and Solver.forward_batch in turns (artifact, solver, solver,
+    artifact; CUDA events): with the host batch in, with the batch already
+    on the card, and each one call's device time in torch.profiler."""
+    from brainmagick_tpu_torch import serve
+    from brainmagick_tpu_torch.dataset import to_device
+
+    module = serve.load_exported(e["job"]["forward"]).module()
+    solver = e["solver"]
+    host = e["batches"][EXPORT_BATCHES[-1]]
+    resident = to_device(host, device)
+    args = [resident[name].to(node.meta["val"].dtype)
+            for name, node in zip(serve.ARG_FIELDS,
+                                  serve._placeholders(module))]
+    calls = {("host", "artifact"): lambda: serve.call_exported(module, host),
+             ("host", "solver"): lambda: solver.forward_batch(host),
+             ("card", "artifact"): lambda: serve.call_exported(module, *args),
+             ("card", "solver"): lambda: solver.forward_batch(
+                 types.SimpleNamespace(**resident))}
+    for source in ("host", "card"):
+        times: dict = {"artifact": [], "solver": []}
+        for name in ("artifact", "solver", "solver", "artifact"):
+            times[name].append(median_ms(calls[source, name], runs=5))
+        device_ms = {name: sum(us for _, _, us in device_rows(
+            calls[source, name], 2)) / 1e3 for name in times}
+        print(f"{what} warm B={EXPORT_BATCHES[-1]} forward, batch on the "
+              f"{source} ({card_name}, CUDA events, in turns): the artifact "
+              f"{' / '.join(f'{t:.2f}' for t in times['artifact'])} ms, "
+              f"Solver.forward_batch "
+              f"{' / '.join(f'{t:.2f}' for t in times['solver'])} ms; device "
+              f"time of one call {device_ms['artifact']:.2f} against "
+              f"{device_ms['solver']:.2f} ms (torch.profiler)")
+    del module, resident, args
+    torch.cuda.empty_cache()
+
+
+def convert_reference(device: torch.device, card_name: str, work: Path
+                      ) -> dict:
+    """A reference-named checkpoint of a seeded paper-width unfused
+    clip_conv model (``convert.export_state_dict``, BatchNorm statistics
+    drawn as build_server does), saved as ``{"best_state": ...}``, through
+    ``convert.main`` into the XP of CONVERT_ARGS; that XP's weights by
+    signature must equal the source's bit for bit, and export again to the
+    same state dict. Returns the XP."""
+    from brainmagick_tpu_torch import convert, play, train
+    from brainmagick_tpu_torch.env import env
+
+    common = [*CONVERT_ARGS, f"cache={work}/cache",
+              f"out_dir={work}/outputs", f"device={device}"]
+    source_args = train.parse_overrides(common + [f"seed={CONVERT_SEED}"])
+    with env.temporary_from_args(source_args):
+        source = train.get_solver(source_args, training=False)
+    rng = np.random.RandomState(CONVERT_SEED)
+    with torch.no_grad():
+        for module in source.model.modules():
+            if isinstance(module, torch.nn.BatchNorm1d):
+                shape = module.running_mean.shape
+                module.running_mean.copy_(torch.from_numpy(
+                    (rng.randn(*shape) * 0.1).astype(np.float32)))
+                module.running_var.copy_(torch.from_numpy(
+                    rng.uniform(0.5, 1.5, shape).astype(np.float32)))
+    state = convert.export_state_dict(source.model)
+    path = work / "reference_checkpoint.th"
+    torch.save({"best_state": state, "history": []}, path)
+    t0 = time.perf_counter()
+    convert.main([f"in={path}", *common])
+    convert_s = time.perf_counter() - t0
+    args = train.parse_overrides(common)
+    with env.temporary_from_args(args):
+        restored = play.get_solver_from_sig(
+            args.sig, out_dir=args.out_dir,
+            override_args={"device": str(device)})
+    ours = source.model.state_dict()
+    theirs = restored.model.state_dict()
+    again = convert.export_state_dict(restored.model)
+    differ = [k for k in ours if not torch.equal(ours[k].cpu(),
+                                                 theirs[k].cpu())]
+    differ += [k for k in state if not torch.equal(state[k], again[k])]
+    if differ or sorted(again) != sorted(state) or \
+            args.sig == source_args.sig:
+        raise AssertionError(f"the converted XP differs from its source at "
+                             f"{differ[:8]}")
+    print(f"convert.main ({card_name}): {len(state)} reference tensors "
+          f"({sum(v.numel() for v in state.values()) / 1e6:.2f} M values) "
+          f"into {args.sig} in {convert_s:.1f} s; by signature bit-equal to "
+          f"the source and exported back bit-equal")
+    del source, restored
+    torch.cuda.empty_cache()
+    return dict(sig=args.sig, out_dir=args.out_dir, cache=args.cache)
+
+
+def time_registration(device: torch.device, card_name: str) -> dict:
+    """The normalize and nt_matmul wrappers at PERF.md's shapes through
+    the registered op (after) and as the implementation called directly,
+    which is what the wrapper ran before the registration (before), in
+    turns (before, after, after, before). Returns {kernel name: times}."""
+    from brainmagick_tpu_torch.ops import matmul, norm
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    full = (REQUESTS[0], C, T)
+    meg, center, scale, _ = _norm_case(full, torch.float32, device, gen)
+    rec = torch.arange(full[0], device=device) % NORM_RECORDINGS
+    rows: dict = {"normalize_clamp_peak": {}, "nt_matmul": {}}
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = meg.to(dtype)
+        cases.append(("normalize_clamp_peak", f"{list(full)} {dtype}",
+                      lambda x=x: norm._normalize(x, center, scale, rec,
+                                                  LIMIT, True),
+                      lambda x=x: norm.normalize_clamp_peak(
+                          x, center, scale, LIMIT, rec=rec)))
+    bank = torch.randn((N_CANDIDATES, SCORE_K), generator=gen,
+                       device=device)
+    preds = torch.randn((REQUESTS[0], SCORE_K), generator=gen, device=device)
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = preds.to(dtype), bank.to(dtype)
+        cases.append(("nt_matmul", f"{REQUESTS[0]} x {N_CANDIDATES} x "
+                      f"{SCORE_K} {dtype}",
+                      lambda a=a, b=b: matmul._nt_matmul(a, b),
+                      lambda a=a, b=b: matmul.nt_matmul(a, b)))
+    for name, label, before, after in cases:
+        times = [median_ms(fn) for fn in (before, after, after, before)]
+        rows[name][label] = dict(before_ms=[times[0], times[3]],
+                                 after_ms=[times[1], times[2]])
+        print(f"{name} {label} ({card_name}): before the registration "
+              f"{times[0]:.4f} / {times[3]:.4f} ms, through the registered "
+              f"op {times[1]:.4f} / {times[2]:.4f} ms")
+    del bank, preds, meg
+    torch.cuda.empty_cache()
+    return rows
+
+
+def synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_serve_phase(device: torch.device, card_name: str, work: Path,
+                    xps: dict) -> tuple:
+    """Phase 17: ``serve.main`` on phase 8's fp32 XP (export_train) and
+    its clip_conv_tpu XP (export_recipe), then a reference checkpoint
+    through ``convert.main`` and ``serve.main`` (export_convert); every
+    artifact called in one fresh process (``run_artifacts``); the first
+    two timed against their solvers; the wrappers' times before and after
+    the registration. Returns the launch counts by path (serve.main's and
+    the artifacts' process's), the artifact calls' kernel shapes and the
+    registration times."""
+    exported = {what: export_xp(device, card_name, work, xps[name], what)
+                for what, name in (("export_train", "cli_train"),
+                                   ("export_recipe", "cli_recipe"))}
+    converted = convert_reference(device, card_name, work)
+    exported["export_convert"] = export_xp(device, card_name, work,
+                                           converted, "export_convert")
+    calls = run_artifacts(card_name, work, exported)
+    for what in ("export_train", "export_recipe"):
+        time_artifact(device, card_name, exported[what], what)
+    out = {what: _sum_counts(e["launches"], *calls[what])
+           for what, e in exported.items()}
+    del exported
+    torch.cuda.empty_cache()
+    b = EXPORT_BATCHES[-1]
+    shapes = {"export": dict(batch=b, n_test=b, n_mels=120, n_cand=b,
+                             with_conv=False)}
+    return out, shapes, time_registration(device, card_name)
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -4625,8 +5037,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fake_cache_") as tmp:
         work = Path(tmp)
         t0 = time.perf_counter()
-        cli_launches, cli_shape, recipe_xp = run_cli_phase(device,
-                                                           card_name, work)
+        cli_launches, cli_shape, cli_xps = run_cli_phase(device,
+                                                         card_name, work)
         phase_s["8"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         study_launches, study_shapes = run_study_phase(device, card_name,
@@ -4634,7 +5046,7 @@ def main() -> None:
         phase_s["9"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         deepmel_launches, deepmel_shapes = run_deepmel_phase(
-            device, card_name, work, recipe_xp)
+            device, card_name, work, cli_xps["cli_recipe"])
         phase_s["10"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         words_launches, words_shapes = run_words_phase(device, card_name,
@@ -4659,6 +5071,10 @@ def main() -> None:
         options_launches, options_shapes = run_options_phase(
             device, card_name, work)
         phase_s["16"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        export_launches, export_shapes, registration = run_serve_phase(
+            device, card_name, work, cli_xps)
+        phase_s["17"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     with exact_fp32():
         cli_shapes = check_cli_shapes(device, **cli_shape)
@@ -4670,7 +5086,7 @@ def main() -> None:
         for path, shape in {**deepmel_shapes, **words_shapes,
                             **encode_shapes, **grid_shapes,
                             **parallel_shapes, **wav2vec_shapes,
-                            **options_shapes}.items():
+                            **options_shapes, **export_shapes}.items():
             for name, shapes in check_cli_shapes(
                     device, **shape, prefix=f"{path}: ").items():
                 cli_shapes[name].update(shapes)
@@ -4704,10 +5120,14 @@ def main() -> None:
                                                **grid_launches,
                                                **parallel_launches,
                                                **wav2vec_launches,
-                                               **options_launches}.items()})
+                                               **options_launches,
+                                               **export_launches}.items()})
         entry["other_shapes"].update(cli_shapes[entry["name"]])
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
+        if entry["name"] in registration:
+            entry["wrapper_ms_before_after_registration"] = registration[
+                entry["name"]]
         if entry["name"] == "conv_stats":
             entry["train_launches_by_dtype"] = train_types
             entry["recipe_train_launches_by_dtype"] = recipe_types

@@ -167,8 +167,8 @@ def test_eval_cli_tokens(tmp_path):
     """The command line refuses unknown tokens, a missing sig or grid,
     workers= without grid=, and grid= with sig= or output=; a grid with
     no trained XP evaluates nothing; an XP that holds only the JAX
-    package's checkpoint.pkl goes to the jax-free checkpoint reader
-    (ROADMAP.md)."""
+    package's checkpoint.pkl goes to the jax-free checkpoint reader, which
+    refuses an empty file."""
     with pytest.raises(ValueError, match="bogus"):
         port_eval.main(["sig=x", "bogus=1"])
     with pytest.raises(ValueError, match="sig"):
@@ -183,7 +183,7 @@ def test_eval_cli_tokens(tmp_path):
     folder = tmp_path / "xps" / "abcd1234"
     folder.mkdir(parents=True)
     (folder / "checkpoint.pkl").write_bytes(b"")
-    with pytest.raises(FileNotFoundError, match="jax-free host"):
+    with pytest.raises(ValueError, match="checkpoint.pkl of the JAX"):
         port_eval.main(["sig=abcd1234", f"out_dir={tmp_path}",
                         "compilation_cache=false", "device=cpu"])
     with pytest.raises(FileNotFoundError, match="No checkpoint"):

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from brainmagick_tpu_torch import config, losses, precision, serve, wer
+from brainmagick_tpu_torch import config, losses, precision, wer
 from brainmagick_tpu_torch import eval as port_eval
 from brainmagick_tpu_torch.serve import Server
 from brainmagick_tpu_torch.train import Trainer
@@ -79,13 +79,15 @@ def test_server_calls_run_without_tf32(tf32_on, monkeypatch):
     seen = []
     server.model.register_forward_pre_hook(
         lambda module, inputs: seen.append(("forward", _flags())))
-    scores = serve.retrieval_scores
+    scores = losses.retrieval_scores
 
     def recording_scores(*a, **kw):
         seen.append(("scores", _flags()))
         return scores(*a, **kw)
 
-    monkeypatch.setattr(serve, "retrieval_scores", recording_scores)
+    # serve imports the scorer when it scores (its module level imports
+    # no model code)
+    monkeypatch.setattr(losses, "retrieval_scores", recording_scores)
     estimate, output, _, _ = server.forward_batch(batch)
     assert _flags() == (True, True)
     server.probabilities(estimate, output)
