@@ -21,8 +21,11 @@ convs behind them are renumbered), each layer's rewrite and post-skip
 package's bias fold is for reference torch checkpoints, whose convs have a
 bias), and a decoder's transposed convs (flax's ``ConvTranspose_{i}``).
 ``fused_head`` and the compute dtypes change no parameter; the subject
-embedding, the encode task's features branch and ``concatenate`` follow
-the JAX package's walk. ``convrnn_rules`` walks a ConvRNN, which the JAX
+embedding, the encode task's features branch, ``concatenate``, a model
+without a MEG input, the per-subject merger heads and the spectrogram
+branch's head follow the JAX package's walk, and a DualPathRNN's LSTMs
+(flax's ``DualPathRNN_0/OptimizedLSTMCell_{i}``) read as a ConvRNN's
+do. ``convrnn_rules`` walks a ConvRNN, which the JAX
 package's rules do not cover: its subject layers and embedding, encoders,
 LSTM cells (flax's ``StackedLSTM_0/OptimizedLSTMCell_{j}``, one leaf per
 gate), the bidirectional stack's ``Dense_0``, the local attention blocks,
@@ -203,8 +206,11 @@ def conv_sequence_rules(seq: nn.Module, tprefix: str,
 
 def simpleconv_rules(model: nn.Module) -> tp.List[tuple]:
     """Rules for a port SimpleConv, with or without ``fused_conv_bn``:
-    the walk of ``brainmagick_tpu.convert.simpleconv_rules`` over the
-    options the port supports, under flax's top-level ``model`` scope."""
+    the walk of ``brainmagick_tpu.convert.simpleconv_rules`` under flax's
+    top-level ``model`` scope (per-subject merger heads under the same
+    name, [n_subjects, chout, pos_dim]; the spectrogram branch's strided
+    head under the head's names), and the DualPathRNN's LSTMs, which the
+    JAX package's rules refuse (``DualPathRNN_0/OptimizedLSTMCell_{i}``)."""
     f = ("model",)
     rules: tp.List[tuple] = []
     conv_n = 0                      # flax's top-level nn.Conv counter
@@ -231,6 +237,12 @@ def simpleconv_rules(model: nn.Module) -> tp.List[tuple]:
     for name, encoder in model.encoders.items():
         rules += conv_sequence_rules(encoder, f"encoders.{name}.",
                                      f + (f"encoder_{name}",))
+    if model.dual_path_rnn is not None:
+        # flax binds each nn.RNN's cell to the DualPathRNN's scope:
+        # LSTM i is its OptimizedLSTMCell_{i}
+        for i, lstm in enumerate(model.dual_path_rnn.lstms):
+            rules += stacked_lstm_rules(lstm, f"dual_path_rnn.lstms.{i}.",
+                                        f + ("DualPathRNN_0",), first=i)
     transposed = f + ("ConvTranspose_0",)
     if model.linear_out:
         rules += [("final.weight", transposed + ("kernel",), "convT_w",
@@ -245,15 +257,16 @@ def simpleconv_rules(model: nn.Module) -> tp.List[tuple]:
 
 
 def stacked_lstm_rules(stack: nn.Module, tprefix: str,
-                       fprefix: tp.Tuple[str, ...]) -> tp.List[tuple]:
+                       fprefix: tp.Tuple[str, ...],
+                       first: int = 0) -> tp.List[tuple]:
     """Rules for a port ``StackedLSTM``: cell j's gate g reads flax's
-    ``OptimizedLSTMCell_{j}/i{g}/kernel`` (input) and ``h{g}`` (recurrent
-    kernel and the gate's bias); a bidirectional stack's ``linear`` reads
-    ``Dense_0``."""
+    ``OptimizedLSTMCell_{first + j}/i{g}/kernel`` (input) and ``h{g}``
+    (recurrent kernel and the gate's bias); a bidirectional stack's
+    ``linear`` reads ``Dense_0``."""
     rules: tp.List[tuple] = []
     for j, cell in enumerate(stack.cells):
         tkey, fcell = f"{tprefix}cells.{j}", fprefix + (
-            f"OptimizedLSTMCell_{j}",)
+            f"OptimizedLSTMCell_{first + j}",)
         for g in cell.input:
             rules += [(f"{tkey}.input.{g}", fcell + (f"i{g}", "kernel"),
                        "dense_w", "params"),
@@ -569,12 +582,21 @@ def reference_rules(model: nn.Module,
     mean of a bias-less BatchNorm'd conv (``bn_conv_bias=False``),
     ``bn_mean_fold_bias`` of ``"<conv bias key>|<running mean key>"``.
     BatchNorm's step counters are not read. Refuses what the JAX
-    package's converter refuses: a ConvRNN, a feature model other than
-    DeepMel, and ``fused_conv_bn`` layers (DualPathRNN, ``n_fft`` and
-    ``conv_impl`` never build in the port)."""
+    package's converter refuses: a ConvRNN, a DualPathRNN, the
+    spectrogram branch's strided head (``n_fft``: torch's and flax's
+    transposed convs pad a strided input differently, so a reference
+    checkpoint's head is not this one), a feature model other than
+    DeepMel, and ``fused_conv_bn`` layers (``conv_impl`` never builds in
+    the port)."""
     if not isinstance(model, SimpleConv):
         raise NotImplementedError(f"only SimpleConv checkpoints convert "
                                   f"(got {type(model).__name__})")
+    if model.dual_path:
+        raise NotImplementedError("DualPathRNN checkpoints are not "
+                                  "supported")
+    if model.n_fft is not None:
+        raise NotImplementedError("stft-head (n_fft) checkpoints are not "
+                                  "supported")
     if any(any(encoder.fused) for encoder in model.encoders.values()):
         raise NotImplementedError(
             "convert into fused_conv_bn=False targets (the flag is "

@@ -31,8 +31,9 @@ two evaluations of one XP compare file by file). It runs on the card
 unless ``device=cpu``.
 
 The forwards run through ``forward_batch`` and the scoring through
-``losses.pool_scores`` (``nt_matmul`` on a CUDA device), inside
-``precision.exact_fp32``. The probabilities are a softmax on the host, as
+``losses.pool_scores`` (``nt_matmul`` on a CUDA device; int8 pools
+with ``test.pool_int8``), inside ``precision.exact_fp32``. The
+probabilities are a softmax on the host, as
 in the JAX package. Under ``python -m torch.distributed.run
 --nproc_per_node=N``, ``eval sig=`` runs as N ranks of the solver's group
 (``Solver.set_group``): the forwards and the scoring split over the
@@ -59,7 +60,7 @@ import torch
 
 from .cache import tagged
 from .dataset import ARRAY_FIELDS, ConcatDataset
-from .losses import ClipLoss, pool_scores, refuse_int8_pool
+from .losses import ClipLoss, pool_scores
 from .precision import exact_fp32
 from .utils import dump_yaml
 
@@ -244,8 +245,9 @@ def build_probs(server: tp.Any, preds: np.ndarray, trues: np.ndarray,
     against every candidate, streamed through the server's device in
     chunks of `batch_size` predictions and candidate blocks of 2048
     (``losses.pool_scores``: split over the ranks of a solver's group;
-    ``streamed_scores`` fills `stats`), then a softmax over each row on
-    the host. `tmin`/`tmax` trim both sides to that window
+    ``streamed_scores`` fills `stats`; in int8 with ``test.pool_int8`` on
+    a fast-path configuration), then a softmax over each row on the
+    host. `tmin`/`tmax` trim both sides to that window
     (seconds relative to the event)."""
     dset_args = server.args.dset
     trim_min = trim_max = None
@@ -260,7 +262,6 @@ def build_probs(server: tp.Any, preds: np.ndarray, trues: np.ndarray,
     if clip is None:
         clip = ClipLoss(dset_tmin=dset_args.tmin,
                         dset_sample_rate=dset_args.sample_rate)
-    refuse_int8_pool(server.args, clip)
     scores = pool_scores(server, clip, preds, trues, chunk=batch_size,
                          stats=stats)
     scores -= scores.max(axis=1, keepdims=True)

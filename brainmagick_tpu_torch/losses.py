@@ -12,11 +12,18 @@ flattened [B, F*T] x [N, F*T] operands through the ``nt_matmul`` kernel;
 in blocks (``candidate_blocks``, ``iter_device_groups``,
 ``EstimateCache``), as the offline evaluation and WER do; as a rank of a
 data-parallel run (``pool_scores``), on this rank's rows, or with the pool
-passed around the ranks' ring (``ring_scores``).
+passed around the ranks' ring (``ring_scores``). With ``test.pool_int8``
+(``use_int8_pool``) the pool is quantized to int8 per candidate on the
+host and the estimates per row on the device, and
+``retrieval_scores_int8`` contracts them in int32 over K chunks that
+cannot overflow (``torch._int_mm``, the JAX package's int8
+``dot_general``); ``own_scores_int8`` scores a row's own output so.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import typing as tp
 
 import numpy as np
@@ -342,13 +349,138 @@ def int8_retrieval_ok(clip: ClipLoss) -> bool:
                 or clip.tmin is not None or clip.tmax is not None)
 
 
-def refuse_int8_pool(args: tp.Any, clip: ClipLoss) -> None:
-    """Raise where the JAX package would score an int8-quantized pool
-    (``test.pool_int8`` on a fast-path configuration)."""
-    if getattr(args.test, "pool_int8", False) and int8_retrieval_ok(clip):
-        raise NotImplementedError(
-            "test.pool_int8=True: int8 candidate pools are not ported "
-            "(ROADMAP.md, queue 1 item 8)")
+def use_int8_pool(args: tp.Any, clip: ClipLoss) -> bool:
+    """Whether the pool is scored in int8: ``test.pool_int8`` on a
+    fast-path configuration, as the JAX package decides it (any other
+    configuration scores as it would without the option)."""
+    return bool(getattr(args.test, "pool_int8", False)) \
+        and int8_retrieval_ok(clip)
+
+
+#: the largest K chunk whose int32 sum of int8 products cannot overflow,
+#: even for two rows of 127s: 127^2 K < 2^31 (the JAX package's chunks)
+INT8_K_CHUNK = (2 ** 31 - 1) // (127 * 127)
+
+
+def quantize_candidates(block: np.ndarray) -> np.ndarray:
+    """Per-candidate symmetric int8 on the host, as the JAX package's
+    ``candidate_blocks(int8=True)``: each candidate over its max |x| /
+    127 (at least 1e-12), ``np.rint`` (half to even), clipped to +-127.
+    No scale is kept: it cancels from the norm-folded score,
+    est . (s q) / |s q| = est . q / |q|."""
+    block = np.asarray(block).astype(np.float32)
+    amax = np.abs(block).reshape(len(block), -1).max(axis=1)
+    scale = np.maximum(amax / 127.0, 1e-12)
+    q = np.rint(block / scale.reshape(-1, *([1] * (block.ndim - 1))))
+    return np.clip(q, -127, 127).astype(np.int8)
+
+
+def _int8_quantize_rows(x2: torch.Tensor
+                        ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 of [N, K] rows on their device: (int8 [N, K],
+    fp32 scale [N]) with x ~= scale[:, None] q; ``torch.round`` rounds
+    half to even, as ``jnp.round``."""
+    x2 = x2.float()
+    # a divisor on the rows' device: a CPU scalar would turn the division
+    # into a product by its reciprocal on CUDA
+    top = torch.full((), 127.0, device=x2.device)
+    s = torch.clamp(x2.abs().amax(dim=1) / top, min=1e-12)
+    q = torch.clamp(torch.round(x2 / s[:, None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+#: the columns each K chunk takes in an operand laid out for the card's
+#: int8 GEMM: INT8_K_CHUNK rounded up to a multiple of 128. cuBLAS's int8
+#: GEMM (``torch._int_mm``) takes twice as long at a K that is not a
+#: multiple of 16 (the chunk's 133,144 is 8 past one)
+INT8_K_ALIGN = 128
+
+
+@dataclasses.dataclass
+class Int8Rows:
+    """int8 rows [n, K] as ``int8_partial_sums`` takes them: `chunks`, the
+    rows' K chunks (INT8_K_CHUNK wide, the last one shorter), each an
+    operand of ``torch._int_mm``, and `rows`, n. The chunks
+    (``int8_rows``) are views of one zero-filled buffer: each chunk padded
+    to a multiple of INT8_K_ALIGN columns and starting on a 16-byte
+    boundary, the rows padded to a multiple of 16, at least 32
+    (``torch._int_mm`` takes more than 16 rows and K and N multiples of 8
+    on the card); zeros add nothing to an integer product."""
+    rows: int
+    chunks: tp.List[torch.Tensor]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(chunk.nbytes for chunk in self.chunks)
+
+
+def int8_rows(q2: torch.Tensor) -> Int8Rows:
+    """[n, K] int8 rows laid out as ``Int8Rows``: once a block or a chunk
+    of rows, so that every product with them reads them as they are."""
+    n, k = q2.shape
+    bounds = range(0, k, INT8_K_CHUNK)
+    widths = [min(INT8_K_CHUNK, k - lo) for lo in bounds]
+    padded = [-(-w // INT8_K_ALIGN) * INT8_K_ALIGN for w in widths]
+    buf = q2.new_zeros((max(32, -(-n // 16) * 16), sum(padded)))
+    chunks, at = [], 0
+    for lo, width, columns in zip(bounds, widths, padded):
+        buf[:n, at:at + width] = q2[:, lo:lo + width]
+        chunks.append(buf[:, at:at + columns])
+        at += columns
+    return Int8Rows(n, chunks)
+
+
+def int8_partial_sums(e_q: tp.Any, c_q: tp.Any) -> tp.List[torch.Tensor]:
+    """The exact int32 products ``e_q[:, K_j] c_q[:, K_j]^T`` [M, N] over
+    the K chunks of INT8_K_CHUNK, by ``torch._int_mm`` (cuBLAS's int8
+    GEMM on the card), of int8 rows [M, K] and [N, K] or their ``Int8Rows``
+    (``int8_rows`` lays a tensor out first)."""
+    e_q, c_q = (x if isinstance(x, Int8Rows) else int8_rows(x)
+                for x in (e_q, c_q))
+    m, n = e_q.rows, c_q.rows
+    return [torch._int_mm(a, b.t())[:m, :n]
+            for a, b in zip(e_q.chunks, c_q.chunks)]
+
+
+def retrieval_scores_int8(estimates: tp.Any, cand_q: tp.Any,
+                          inv_norms: tp.Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """No-grad scores against an int8 candidate block (``candidate_blocks``
+    with `int8`, or its ``int8_rows`` with `inv_norms`), as the JAX
+    package's: the estimates quantized per row (or a prepared ``(e_q,
+    s_e)`` pair, ``EstimateCache``), the int32 partial sums
+    (``int8_partial_sums``) added in fp32 in K order, then ``acc *
+    s_e[:, None] * inv_norms[None, :]`` with the candidates' inverse norms
+    of their int8 values (``block_inv_norms``)."""
+    if not isinstance(cand_q, Int8Rows):
+        cand_q = cand_q.reshape(cand_q.shape[0], -1)
+        if inv_norms is None:
+            inv_norms = block_inv_norms(cand_q)
+    elif inv_norms is None:
+        raise ValueError("laid-out candidates need their inverse norms")
+    if isinstance(estimates, tuple):
+        e_q, s_e = estimates
+    else:
+        e_q, s_e = _int8_quantize_rows(
+            estimates.reshape(estimates.shape[0], -1))
+    acc = None
+    for part in int8_partial_sums(e_q, cand_q):
+        part = part.float()
+        acc = part if acc is None else acc + part
+    return acc * s_e[:, None] * inv_norms[None, :]
+
+
+def own_scores_int8(est: torch.Tensor, own: torch.Tensor) -> torch.Tensor:
+    """Each row's score against its own output with both sides quantized
+    per row, so that the own column of the WER softmax carries the
+    quantization noise of its pool competitors (``wer.get_wer``'s own
+    column under ``test.pool_int8``)."""
+    e_q, s_e = _int8_quantize_rows(est.reshape(est.shape[0], -1))
+    o_q, _ = _int8_quantize_rows(own.reshape(own.shape[0], -1))
+    ef, of = e_q.float(), o_q.float()
+    acc = torch.sum(ef * of, dim=1)
+    inv = 1 / (1e-8 + torch.sqrt(torch.sum(of * of, dim=1)))
+    return acc * s_e * inv
 
 
 def retrieval_scores(clip: ClipLoss, estimates: torch.Tensor,
@@ -380,8 +512,8 @@ CANDIDATE_BLOCK = 2048
 
 
 def candidate_blocks(pool: tp.Any, compute_dtype: tp.Optional[torch.dtype],
-                     block_size: int = CANDIDATE_BLOCK, pin: bool = False
-                     ) -> tp.List[torch.Tensor]:
+                     block_size: int = CANDIDATE_BLOCK, pin: bool = False,
+                     int8: bool = False) -> tp.List[torch.Tensor]:
     """Host-side candidate blocks of `block_size` rows in the score compute
     dtype (the pool's own dtype when None).
 
@@ -393,10 +525,20 @@ def candidate_blocks(pool: tp.Any, compute_dtype: tp.Optional[torch.dtype],
     blocks are views of one page-locked buffer, which a copy to the card
     reads asynchronously.
 
+    With `int8` the blocks are the pool quantized per candidate
+    (``quantize_candidates``, a quarter of fp32's bytes), whatever the
+    compute dtype.
+
     The JAX function zero-pads the tail block to keep its jitted shapes
-    fixed and slices the padded columns off the scores; ``nt_matmul``
-    takes any N, so the tail block here is left short, with the same
+    fixed and slices the padded columns off the scores; the scoring calls
+    here take any N, so the tail block is left short, with the same
     scores."""
+    if int8:
+        host = torch.empty(np.shape(pool), dtype=torch.int8, pin_memory=pin)
+        for lo in range(0, len(pool), block_size):
+            host[lo:lo + block_size] = torch.from_numpy(quantize_candidates(
+                np.asarray(pool[lo:lo + block_size])))
+        return list(host.split(block_size))
     src = pool if isinstance(pool, torch.Tensor) else torch.as_tensor(
         np.asarray(pool))
     host = torch.empty(src.shape, dtype=compute_dtype or src.dtype,
@@ -474,43 +616,55 @@ class EstimateCache:
     block; this cache prepares a chunk once and keeps the prepared rows
     across groups while they fit `budget_bytes`. Over the budget a chunk
     is prepared once per (group, chunk) and not kept, as in the JAX
-    package. `commits` and `committed_bytes` count the copies."""
+    package. `commits` and `committed_bytes` count the copies. With
+    `use_int8` a chunk is prepared as ``retrieval_scores_int8`` takes it:
+    the ``(int8_rows(e_q), s_e)`` pair of its flattened rows."""
 
     def __init__(self, clip: ClipLoss, device: torch.device,
-                 budget_bytes: int = 2 << 30) -> None:
+                 budget_bytes: int = 2 << 30, use_int8: bool = False) -> None:
         self.device = torch.device(device)
         self.budget = int(budget_bytes)
-        self._cache: tp.Dict[int, torch.Tensor] = {}
+        self._cache: tp.Dict[int, tp.Any] = {}
         self._bytes = 0
         self.commits = self.committed_bytes = 0
+        self.use_int8 = use_int8
         self._dtype = clip.compute_dtype if int8_retrieval_ok(clip) else None
 
-    def get(self, lo: int, make_chunk: tp.Callable[[], tp.Any]
-            ) -> torch.Tensor:
+    def get(self, lo: int, make_chunk: tp.Callable[[], tp.Any]) -> tp.Any:
         hit = self._cache.get(lo)
         if hit is not None:
             return hit
         rows = commit_rows(make_chunk(), self.device)
         self.commits += 1
         self.committed_bytes += rows.nbytes
-        prepared = rows.to(self._dtype) if self._dtype is not None else rows
-        if self._bytes + prepared.nbytes <= self.budget:
+        if self.use_int8:
+            e_q, s_e = _int8_quantize_rows(rows.reshape(len(rows), -1))
+            prepared = (int8_rows(e_q), s_e)
+        elif self._dtype is not None:
+            prepared = rows.to(self._dtype)
+        else:
+            prepared = rows
+        nbytes = (sum(part.nbytes for part in prepared)
+                  if isinstance(prepared, tuple) else prepared.nbytes)
+        if self._bytes + nbytes <= self.budget:
             self._cache[lo] = prepared
-            self._bytes += prepared.nbytes
+            self._bytes += nbytes
         return prepared
 
 
 def streamed_scores(clip: ClipLoss, rows: tp.Any, pool: tp.Any,
                     device: torch.device, chunk: int = 2048,
-                    stats: tp.Optional[tp.Dict[str, int]] = None
-                    ) -> np.ndarray:
+                    stats: tp.Optional[tp.Dict[str, int]] = None,
+                    use_int8: bool = False) -> np.ndarray:
     """[len(rows), len(pool)] fp32 retrieval scores on the host: the pool
     streamed to `device` in blocks of CANDIDATE_BLOCK and in groups, every
     chunk of `chunk` rows scored against each block of a group before the
     next group lands, as ``wer.get_wer`` and ``eval.build_probs`` do in
     the JAX package. Chunks are not padded to `chunk` rows (the JAX loops
     pad them only to keep jitted shapes fixed; each row's scores are its
-    own).
+    own). With `use_int8` (``use_int8_pool``) the pool streams as int8
+    blocks and each chunk is quantized once (``EstimateCache``), and
+    ``retrieval_scores_int8`` scores them.
 
     `stats`, when given, gains the counts of the transfers: ``groups``,
     ``pool_bytes`` (the pool's host-to-device bytes), ``commits`` and
@@ -519,22 +673,27 @@ def streamed_scores(clip: ClipLoss, rows: tp.Any, pool: tp.Any,
     scores = np.empty((n, len(pool)), dtype=np.float32)
     fast = int8_retrieval_ok(clip)
     host_blocks = candidate_blocks(pool, clip.compute_dtype, CANDIDATE_BLOCK,
-                                   pin=device.type == "cuda")
-    cache = EstimateCache(clip, device)
+                                   pin=device.type == "cuda", int8=use_int8)
+    cache = EstimateCache(clip, device, use_int8=use_int8)
+    score = retrieval_scores_int8 if use_int8 else functools.partial(
+        retrieval_scores, clip)
     groups = pool_bytes = 0
     for g0, dev_group in iter_device_groups(host_blocks, device):
         groups += 1
         pool_bytes += sum(block.nbytes for block in dev_group)
-        # candidate norms once per transferred block, not per chunk
+        # candidate norms once per transferred block, not per chunk, and
+        # int8 blocks laid out for the int8 GEMM once
         norms = [block_inv_norms(b) if fast else None for b in dev_group]
+        if use_int8:
+            dev_group = [int8_rows(b.reshape(len(b), -1)) for b in dev_group]
         for lo in range(0, n, chunk):
             est = cache.get(lo, lambda: rows[lo:lo + chunk])
             # index into the group: no loop variable keeps a block alive
             # while the next group lands
             for bi in range(len(dev_group)):
                 c0 = (g0 + bi) * CANDIDATE_BLOCK
-                s = retrieval_scores(clip, est, dev_group[bi], norms[bi])
-                scores[lo:lo + len(est), c0:c0 + s.shape[1]] = s.cpu().numpy()
+                s = score(est, dev_group[bi], norms[bi])
+                scores[lo:lo + len(s), c0:c0 + s.shape[1]] = s.cpu().numpy()
         del dev_group, norms
     if stats is not None:
         for key, value in (("groups", groups), ("pool_bytes", pool_bytes),
@@ -590,17 +749,18 @@ def ring_scores(group: tp.Any, estimates: tp.Any, pool: tp.Any,
 
 
 def maybe_ring_scores(server: tp.Any, clip: ClipLoss, estimates: tp.Any,
-                      pool: tp.Any, budget_bytes: int = 4 << 30
-                      ) -> tp.Optional[np.ndarray]:
+                      pool: tp.Any, budget_bytes: int = 4 << 30,
+                      use_int8: bool = False) -> tp.Optional[np.ndarray]:
     """``ring_scores`` when ``parallel.ring_scoring`` is on and the
     configuration qualifies, else None (the caller streams the pool): a
     group of more than one rank, the fast-path ClipLoss (no trim window or
-    transform: the flattened contraction), non-empty operands, and each
-    rank's share (its pool block, its estimate rows and its fp32 score
-    rows) within `budget_bytes`."""
+    transform: the flattened contraction), no int8 pool (`use_int8`, as
+    the JAX package declines it), non-empty operands, and each rank's
+    share (its pool block, its estimate rows and its fp32 score rows)
+    within `budget_bytes`."""
     group = getattr(server, "group", None)
     if not server.args.parallel.ring_scoring or group is None \
-            or group.size < 2 or not int8_retrieval_ok(clip):
+            or group.size < 2 or use_int8 or not int8_retrieval_ok(clip):
         return None
     if not len(estimates) or not len(pool):
         return None
@@ -619,19 +779,22 @@ def pool_scores(server: tp.Any, clip: ClipLoss, rows: tp.Any, pool: tp.Any,
                 chunk: int = 2048,
                 stats: tp.Optional[tp.Dict[str, int]] = None) -> np.ndarray:
     """[len(rows), len(pool)] fp32 retrieval scores on the host, as
-    ``wer.get_wer`` and ``eval.build_probs`` take them: alone,
-    ``streamed_scores`` on the server's device; as a rank of a group
-    (``server.group``), ``maybe_ring_scores``, or each rank's block of the
-    rows (``DataGroup.split``) streamed against the whole pool and the
-    blocks gathered, so that every rank has every row's scores."""
+    ``wer.get_wer`` and ``eval.build_probs`` take them, in int8 when
+    ``use_int8_pool`` says so: alone, ``streamed_scores`` on the server's
+    device; as a rank of a group (``server.group``), ``maybe_ring_scores``,
+    or each rank's block of the rows (``DataGroup.split``) streamed against
+    the whole pool and the blocks gathered, so that every rank has every
+    row's scores."""
     group = getattr(server, "group", None)
+    use_int8 = use_int8_pool(server.args, clip)
     if group is None or group.size == 1:
         return streamed_scores(clip, rows, pool, server.device, chunk=chunk,
-                               stats=stats)
-    ring = maybe_ring_scores(server, clip, rows, pool)
+                               stats=stats, use_int8=use_int8)
+    ring = maybe_ring_scores(server, clip, rows, pool, use_int8=use_int8)
     if ring is not None:
         return ring
     mine = streamed_scores(clip, rows[group.split(len(rows))], pool,
-                           server.device, chunk=chunk, stats=stats)
+                           server.device, chunk=chunk, stats=stats,
+                           use_int8=use_int8)
     return group.gather_split(torch.from_numpy(mine).to(server.device),
                               len(rows)).cpu().numpy()

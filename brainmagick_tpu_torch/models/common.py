@@ -1,7 +1,9 @@
 """Shared model blocks: subject layers and embeddings, spatial attention
-over sensor positions, the spatial channel dropout, dilated conv stacks
-(strided, and transposed for a decoder) with LayerScale and the rewrite
-and post-skip 1x1 convs, in eval and train mode.
+over sensor positions (heads shared or per subject), the spatial channel
+dropout, dilated conv stacks (strided, and transposed for a decoder) with
+LayerScale and the rewrite and post-skip 1x1 convs, the LSTM cells of
+flax's ``OptimizedLSTMCell`` stacked into one ``torch.lstm`` call, and
+the DualPathRNN over them, in eval and train mode.
 
 Port of ``brainmagick_tpu/models/common.py`` in torch's natural [B, C, T]
 Conv1d layout. Submodules carry the reference ``bm`` names
@@ -328,18 +330,24 @@ class ChannelMerger(nn.Module):
     `chout` virtual channels. Invalid (padded) sensors, and in train mode
     every sensor within `dropout` of a random disk centre, get -inf
     before the softmax; a row whose every sensor is masked gets the finite
-    softmax of its raw scores instead of NaN. The per-subject heads are
-    not ported."""
+    softmax of its raw scores instead of NaN. With `per_subject` the heads
+    are one [chout, pos_dim] matrix per subject ([n_subjects, chout,
+    pos_dim]), gathered by each sample's subject, and the attention is per
+    sample."""
 
     def __init__(self, chout: int, pos_dim: int = 256, dropout: float = 0.,
-                 usage_penalty: float = 0.) -> None:
+                 usage_penalty: float = 0., n_subjects: int = 200,
+                 per_subject: bool = False) -> None:
         super().__init__()
         if pos_dim % 4:
             raise ValueError(f"pos_dim must be a multiple of 4, got {pos_dim}")
         self.pos_dim = pos_dim
         self.dropout = dropout
         self.usage_penalty = usage_penalty
-        self.heads = nn.Parameter(torch.empty(chout, pos_dim))
+        self.per_subject = per_subject
+        shape = (n_subjects, chout, pos_dim) if per_subject else (chout,
+                                                                   pos_dim)
+        self.heads = nn.Parameter(torch.empty(shape))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         normal_(self.heads, self.pos_dim ** -0.5, generator)
@@ -351,17 +359,22 @@ class ChannelMerger(nn.Module):
                   generator: tp.Optional[torch.Generator] = None,
                   center: tp.Optional[torch.Tensor] = None,
                   dtype: tp.Optional[torch.dtype] = None,
-                  gather: bool = True) -> torch.Tensor:
+                  gather: bool = True,
+                  subjects: tp.Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
         """Softmax weights [B, chout, C] over the sensors, fp32.
 
         pos_emb is either [B, C, D] per sample, or [R, C, D] per
         recording together with rec_index [B] and rec_positions
         [R, C, 2]: then R softmax rows are computed instead of B, and
-        returned as they are, [R, chout, C], when not `gather`. The scores
-        contract in `dtype` (the meg's) with an fp32 accumulator. In train
-        mode with dropout, the disk centre is `center` ([2]) when given,
-        else drawn uniformly in [0, 1)^2 from `generator`."""
-        per_recording = rec_index is not None and pos_emb is not None
+        returned as they are, [R, chout, C], when not `gather`. Per-subject
+        heads take the heads of `subjects` [B] and a per-sample pos_emb
+        (the per-recording arrays are not read). The scores contract in
+        `dtype` (the meg's) with an fp32 accumulator. In train mode with
+        dropout, the disk centre is `center` ([2]) when given, else drawn
+        uniformly in [0, 1)^2 from `generator`."""
+        per_recording = (rec_index is not None and pos_emb is not None
+                         and not self.per_subject)
         if per_recording:
             embedding, mask_positions = pos_emb, rec_positions
         else:
@@ -385,8 +398,14 @@ class ChannelMerger(nn.Module):
                                    device=masked.device)
         score_offset = score_offset.masked_fill(masked & ~all_masked,
                                                 -math.inf)
-        scores = einsum_fp32("rcd,od->roc", embedding, self.heads,
-                             dtype=dtype)
+        if self.per_subject:
+            if subjects is None:
+                raise ValueError("per-subject heads need the subjects")
+            scores = einsum_fp32("bcd,bod->boc", embedding,
+                                 self.heads[subjects], dtype=dtype)
+        else:
+            scores = einsum_fp32("rcd,od->roc", embedding, self.heads,
+                                 dtype=dtype)
         weights = torch.softmax(scores + score_offset[:, None, :], dim=2)
         if per_recording and gather:
             weights = weights[rec_index]                       # [B, O, C]
@@ -401,15 +420,147 @@ class ChannelMerger(nn.Module):
                 rec_index: tp.Optional[torch.Tensor] = None,
                 rec_positions: tp.Optional[torch.Tensor] = None,
                 generator: tp.Optional[torch.Generator] = None,
-                center: tp.Optional[torch.Tensor] = None
+                center: tp.Optional[torch.Tensor] = None,
+                subjects: tp.Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """meg [B, C, T], positions [B, C, 2] -> [B, chout, T] fp32,
         contracted in meg's dtype with an fp32 accumulator; the other
         arguments as in `attention`."""
         weights = self.attention(positions, pos_emb, rec_index,
                                  rec_positions, generator, center,
-                                 dtype=meg.dtype)
+                                 dtype=meg.dtype, subjects=subjects)
         return einsum_fp32("bct,boc->bot", meg, weights, dtype=meg.dtype)
+
+
+#: flax OptimizedLSTMCell's gates, in torch's order of the LSTM weights
+GATES = ("i", "f", "g", "o")
+
+
+class LSTMCell(nn.Module):
+    """The parameters of one flax ``OptimizedLSTMCell``: per gate an input
+    kernel ``input[g]`` [H, C_in] without bias and a recurrent kernel
+    ``hidden[g]`` [H, H] with the gate's one bias ``bias[g]`` [H]."""
+
+    def __init__(self, input_size: int, hidden_size: int) -> None:
+        super().__init__()
+        self.input = nn.ParameterDict({
+            g: nn.Parameter(torch.empty(hidden_size, input_size))
+            for g in GATES})
+        self.hidden = nn.ParameterDict({
+            g: nn.Parameter(torch.empty(hidden_size, hidden_size))
+            for g in GATES})
+        self.bias = nn.ParameterDict({
+            g: nn.Parameter(torch.empty(hidden_size)) for g in GATES})
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for g in GATES:
+            weight = self.input[g]
+            lecun_normal_(weight, weight.shape[1], generator)
+            with torch.no_grad():
+                self.hidden[g].copy_(nn.init.orthogonal_(
+                    torch.empty(self.hidden[g].shape), generator=generator))
+            nn.init.zeros_(self.bias[g])
+
+    def weights(self, zero_bias: torch.Tensor) -> tp.List[torch.Tensor]:
+        """torch.lstm's four tensors of this cell: the stacked input and
+        recurrent kernels, a zero input bias and the cell's bias."""
+        return [torch.cat([self.input[g] for g in GATES]),
+                torch.cat([self.hidden[g] for g in GATES]), zero_bias,
+                torch.cat([self.bias[g] for g in GATES])]
+
+
+class StackedLSTM(nn.Module):
+    """`num_layers` LSTMs over [B, T, C], zero initial state. Bidirectional:
+    each layer's forward and backward LSTM read the layer's input and
+    their outputs are concatenated, and ``linear`` maps 2H back to H after
+    the stack. ``cells[j]`` is flax's ``OptimizedLSTMCell_{j}``: layer l's
+    forward LSTM is cell l (2 l when bidirectional, its backward one
+    2 l + 1).
+
+    The stack runs as one ``torch.lstm`` call (cuDNN on the card) whose
+    input biases are zeros outside the graph, so each gate trains one
+    bias as in flax (``nn.LSTM`` would train two, and Adam would move
+    their sum twice as fast)."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int,
+                 bidirectional: bool = False) -> None:
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.bidirectional = bidirectional
+        directions = 2 if bidirectional else 1
+        self.cells = nn.ModuleList([
+            LSTMCell(input_size if layer == 0 else directions * hidden_size,
+                     hidden_size)
+            for layer in range(num_layers) for _ in range(directions)])
+        self.linear = (nn.Linear(2 * hidden_size, hidden_size)
+                       if bidirectional else None)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for cell in self.cells:
+            cell.reset_parameters(generator)
+        if self.linear is not None:
+            lecun_normal_(self.linear.weight, self.linear.weight.shape[1],
+                          generator)
+            nn.init.zeros_(self.linear.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, T, C] -> [B, T, H]."""
+        directions = 2 if self.bidirectional else 1
+        state = x.new_zeros(self.num_layers * directions, x.shape[0],
+                            self.hidden_size)
+        zero_bias = x.new_zeros(4 * self.hidden_size)
+        weights = [w for cell in self.cells for w in cell.weights(zero_bias)]
+        out, _, _ = torch.lstm(x, (state, state), weights, True,
+                               self.num_layers, 0.0, self.training,
+                               self.bidirectional, True)
+        if self.linear is not None:
+            out = self.linear(out)
+        return out
+
+
+class DualPathRNN(nn.Module):
+    """Interleaved intra- and inter-chunk LSTMs over [B, C, T], as flax's
+    ``DualPathRNN``: T padded on the right with zeros to a multiple of
+    `inner_length`, then ``4 depth`` single-layer LSTMs of C hidden units
+    (``lstms[i]``, flax's ``RNN_{i}``), the even ones over each chunk of
+    `inner_length` steps, the odd ones over the chunks' same offsets
+    (sequences of T / `inner_length` steps), each added to its input,
+    and the time axis reversed after every odd one; the first T steps are
+    returned. Each LSTM is one ``torch.lstm`` call (``StackedLSTM``). The
+    LSTMs compute in fp32: a bf16 input meets their fp32 weights in fp32,
+    as in flax, and the result is fp32."""
+
+    def __init__(self, channels: int, depth: int,
+                 inner_length: int = 10) -> None:
+        super().__init__()
+        self.inner_length = inner_length
+        self.lstms = nn.ModuleList([StackedLSTM(channels, channels, 1)
+                                    for _ in range(4 * depth)])
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for lstm in self.lstms:
+            lstm.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        batch, channels, length = x.shape
+        inner = self.inner_length
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        x = F.pad(x, (0, -length % inner)).transpose(1, 2)     # [B, T', C]
+        chunks = x.shape[1] // inner
+        for idx, lstm in enumerate(self.lstms):
+            if idx % 2 == 0:
+                y = lstm(x.reshape(batch * chunks, inner, channels))
+                y = y.reshape(batch, chunks * inner, channels)
+            else:
+                y = x.reshape(batch, chunks, inner, channels).transpose(1, 2)
+                y = lstm(y.reshape(batch * inner, chunks, channels))
+                y = y.reshape(batch, inner, chunks, channels).transpose(1, 2)
+                y = y.reshape(batch, chunks * inner, channels)
+            x = x + y
+            if idx % 2 == 1:
+                x = x.flip(1)
+        return x[:, :length].transpose(1, 2)
 
 
 def get_activation(gelu: bool = False, relu_leakiness: float = 0.0,

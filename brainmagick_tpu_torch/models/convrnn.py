@@ -30,94 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .common import (BatchNorm, Conv1d, ConvSequence, ScaledEmbedding,
-                     SubjectLayers, init_conv_, lecun_normal_)
-
-#: flax OptimizedLSTMCell's gates, in torch's order of the LSTM weights
-GATES = ("i", "f", "g", "o")
-
-
-class LSTMCell(nn.Module):
-    """The parameters of one flax ``OptimizedLSTMCell``: per gate an input
-    kernel ``input[g]`` [H, C_in] without bias and a recurrent kernel
-    ``hidden[g]`` [H, H] with the gate's one bias ``bias[g]`` [H]."""
-
-    def __init__(self, input_size: int, hidden_size: int) -> None:
-        super().__init__()
-        self.input = nn.ParameterDict({
-            g: nn.Parameter(torch.empty(hidden_size, input_size))
-            for g in GATES})
-        self.hidden = nn.ParameterDict({
-            g: nn.Parameter(torch.empty(hidden_size, hidden_size))
-            for g in GATES})
-        self.bias = nn.ParameterDict({
-            g: nn.Parameter(torch.empty(hidden_size)) for g in GATES})
-
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        for g in GATES:
-            weight = self.input[g]
-            lecun_normal_(weight, weight.shape[1], generator)
-            with torch.no_grad():
-                self.hidden[g].copy_(nn.init.orthogonal_(
-                    torch.empty(self.hidden[g].shape), generator=generator))
-            nn.init.zeros_(self.bias[g])
-
-    def weights(self, zero_bias: torch.Tensor) -> tp.List[torch.Tensor]:
-        """torch.lstm's four tensors of this cell: the stacked input and
-        recurrent kernels, a zero input bias and the cell's bias."""
-        return [torch.cat([self.input[g] for g in GATES]),
-                torch.cat([self.hidden[g] for g in GATES]), zero_bias,
-                torch.cat([self.bias[g] for g in GATES])]
-
-
-class StackedLSTM(nn.Module):
-    """`num_layers` LSTMs over [B, T, C], zero initial state. Bidirectional:
-    each layer's forward and backward LSTM read the layer's input and
-    their outputs are concatenated, and ``linear`` maps 2H back to H after
-    the stack. ``cells[j]`` is flax's ``OptimizedLSTMCell_{j}``: layer l's
-    forward LSTM is cell l (2 l when bidirectional, its backward one
-    2 l + 1).
-
-    The stack runs as one ``torch.lstm`` call (cuDNN on the card) whose
-    input biases are zeros outside the graph, so each gate trains one
-    bias as in flax (``nn.LSTM`` would train two, and Adam would move
-    their sum twice as fast)."""
-
-    def __init__(self, input_size: int, hidden_size: int, num_layers: int,
-                 bidirectional: bool = False) -> None:
-        super().__init__()
-        self.hidden_size = hidden_size
-        self.num_layers = num_layers
-        self.bidirectional = bidirectional
-        directions = 2 if bidirectional else 1
-        self.cells = nn.ModuleList([
-            LSTMCell(input_size if layer == 0 else directions * hidden_size,
-                     hidden_size)
-            for layer in range(num_layers) for _ in range(directions)])
-        self.linear = (nn.Linear(2 * hidden_size, hidden_size)
-                       if bidirectional else None)
-
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        for cell in self.cells:
-            cell.reset_parameters(generator)
-        if self.linear is not None:
-            lecun_normal_(self.linear.weight, self.linear.weight.shape[1],
-                          generator)
-            nn.init.zeros_(self.linear.bias)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, T, C] -> [B, T, H]."""
-        directions = 2 if self.bidirectional else 1
-        state = x.new_zeros(self.num_layers * directions, x.shape[0],
-                            self.hidden_size)
-        zero_bias = x.new_zeros(4 * self.hidden_size)
-        weights = [w for cell in self.cells for w in cell.weights(zero_bias)]
-        out, _, _ = torch.lstm(x, (state, state), weights, True,
-                               self.num_layers, 0.0, self.training,
-                               self.bidirectional, True)
-        if self.linear is not None:
-            out = self.linear(out)
-        return out
-
+                     StackedLSTM, SubjectLayers, init_conv_)
 
 class LocalAttention(nn.Module):
     """Multi-head attention of each step over the steps within `radius`,

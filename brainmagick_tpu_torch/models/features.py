@@ -7,7 +7,11 @@ is a ConvSequence too): hidden 320 x 10 layers to 768 outputs, kernel 3,
 dilation growth 2 with period 5, BatchNorm, skips, a GLU every 2 layers
 with context 1, ReLU, no activation on the last layer. Its convs are
 plain ``Conv1d`` layers (the JAX DeepMel builds its ConvSequence without
-``fused_conv_bn``) and it computes in fp32.
+``fused_conv_bn``) and it computes in fp32. With a `stride`, each layer's
+conv steps by it (padded ``kernel // 2 * dilation`` a side, as flax's),
+so no layer keeps its input's shape and none adds its skip; the GLU convs
+do not stride. The targets then come out shorter than the estimate, and
+the solver refuses them where the JAX package's loss fails on them.
 """
 
 from __future__ import annotations
@@ -21,12 +25,12 @@ from .common import ConvSequence, init_conv_
 
 
 class DeepMel(ConvSequence):
-    """[B, F, T] mel features -> [B, n_out_channels, T] fp32.
+    """[B, F, T] mel features -> [B, n_out_channels, T'] fp32 (T' = T at
+    stride 1).
 
     The constructor takes the flax module's fields but ``dtype`` (the
     port's DeepMel computes in fp32, as the JAX package builds it) and
-    keeps the widths as attributes of the same names. Only stride 1 is
-    ported."""
+    keeps the widths and the stride as attributes of the same names."""
 
     def __init__(self, n_in_channels: int, n_hidden_channels: int = 320,
                  n_hidden_layers: int = 10, n_out_channels: int = 768,
@@ -35,11 +39,9 @@ class DeepMel(ConvSequence):
                  batch_norm: bool = True, activation_on_last: bool = False,
                  skip: bool = True, glu: int = 2,
                  glu_context: int = 1) -> None:
-        if stride != 1:
-            raise NotImplementedError(f"DeepMel stride={stride!r}")
         channels = ([n_in_channels] + [n_hidden_channels]
                     * (n_hidden_layers - 1) + [n_out_channels])
-        super().__init__(channels, kernel=kernel,
+        super().__init__(channels, kernel=kernel, stride=stride,
                          dilation_growth=dilation_growth,
                          dilation_period=dilation_period,
                          batch_norm=batch_norm, skip=skip,
@@ -49,6 +51,7 @@ class DeepMel(ConvSequence):
         self.n_hidden_channels = n_hidden_channels
         self.n_hidden_layers = n_hidden_layers
         self.n_out_channels = n_out_channels
+        self.stride = stride
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """LeCun-normal convs with zero bias drawn from `generator` (on

@@ -3,17 +3,21 @@
 Port of ``brainmagick_tpu/models/simpleconv.py``. Forward pipeline: a
 fixed subset of the sensors (``subsample_meg_channels``, the others
 zeroed) -> ChannelDropout (``dropout``; padded sensors zeroed in eval mode
-too) -> ChannelMerger spatial attention -> initial 1x1 conv stack ->
-per-subject SubjectLayers -> the subject embedding (``subject_dim``) ->
-a dilated ConvSequence encoder per input (the MEG, and in the encode
-task the features, whose branch skips the MEG's head), or one over the
-concatenated inputs (``concatenate``) -> final (linear / complex) 1x1
-head over the encoders' concatenated outputs -> crop to the input
-length. Layout [B, C, T] in and [B, F, T] out, as the flax module's public
-call, or [B, T, F] with ``output_layout="btc"``. With `fused_head` the
-merger, the initial conv and the subject
-layers run as one gathered matrix per recording (``_fused_head``), on the
-subset's MEG.
+too) -> ChannelMerger spatial attention (heads shared, or one set a
+subject with ``merger_per_subject``) -> initial 1x1 conv stack ->
+per-subject SubjectLayers -> the spectrogram branch (``n_fft``:
+each channel's Hann-window rfft bins become channels over frames of hop
+n_fft / 2) -> the subject embedding (``subject_dim``) -> a dilated
+ConvSequence encoder per input (the MEG, and in the encode task the
+features, whose branch skips the MEG's head; a model may have no MEG
+input), or one over the concatenated inputs (``concatenate``) -> the
+DualPathRNN (``dual_path``) -> final (linear / complex) head over the
+encoders' concatenated outputs, 1x1, or with ``n_fft`` a strided
+transposed conv back to the samples -> crop to the input length.
+Layout [B, C, T] in and [B, F, T] out, as the flax module's public call,
+or [B, T, F] with ``output_layout="btc"``. With `fused_head` the merger,
+the initial conv and the subject layers run as one gathered matrix per
+recording (``_fused_head``), on the subset's MEG.
 
 The constructor takes the flax module's keyword arguments and keeps them
 as attributes of the same names, so ``brainmagick_tpu.convert
@@ -22,12 +26,13 @@ those names are submodules here, because the reference key layout puts
 weights under them: ``merger``, ``initial_linear`` and ``subject_layers``
 hold the module when the option is on and None when it is off (the rules
 only test them for truth); the embedding is ``subject_embedding``.
-Options outside the ported slices raise NotImplementedError naming the
-option. In train mode ChannelDropout's and the merger's disks and the
-encoders' dropout masks (``dropout_input``, ``conv_dropout``) are drawn
-from the `generator` passed to ``forward``, or replayed from the
-`centers` and `masks` it is given, and ``fused_conv_bn`` runs the
-encoders' conv + BatchNorm layers through ``ops.conv_bn.conv_stats``.
+``conv_impl`` other than "conv" (a TPU-only lowering) raises
+NotImplementedError naming the option. In train mode ChannelDropout's
+and the merger's disks and the encoders' dropout masks
+(``dropout_input``, ``conv_dropout``) are drawn from the `generator`
+passed to ``forward``, or replayed from the `centers` and `masks` it is
+given, and ``fused_conv_bn`` runs the encoders' conv + BatchNorm layers
+through ``ops.conv_bn.conv_stats``.
 `dtype` ('bfloat16') is the compute dtype of the convs, the merger's
 contractions and the fused head (parameters and statistics stay fp32,
 see ``models.common``); `output_dtype` that of the estimate (fp32 when
@@ -40,16 +45,15 @@ import typing as tp
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..precision import einsum_fp32, torch_dtype
 from .common import (ChannelDropout, ChannelMerger, Conv1d, ConvSequence,
-                     ConvTranspose1d, LayerScale, ScaledEmbedding,
-                     SubjectLayers, get_activation, init_conv_)
+                     ConvTranspose1d, DualPathRNN, LayerScale,
+                     ScaledEmbedding, SubjectLayers, get_activation,
+                     init_conv_)
 
-#: option -> value the port supports; any other value raises
-_SUPPORTED = dict(dual_path=0, n_fft=None, merger_per_subject=False,
-                  conv_impl="conv")
 #: the seed of the fixed sensor subset of ``subsample_meg_channels``
 SUBSAMPLE_SEED = 1234
 
@@ -87,18 +91,12 @@ class SimpleConv(nn.Module):
                  fused_conv_bn: bool = False,
                  fused_head: bool = False) -> None:
         super().__init__()
-        given = dict(dual_path=dual_path, n_fft=n_fft,
-                     merger_per_subject=merger_per_subject,
-                     conv_impl=conv_impl)
-        for name, value in given.items():
-            if value != _SUPPORTED[name]:
-                raise NotImplementedError(f"simpleconv.{name}={value!r}")
+        if conv_impl != "conv":
+            # the shifted-matmul lowerings are a TPU workaround
+            raise NotImplementedError(f"simpleconv.conv_impl={conv_impl!r}")
         if set(in_channels) != set(hidden):
             raise ValueError(f"in_channels and hidden keys must match "
                              f"({set(in_channels)} vs {set(hidden)})")
-        if "meg" not in in_channels:
-            raise NotImplementedError(f"inputs without 'meg': "
-                                      f"{dict(in_channels)}")
         if output_layout not in ("bct", "btc"):
             raise ValueError(f"output_layout={output_layout!r}: 'bct' or "
                              f"'btc'")
@@ -108,6 +106,9 @@ class SimpleConv(nn.Module):
         if not use_final and len(in_channels) > 1 and not concatenate:
             raise ValueError("without a linear or complex head there must "
                              "be a single branch")
+        if n_fft is not None and not use_final:
+            raise ValueError(f"simpleconv.n_fft={n_fft}: the spectrogram "
+                             f"branch needs linear_out or complex_out")
         # the flax module's attributes, read by convert.simpleconv_rules
         self.in_channels = dict(in_channels)
         self.out_channels = out_channels
@@ -142,8 +143,12 @@ class SimpleConv(nn.Module):
         self.dropout = dropout
         self.dropout_rescale = dropout_rescale
         self.output_layout = output_layout
+        self.dual_path = dual_path
+        self.n_fft = n_fft
+        self.fft_complex = fft_complex
+        self.merger_per_subject = merger_per_subject
         mask = None
-        if subsample_meg_channels:
+        if subsample_meg_channels and "meg" in in_channels:
             # the flax module's fixed sensor subset, [C_in, 1]: a constant
             # that moves with the model and stays out of the state dict
             mask = np.zeros((in_channels["meg"], 1), np.float32)
@@ -152,26 +157,28 @@ class SimpleConv(nn.Module):
             mask[order[:subsample_meg_channels]] = 1.
             mask = torch.from_numpy(mask)
         self.register_buffer("meg_mask", mask, persistent=False)
-        for name, value in given.items():
-            setattr(self, name, value)
+        self.conv_impl = conv_impl
         dt = torch_dtype(dtype)
         self.compute_dtype = dt
         self.estimate_dtype = torch_dtype(output_dtype) or torch.float32
 
         act = get_activation(gelu, relu_leakiness, gelu_exact)
-        chin = in_channels["meg"]
+        # the MEG's head (flax builds it only for a 'meg' input)
+        has_meg = "meg" in in_channels
+        chin = in_channels.get("meg", 0)
         self.channel_dropout = None
-        if dropout:
+        if dropout and has_meg:
             self.channel_dropout = ChannelDropout(dropout, dropout_rescale)
         self.merger = None
-        if merger:
+        if merger and has_meg:
             # merger_dropout and merger_penalty act only in training
             self.merger = ChannelMerger(
                 merger_channels, pos_dim=merger_pos_dim,
-                dropout=merger_dropout, usage_penalty=merger_penalty)
+                dropout=merger_dropout, usage_penalty=merger_penalty,
+                n_subjects=n_subjects, per_subject=merger_per_subject)
             chin = merger_channels
         self.initial_linear = None
-        if initial_linear:
+        if initial_linear and has_meg:
             # reference layout: conv at 2 d, activation between convs
             layers: tp.List[nn.Module] = [
                 Conv1d(chin, initial_linear, 1, compute_dtype=dt)]
@@ -183,18 +190,22 @@ class SimpleConv(nn.Module):
             self.initial_linear = nn.Sequential(*layers)
             chin = initial_linear
         self.subject_layers = None
-        if subject_layers:
+        if subject_layers and has_meg:
             dim = {"hidden": hidden["meg"], "input": chin}[subject_layers_dim]
             self.subject_layers = SubjectLayers(chin, dim, n_subjects,
                                                 subject_layers_id)
             chin = dim
+        if n_fft is not None and has_meg:
+            chin *= (n_fft // 2 + 1) * (2 if fft_complex else 1)
         self.subject_embedding = None
-        if subject_dim:
+        if subject_dim and has_meg:
             self.subject_embedding = ScaledEmbedding(n_subjects, subject_dim,
                                                      embedding_scale)
             chin += subject_dim
 
-        channels = {**in_channels, "meg": chin}
+        channels = dict(in_channels)
+        if has_meg:
+            channels["meg"] = chin
         hidden = dict(hidden)
         if concatenate:
             channels = {"concat": sum(channels.values())}
@@ -217,29 +228,43 @@ class SimpleConv(nn.Module):
             bn_conv_bias=bn_conv_bias, compute_dtype=dt)
             for name, size in sizes.items()})
 
+        self.dual_path_rnn = None
+        if dual_path:
+            self.dual_path_rnn = DualPathRNN(final_channels, dual_path)
+
+        # the head; with the spectrogram branch a transposed conv that
+        # undoes its hop, padded as flax's nn.ConvTranspose pads
+        # ((n_fft // 4, n_fft // 4) of the stride-dilated input: torch's
+        # padding kernel - 1 - n_fft // 4)
+        kernel, stride, pad = 1, 1, 0
+        if n_fft is not None:
+            kernel, stride, pad = n_fft, n_fft // 2, n_fft - 1 - n_fft // 4
+        head = dict(stride=stride, padding=pad, compute_dtype=dt)
         self.final: tp.Optional[nn.Module] = None
         if linear_out:
-            self.final = ConvTranspose1d(final_channels, out_channels, 1,
-                                         compute_dtype=dt)
+            self.final = ConvTranspose1d(final_channels, out_channels,
+                                         kernel, **head)
         elif complex_out:
             self.final = nn.Sequential(
                 Conv1d(final_channels, 2 * final_channels, 1,
                        compute_dtype=dt), act(),
-                ConvTranspose1d(2 * final_channels, out_channels, 1,
-                                compute_dtype=dt))
+                ConvTranspose1d(2 * final_channels, out_channels, kernel,
+                                **head))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Initialize every weight from `generator` (drawn on the CPU):
         LeCun-normal convs with zero bias, N(0, 1/pos_dim) merger heads,
         N(0, 1/C_in) subject matrices, N(0, 1/scale^2) subject embeddings,
-        BatchNorm at identity, LayerScale at init / boost."""
+        BatchNorm at identity, LayerScale at init / boost, the DualPathRNN's
+        LSTMs as flax's OptimizedLSTMCell (LeCun-normal input kernels,
+        orthogonal recurrent kernels, zero biases)."""
         for module in self.modules():
             if isinstance(module, (nn.Conv1d, nn.ConvTranspose1d)):
                 init_conv_(module, generator)
             elif isinstance(module, (nn.BatchNorm1d, LayerScale)):
                 module.reset_parameters()
             elif isinstance(module, (ChannelMerger, SubjectLayers,
-                                     ScaledEmbedding)):
+                                     ScaledEmbedding, DualPathRNN)):
                 module.reset_parameters(generator)
 
     def _fused_head(self, meg: torch.Tensor, positions: torch.Tensor,
@@ -270,39 +295,46 @@ class SimpleConv(nn.Module):
         out = einsum_fp32("bct,bcd->bdt", meg, fold[rec_index], dtype=cd)
         return out + bias[rec_index][:, :, None]
 
-    def forward(self, inputs: tp.Mapping[str, torch.Tensor],
-                subject_index: torch.Tensor, positions: torch.Tensor,
-                pos_emb: tp.Optional[torch.Tensor] = None,
-                rec_index: tp.Optional[torch.Tensor] = None,
-                rec_positions: tp.Optional[torch.Tensor] = None,
-                rec_subjects: tp.Optional[torch.Tensor] = None,
-                generator: tp.Optional[torch.Generator] = None,
-                with_penalty: bool = False,
-                centers: tp.Optional[tp.Iterable[torch.Tensor]] = None,
-                masks: tp.Optional[tp.Iterable[torch.Tensor]] = None):
-        """inputs {'meg': [B, C, T]} (and 'features' [B, F, T] in the
-        encode task), subject_index [B], positions [B, C, 2];
-        pos_emb/rec_index/rec_positions, and the dropout's generator, as in
-        ChannelMerger.attention; rec_subjects [R], each
-        recording's subject, for the fused head, which engages as the flax
-        module's does: with `fused_head`, the merger, one initial conv with
-        no activation after it, the subject layers, no merger penalty, and
-        the per-recording arrays given; otherwise the unfused ops run.
-        In train mode, `centers` replays the disk centres (ChannelDropout's,
-        then the merger's) and `masks` the encoders' dropout masks
-        ([B, C, T] each, the encoders in sorted order), in the order the
-        flax module draws them, in place of draws from `generator`.
-        Returns [B, out_channels, T] ([B, T, out_channels] with
-        ``output_layout="btc"``) in `output_dtype` (fp32 when None), or
-        with `with_penalty` that and the train-mode merger usage penalty (a
-        scalar, 0 in eval)."""
-        length = inputs["meg"].shape[-1]
-        centers = None if centers is None else iter(centers)
-        masks = None if masks is None else iter(masks)
-        if self.compute_dtype is not None:
-            inputs = {name: x.to(self.compute_dtype)
-                      for name, x in inputs.items()}
-        meg = inputs["meg"]
+    def _stft(self, meg: torch.Tensor) -> torch.Tensor:
+        """The spectrogram branch, as the flax module's ``_stft``: [B, C, T]
+        -> [B, C F (2), T'] with F = n_fft // 2 + 1 bins and T' frames of
+        hop n_fft // 2. Each sensor zero-padded on the right to a multiple
+        of the hop, reflect-padded by n_fft // 4 and then by n_fft // 2
+        on both sides; Hann frames (``np.hanning(n_fft + 1)[:-1]``), whose
+        rfft is divided by the window's norm; with `fft_complex` the real
+        and imaginary parts of each bin side by side, else its modulus;
+        the channel index (sensor, bin, part)."""
+        n_fft, hop = self.n_fft, self.n_fft // 2
+        batch = meg.shape[0]
+        window = torch.from_numpy(
+            np.hanning(n_fft + 1)[:-1].astype(np.float32)).to(meg.device)
+        # [B, C, T] throughout: CUDA's reflect padding takes at most 65,535
+        # rows a batch entry, fewer than B x C at the paper's width
+        x = F.pad(meg, (0, -meg.shape[-1] % hop))
+        x = F.pad(x, (n_fft // 4, n_fft // 4), mode="reflect")
+        x = F.pad(x, (n_fft // 2, n_fft // 2), mode="reflect")
+        frames = x.unfold(-1, n_fft, hop) * window         # [B, C, T', n]
+        spec = torch.fft.rfft(frames, dim=-1)
+        norm = torch.sqrt(torch.sum(window ** 2))
+        if self.fft_complex:
+            z = torch.stack([spec.real, spec.imag], dim=-1) / norm
+        else:
+            z = (spec.abs() / norm)[..., None]
+        n_frames = z.shape[2]
+        z = z.flatten(3).permute(0, 2, 1, 3)               # [B, T', C, F(2)]
+        return z.reshape(batch, n_frames, -1).transpose(1, 2)
+
+    def _meg_head(self, meg: torch.Tensor, subject_index: torch.Tensor,
+                  positions: torch.Tensor,
+                  pos_emb: tp.Optional[torch.Tensor],
+                  rec_index: tp.Optional[torch.Tensor],
+                  rec_positions: tp.Optional[torch.Tensor],
+                  rec_subjects: tp.Optional[torch.Tensor],
+                  generator: tp.Optional[torch.Generator],
+                  centers: tp.Optional[tp.Iterator[torch.Tensor]]
+                  ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        """The MEG's branch before its encoder: (meg, the merger's usage
+        penalty); the arguments as ``forward``'s."""
         if self.meg_mask is not None:
             # an fp32 constant, as in the flax module: a bf16 meg comes out
             # fp32
@@ -321,7 +353,8 @@ class SimpleConv(nn.Module):
             self.fused_head and self.merger is not None
             and self.initial_linear is not None
             and self.subject_layers is not None and self.initial_depth == 1
-            and not self.initial_nonlin and self.merger_penalty == 0
+            and not self.initial_nonlin and not self.merger_per_subject
+            and self.merger_penalty == 0
             and pos_emb is not None and rec_index is not None
             and rec_subjects is not None)
         if fused_head:
@@ -333,7 +366,8 @@ class SimpleConv(nn.Module):
                 weights = self.merger.attention(
                     positions, pos_emb=pos_emb, rec_index=rec_index,
                     rec_positions=rec_positions, generator=generator,
-                    center=merger_center, dtype=meg.dtype)
+                    center=merger_center, dtype=meg.dtype,
+                    subjects=subject_index)
                 meg = einsum_fp32("bct,boc->bot", meg, weights,
                                   dtype=meg.dtype)
                 if self.training and self.merger_penalty > 0:
@@ -342,16 +376,60 @@ class SimpleConv(nn.Module):
                 meg = self.initial_linear(meg)
             if self.subject_layers is not None:
                 meg = self.subject_layers(meg, subject_index)
+        if self.n_fft is not None:
+            meg = self._stft(meg)
         # torch.cat promotes mixed types as jnp.concatenate does
         if self.subject_embedding is not None:
             emb = self.subject_embedding(subject_index)[:, :, None]
-            meg = torch.cat([meg, emb.expand(-1, -1, length)], dim=1)
-        inputs = {**inputs, "meg": meg}
+            meg = torch.cat([meg, emb.expand(-1, -1, meg.shape[-1])], dim=1)
+        return meg, penalty
+
+    def forward(self, inputs: tp.Mapping[str, torch.Tensor],
+                subject_index: torch.Tensor, positions: torch.Tensor,
+                pos_emb: tp.Optional[torch.Tensor] = None,
+                rec_index: tp.Optional[torch.Tensor] = None,
+                rec_positions: tp.Optional[torch.Tensor] = None,
+                rec_subjects: tp.Optional[torch.Tensor] = None,
+                generator: tp.Optional[torch.Generator] = None,
+                with_penalty: bool = False,
+                centers: tp.Optional[tp.Iterable[torch.Tensor]] = None,
+                masks: tp.Optional[tp.Iterable[torch.Tensor]] = None):
+        """inputs {'meg': [B, C, T]} (and 'features' [B, F, T] in the
+        encode task; or no 'meg'), subject_index [B], positions [B, C, 2];
+        pos_emb/rec_index/rec_positions, and the dropout's generator, as in
+        ChannelMerger.attention (per-subject heads take a per-sample
+        pos_emb and subject_index); rec_subjects [R], each
+        recording's subject, for the fused head, which engages as the flax
+        module's does: with `fused_head`, the merger, one initial conv with
+        no activation after it, the subject layers, no merger penalty, and
+        the per-recording arrays given; otherwise the unfused ops run.
+        In train mode, `centers` replays the disk centres (ChannelDropout's,
+        then the merger's) and `masks` the encoders' dropout masks
+        ([B, C, T] each, the encoders in sorted order), in the order the
+        flax module draws them, in place of draws from `generator`.
+        Returns [B, out_channels, T] ([B, T, out_channels] with
+        ``output_layout="btc"``) in `output_dtype` (fp32 when None), or
+        with `with_penalty` that and the train-mode merger usage penalty (a
+        scalar, 0 in eval)."""
+        length = next(iter(inputs.values())).shape[-1]
+        centers = None if centers is None else iter(centers)
+        masks = None if masks is None else iter(masks)
+        if self.compute_dtype is not None:
+            inputs = {name: x.to(self.compute_dtype)
+                      for name, x in inputs.items()}
+        penalty = torch.zeros((), device=next(iter(inputs.values())).device)
+        if "meg" in inputs:
+            meg, penalty = self._meg_head(
+                inputs["meg"], subject_index, positions, pos_emb, rec_index,
+                rec_positions, rec_subjects, generator, centers)
+            inputs = {**inputs, "meg": meg}
         if self.concatenate:
             inputs = {"concat": torch.cat(
                 [inputs[name] for name in sorted(inputs)], dim=1)}
         x = torch.cat([self.encoders[name](inputs[name], generator, masks)
                        for name in sorted(inputs)], dim=1)
+        if self.dual_path_rnn is not None:
+            x = self.dual_path_rnn(x)
         if self.final is not None:
             x = self.final(x)
         x = x[..., :length].to(self.estimate_dtype)

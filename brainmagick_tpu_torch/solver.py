@@ -297,6 +297,14 @@ class Solver:
             # BatchNorm moves its running statistics
             self.feature_model.train(train)
             output = self.feature_model(output)
+            if output.shape[-1] != estimate.shape[-1]:
+                # a strided DeepMel shortens the targets, and the JAX
+                # package's loss fails on them too
+                raise ValueError(
+                    f"feature_model_params.stride="
+                    f"{self.feature_model.stride}: the feature model's "
+                    f"{output.shape[-1]} samples against the estimate's "
+                    f"{estimate.shape[-1]}")
         return estimate, output, mask, keep, penalty
 
     def _run_model(self, inputs: tp.Mapping[str, torch.Tensor],
@@ -315,7 +323,11 @@ class Solver:
                                   generator=self.generator)
             return estimate, torch.zeros((), device=estimate.device)
         model_kwargs = {}
-        if na.get("pos_emb") is not None:
+        if na.get("pos_emb") is not None and self.model.merger_per_subject:
+            # per-subject heads attend per sample
+            model_kwargs = dict(pos_emb=na["pos_emb"][
+                arrays["recording_index"]])
+        elif na.get("pos_emb") is not None:
             rec = arrays["recording_index"]
             # per-recording attention: R softmax rows instead of B
             model_kwargs = dict(pos_emb=na["pos_emb"], rec_index=rec,

@@ -8,11 +8,12 @@ caller builds. Every estimate is ranked against up to
 ``test.wer_negatives`` outputs drawn with the config's seed, its own output
 taking the last negative's place; the result is the top-``test.wer_topx``
 error over samples and over the word vocabulary. The pool is scored by
-``losses.pool_scores`` (``nt_matmul`` on a CUDA device), inside
-``precision.exact_fp32``. As a rank of a data-parallel run, a solver's
-forwards split each batch over the ranks (``Solver.forward_batch``) and
-so does the scoring; every rank gets every row, and so the one-card
-metrics.
+``losses.pool_scores`` (``nt_matmul`` on a CUDA device; with
+``test.pool_int8`` int8 pools, and the own column through
+``losses.own_scores_int8``), inside ``precision.exact_fp32``. As a rank
+of a data-parallel run, a solver's forwards split each batch over the
+ranks (``Solver.forward_batch``) and so does the scoring; every rank gets
+every row, and so the one-card metrics.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from .eval import check_index, host_array, solver_batches
-from .losses import commit_rows, pool_scores, refuse_int8_pool
+from .losses import commit_rows, own_scores_int8, pool_scores, use_int8_pool
 from .precision import exact_fp32
 
 logger = logging.getLogger(__name__)
@@ -70,7 +71,6 @@ def get_wer(server: tp.Any, batches: tp.Iterable[tp.Any],
     if clip is None:
         raise ValueError("WER requires a CLIP configuration "
                          "(optim.loss='clip')")
-    refuse_int8_pool(args, clip)
     check_at = check_index(args)
     device = server.device
 
@@ -112,8 +112,10 @@ def get_wer(server: tp.Any, batches: tp.Iterable[tp.Any],
     for lo in range(0, n, CHUNK):
         est = commit_rows(estimates[lo:lo + CHUNK], device)
         own = commit_rows(outputs[lo:lo + CHUNK], device)
-        scores[lo:lo + len(est), -1] = clip.own_scores(est,
-                                                       own).cpu().numpy()
+        # under test.pool_int8 both sides quantized, as the pool's columns
+        own_scores = own_scores_int8 if use_int8_pool(args, clip) \
+            else clip.own_scores
+        scores[lo:lo + len(est), -1] = own_scores(est, own).cpu().numpy()
         if stats is not None:
             stats["commits"] = stats.get("commits", 0) + 2
             stats["commit_bytes"] = (stats.get("commit_bytes", 0)

@@ -3,8 +3,9 @@ CUDA card, in the paper recipe's fp32 and in its bf16 clip_conv_tpu form,
 Table 2's DeepMel cell, feature decoding, the encode task and ConvRNN,
 the paper's grid chain (grid runner, grid evaluation, paper table),
 data-parallel training, the wav2vec 2.0 targets (random=True) with
-the planted-map rehearsal, the train step's remaining options, and the
-serving export with the checkpoint readers.
+the planted-map rehearsal, the train step's remaining options, the
+serving export with the checkpoint readers, and the rest of the model
+zoo with int8 evaluation pools.
 
 Run from the repository root, with no arguments:
 
@@ -234,7 +235,28 @@ check raises, so the script exits non-zero and prints no result:
    through ``convert.main`` (bit for bit by signature) and ``serve.main``
    (export_convert); the normalize and nt_matmul wrappers' times before
    and after the custom-op registration at phase 3's shapes; each kernel
-   at the artifact calls' shapes, added to its other_shapes.
+   at the artifact calls' shapes, added to its other_shapes;
+18. the rest of the model zoo and int8 pools (``run_zoo_phase``): each
+   ZOO_RUNS option of SimpleConv (per-subject merger heads, a
+   DualPathRNN, the spectrogram branch at n_fft=16) trained ZOO_STEPS
+   Adam steps at the clip_conv preset's full width on phase 5's batch,
+   in fp32 and in the clip_conv_tpu recipe, with fused_conv_bn (finite,
+   falling losses; conv_stats once a fused encoder layer a step, at
+   [256, 4860, 48] for the spectrogram's first layer; normalize once a
+   forward; the fused head in the recipe but under per-subject heads;
+   the warm step and peak memory beside phases 5 and 7; the B=8 step
+   against the CPU at STEP_TOL and RECIPE_TOL; a torch.profiler split of
+   the option's part: the LSTMs, the rfft branch and the strided head,
+   the heads' gather and einsum); the strided DeepMel forward and
+   backward against the CPU (its JAX solver fails on the shortened
+   targets, so no step trains it); phase 6's evaluation with
+   test.pool_int8 (run_eval and get_wer beside phase 6's fp32 metrics,
+   the pool's bytes, normalize once a forward and no nt_matmul; 64
+   predictions x 300 candidates against the CPU, the int8 rows and int32
+   partial sums bit-equal; the evaluation's 2048 x 2048 x 351,232 chunk
+   in int8 timed beside the bf16 nt_matmul and cuBLAS, with its bound);
+   conv_stats at the spectrogram layer's shape, added to its
+   other_shapes.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it raises at once.
@@ -242,6 +264,7 @@ The line before the last is the kernels' JSON summary; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -362,6 +385,10 @@ WORD_SECONDS = 0.3
 #: the card's build_probs against the CPU's on this many predictions and
 #: candidates
 HELD_PREDS, HELD_CANDIDATES = 64, 300
+#: int8 scores of the same int8 operands on the card against the CPU: the
+#: same int32 partial sums, added and scaled in fp32 in the same order;
+#: max error over the largest magnitude
+INT8_SCORE_TOL = 1e-6
 
 
 def tf32_flags() -> dict:
@@ -1128,21 +1155,22 @@ def run_slice(device: torch.device, card_name: str,
 
 
 def build_trainer(device, preset: str = "clip_conv",
-                  compute_fp32: bool = False):
-    """`preset` with simpleconv.fused_conv_bn at full width on `device`,
-    from seeds only (port-initialized weights, seeded normalization
-    arrays, the dropout generator seeded SEED). Two calls give the same
-    trainer on any device, drawing the same dropout disks, with the same
-    fp32 weights whatever the compute dtype. `compute_fp32` sets the
-    preset's compute dtypes (simpleconv.dtype and output_dtype,
-    clip.compute_dtype) back to fp32 and keeps the rest of it, the wire's
-    dtype included."""
+                  compute_fp32: bool = False,
+                  options: tp.Optional[dict] = None):
+    """`preset` with simpleconv.fused_conv_bn (and the simpleconv
+    `options`) at full width on `device`, from seeds only
+    (port-initialized weights, seeded normalization arrays, the dropout
+    generator seeded SEED). Two calls give the same trainer on any
+    device, drawing the same dropout disks, with the same fp32 weights
+    whatever the compute dtype. `compute_fp32` sets the preset's compute
+    dtypes (simpleconv.dtype and output_dtype, clip.compute_dtype) back to
+    fp32 and keeps the rest of it, the wire's dtype included."""
     from brainmagick_tpu_torch.config import MainConfig, apply_preset
     from brainmagick_tpu_torch.train import Trainer
 
     norm_arrays, _ = seeded_arrays()
     args = apply_preset(MainConfig(), preset)
-    args.simpleconv["fused_conv_bn"] = True
+    args.simpleconv.update(fused_conv_bn=True, **(options or {}))
     if compute_fp32:
         args.simpleconv.update(dtype=None, output_dtype=None)
         args.clip.compute_dtype = None
@@ -1151,16 +1179,21 @@ def build_trainer(device, preset: str = "clip_conv",
 
 
 def run_train(device: torch.device, card_name: str, batch,
-              preset: str = "clip_conv") -> tuple:
-    """TRAIN_STEPS Adam steps of Trainer.step on one B=256 batch, then a
-    B=8 step held against the same trainer on the CPU. Returns the kernel
-    launch counts over the TRAIN_STEPS steps, conv_stats' by dtype, and
-    the warm step's median and peak memory."""
+              preset: str = "clip_conv", options: tp.Optional[dict] = None,
+              steps: int = TRAIN_STEPS, inspect=None) -> tuple:
+    """`steps` Adam steps of Trainer.step on one B=256 batch, then a
+    B=8 step held against the same trainer on the CPU; with the simpleconv
+    `options` on top of `preset`, and `inspect(trainer)` called after the
+    steps. Returns the kernel launch counts over the steps, conv_stats'
+    by dtype, and the warm step's median and peak memory."""
     from brainmagick_tpu_torch import ops
 
     recipe = preset == RECIPE
     dtype = "bfloat16" if recipe else "float32"
-    trainer = build_trainer(device, preset)
+    label = preset + (f" {options}" if options else "")
+    # the fused head stays off under per-subject merger heads, as in flax
+    fused_head = recipe and not (options or {}).get("merger_per_subject")
+    trainer = build_trainer(device, preset, options=options)
     n_fused = sum(trainer.model.encoders["meg"].fused)
     if n_fused != 10:
         raise AssertionError(f"{n_fused} fused encoder layers, want 10")
@@ -1169,7 +1202,7 @@ def run_train(device: torch.device, card_name: str, batch,
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     losses, step_ms = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         metrics = trainer.step(batch)
         loss = metrics["loss"].item()                   # synchronizes
@@ -1182,44 +1215,49 @@ def run_train(device: torch.device, card_name: str, batch,
     by_dtype = dict(ops.conv_stats.launches_by_dtype)
     warm = dict(step_ms=statistics.median(step_ms[1:]),
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-    print(f"{preset} train B={TRAIN_B}: losses {losses}; step times "
+    print(f"{label} train B={TRAIN_B}: losses {losses}; step times "
           f"{[round(t, 2) for t in step_ms]} ms (host clock, synchronized, "
           f"host-to-device copy included; {card_name})")
-    print(f"{preset} train warm step median over steps 2-{TRAIN_STEPS}: "
+    print(f"{label} train warm step median over steps 2-{steps}: "
           f"{warm['step_ms']:.2f} ms; peak device memory "
           f"{warm['peak_gb']:.2f} GB; kernel launches over the "
-          f"{TRAIN_STEPS} steps: {launches}, conv_stats by route {routes}, "
-          f"by type {by_dtype}")
+          f"{steps} steps: {launches}, conv_stats by route {routes}, "
+          f"by type {by_dtype}; fused head calls {fused_calls[0]}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train losses {losses}: want finite, and the "
-                             f"last below the first")
-    _check_fused_head(fused_calls, TRAIN_STEPS if recipe else 0,
-                      f"the {preset} train steps")
-    want = dict(conv_stats=n_fused * TRAIN_STEPS,
-                normalize_clamp_peak=TRAIN_STEPS)
+        raise AssertionError(f"{label} train losses {losses}: want finite, "
+                             f"and the last below the first")
+    _check_fused_head(fused_calls, steps if fused_head else 0,
+                      f"the {label} train steps")
+    want = dict(conv_stats=n_fused * steps, normalize_clamp_peak=steps)
     for name, count in want.items():
         if launches[name] != count:
-            raise AssertionError(f"train path launched {name} "
+            raise AssertionError(f"{label} train path launched {name} "
                                  f"{launches[name]} times, want {count}")
-    if routes != {"tc": n_fused * TRAIN_STEPS} \
-            or by_dtype[dtype] != n_fused * TRAIN_STEPS:
-        raise AssertionError(f"{preset} train steps ran conv_stats by route "
+    if routes != {"tc": n_fused * steps} \
+            or by_dtype[dtype] != n_fused * steps:
+        raise AssertionError(f"{label} train steps ran conv_stats by route "
                              f"{routes}, by type {by_dtype}, want every "
                              f"launch {dtype} on 'tc'")
+    if inspect is not None:
+        warm.update(inspect(trainer))
     del trainer, metrics
     torch.cuda.empty_cache()
 
-    check_held_step(device, preset, batch)
+    check_held_step(device, preset, batch, options)
     return launches, by_dtype, warm
 
 
-def held_step(where, preset: str, batch, compute_fp32: bool = False):
-    """One Trainer.step of build_trainer(where, preset, compute_fp32) on
-    `batch`: (loss, model). clip_conv_tpu's must run its fused head."""
-    trainer = build_trainer(where, preset, compute_fp32)
+def held_step(where, preset: str, batch, compute_fp32: bool = False,
+              options: tp.Optional[dict] = None):
+    """One Trainer.step of build_trainer(where, preset, compute_fp32,
+    options) on `batch`: (loss, model). clip_conv_tpu's must run its fused
+    head, but under per-subject merger heads."""
+    trainer = build_trainer(where, preset, compute_fp32, options)
     fused_calls = count_fused_head(trainer.model)
     loss = trainer.step(batch)["loss"].item()
-    _check_fused_head(fused_calls, 1 if preset == RECIPE else 0,
+    fused_head = preset == RECIPE and not (options or {}).get(
+        "merger_per_subject")
+    _check_fused_head(fused_calls, 1 if fused_head else 0,
                       f"the {preset} B={len(batch.meg)} step on {where}")
     return loss, trainer.model
 
@@ -1269,39 +1307,47 @@ def _check_errors(errors: dict, tol: float, what: str,
                                  f"{limit}")
 
 
-def check_held_step(device, preset: str, batch) -> None:
+def check_held_step(device, preset: str, batch,
+                    options: tp.Optional[dict] = None) -> None:
     """A B=HELD_B step on the card against the same trainer on the CPU, at
     STEP_TOL for clip_conv; for clip_conv_tpu at RECIPE_TOL in norm (the
     gradients at RECIPE_GRAD_TOL), with the two witnesses RECIPE_SPREAD
     describes: the step with fp32 compute at STEP_TOL, and the card's bf16
     gradients no farther from the CPU's fp32 ones than RECIPE_SPREAD times
-    the CPU's bf16 gradients."""
+    the CPU's bf16 gradients. With the simpleconv `options`, the held
+    leaves gain the first DualPathRNN LSTM's recurrent kernel when there
+    is one."""
     from brainmagick_tpu_torch import dataset
 
     small = types.SimpleNamespace(**{
         name: getattr(batch, name)[:HELD_B] for name in dataset.ARRAY_FIELDS})
     recipe = preset == RECIPE
-    card, cpu = (held_step(where, preset, small) for where in (device, "cpu"))
-    errors, note = _step_errors(card, cpu, recipe)
+    label = preset + (f" {options}" if options else "")
+    leaves = HELD_LEAVES + (ZOO_LSTM_LEAVES if (options or {}).get(
+        "dual_path") else ())
+    card, cpu = (held_step(where, preset, small, options=options)
+                 for where in (device, "cpu"))
+    errors, note = _step_errors(card, cpu, recipe, leaves)
     tol = RECIPE_TOL if recipe else STEP_TOL
-    print(f"{preset} train B={HELD_B} against the CPU: " + ", ".join(
+    print(f"{label} train B={HELD_B} against the CPU: " + ", ".join(
         f"{key} {value:.2e}" for key, value in errors.items())
         + f" (tol {tol:.2e}; {note})")
-    _check_errors(errors, tol, f"{preset} train step",
+    _check_errors(errors, tol, f"{label} train step",
                   RECIPE_GRAD_TOL if recipe else None)
     if not recipe:
         return
-    card32, cpu32 = (held_step(where, preset, small, compute_fp32=True)
+    card32, cpu32 = (held_step(where, preset, small, compute_fp32=True,
+                               options=options)
                      for where in (device, "cpu"))
-    errors, note = _step_errors(card32, cpu32, False)
-    print(f"{preset} train B={HELD_B} with fp32 compute against the CPU: "
+    errors, note = _step_errors(card32, cpu32, False, leaves)
+    print(f"{label} train B={HELD_B} with fp32 compute against the CPU: "
           + ", ".join(f"{key} {value:.2e}" for key, value in errors.items())
           + f" (tol {STEP_TOL:.2e}; {note})")
-    _check_errors(errors, STEP_TOL, f"{preset} train step in fp32")
+    _check_errors(errors, STEP_TOL, f"{label} train step in fp32")
     spread = {name: (_norm_err(_grad(card[1], name), _grad(cpu32[1], name)),
                      _norm_err(_grad(cpu[1], name), _grad(cpu32[1], name)))
-              for name in HELD_LEAVES}
-    print(f"{preset} train B={HELD_B}, each bf16 gradient against the CPU's "
+              for name in leaves}
+    print(f"{label} train B={HELD_B}, each bf16 gradient against the CPU's "
           f"fp32 one in norm, card / CPU: " + ", ".join(
               f"{name} {a:.2e} / {b:.2e}" for name, (a, b) in spread.items())
           + f" (the card's within {RECIPE_SPREAD} times the CPU's)")
@@ -1395,9 +1441,11 @@ def _check_eval_probs(probs: np.ndarray, shape: tuple, what: str) -> None:
         raise AssertionError(f"{what}: probability rows off 1 by {row_err}")
 
 
-def run_eval_phase(device: torch.device, card_name: str) -> dict:
+def run_eval_phase(device: torch.device, card_name: str) -> tuple:
     """The offline evaluation at full width (see the module docstring).
-    Returns the kernel launch counts over the phase."""
+    Returns the kernel launch counts over the phase, and the fp32
+    run_eval's top-1/5/10 and get_wer's metrics (phase 18 sets its int8
+    pools beside them)."""
     from torch.profiler import ProfilerActivity, profile
 
     from brainmagick_tpu_torch import eval as port_eval
@@ -1519,7 +1567,7 @@ def run_eval_phase(device: torch.device, card_name: str) -> dict:
                                  f"{launches[name]} times, want {count}")
     del server, data, batches
     torch.cuda.empty_cache()
-    return launches
+    return launches, dict(accuracy=accs["fp32"], wer=metrics[""])
 
 
 #: phase 8: the CLI on the fake study (all four recordings, 120 mels, the
@@ -4987,6 +5035,445 @@ def run_serve_phase(device: torch.device, card_name: str, work: Path,
                              with_conv=False)}
     return out, shapes, time_registration(device, card_name)
 
+#: phase 18: the rest of the model zoo and int8 pools. Each SimpleConv
+#: option trained ZOO_STEPS Adam steps at the clip_conv preset's full width
+#: on phase 5's B=256 batch, in fp32 and in the clip_conv_tpu recipe, both
+#: with fused_conv_bn
+ZOO_RUNS = {"merger_per_subject": dict(merger_per_subject=True),
+            "dual_path": dict(dual_path=1),
+            "n_fft": dict(n_fft=16)}
+ZOO_STEPS = 3
+#: the first DualPathRNN LSTM's recurrent kernel, held with HELD_LEAVES
+ZOO_LSTM_LEAVES = ("dual_path_rnn.lstms.0.cells.0.hidden.i",)
+#: the spectrogram branch's first encoder layer at n_fft=16: 270 merged
+#: channels x 9 bins x 2 parts over 48 frames of 361 samples,
+#: (B, C, O, T, dilation, k)
+STFT_CONV = (TRAIN_B, 270 * 9 * 2, 320, 48, 1, 3)
+#: the int8 score chunk timed: the evaluation's prediction chunk against a
+#: candidate block at the scored K, and the H100's dense int8 tensor-core
+#: peak (NVIDIA's data sheet, SXM part), operations/s
+INT8_CHUNK = (EVAL_CHUNK, EVAL_CHUNK, SCORE_K)
+INT8_OPS = 1979e12
+#: the strided DeepMel, run forward and backward at the DeepMel cell's
+#: targets [B, 120 mels, T'] on the card against the CPU (the JAX solver
+#: fails on its shortened targets, so no train step runs it)
+DEEPMEL_STRIDE = 2
+
+
+def _part_ms(fn) -> tuple:
+    """(device ms of one call of `fn` in torch.profiler, its activities)."""
+    rows = device_rows(fn, calls=2)
+    return sum(us for _, _, us in rows) / 1e3, rows
+
+
+def zoo_split(device: torch.device, trainer, batch, option: str) -> dict:
+    """The option's part of a train step: the step's device time in
+    torch.profiler, and its part's forward and backward alone at the
+    step's shapes (dual_path: the DualPathRNN's LSTMs; n_fft: the rfft
+    branch and the strided head; merger_per_subject: the heads' gather,
+    scores, softmax and the mixing einsum) by CUDA events and its kernels
+    in torch.profiler, each as a share of the step."""
+    from brainmagick_tpu_torch.precision import einsum_fp32, exact_fp32
+
+    model = trainer.model
+    dt = model.compute_dtype or torch.float32
+    gen = torch.Generator(device=device).manual_seed(SEED + 18)
+
+    def fwd_bwd(fn, shape, dtype):
+        x = torch.randn(shape, generator=gen, device=device).to(
+            dtype).requires_grad_()
+
+        def run():
+            fn(x).float().sum().backward()
+        return run
+
+    parts = {}
+    if option == "dual_path":
+        parts["LSTMs"] = fwd_bwd(model.dual_path_rnn, (TRAIN_B, 320, T), dt)
+    elif option == "n_fft":
+        # the subject layers hand the branch fp32; the head reads the 1x1
+        # conv's activation in the compute dtype
+        parts["rfft branch"] = fwd_bwd(model._stft, (TRAIN_B, 270, T),
+                                       torch.float32)
+        parts["strided head"] = fwd_bwd(model.final[2],
+                                        (TRAIN_B, 640, STFT_CONV[3]), dt)
+    else:
+        def attend(meg):
+            weights = model.merger.attention(
+                positions, pos_emb=pos_emb, dtype=meg.dtype,
+                subjects=subjects, center=torch.full((2,), 0.5))
+            return einsum_fp32("bct,boc->bot", meg, weights, dtype=meg.dtype)
+        rec = torch.as_tensor(batch.recording_index, device=device).long()
+        subjects = torch.as_tensor(batch.subject_index, device=device).long()
+        positions = torch.as_tensor(batch.positions, device=device)
+        pos_emb = trainer.solver.norm_arrays["pos_emb"][rec]
+        parts["heads' gather and einsum"] = fwd_bwd(attend, (TRAIN_B, C, T),
+                                                    dt)
+    step_ms, rows = _part_ms(lambda: trainer.step(batch))
+    out = {"step_device_ms": step_ms}
+    for name, fn in parts.items():
+        # fp32 as the step runs it (cuDNN's LSTM would take TF32 outside);
+        # CUDA events time the part, the profiler names its kernels (it
+        # has been seen to miss a call's cuDNN kernels)
+        with exact_fp32():
+            part_ms = median_ms(fn, runs=5)
+            traced_ms, part_rows = _part_ms(fn)
+        out[f"{name} ms"] = part_ms
+        out[f"{name} share"] = part_ms / step_ms
+        print(f"  {option} {name}: forward and backward {part_ms:.2f} ms "
+              f"(CUDA events; {traced_ms:.2f} ms of kernels in "
+              f"torch.profiler), {100 * part_ms / step_ms:.1f}% of a step's "
+              f"{step_ms:.2f} ms of device time; its longest kernels: "
+              + "; ".join(f"{key[:60]} {us / 1e3:.3f} ms"
+                          for key, _, us in part_rows[:3]))
+    model.zero_grad(set_to_none=True)
+    if option == "n_fft":
+        frames = model._stft(torch.zeros((1, 270, T), device=device)).shape
+        weight = model.encoders["meg"].sequence[0][0].weight.shape
+        print(f"  n_fft: the branch gives {tuple(frames)} a sample; the "
+              f"first encoder layer's weight {tuple(weight)}")
+        if (TRAIN_B, frames[1], weight[0], frames[2]) != STFT_CONV[:4]:
+            raise AssertionError(f"the spectrogram layer's conv_stats shape "
+                                 f"{frames}, weight {weight}; want "
+                                 f"{STFT_CONV}")
+    return out
+
+
+@contextlib.contextmanager
+def relu_masks(module: torch.nn.Module,
+               masks: tp.Optional[tp.Sequence[torch.Tensor]] = None
+               ) -> tp.Iterator[tp.List[torch.Tensor]]:
+    """Within the block, each ``nn.ReLU`` of `module` records its mask
+    (input > 0) into the list this yields, in the order the ReLUs run, or,
+    given `masks`, applies the next of them in place of its own (input x
+    mask, whose gradient is the mask). A ReLU's gradient steps where its
+    input crosses 0, so an input within rounding of 0 flips it between two
+    runs; given the same masks two runs differ only by their rounding."""
+    seen: tp.List[torch.Tensor] = []
+
+    def hook(_, inputs, out):
+        if masks is None:
+            seen.append(inputs[0] > 0)
+            return None
+        mask = masks[len(seen)].to(inputs[0].device)
+        seen.append(mask)
+        return inputs[0] * mask
+
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, torch.nn.ReLU)]
+    try:
+        yield seen
+    finally:
+        for handle in handles:
+            handle.remove()
+
+
+def check_strided_deepmel(device: torch.device, card_name: str) -> None:
+    """The strided DeepMel (published widths, stride DEEPMEL_STRIDE) in
+    train mode at [TRAIN_B, 120, T'] forward and backward on the card,
+    against the same module and inputs on the CPU, each max error over its
+    max magnitude within STEP_TOL: the fp32 output and running variance;
+    the fp32 input's and first conv's gradients against the CPU's fp32
+    run on the card's ReLU masks (``relu_masks``); and the same gradients
+    in float64. Against the CPU's own masks the fp32 gradients part where
+    a ReLU's input lies within rounding of 0 (one such element moves them
+    by up to 1e-2 of their largest: scripts/torch_deepmel_relu_flips.py),
+    so those, the flips and each run against float64 are printed."""
+    from brainmagick_tpu_torch.models.features import DeepMel
+    from brainmagick_tpu_torch.precision import exact_fp32
+
+    t_in = T - 18
+    rng = np.random.RandomState(SEED + 18)
+    x0 = rng.randn(TRAIN_B, 120, t_in).astype(np.float32)
+
+    def run(where, dtype=torch.float32, masks=None):
+        fm = DeepMel(n_in_channels=120, stride=DEEPMEL_STRIDE)
+        fm.reset_parameters(torch.Generator().manual_seed(SEED))
+        fm = fm.to(where, dtype).train()
+        x = torch.from_numpy(x0).to(where, dtype).requires_grad_()
+        t0 = time.perf_counter()
+        with relu_masks(fm, masks) as seen:
+            y = fm(x)
+        cot = torch.from_numpy(np.random.RandomState(SEED + 19).randn(
+            *y.shape).astype(np.float32)).to(where, dtype)
+        (y * cot).sum().backward()
+        synchronize(torch.device(where))
+        ms = (time.perf_counter() - t0) * 1e3
+        return ms, dict(output=y.detach().cpu(), dx=x.grad.cpu(),
+                        dw=fm.sequence[0][0].weight.grad.cpu(),
+                        running_var=fm.sequence[0][1].running_var.cpu(),
+                        masks=[m.cpu() for m in seen])
+
+    def err(got, want):
+        return ((got.double() - want.double()).abs().max()
+                / want.double().abs().max()).item()
+
+    with exact_fp32():
+        run(device)
+        card_ms, card32 = run(device)
+        _, card64 = run(device, torch.float64)
+    cpu_ms, cpu32 = run("cpu")
+    _, cpu_card_masks = run("cpu", masks=card32["masks"])
+    _, cpu64 = run("cpu", torch.float64)
+    errors = {key: err(card32[key], cpu32[key])
+              for key in ("output", "running_var")}
+    errors.update({f"{key} on the card's masks": err(card32[key],
+                                                     cpu_card_masks[key])
+                   for key in ("dx", "dw")})
+    errors.update({f"{key} float64": err(card64[key], cpu64[key])
+                   for key in ("dx", "dw")})
+    own = {f"{key} {where}": err(grads[key], want[key])
+           for key in ("dx", "dw")
+           for where, grads, want in (("card vs CPU fp32", card32, cpu32),
+                                      ("card vs float64", card32, cpu64),
+                                      ("CPU vs float64", cpu32, cpu64))}
+    flips = {where: [int((a != b).sum()) for a, b in zip(
+        grads["masks"], cpu64["masks"])]
+        for where, grads in (("card", card32), ("CPU", cpu32))}
+    print(f"strided DeepMel (stride {DEEPMEL_STRIDE}) [{TRAIN_B}, 120, "
+          f"{t_in}] -> {tuple(card32['output'].shape)}: forward and "
+          f"backward {card_ms:.2f} ms on the card (host clock, warm), "
+          f"{cpu_ms:.0f} ms on the CPU; against the CPU " + ", ".join(
+              f"{k} {v:.2e}" for k, v in errors.items())
+          + f" (tol {STEP_TOL}); the fp32 gradients on their own ReLU "
+          f"masks: " + ", ".join(f"{k} {v:.2e}" for k, v in own.items())
+          + f"; ReLU inputs of another sign than float64's, a layer: "
+          f"{flips} ({card_name})")
+    if not all(value <= STEP_TOL for value in errors.values()):
+        raise AssertionError(f"strided DeepMel card vs CPU: {errors}")
+
+
+def int8_reference_scores(preds: np.ndarray, trues: np.ndarray,
+                          device: torch.device) -> np.ndarray:
+    """The int8 scores of `preds` against the pool `trues`, computed plainly
+    on `device` in one piece: the rows quantized per row
+    (``losses._int8_quantize_rows``), the pool per candidate
+    (``losses.quantize_candidates``), each K chunk's integer product as a
+    float64 GEMM (exact: every sum stays below 2^53), rounded to fp32 and
+    added in K order, times the row scales and the candidates' inverse
+    norms. No int8 GEMM, layout, chunk of rows or block of candidates."""
+    from brainmagick_tpu_torch import losses
+
+    rows = torch.from_numpy(preds).to(device).reshape(len(preds), -1)
+    e_q, s_e = losses._int8_quantize_rows(rows)
+    del rows
+    c_q = torch.from_numpy(losses.quantize_candidates(trues)).to(device)
+    c_q = c_q.reshape(len(trues), -1)
+    inv = losses.block_inv_norms(c_q)
+    acc = None
+    for lo in range(0, c_q.shape[1], losses.INT8_K_CHUNK):
+        hi = lo + losses.INT8_K_CHUNK
+        part = (e_q[:, lo:hi].double() @ c_q[:, lo:hi].double().T).float()
+        acc = part if acc is None else acc + part
+    return (acc * s_e[:, None] * inv[None, :]).cpu().numpy()
+
+
+def run_int8_eval(device: torch.device, card_name: str, fp32: dict) -> dict:
+    """Phase 6's evaluation data with test.pool_int8: run_eval and get_wer
+    (top-1 and WER printed beside phase 6's fp32 ones; the pool's bytes
+    against bf16's), each kernel's launches (normalize once a forward,
+    nt_matmul and conv_stats never); the int8 scores of every prediction
+    against the whole pool through the evaluation's own route and chunk
+    (``losses.pool_scores``, which get_wer's pool takes too) against
+    ``int8_reference_scores`` within INT8_SCORE_TOL of their largest
+    magnitude, and run_eval's probabilities against their softmax within
+    PROBS_TOL; HELD_PREDS predictions x HELD_CANDIDATES candidates on the
+    card against the CPU (the int8 rows and the int32 partial sums
+    bit-equal, the scores within INT8_SCORE_TOL, build_probs within
+    PROBS_TOL); then the int8 scoring of the evaluation's chunk INT8_CHUNK
+    timed beside the bf16 nt_matmul and torch.mm(out_dtype=float32), with
+    its bound. Returns the launch counts of the evaluation's path."""
+    from brainmagick_tpu_torch import eval as port_eval
+    from brainmagick_tpu_torch import losses, ops, wer
+    from brainmagick_tpu_torch.ops.matmul import nt_matmul
+
+    server, rec_positions = build_server(device)
+    server.args.test.pool_int8 = True
+    batches = make_eval_batches(device, server.args, rec_positions)
+    n_preds = EVAL_BATCHES * REQUESTS[0]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    results, times = {}, {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for name, fn in (
+                ("run_eval", lambda stats: port_eval.run_eval(
+                    server, batches, out_dir, stats=stats)),
+                ("get_wer", lambda stats: wer.get_wer(server, batches,
+                                                      stats=stats))):
+            stats = {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            results[name] = fn(stats)
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+            print(f"int8 {name}: {times[name]:.2f} s (host clock, "
+                  f"synchronized), peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+                  f"transfers {stats} ({card_name})")
+            results[f"{name} stats"] = stats
+        probs = np.load(Path(out_dir) / "probs_segment.npy")
+        _check_eval_probs(probs, (n_preds, EVAL_SEGMENTS), "int8 run_eval")
+    launches = {k.__name__: k.launches for k in ops.KERNELS}
+    want = dict(normalize_clamp_peak=2 * EVAL_BATCHES, nt_matmul=0,
+                conv_stats=0)
+    print(f"int8 evaluation: kernel launches {launches}, want {want}")
+    if launches != want:
+        raise AssertionError(f"the int8 evaluation launched {launches}, "
+                             f"want {want}")
+    acc, metrics = results["run_eval"], results["get_wer"]
+    k = SCORE_K
+    pool_bytes = results["run_eval stats"]["pool_bytes"]
+    print(f"int8 against fp32 (phase 6): top-1/5/10 {acc} against "
+          f"{fp32['accuracy']}, WER {metrics} against {fp32['wer']}; the "
+          f"pool {pool_bytes / 1e9:.3f} GB in int8 against "
+          f"{2 * EVAL_SEGMENTS * k / 1e9:.3f} GB in bf16 and "
+          f"{4 * EVAL_SEGMENTS * k / 1e9:.3f} GB in fp32")
+    if pool_bytes != EVAL_SEGMENTS * k:
+        raise AssertionError(f"int8 pool bytes {pool_bytes}, want "
+                             f"{EVAL_SEGMENTS * k}")
+
+    # every prediction against the whole pool, through the evaluation's
+    # route at its chunk and blocks, against the plain computation
+    data = port_eval.load_test_data(server, batches)
+    scores = losses.pool_scores(server, server.clip, data["preds"],
+                                data["trues"], chunk=EVAL_CHUNK)
+    ref = int8_reference_scores(data["preds"], data["trues"], device)
+    whole_err = float(np.abs(scores - ref).max() / np.abs(ref).max())
+    scores -= scores.max(axis=1, keepdims=True)
+    np.exp(scores, out=scores)
+    scores /= scores.sum(axis=1, keepdims=True)
+    whole_probs_err = float(np.abs(probs - scores).max())
+    print(f"int8 {scores.shape[0]} x {scores.shape[1]} through pool_scores "
+          f"(chunks of {EVAL_CHUNK} rows, blocks of "
+          f"{losses.CANDIDATE_BLOCK} candidates) against the plain float64 "
+          f"products: scores {whole_err:.3e} of their largest (tol "
+          f"{INT8_SCORE_TOL}); run_eval's probabilities against their "
+          f"softmax max|diff| {whole_probs_err:.3e} (atol {PROBS_TOL})")
+    if scores.shape != (n_preds, EVAL_SEGMENTS) \
+            or not whole_err <= INT8_SCORE_TOL \
+            or not whole_probs_err <= PROBS_TOL:
+        raise AssertionError(f"int8 evaluation scores {scores.shape}: "
+                             f"{whole_err}, probs {whole_probs_err}")
+    del scores, ref, probs
+
+    # HELD_PREDS x HELD_CANDIDATES on the card against the CPU
+    preds = data["preds"][:HELD_PREDS]
+    trues = data["trues"][:HELD_CANDIDATES]
+    reference, _ = build_server("cpu")
+    reference.args.test.pool_int8 = True
+    (block,) = losses.candidate_blocks(trues, None, len(trues), int8=True)
+    held = []
+    for where in (device, torch.device("cpu")):
+        rows = torch.from_numpy(preds).to(where)
+        e_q, s_e = losses._int8_quantize_rows(rows.reshape(len(rows), -1))
+        c_q = block.to(where).reshape(len(block), -1)
+        held.append(dict(
+            rows=e_q.cpu(), scales=s_e.cpu(),
+            parts=[p.cpu() for p in losses.int8_partial_sums(e_q, c_q)],
+            scores=losses.retrieval_scores_int8((e_q, s_e), c_q).cpu(),
+            probs=port_eval.build_probs(server if where == device
+                                        else reference, preds, trues)))
+    got, ref = held
+    equal = {key: torch.equal(got[key], ref[key])
+             for key in ("rows", "scales")}
+    equal["parts"] = len(got["parts"]) == len(ref["parts"]) and all(
+        torch.equal(a, b) for a, b in zip(got["parts"], ref["parts"]))
+    score_err = ((got["scores"] - ref["scores"]).abs().max()
+                 / ref["scores"].abs().max()).item()
+    probs_err = float(np.abs(got["probs"] - ref["probs"]).max())
+    print(f"int8 {HELD_PREDS} x {HELD_CANDIDATES} against the CPU: bit-equal "
+          f"{equal} ({len(got['parts'])} K chunks), scores {score_err:.3e} "
+          f"of their largest (tol {INT8_SCORE_TOL}), build_probs max|diff| "
+          f"{probs_err:.3e} (atol {PROBS_TOL})")
+    if not all(equal.values()) or score_err > INT8_SCORE_TOL \
+            or probs_err > PROBS_TOL:
+        raise AssertionError(f"int8 card vs CPU: {equal}, scores "
+                             f"{score_err}, probs {probs_err}")
+    # the pool's preparation on the host: int8 quantization (numpy, as
+    # the JAX package's) against the bf16 cast
+    pool = data["trues"]
+    host_s = {}
+    for name, kw in (("int8", dict(int8=True)),
+                     ("bf16", dict(compute_dtype=torch.bfloat16))):
+        t0 = time.perf_counter()
+        losses.candidate_blocks(pool, **{"compute_dtype": None, **kw})
+        host_s[name] = time.perf_counter() - t0
+    print(f"the pool's host preparation, {len(pool)} candidates "
+          f"({pool.nbytes / 1e9:.3f} GB fp32): int8 quantization "
+          f"{host_s['int8']:.3f} s, bf16 cast {host_s['bf16']:.3f} s "
+          f"(host clock; {card_name}'s host)")
+    del server, reference, batches, data
+    torch.cuda.empty_cache()
+
+    # the evaluation's chunk: int8 against bf16 nt_matmul and cuBLAS
+    m, n, k = INT8_CHUNK
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    e_q = torch.randint(-127, 128, (m, k), generator=gen, device=device,
+                        dtype=torch.int8)
+    c_q = torch.randint(-127, 128, (n, k), generator=gen, device=device,
+                        dtype=torch.int8)
+    s_e = torch.rand(m, generator=gen, device=device)
+    inv = losses.block_inv_norms(c_q)
+    # laid out once a block or a chunk, as the evaluation prepares them
+    layout_ms = median_ms(lambda: losses.int8_rows(c_q))
+    e_rows, c_rows = losses.int8_rows(e_q), losses.int8_rows(c_q)
+    int8_ms = median_ms(lambda: losses.retrieval_scores_int8(
+        (e_rows, s_e), c_rows, inv))
+    parts_ms = median_ms(lambda: losses.int8_partial_sums(e_rows, c_rows))
+    del e_q, c_q, e_rows, c_rows
+    a = torch.randn((m, k), generator=gen, device=device).bfloat16()
+    b = torch.randn((n, k), generator=gen, device=device).bfloat16()
+    bf16_ms = median_ms(lambda: nt_matmul(a, b))
+    mm_ms = median_ms(lambda: torch.mm(a, b.T, out_dtype=torch.float32))
+    del a, b
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = bound((m + n) * k + 4 * m * n, 2 * m * n * k,
+                               INT8_OPS)
+    print(f"int8 scoring {m} x {n} x {k}: {int8_ms:.3f} ms "
+          f"(the int32 partial sums alone {parts_ms:.3f} ms; laying out "
+          f"one operand for them, once a block, {layout_ms:.3f} ms), bf16 "
+          f"nt_matmul {bf16_ms:.3f} ms, bf16 torch.mm(out_dtype=float32) "
+          f"{mm_ms:.3f} ms; int8 bound {bound_ms:.3f} ms ({bound_by}, "
+          f"{INT8_OPS / 1e12:.0f} TOP/s); {card_name}")
+    return launches
+
+
+def run_zoo_phase(device: torch.device, card_name: str, batch,
+                  eval_fp32: dict, train_warm: dict,
+                  recipe_warm: dict) -> tuple:
+    """Phase 18: each ZOO_RUNS option trained ZOO_STEPS steps in fp32 and
+    in the clip_conv_tpu recipe (``run_train`` with the option: finite,
+    falling losses, conv_stats once a fused encoder layer a step,
+    normalize once a forward, the fused head only in the recipe and never
+    under per-subject heads, the B=8 step against the CPU, the warm step
+    and peak memory, ``zoo_split``'s profile); the strided DeepMel
+    against the CPU; the int8 evaluation (``run_int8_eval``). Returns the
+    launch counts by path and the STFT layer's conv_stats shape for the
+    kernels' other_shapes."""
+    launches, warm = {}, {}
+    for option, options in ZOO_RUNS.items():
+        for preset in ("clip_conv", RECIPE):
+            path = f"zoo_{option}" + ("_recipe" if preset == RECIPE else "")
+            launches[path], _, warm[path] = run_train(
+                device, card_name, batch, preset, options, ZOO_STEPS,
+                inspect=lambda trainer, option=option: zoo_split(
+                    device, trainer, batch, option))
+    for path, entry in warm.items():
+        base = recipe_warm if path.endswith("_recipe") else train_warm
+        print(f"{path}: warm step {entry['step_ms']:.2f} ms against "
+              f"{base['step_ms']:.2f} without the option (phase "
+              f"{7 if path.endswith('_recipe') else 5}), peak "
+              f"{entry['peak_gb']:.2f} GB against {base['peak_gb']:.2f}, "
+              f"device time {entry['step_device_ms']:.2f} ms a step "
+              f"({card_name})")
+    check_strided_deepmel(device, card_name)
+    launches["zoo_int8_eval"] = run_int8_eval(device, card_name, eval_fp32)
+    shapes = {"zoo": dict(batch=TRAIN_B, n_test=TRAIN_B, n_mels=F,
+                          with_matmul=False, convs=(STFT_CONV,))}
+    return launches, shapes
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -5024,7 +5511,7 @@ def main() -> None:
                                                         batch)
     phase_s["4-5"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    eval_launches = run_eval_phase(device, card_name)
+    eval_launches, eval_fp32 = run_eval_phase(device, card_name)
     phase_s["6"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     recipe_serve, _, recipe_serve_warm = run_slice(device, card_name,
@@ -5076,6 +5563,10 @@ def main() -> None:
             device, card_name, work, cli_xps)
         phase_s["17"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    zoo_launches, zoo_shapes = run_zoo_phase(
+        device, card_name, batch, eval_fp32, train_warm, recipe_train_warm)
+    phase_s["18"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     with exact_fp32():
         cli_shapes = check_cli_shapes(device, **cli_shape)
         for k, (selection, shape) in enumerate(study_shapes.items()):
@@ -5086,7 +5577,8 @@ def main() -> None:
         for path, shape in {**deepmel_shapes, **words_shapes,
                             **encode_shapes, **grid_shapes,
                             **parallel_shapes, **wav2vec_shapes,
-                            **options_shapes, **export_shapes}.items():
+                            **options_shapes, **export_shapes,
+                            **zoo_shapes}.items():
             for name, shapes in check_cli_shapes(
                     device, **shape, prefix=f"{path}: ").items():
                 cli_shapes[name].update(shapes)
@@ -5121,7 +5613,8 @@ def main() -> None:
                                                **parallel_launches,
                                                **wav2vec_launches,
                                                **options_launches,
-                                               **export_launches}.items()})
+                                               **export_launches,
+                                               **zoo_launches}.items()})
         entry["other_shapes"].update(cli_shapes[entry["name"]])
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path

@@ -82,6 +82,14 @@ BRANCHES = [dict(in_channels={"meg": 20, "features": 6},
                  complex_out=False)]
 
 
+#: the per-subject merger heads (one leaf, of another shape) and a model
+#: without a MEG input (no MEG head)
+ZOO = [dict(merger_per_subject=True),
+       dict(in_channels={"features": 6}, hidden={"features": 8}),
+       dict(in_channels={"features": 6}, hidden={"features": 8},
+            subject_dim=4, complex_out=False, linear_out=True)]
+
+
 def _pair(fused=False, **overrides):
     kw = {"in_channels": {"meg": 20}, "out_channels": 8, "n_subjects": 2,
           **BASE, **overrides}
@@ -89,7 +97,8 @@ def _pair(fused=False, **overrides):
             SimpleConv(**kw, fused_conv_bn=fused))
 
 
-@pytest.mark.parametrize("overrides", OPTIONS + RECIPE + BRANCHES, ids=str)
+@pytest.mark.parametrize("overrides", OPTIONS + RECIPE + BRANCHES + ZOO,
+                         ids=str)
 def test_rules_equal_the_jax_packages(overrides):
     """Unfused, the port's own rules are the JAX package's rules for the
     same architecture (a bias-less BatchNorm'd conv's running mean read as

@@ -202,8 +202,10 @@ def test_conversion_refusals():
                     dict(conv_impl="dot")):
         with pytest.raises(NotImplementedError):
             jconvert.simpleconv_rules(JaxSimpleConv(**_kwargs(options)))
+        # the port builds a DualPathRNN and the spectrogram head, and its
+        # reference converter refuses them as the JAX package's does
         with pytest.raises(NotImplementedError):
-            SimpleConv(**_kwargs(options))
+            convert.reference_rules(SimpleConv(**_kwargs(options)))
     kw = _kwargs({})
     with pytest.raises(NotImplementedError):
         jconvert.simpleconv_rules(JaxSimpleConv(**kw, fused_conv_bn=True))

@@ -4,7 +4,7 @@ same batches and bridged weights, on the CPU: load_test_data, build_probs
 (fp32, bf16 compute dtype, trim windows and the transform paths, two
 candidate blocks with a ragged tail and ragged prediction chunks),
 accuracy_from_probs, run_eval's files, get_wer, the device-group plan
-and its prefetch order, EstimateCache and the int8-pool refusal; and the
+and its prefetch order, EstimateCache and int8 pools; and the
 same evaluation with the clip_conv_tpu recipe's server (bf16 compute and
 estimates, bf16 scores and wire) against the JAX package's recipe."""
 
@@ -425,21 +425,39 @@ def test_solver_forward_batch_crosses_in_fp32(solver, server, batches,
 
 
 def test_pool_int8_raises(solver, server, batches, tmp_path, monkeypatch):
+    """test.pool_int8: build_probs, get_wer and run_eval score the
+    server's int8 pool and run to the end, build_probs equal to the JAX
+    package's int8 probabilities on the same operands within PROBS_TOL; a
+    transform configuration scores in fp32, as the JAX package does. The
+    name is kept from when the port refused the option, so that the test
+    stays the same test across that change; it no longer checks a
+    refusal."""
     args = _with_test(solver, pool_int8=True)
     monkeypatch.setattr(server, "args", args)
-    data = np.zeros((2, 4, 40), np.float32)
-    with pytest.raises(NotImplementedError, match="pool_int8"):
-        port_eval.build_probs(server, data, data)
-    with pytest.raises(NotImplementedError, match="pool_int8"):
-        wer.get_wer(server, batches)
-    with pytest.raises(NotImplementedError, match="pool_int8"):
-        port_eval.run_eval(server, batches, tmp_path)
-    # a transform configuration scores in fp32, as the JAX package does
+    rng = np.random.RandomState(5)
+    preds = rng.randn(3, 4, 40).astype(np.float32)
+    trues = rng.randn(4, 4, 40).astype(np.float32)
+    probs = port_eval.build_probs(server, preds, trues)
+    clip_j, _ = _clips()
+    want = bm_eval.build_probs(
+        types.SimpleNamespace(args=args, clip_loss=clip_j,
+                              state={"params": {}}), preds, trues)
+    np.testing.assert_allclose(probs, want, rtol=0, atol=PROBS_TOL)
+    assert set(wer.get_wer(server, batches)) == {"wer", "wer_vocab",
+                                                 "wer_n_vocab"}
+    acc = port_eval.run_eval(server, batches, tmp_path, n_negatives=30,
+                             probs_batch_size=16)
+    assert all(0 <= value <= 1 for value in acc.values())
     _, pooled = _clips(pool=True)
+    data = np.zeros((2, 4, 40), np.float32)
     probs = port_eval.build_probs(
         types.SimpleNamespace(args=args, clip=pooled,
                               device=torch.device("cpu")), data, data)
     assert probs.shape == (2, 2)
+    fp32 = port_eval.build_probs(
+        types.SimpleNamespace(args=solver.args, clip=pooled,
+                              device=torch.device("cpu")), data, data)
+    np.testing.assert_array_equal(probs, fp32)
 
 
 # -- the clip_conv_tpu recipe ---------------------------------------------

@@ -350,9 +350,7 @@ def test_bridge_consumes_every_leaf():
     convert.load_jax_params(port, params, stats)
 
 
-@pytest.mark.parametrize("option", [
-    dict(dual_path=1), dict(n_fft=4), dict(conv_impl="dots"),
-    dict(merger_per_subject=True)], ids=str)
+@pytest.mark.parametrize("option", [dict(conv_impl="dots")], ids=str)
 def test_unsupported_options_raise(option):
     kw = {**TINY, **option}
     hidden = kw.pop("hidden")
