@@ -35,6 +35,15 @@ ConvSequence under flax's ``fm`` scope. ``clip_loss_rules`` walks a
 and ``linear_gt`` without ``twin``). The tests hold these rules to the
 JAX package's, and the ConvRNN's to the flax module's outputs.
 
+The same rules run the other way (``_transform`` inverts each layout
+transform exactly: they are all permutations and flips):
+``load_jax_optimizer_state`` maps optax's Adam moments onto
+``torch.optim.Adam``'s per-parameter state, ``export_jax_params`` and
+``export_jax_optimizer_state`` give the port's weights and Adam state as
+flax trees and optax tuples, and ``save_jax_checkpoint`` writes a
+solver's whole state as the JAX package's ``checkpoint.pkl`` (under the
+class names optax pickles, without optax), which either package resumes.
+
 ``wav2vec2_rules`` is the inverse of the JAX package's
 ``models.wav2vec2.convert_torch_weights`` (per-layer ``layers_{i}`` or
 nn.scan's stacked ``layers/layer`` with a leading [L] axis), and
@@ -62,6 +71,7 @@ from .models.convrnn import ConvRNN
 from .models.features import DeepMel
 from .models.simpleconv import SimpleConv
 from .models.wav2vec2 import Wav2Vec2Model
+from .utils import write_and_rename
 
 logger = logging.getLogger(__name__)
 
@@ -100,6 +110,22 @@ def _untransform(kind: str, value: np.ndarray) -> np.ndarray:
     if kind == "convT_w_as_conv":
         return np.transpose(value, (1, 2, 0))
     raise ValueError(f"cannot invert transform {kind}")
+
+
+def _transform(kind: str, value: np.ndarray) -> np.ndarray:
+    """A port weight in flax's layout: the inverse of ``_untransform``."""
+    if kind == "copy":
+        return np.ascontiguousarray(value)
+    if kind == "conv_w":
+        return np.ascontiguousarray(np.transpose(value, (2, 1, 0)))
+    if kind == "dense_w":
+        return np.ascontiguousarray(value.T)
+    if kind == "convT_w":
+        return np.ascontiguousarray(np.flip(np.transpose(value, (2, 0, 1)),
+                                            axis=0))
+    if kind == "convT_w_as_conv":
+        return np.ascontiguousarray(np.transpose(value, (2, 0, 1)))
+    raise ValueError(f"cannot transform {kind}")
 
 
 #: state-dict keys with no flax counterpart, which keep their values:
@@ -545,6 +571,254 @@ def load_jax_checkpoint(path: tp.Union[str, Path]) -> tp.Dict[str, tp.Any]:
             payload):
         raise ValueError(f"{path} holds no JAX package checkpoint")
     return payload
+
+
+# -- the JAX solver's whole state, both ways --------------------------------
+
+#: the key prefixes of the feature model's and the CLIP loss's weights in
+#: a solver's flat state (``Solver._copy_params``)
+FM_PREFIX = "fm."
+LOSS_PREFIX = "loss."
+#: the (module, name) under which the JAX package's checkpoint.pkl pickles
+#: ``optax.adam``'s state, read with ``pickletools`` from a checkpoint the
+#: JAX package wrote (optax 0.2): ``scale_by_adam``'s state, then
+#: ``scale_by_learning_rate``'s
+OPTAX_ADAM_STATE = ("optax._src.transform", "ScaleByAdamState")
+OPTAX_EMPTY_STATE = ("optax._src.base", "EmptyState")
+
+
+def _solver_parts(model: nn.Module, feature_model: tp.Optional[nn.Module],
+                  clip_loss: tp.Optional[nn.Module]
+                  ) -> tp.List[tp.Tuple[str, nn.Module, tp.List[tuple]]]:
+    """(flat-state prefix, module, rules) of a solver's model, feature
+    model and CLIP loss; every rule's flax path starts at the solver's
+    top-level scope (``model``, ``fm``, ``loss``)."""
+    parts = [("", model, model_rules(model))]
+    if feature_model is not None:
+        parts.append((FM_PREFIX, feature_model, deepmel_rules(feature_model)))
+    if clip_loss is not None:
+        parts.append((LOSS_PREFIX, clip_loss, clip_loss_rules(clip_loss)))
+    return parts
+
+
+def _skeleton(feature_model: tp.Optional[nn.Module]) -> tp.Tuple[dict, dict]:
+    """Empty ``params`` and ``batch_stats`` trees with the scopes the JAX
+    solver's init always makes: ``model`` and ``loss`` (empty without a
+    projection), ``fm`` with a feature model; ``batch_stats`` has no
+    ``loss``."""
+    scopes = ["model"] + (["fm"] if feature_model is not None else [])
+    return ({**{k: {} for k in scopes}, "loss": {}},
+            {k: {} for k in scopes})
+
+
+def _put(tree: dict, path: tp.Tuple[str, ...], value: np.ndarray) -> None:
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = value
+
+
+def _host_array(value: torch.Tensor) -> np.ndarray:
+    return value.detach().to("cpu", torch.float32).numpy()
+
+
+def load_jax_optimizer_state(optimizer: torch.optim.Optimizer,
+                             opt_state: tp.Sequence, model: nn.Module,
+                             feature_model: tp.Optional[nn.Module] = None,
+                             clip_loss: tp.Optional[nn.Module] = None
+                             ) -> None:
+    """Load the JAX solver's ``optax.adam`` state, ``(ScaleByAdamState(
+    count, mu, nu), <the learning rate's empty state>)`` as
+    ``load_jax_checkpoint`` reads it, into `optimizer` (a
+    ``torch.optim.Adam`` over ``train.trained_parameters`` of the same
+    modules): each parameter's ``exp_avg`` from ``mu`` and ``exp_avg_sq``
+    from ``nu``, through the rule that loads its weight (so by its
+    state-dict name, whatever the optimizer's order), and ``step`` from
+    ``count`` as a float32 tensor. Every leaf of ``mu`` and ``nu`` must be
+    consumed and every parameter of the optimizer given its moments."""
+    if len(opt_state) != 2 or len(opt_state[0]) != 3 or len(opt_state[1]):
+        raise ValueError(f"not optax.adam's state: {type(opt_state)} of "
+                         f"{len(opt_state)} parts")
+    count, mu, nu = opt_state[0]
+    trees = {"mu": mu, "nu": nu}
+    unused = {name: set(_leaf_paths(tree)) for name, tree in trees.items()}
+    moments: tp.Dict[int, tp.List[torch.Tensor]] = {}
+    for prefix, module, rules in _solver_parts(model, feature_model,
+                                               clip_loss):
+        named = dict(module.named_parameters())
+        for tkey, fpath, kind, coll in rules:
+            if coll != "params":
+                continue
+            if tkey not in named:
+                raise ValueError(f"flax trains {'/'.join(fpath)}, which "
+                                 f"maps onto {prefix}{tkey}, no parameter")
+            param = named[tkey]
+            pair = []
+            for name, tree in trees.items():
+                value = _untransform(kind, _get(tree, fpath))
+                if value.shape != tuple(param.shape):
+                    raise ValueError(f"{name} of {prefix}{tkey}: shape "
+                                     f"{value.shape}, the parameter's "
+                                     f"{tuple(param.shape)}")
+                unused[name].discard(fpath)
+                pair.append(torch.from_numpy(np.array(value, copy=True)))
+            moments[id(param)] = pair
+    leftovers = sorted("/".join((name,) + path)
+                       for name, paths in unused.items() for path in paths)
+    if leftovers:
+        raise ValueError(f"{len(leftovers)} Adam moments map onto no port "
+                         f"parameter: {leftovers[:8]}")
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    state: tp.Dict[int, dict] = {}
+    for group in optimizer.param_groups:
+        for param in group["params"]:
+            if id(param) not in moments:
+                raise ValueError(f"the optimizer's parameter of shape "
+                                 f"{tuple(param.shape)} has no moments in "
+                                 f"the JAX state")
+            exp_avg, exp_avg_sq = moments[id(param)]
+            state[len(state)] = dict(step=step.clone(), exp_avg=exp_avg,
+                                     exp_avg_sq=exp_avg_sq)
+    optimizer.load_state_dict(dict(
+        state=state, param_groups=optimizer.state_dict()["param_groups"]))
+
+
+def export_jax_params(model: nn.Module,
+                      feature_model: tp.Optional[nn.Module] = None,
+                      clip_loss: tp.Optional[nn.Module] = None,
+                      state: tp.Optional[tp.Mapping[str, torch.Tensor]] = None
+                      ) -> tp.Tuple[dict, dict]:
+    """The modules' weights as the JAX solver's ``params`` and
+    ``batch_stats`` trees (nested dicts of float32 numpy arrays in flax's
+    layouts): the inverse of ``load_jax_params``. `state` is a flat state
+    in ``Solver._copy_params``' layout (the feature model's and the CLIP
+    loss's keys after ``FM_PREFIX`` and ``LOSS_PREFIX``) to export instead
+    of the modules' current one. A weight or buffer no rule maps (but
+    BatchNorm's step counters) has no flax leaf, so it raises
+    NotImplementedError."""
+    params, batch_stats = _skeleton(feature_model)
+    trees = {"params": params, "batch_stats": batch_stats}
+    for prefix, module, rules in _solver_parts(model, feature_model,
+                                               clip_loss):
+        own = module.state_dict()
+        covered = {rule[0] for rule in rules}
+        missing = sorted(k for k in own if k not in covered
+                         and not k.endswith(_NO_FLAX_COUNTERPART))
+        if missing:
+            raise NotImplementedError(
+                f"{type(module).__name__} weights with no flax leaf, which "
+                f"the export cannot invert: {missing[:8]}")
+        for tkey, fpath, kind, coll in rules:
+            value = own[tkey] if state is None else state[prefix + tkey]
+            _put(trees[coll], fpath, _transform(kind, _host_array(value)))
+    return params, batch_stats
+
+
+class _OptaxState(tuple):
+    """An optax state NamedTuple, pickled under the optax class name
+    ``optax_name`` (``_CheckpointPickler``) with its fields as ``__new__``'s
+    arguments, as a NamedTuple pickles."""
+
+    __slots__ = ()
+    optax_name: tp.ClassVar[tp.Tuple[str, str]]
+
+    def __new__(cls, *fields: tp.Any) -> "_OptaxState":
+        return super().__new__(cls, fields)
+
+    def __getnewargs__(self) -> tuple:
+        return tuple(self)
+
+
+class _ScaleByAdamState(_OptaxState):
+    optax_name = OPTAX_ADAM_STATE
+
+
+class _EmptyState(_OptaxState):
+    optax_name = OPTAX_EMPTY_STATE
+
+
+def export_jax_optimizer_state(optimizer: torch.optim.Optimizer,
+                               model: nn.Module,
+                               feature_model: tp.Optional[nn.Module] = None,
+                               clip_loss: tp.Optional[nn.Module] = None
+                               ) -> tp.Tuple[tuple, int]:
+    """`optimizer`'s Adam state as ``optax.adam``'s, ``(ScaleByAdamState(
+    count, mu, nu), EmptyState())`` (``mu`` and ``nu`` trees shaped like
+    ``export_jax_params``' ``params``; zeros for a parameter that has not
+    stepped), and its step count. optax keeps one count: parameters at
+    different steps raise."""
+    steps = {float(st["step"]) for st in optimizer.state.values()
+             if "step" in st}
+    if len(steps) > 1:
+        raise ValueError(f"the parameters are at steps {sorted(steps)}: "
+                         f"optax keeps one count")
+    count = int(steps.pop()) if steps else 0
+    per_param = {id(p): st for p, st in optimizer.state.items()}
+    mu, _ = _skeleton(feature_model)
+    nu, _ = _skeleton(feature_model)
+    for _, module, rules in _solver_parts(model, feature_model, clip_loss):
+        named = dict(module.named_parameters())
+        for tkey, fpath, kind, coll in rules:
+            if coll != "params":
+                continue
+            st = per_param.get(id(named[tkey]), {})
+            for tree, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+                value = (_host_array(st[key]) if key in st else
+                         np.zeros(named[tkey].shape, dtype=np.float32))
+                _put(tree, fpath, _transform(kind, value))
+    counter = np.asarray(count, dtype=np.int32)
+    return (_ScaleByAdamState(counter, mu, nu), _EmptyState()), count
+
+
+class _CheckpointPickler(pickle._Pickler):
+    """The standard pickler, but for ``_OptaxState`` classes, which it
+    writes under their optax names (optax need not be importable)."""
+
+    def save_global(self, obj: tp.Any, name: tp.Optional[str] = None
+                    ) -> None:
+        if not (isinstance(obj, type) and issubclass(obj, _OptaxState)):
+            super().save_global(obj, name)
+            return
+        module, qualname = obj.optax_name
+        self.save(module)
+        self.save(qualname)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+def save_jax_checkpoint(solver: tp.Any,
+                        path: tp.Optional[tp.Union[str, Path]] = None
+                        ) -> Path:
+    """Write `solver`'s whole state as the JAX package's ``checkpoint.pkl``
+    (into its XP folder when `path` is None), the payload the JAX
+    solver's ``commit`` writes: ``state`` (``step``, ``params``,
+    ``batch_stats`` and ``opt_state``, () without an optimizer), the best
+    state as flax trees, the history, the epoch counters, the negative
+    pools and the config delta. Pickled with protocol 4, optax's states
+    under optax's class names: the JAX package resumes it with ``pickle``
+    and the port with ``load_jax_checkpoint``. Returns the path."""
+    parts = (solver.model, solver.feature_model, solver.clip_loss)
+    params, batch_stats = export_jax_params(*parts)
+    opt_state, count = (), 0
+    if solver.optimizer is not None:
+        opt_state, count = export_jax_optimizer_state(solver.optimizer,
+                                                      *parts)
+    best = None
+    if solver.best_state is not None:
+        best = dict(zip(("params", "batch_stats"), export_jax_params(
+            *parts, state=solver.best_state)))
+    payload = dict(
+        state=dict(step=np.asarray(count, dtype=np.int32), params=params,
+                   batch_stats=batch_stats, opt_state=opt_state),
+        best_state=best, history=list(solver.history),
+        epoch=solver.epoch + 1, best_loss=solver.best_loss,
+        best_epoch=solver.best_epoch,
+        last_test_epoch=solver.last_test_epoch,
+        negative_pool=dict(solver.negative_pool),
+        delta=solver.args.delta())
+    path = Path(path) if path is not None else solver.folder / JAX_CHECKPOINT
+    with write_and_rename(path) as f:
+        _CheckpointPickler(f, protocol=4).dump(payload)
+    return path
 
 
 # -- reference ``bm`` checkpoints -------------------------------------------

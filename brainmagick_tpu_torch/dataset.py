@@ -9,8 +9,11 @@ the selections, subject and recording indices, deterministic block
 splits, the n_subjects caps). Epochs are slices of each recording's
 preprocessed memmap; the features are painted once per recording into a
 [D + 1, T] track (the last row the event mask), cached as a memmap, and
-sliced per epoch. ``get_batch`` assembles a whole batch with a numpy port
-of the JAX package's fallback gather (``native/gather.py``).
+sliced per epoch. ``get_batch`` assembles a whole batch with the native
+gather (``native/gather.cpp``, one pass over the recording and one over
+the track), in float32 or straight in bfloat16 (a CPU tensor: numpy has no
+bfloat16); ``gather_epochs`` and ``gather_track`` here are its plain
+versions.
 
 ``to_device`` copies a batch's arrays to a device.
 """
@@ -29,7 +32,7 @@ from concurrent import futures
 import numpy as np
 import torch
 
-from . import studies
+from . import native, studies
 from .cache import Cache
 from .events import DataSlice, EventTable, assign_blocks, split_wav_as_block
 from .features import FeaturesBuilder
@@ -261,15 +264,19 @@ class SegmentDataset:
             _recordings=[self.recording.empty_copy()],
             _event_lists=[event_list])
 
-    def get_batch(self, indices: np.ndarray,
-                  with_events: bool = False) -> SegmentBatch:
-        """The windows `indices` as one fp32 batch, gathered from the
-        recording and the track in one pass each."""
+    def get_batch(self, indices: np.ndarray, with_events: bool = False,
+                  dtype: tp.Optional[str] = None) -> SegmentBatch:
+        """The windows `indices` as one batch, gathered from the recording
+        and the track by the native gather in one pass each: meg and
+        features in float32 (numpy), or with `dtype` 'bfloat16'
+        (``parallel.assemble_dtype``) as bfloat16 CPU tensors."""
         indices = np.asarray(indices, dtype=np.int64)
         n = len(indices)
         starts = self.event_samples[indices] + self._start_offset
         if self._meg_override is not None:
             meg = np.asarray(self._meg_override[indices], dtype=np.float32)
+            if dtype not in (None, "float32"):
+                meg = torch.from_numpy(meg).to(torch_dtype(dtype))
         else:
             baseline_len = 0
             if self.baseline is not None:
@@ -278,9 +285,10 @@ class SegmentDataset:
                     raise NotImplementedError(
                         "get_batch supports a (None, t1) baseline only")
                 baseline_len = self.sample_rate.to_ind(bl1 - self.tmin) + 1
-            meg = gather_epochs(self.raw.data, starts, self._n_times,
-                                self.meg_dimension or self.raw.n_channels,
-                                baseline_len)
+            meg = native.gather_epochs(
+                self.raw.data, starts, self._n_times,
+                self.meg_dimension or self.raw.n_channels, baseline_len,
+                dtype=dtype)
 
         track, track_sr = self._get_track()
         if float(track_sr) == float(self.sample_rate):
@@ -292,8 +300,9 @@ class SegmentDataset:
                 for i in indices], dtype=np.int64)
             n_track = track_sr.to_ind(self._n_times / float(self.sample_rate))
         t_starts = np.clip(t_starts, 0, track.shape[-1] - n_track)
-        features = gather_track(track[:-1], t_starts, n_track)
-        mask = gather_track(track[-1:], t_starts, n_track) > 0.5
+        features = native.gather_track(track[:-1], t_starts, n_track,
+                                       dtype=dtype)
+        mask = native.gather_track(track[-1:], t_starts, n_track) > 0.5
 
         event_lists = [self._event_list(int(i), track_sr) for i in indices] \
             if with_events else []
@@ -321,20 +330,26 @@ def gather_epochs(raw: np.ndarray, starts: np.ndarray, n_times: int,
                   out_channels: int, baseline_len: int = 0) -> np.ndarray:
     """[C, T_total] raw and [B] start samples -> [B, out_channels, n_times]
     fp32, each epoch less its mean over the first `baseline_len` samples,
-    the channels past C zero (the JAX package's numpy gather)."""
+    the channels past C zero: the plain version of the native gather
+    (``native.gather_epochs``), bit for bit. The mean is the native one:
+    summed in float64 in sample order (``np.cumsum`` adds in order),
+    divided in float64 and rounded once to float32."""
     _check_bounds(starts, n_times, raw.shape[1], "epoch")
     out = np.zeros((len(starts), out_channels, n_times), dtype=np.float32)
     for b, s in enumerate(starts):
         epoch = np.array(raw[:, s:s + n_times], dtype=np.float32)
         if baseline_len > 0:
-            epoch -= epoch[:, :baseline_len].mean(axis=1, keepdims=True)
+            total = np.cumsum(epoch[:, :baseline_len], axis=1,
+                              dtype=np.float64)[:, -1:]
+            epoch -= (total / baseline_len).astype(np.float32)
         out[b, :raw.shape[0]] = epoch
     return out
 
 
 def gather_track(track: np.ndarray, starts: np.ndarray,
                  n_times: int) -> np.ndarray:
-    """[D, T_total] track and [B] starts -> [B, D, n_times] fp32."""
+    """[D, T_total] track and [B] starts -> [B, D, n_times] fp32: the plain
+    version of ``native.gather_track``."""
     _check_bounds(starts, n_times, track.shape[1], "track")
     return np.stack([np.array(track[:, s:s + n_times], dtype=np.float32)
                      for s in starts])
@@ -507,10 +522,11 @@ class ConcatDataset:
                                 side="right")) - 1
         return self.datasets[d][index - int(self.cumulative_sizes[d])]
 
-    def get_batch(self, indices: np.ndarray,
-                  with_events: bool = False) -> SegmentBatch:
-        """The rows `indices`: each sub-dataset gathers its own, scattered
-        into the batch's arrays in the order asked."""
+    def get_batch(self, indices: np.ndarray, with_events: bool = False,
+                  dtype: tp.Optional[str] = None) -> SegmentBatch:
+        """The rows `indices`: each sub-dataset gathers its own (in
+        `dtype`), scattered into the batch's arrays, or tensors for a
+        bfloat16 batch, in the order asked."""
         indices = np.asarray(indices, dtype=np.int64)
         which = np.searchsorted(self.cumulative_sizes, indices,
                                 side="right") - 1
@@ -519,17 +535,23 @@ class ConcatDataset:
             sel = np.flatnonzero(which == d)
             local = indices[sel] - int(self.cumulative_sizes[d])
             parts.append((sel, self.datasets[int(d)].get_batch(
-                local, with_events=with_events)))
+                local, with_events=with_events, dtype=dtype)))
         if len(parts) == 1:
             return parts[0][1]
         kw: tp.Dict[str, tp.Any] = {}
         for field in dataclasses.fields(SegmentBatch):
             first = getattr(parts[0][1], field.name)
             if field.name in ARRAY_FIELDS:
-                out = np.empty((len(indices),) + first.shape[1:],
-                               dtype=first.dtype)
-                for sel, batch in parts:
-                    out[sel] = getattr(batch, field.name)
+                shape = (len(indices),) + tuple(first.shape[1:])
+                if isinstance(first, torch.Tensor):
+                    out = torch.empty(shape, dtype=first.dtype)
+                    for sel, batch in parts:
+                        out[torch.from_numpy(sel)] = getattr(batch,
+                                                             field.name)
+                else:
+                    out = np.empty(shape, dtype=first.dtype)
+                    for sel, batch in parts:
+                        out[sel] = getattr(batch, field.name)
                 kw[field.name] = out
             elif any(getattr(b, field.name) for _, b in parts):
                 items: tp.List[tp.Any] = [None] * len(indices)

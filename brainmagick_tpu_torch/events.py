@@ -18,8 +18,8 @@ the same result, row order included:
     same sha256-seeded draw per block uid) and ``split_wav_as_block``
     (sound events cut at block boundaries, so that audio features cannot
     leak across splits);
-  * ``query`` takes the conditions the datasets use: ``kind=='word'`` and
-    ``field==value``.
+  * ``query`` takes the conditions the datasets use: ``kind=='word'``,
+    ``field==value``, and a conjunction of such terms joined by ``&``.
 """
 
 from __future__ import annotations
@@ -224,6 +224,13 @@ def _column(values: tp.Sequence[tp.Any]) -> np.ndarray:
     return out
 
 
+#: one ``field==value`` term of a query, up to its ``&`` or the end (a
+#: quoted value may hold ``&``)
+_QUERY_TERM = re.compile(
+    r"""\s*(?P<name>\w+)\s*==\s*(?P<value>'[^']*'|"[^"]*"|[^&'"]*?)"""
+    r"""\s*(?=&|$)""")
+
+
 class EventTable:
     """Events as numpy columns of equal length, in insertion order."""
 
@@ -310,23 +317,33 @@ class EventTable:
         return self[np.concatenate([order, index[nan]])]
 
     def query(self, condition: str) -> "EventTable":
-        """The rows where ``field==value`` holds (the one condition form
-        the datasets use, e.g. ``kind=='word'``); anything else raises."""
-        match = re.fullmatch(r"\s*(\w+)\s*==\s*(.+?)\s*", condition)
-        if match is None:
-            raise NotImplementedError(
-                f"query {condition!r}: only 'field==value' is supported")
-        name, raw = match.groups()
-        try:
-            value = ast.literal_eval(raw)
-        except (ValueError, SyntaxError) as error:
-            raise NotImplementedError(
-                f"query {condition!r}: the value must be a literal"
-            ) from error
-        if name not in self._columns:
-            raise KeyError(f"query {condition!r}: no column {name!r}")
-        col = self._columns[name]
-        return self[np.array([v == value for v in col.tolist()], dtype=bool)]
+        """The rows where every ``field==value`` term of `condition` holds:
+        one term (``kind=='word'``) or a conjunction of them joined by
+        ``&`` (``kind=='word' & word_index==0``, where pandas' ``&`` binds
+        looser than ``==``); anything else raises."""
+        keep = np.ones(self._length, dtype=bool)
+        pos = 0
+        while True:
+            match = _QUERY_TERM.match(condition, pos)
+            if match is None:
+                raise NotImplementedError(
+                    f"query {condition!r}: only 'field==value' terms joined "
+                    f"by '&' are supported")
+            name, raw = match.group("name", "value")
+            try:
+                value = ast.literal_eval(raw)
+            except (ValueError, SyntaxError) as error:
+                raise NotImplementedError(
+                    f"query {condition!r}: the value must be a literal"
+                ) from error
+            if name not in self._columns:
+                raise KeyError(f"query {condition!r}: no column {name!r}")
+            keep &= np.array([v == value for v in
+                              self._columns[name].tolist()], dtype=bool)
+            pos = match.end()
+            if pos == len(condition):
+                return self[keep]
+            pos += 1                                # past the '&'
 
     # -- typed events ---------------------------------------------------------
 

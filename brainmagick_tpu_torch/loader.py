@@ -8,7 +8,9 @@ partial batch filled with copies of its last row, weighted 0 in
 Without a device the loader yields host batches of numpy arrays, as the
 JAX package's does. With one it yields the batch's ``ARRAY_FIELDS`` and
 ``pad_weight`` as tensors on that device, meg and features in
-`assemble_dtype` (``parallel.assemble_dtype``): for a CUDA device each
+`assemble_dtype` (``parallel.assemble_dtype``), which the dataset's
+``get_batch`` assembles them in (the native gather writes bfloat16
+directly), so that nothing is cast on the way: for a CUDA device each
 batch is copied into one of two page-locked buffer sets and sent with
 non-blocking copies, and a set is written again only after the CUDA event
 recorded behind its copies has completed.
@@ -115,8 +117,8 @@ class Loader:
             chunk = np.concatenate([chunk, chunk[-1:].repeat(pad)])
         if self.rows is not None:
             chunk, pad_weight = chunk[self.rows], pad_weight[self.rows]
-        return self.dataset.get_batch(chunk, with_events=self.with_events), \
-            pad_weight
+        return self.dataset.get_batch(chunk, with_events=self.with_events,
+                                      dtype=self.assemble_dtype), pad_weight
 
     def _host_batches(self) -> tp.Iterator[tp.Tuple[tp.Any, np.ndarray]]:
         """(host batch, pad_weight), built by `num_workers` threads at most

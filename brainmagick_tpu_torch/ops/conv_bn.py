@@ -28,7 +28,11 @@ rearranged once per call. On a CPU tensor it runs the plain version,
 VJP (``_conv_stats_bwd``), which is plain XLA there and plain torch here:
 fold the cotangents of s and ss into dY = dy + ds + 2 y dss in fp32, cast
 to x.dtype, then dx is the transposed conv of dY and dw the weight
-gradient (cuDNN on the card).
+gradient (cuDNN on the card). dx runs as the SAME conv of dY with w's
+channels swapped and its taps reversed: a forward convolution, which
+cuDNN runs without atomics, where its backward-data algorithm at a
+dilated layer sums with atomics (the bits change from run to run), and
+held to deterministic algorithms is 15x slower.
 """
 
 from __future__ import annotations
@@ -229,8 +233,8 @@ class _ConvStats(torch.autograd.Function):
         pad = (w.shape[2] // 2) * d
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = torch.nn.grad.conv1d_input(x.shape, w, dY, padding=pad,
-                                            dilation=d)
+            dx = F.conv1d(dY, w.transpose(0, 1).flip(2), padding=pad,
+                          dilation=d)
         if ctx.needs_input_grad[1]:
             dw = torch.nn.grad.conv1d_weight(x, w.shape, dY, padding=pad,
                                              dilation=d)

@@ -8,6 +8,13 @@ its own kernels run fp32 products as 3xTF32, so the entry points
 (``Server.forward_batch``, ``Server.probabilities``, ``Solver.step``) run
 inside ``exact_fp32``.
 
+The backward of a training step (``Solver.loss_and_grad``) runs inside
+``deterministic_cudnn``: cuDNN's default choice of algorithm for the
+encoder's convolution gradients sums with atomics, so two runs of the
+same step on the same card differ in their last bits (the JAX package's
+step on a TPU gives the same bits each time), and over a few steps a
+ranking metric such as the test WER can flip.
+
 A compute dtype (``simpleconv.dtype``, ``clip.compute_dtype``) is named
 by a string, as in the JAX package's config (``torch_dtype``). Where the
 JAX package contracts operands of that dtype with an fp32 accumulator and
@@ -66,3 +73,18 @@ def exact_fp32() -> tp.Iterator[None]:
         yield
     finally:
         matmul.allow_tf32, cudnn.allow_tf32 = previous
+
+
+@contextlib.contextmanager
+def deterministic_cudnn() -> tp.Iterator[None]:
+    """Let cuDNN choose only deterministic algorithms
+    (``torch.backends.cudnn.deterministic``), and restore the flag on exit
+    (also when the body raises). Usable as a decorator; process-wide, as
+    ``exact_fp32``'s flags are."""
+    cudnn = torch.backends.cudnn
+    previous = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        cudnn.deterministic = previous

@@ -38,7 +38,9 @@ import torch
 from torch.profiler import record_function
 
 from .cache import Cache, tagged
-from .convert import JAX_CHECKPOINT, load_jax_checkpoint, load_jax_params
+from .convert import (FM_PREFIX, JAX_CHECKPOINT, LOSS_PREFIX,
+                      load_jax_checkpoint, load_jax_optimizer_state,
+                      load_jax_params)
 from .dataset import ARRAY_FIELDS, to_device
 from .loader import Loader
 from .logging_utils import MetricSinks
@@ -50,7 +52,7 @@ from .ops.dsp import DSP_VERSION, lowpass_filter
 from .ops.norm import INPUT_TYPES, normalize_clamp_peak
 from .parallel import (DataGroup, all_gather, gather_rows, rank_seed,
                        replicate, ring_hop)
-from .precision import exact_fp32
+from .precision import deterministic_cudnn, exact_fp32
 from .studies.api import INVALID_POSITION
 from .svd import svd_penalty
 from .utils import write_and_rename
@@ -66,11 +68,6 @@ class _AlwaysApply:
 
 
 _ALWAYS = _AlwaysApply()
-
-#: the feature model's and the loss's keys in a best state
-#: (``Solver._copy_params``)
-FM_PREFIX = "fm."
-LOSS_PREFIX = "loss."
 
 
 def _on(value: tp.Any, device: torch.device) -> torch.Tensor:
@@ -509,6 +506,7 @@ class Solver:
                 "count": count_sum}
 
     @exact_fp32()
+    @deterministic_cudnn()
     def loss_and_grad(self, arrays: tp.Mapping[str, torch.Tensor],
                       pad_weight: torch.Tensor, train: bool = True,
                       negatives: tp.Optional[torch.Tensor] = None,
@@ -522,7 +520,9 @@ class Solver:
         to their mean over the ranks). Returns device scalars {"loss",
         "keep", "count"}, the loss averaged and keep and count summed over
         the ranks, and with `return_output` this rank's targets under
-        "output"."""
+        "output". cuDNN runs deterministic algorithms only
+        (``precision.deterministic_cudnn``), so the same step on the same
+        card gives the same bits."""
         for module in self._trained_modules():
             module.zero_grad(set_to_none=True)
         loss, keep, output = self._loss_and_aux(
@@ -737,6 +737,32 @@ class Solver:
             out = [self.group.all_gather(t) for t in out]
         estimate, output, mask, keep = out
         return estimate, output, mask, keep > 0.5
+
+    def predict(self, meg: tp.Optional[np.ndarray] = None,
+                features: tp.Optional[np.ndarray] = None,
+                subject_index: int = 0, recording_index: int = 0
+                ) -> np.ndarray:
+        """The estimate [F, T'] of one item through ``forward_batch`` (eval
+        mode), as numpy: `features` [D, T], `meg` [C, T] (zeros of the
+        train split's sensor count when None), the positions of the train
+        split's first recording and a mask of ones; the batch's
+        `subject_index` and `recording_index` as given (under the fused
+        head the batch's subject overrides its recording's)."""
+        if features is None:
+            raise ValueError("predict needs the features")
+        n_chan = self.datasets.train[0].meg.shape[0]
+        if meg is None:
+            meg = np.zeros((n_chan, features.shape[1]), dtype=np.float32)
+        positions = self.datasets.train.datasets[0]._get_positions()
+        batch = types.SimpleNamespace(
+            meg=np.asarray(meg, dtype=np.float32)[None],
+            features=np.asarray(features, dtype=np.float32)[None],
+            features_mask=np.ones((1, 1, features.shape[-1]), dtype=bool),
+            subject_index=np.asarray([subject_index], dtype=np.int32),
+            recording_index=np.asarray([recording_index], dtype=np.int32),
+            positions=positions[None])
+        estimate = self.forward_batch(batch)[0]
+        return estimate[0].float().cpu().numpy()
 
     def _run_one_epoch(self, training: bool) -> tp.Dict[str, float]:
         """One pass of the train or valid loader (at most
@@ -1040,26 +1066,34 @@ class Solver:
                               weights_only=True)
 
     def restore(self) -> bool:
-        """Resume from this XP's checkpoint. Without one, a solver without
-        an optimizer (evaluation, serving) reads the JAX package's
+        """Resume from this XP's checkpoint. Without one, the JAX package's
         ``checkpoint.pkl`` in the same folder when there is one
-        (``_restore_jax``); a training run there starts its own. Without
-        either, and with ``continue_sig``: ``continue_best`` loads that
-        XP's best weights, as the JAX package does; otherwise the port
-        resumes that XP's whole training state (weights, optimizer,
-        history, counters), so that a run with more ``optim.epochs``
-        continues where the other stopped. Returns whether this XP's
-        checkpoint was found."""
+        (``_restore_jax``): a training run resumes its whole state, Adam's
+        moments included, and a solver without an optimizer (evaluation,
+        serving) takes its best weights. Without either, and with
+        ``continue_sig``: from that XP's port checkpoint,
+        ``continue_best`` loads its best weights, as the JAX package does,
+        and otherwise the port resumes its whole training state (weights,
+        optimizer, history, counters), so that a run with more
+        ``optim.epochs`` continues where the other stopped; from a JAX
+        XP's ``checkpoint.pkl`` only, what the JAX package loads: its best
+        weights with ``continue_best``, else its current weights and
+        batch statistics, and the optimizer starts afresh. Returns
+        whether this XP's checkpoint was found."""
         path = self.checkpoint_path
         own = path.exists()
         jax_path = self.folder / JAX_CHECKPOINT
-        if not own and self.optimizer is None and jax_path.exists():
+        if not own and jax_path.exists():
             self._restore_jax(jax_path)
             return True
         if not own:
             if not self.args.continue_sig:
                 return False
-            path = self.folder.parent / self.args.continue_sig / path.name
+            folder = self.folder.parent / self.args.continue_sig
+            path = folder / path.name
+            if not path.exists() and (folder / JAX_CHECKPOINT).exists():
+                self._continue_jax(folder / JAX_CHECKPOINT)
+                return False
             if not path.exists():
                 raise FileNotFoundError(f"Could not find checkpoint {path}")
         payload = self._load_checkpoint(path)
@@ -1085,19 +1119,36 @@ class Solver:
         logger.info("Restored checkpoint %s at epoch %d", path, self.epoch)
         return own
 
+    def _load_jax_state(self, state: tp.Mapping[str, tp.Any]) -> None:
+        """A JAX solver's ``{"params", "batch_stats"}`` trees into the
+        model, the feature model and the CLIP loss's projection."""
+        load_jax_params(self.model, state["params"], state["batch_stats"],
+                        self.feature_model, self.clip_loss)
+
     def _restore_jax(self, path: tp.Any) -> None:
         """Load the JAX package's ``checkpoint.pkl`` (``convert
-        .load_jax_checkpoint``, without jax): its best state (its current
-        one when it has none) into the model, the feature model and the
-        CLIP loss's projection (``convert.load_jax_params``), as the
-        current and the best state, and its history, epoch counters and
-        negative pools. For evaluation and serving only: carrying optax's
-        Adam moments into ``torch.optim.Adam`` is not ported."""
+        .load_jax_checkpoint``, without jax), with its history, epoch
+        counters and negative pools. With an optimizer, its current state
+        (``convert.load_jax_params``) and optax's Adam moments
+        (``convert.load_jax_optimizer_state``), its best state as the best
+        state: training resumes where the JAX run stopped. Without one, its
+        best state (its current one when it has none) as the current and
+        the best state."""
         payload = load_jax_checkpoint(path)
-        source = payload["best_state"] or payload["state"]
-        load_jax_params(self.model, source["params"], source["batch_stats"],
-                        self.feature_model, self.clip_loss)
-        self.best_state = self._copy_params()
+        best = payload["best_state"]
+        if self.optimizer is None:
+            self._load_jax_state(best or payload["state"])
+            self.best_state = self._copy_params()
+        else:
+            self.best_state = None
+            if best:
+                self._load_jax_state(best)
+                self.best_state = self._copy_params()
+            state = payload["state"]
+            self._load_jax_state(state)
+            load_jax_optimizer_state(self.optimizer, state["opt_state"],
+                                     self.model, self.feature_model,
+                                     self.clip_loss)
         self.history = payload["history"]
         self.epoch = payload["epoch"]
         self.best_loss = payload["best_loss"]
@@ -1105,8 +1156,21 @@ class Solver:
         self.last_test_epoch = payload["last_test_epoch"]
         self.negative_pool = payload.get("negative_pool",
                                          {"train": None, "valid": None})
-        logger.info("Restored the JAX package's checkpoint %s at epoch %d",
-                    path, self.epoch)
+        logger.info("Restored the JAX package's checkpoint %s at epoch %d%s",
+                    path, self.epoch,
+                    "" if self.optimizer is None else " with its Adam state")
+
+    def _continue_jax(self, path: tp.Any) -> None:
+        """``continue_sig`` onto a JAX XP: its best state with
+        ``continue_best``, else its current weights and batch statistics;
+        nothing else (the optimizer starts afresh)."""
+        payload = load_jax_checkpoint(path)
+        source = payload["best_state" if self.args.continue_best
+                         else "state"]
+        if not source:
+            raise ValueError(f"{path} holds no best state; pass "
+                             f"continue_best=False")
+        self._load_jax_state(source)
 
 
 def _norm_arrays(scaler: BatchScaler, datasets: tp.Any,

@@ -4,8 +4,9 @@ Table 2's DeepMel cell, feature decoding, the encode task and ConvRNN,
 the paper's grid chain (grid runner, grid evaluation, paper table),
 data-parallel training, the wav2vec 2.0 targets (random=True) with
 the planted-map rehearsal, the train step's remaining options, the
-serving export with the checkpoint readers, and the rest of the model
-zoo with int8 evaluation pools.
+serving export with the checkpoint readers, the rest of the model
+zoo with int8 evaluation pools, resuming training from the JAX package's
+checkpoint.pkl, the notebook helpers and the native batch gather.
 
 Run from the repository root, with no arguments:
 
@@ -256,6 +257,27 @@ check raises, so the script exits non-zero and prints no result:
    partial sums bit-equal; the evaluation's 2048 x 2048 x 351,232 chunk
    in int8 timed beside the bf16 nt_matmul and cuBLAS, with its bound);
    conv_stats at the spectrogram layer's shape, added to its
+   other_shapes;
+19. resuming, the notebook helpers and the native gather on phase 9's
+   gwilliams2022 tree (``run_resume_phase``): (a) the clip_conv preset
+   with fused_conv_bn at the paper's width, B=256, trained RESUME_STEPS
+   Adam steps and written as the JAX package's checkpoint.pkl
+   (``convert.save_jax_checkpoint``), resumed by a fresh solver (its
+   weights, statistics and Adam state bit-equal to the written ones) and
+   trained RESUME_STEPS more, held to an uninterrupted run at STEP_TOL
+   (each loss, and the whole state in norm), conv_stats 10 times a
+   resumed step (resume_train), then its test stage (resume_test,
+   nt_matmul); (b) on phase 11's XP by signature,
+   ``play.SentenceFeatures`` of a typed sentence, ``Solver.predict`` of
+   a test window's MEG and features against the CPU at REFERENCE_TOL
+   (predict: normalize once a call) and ``play.attention_map``; on
+   phase 12's encode_simpleconv XP, whose estimate reads the features,
+   ``play.predict`` of the sentence without and with ``meg_init``
+   (play_predict: normalize once a ``Solver.predict``), each not 0;
+   (c) the native gather at [256, 208, 361] from
+   the recording's memmap, bit for bit against its plain version in fp32
+   and bf16, timed beside it, and the train loader's epoch with either;
+   normalize and nt_matmul at these runs' shapes, added to their
    other_shapes.
 
 The line before the last is the kernels' JSON summary; the last line is
@@ -1759,7 +1781,8 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
                      prefix: str = "",
                      n_cand: tp.Optional[int] = None,
                      with_matmul: bool = True,
-                     convs: tp.Optional[tuple] = None) -> dict:
+                     convs: tp.Optional[tuple] = None,
+                     n_times: int = T) -> dict:
     """Each kernel against its plain version at the shapes phase 8's CLI
     run gave it, in fp32 (clip_conv) and bf16 (clip_conv_tpu), timed
     beside its plain version, its library call and its bound: normalize
@@ -1769,9 +1792,9 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
     `n_test - 1` outputs (`n_cand` when given: an evaluation's
     candidates), K = n_mels x T' (n_mels the scored width: the mel bins,
     or DeepMel's outputs); normalize at `channels`
-    sensors, conv_stats only `with_conv` (at the `convs` shapes when
-    given, (B, C, O, T, dilation, k) each), nt_matmul only `with_matmul`,
-    each label after `prefix`.
+    sensors and `n_times` samples, conv_stats only `with_conv` (at the
+    `convs` shapes when given, (B, C, O, T, dilation, k) each), nt_matmul
+    only `with_matmul`, each label after `prefix`.
     Returns {kernel name: {shape label: entry}} for the kernels'
     other_shapes."""
     import torch.nn.functional as fn
@@ -1786,7 +1809,7 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
                    ) if with_conv else ()
     for dtype in (torch.float32, torch.bfloat16):
         name = _type_name(dtype)
-        shape = (batch, channels, T)
+        shape = (batch, channels, n_times)
         meg, center, scale, _ = _norm_case(shape, dtype, device, gen)
         rec = torch.arange(batch, device=device) % NORM_RECORDINGS
         got = norm.normalize_clamp_peak(meg, center, scale, LIMIT, rec=rec)
@@ -1804,7 +1827,7 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
             library_ms=None, max_abs_err=0.0)
         entry.update(zip(("bound_ms", "bound_by"), bound(n_bytes)))
         out["normalize_clamp_peak"][
-            f"{prefix}{batch}x{channels}x{T} {name}"] = entry
+            f"{prefix}{batch}x{channels}x{n_times} {name}"] = entry
 
         if with_matmul:
             check_matmul_shape(device, gen, dtype, n_test, n_mels, n_cand,
@@ -2434,8 +2457,9 @@ def run_study(device: torch.device, card_name: str, selection: str,
               study: str, write_tree, sensors: int, tmp: Path) -> tuple:
     """One study: ``prepare_study``, then ``train.main`` for one epoch of
     STUDY_ARGS on its tree. Returns (the kernels' launch counts, the
-    shapes the run gave them). The tree of KEPT_STUDY stays in `tmp` for
-    phase 10; the others are removed."""
+    shapes the run gave them, the train + valid epoch's seconds). The
+    tree of KEPT_STUDY stays in `tmp` for phase 10; the others are
+    removed."""
     from brainmagick_tpu_torch.env import env
     from brainmagick_tpu_torch.train import parse_overrides
 
@@ -2481,18 +2505,20 @@ def run_study(device: torch.device, card_name: str, selection: str,
     torch.cuda.empty_cache()
     if study != KEPT_STUDY:
         shutil.rmtree(root)
-    return launches, shape
+    return launches, shape, epoch_s
 
 
 def run_study_phase(device: torch.device, card_name: str, tmp: Path
                     ) -> tuple:
     """Phase 9: each study of STUDY_TREES in turn, in `tmp`. Returns
-    ({"study_<name>": launch counts}, {name: the shapes of its run})."""
-    launches, shapes = {}, {}
+    ({"study_<name>": launch counts}, {name: the shapes of its run},
+    {name: its train + valid epoch's seconds})."""
+    launches, shapes, epochs = {}, {}, {}
     for selection, study, write_tree, sensors in STUDY_TREES:
-        launches[f"study_{selection}"], shapes[selection] = run_study(
-            device, card_name, selection, study, write_tree, sensors, tmp)
-    return launches, shapes
+        (launches[f"study_{selection}"], shapes[selection],
+         epochs[selection]) = run_study(device, card_name, selection, study,
+                                        write_tree, sensors, tmp)
+    return launches, shapes, epochs
 
 
 #: phase 10: Table 2's "MelSpectrum + DeepMel" cell on phase 9's
@@ -3447,7 +3473,8 @@ PARALLEL_ARGS = ("preset=clip_conv_v5e8", "optim.batch_size=256",
 PARALLEL_BATCHES = 3
 #: the launcher's run against the same run without it: each loss
 #: relative, each test metric absolute (two processes, one card, the same
-#: seeds: only the order of the card's float sums may differ)
+#: seeds; the train step's backward runs cuDNN's deterministic algorithms
+#: only, so the two runs give the same bits)
 LAUNCHER_TOL = 1e-3
 #: two ranks sharing the card over gloo, the clip_conv_tpu recipe at this
 #: batch a rank: PARALLEL_STEPS train steps each with negatives gathered
@@ -5474,6 +5501,456 @@ def run_zoo_phase(device: torch.device, card_name: str, batch,
     return launches, shapes
 
 
+#: phase 19: resuming training from the JAX package's checkpoint.pkl, the
+#: notebook helpers and the native batch gather, on phase 9's
+#: gwilliams2022 tree (KEPT_STUDY). The resumed XP: the clip_conv preset
+#: with fused_conv_bn at the paper's width on MelSpectrum (phase 10's
+#: data without DeepMel), B=256
+RESUME_ARGS = ("preset=clip_conv", "simpleconv.fused_conv_bn=True",
+               'dset.features=["MelSpectrum"]', "optim.batch_size=256",
+               "optim.epochs=1",
+               "dset.n_recordings=2", f"dset.selections=[{KEPT_STUDY!r}]")
+#: Adam steps before the checkpoint, and as many after it
+RESUME_STEPS = 2
+#: the sentence phase 19 paints and predicts from
+PREDICT_SENTENCE = "de kat slaapt in de woonkamer"
+#: host-clock runs of each batch assembly the gather's timings take
+GATHER_RUNS = 10
+
+
+def _resume_solver(work: Path, name: str):
+    """The training solver of RESUME_ARGS in ``work/resume_<name>``
+    (restoring what its XP folder holds)."""
+    from brainmagick_tpu_torch.train import get_solver, parse_overrides
+
+    return get_solver(parse_overrides(
+        [*RESUME_ARGS, f"cache={work}/cache_{KEPT_STUDY}",
+         f"out_dir={work}/resume_{name}"]))
+
+
+def _resume_steps(solver, batches: list, first: int) -> list:
+    """Adam steps of `solver` on `batches` ((arrays, pad_weight) on the
+    card), the dropout generator seeded SEED + the step's index from
+    `first` (so that each run draws the same disks at the same step):
+    the losses."""
+    losses = []
+    for i, (arrays, weight) in enumerate(batches):
+        solver.generator.manual_seed(SEED + first + i)
+        losses.append(solver.step(arrays, weight, True)["loss"].item())
+    return losses
+
+
+def _state_errors(got: dict, want: dict) -> dict:
+    """Each floating entry of a solver's flat state against another's:
+    max|diff| over max|want|, and under "whole state" the distance of
+    the two states over the norm of `want` (every floating entry)."""
+    errors, diff2, norm2 = {}, 0., 0.
+    for key, ref in want.items():
+        if ref.is_floating_point():
+            ref = ref.double()
+            diff = got[key].double() - ref
+            scale = ref.abs().max().item()
+            errors[key] = diff.abs().max().item() / (scale if scale else 1.)
+            diff2 += diff.square().sum().item()
+            norm2 += ref.square().sum().item()
+    errors["whole state"] = math.sqrt(diff2 / norm2)
+    return errors
+
+
+def _adam_state(optimizer) -> list:
+    """Copies of each parameter's Adam state, in the optimizer's order."""
+    return [{k: v.detach().clone() for k, v in optimizer.state[p].items()}
+            for group in optimizer.param_groups for p in group["params"]]
+
+
+def run_resume(device: torch.device, card_name: str, work: Path) -> tuple:
+    """Phase 19 (a): RESUME_ARGS trained 2 RESUME_STEPS Adam steps
+    uninterrupted; the same XP in another folder trained RESUME_STEPS steps
+    and written as the JAX package's ``checkpoint.pkl``
+    (``convert.save_jax_checkpoint``), then resumed by a fresh solver
+    (``Solver.restore``), whose weights, statistics and Adam state must be
+    the written ones bit for bit, and trained RESUME_STEPS more on the
+    same batches: each loss within STEP_TOL of the uninterrupted run's,
+    and the whole state (weights and statistics, in norm) within STEP_TOL
+    of it; conv_stats 10 times a resumed step, normalize once; its test
+    stage (nt_matmul).
+    Returns ({path: launch counts}, the resumed solver's train loader,
+    the test split's size)."""
+    from brainmagick_tpu_torch import convert, ops
+    from brainmagick_tpu_torch.dataset import ARRAY_FIELDS
+
+    t0 = time.perf_counter()
+    full = _resume_solver(work, "full")
+    build_s = time.perf_counter() - t0
+    loader = full.loaders["train"]
+    loader.set_epoch(0)
+    batches = []
+    for batch, weight in loader:        # the native gather, pinned, sent
+        batches.append(({name: getattr(batch, name)
+                         for name in ARRAY_FIELDS}, weight))
+        if len(batches) == RESUME_STEPS:
+            break
+    batches = (batches * 2)[:2 * RESUME_STEPS]
+    want_losses = _resume_steps(full, batches, 0)
+    want = full._copy_params()
+    del full
+    first = _resume_solver(work, "split")
+    _resume_steps(first, batches[:RESUME_STEPS], 0)
+    written, written_adam = first._copy_params(), _adam_state(first.optimizer)
+    t0 = time.perf_counter()
+    path = convert.save_jax_checkpoint(first)
+    save_s = time.perf_counter() - t0
+    size_mb = path.stat().st_size / 1e6
+    del first
+    t0 = time.perf_counter()
+    solver = _resume_solver(work, "split")
+    restore_s = time.perf_counter() - t0
+    restored, adam = solver._copy_params(), _adam_state(solver.optimizer)
+    differ = [k for k, v in written.items()
+              if not k.endswith("num_batches_tracked")
+              and not torch.equal(restored[k], v)]
+    differ += [f"Adam {i} {k}" for i, (a, b) in enumerate(zip(adam,
+                                                             written_adam))
+               for k in b if not torch.equal(a[k].cpu(), b[k].cpu())]
+    own = solver.folder / "checkpoint-torch.pt"
+    if differ or len(adam) != len(written_adam) or own.exists():
+        raise AssertionError(f"resume: restored state differs from the "
+                             f"written one at {differ[:8]}, {len(adam)} "
+                             f"Adam states against {len(written_adam)}, "
+                             f"{own.name} {own.exists()}")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    losses = _resume_steps(solver, batches[RESUME_STEPS:], RESUME_STEPS)
+    torch.cuda.synchronize()
+    train_launches = ops.launch_counts()
+    routes = dict(ops.conv_stats.launches_by_route)
+    errors = {f"loss of step {RESUME_STEPS + 1 + i}": abs(a - b) / abs(b)
+              for i, (a, b) in enumerate(zip(losses,
+                                             want_losses[RESUME_STEPS:]))}
+    state_errors = _state_errors(solver._copy_params(), want)
+    whole = state_errors.pop("whole state")
+    worst = max(state_errors, key=state_errors.get)
+    print(f"resume from checkpoint.pkl ({card_name}): {size_mb:.1f} MB "
+          f"written in {save_s:.2f} s, the resumed solver built and "
+          f"restored in {restore_s:.2f} s (an uninterrupted one built in "
+          f"{build_s:.2f} s), its weights, statistics and {len(adam)} Adam "
+          f"states bit-equal to the written ones; uninterrupted losses "
+          f"{want_losses}, resumed {losses}; "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errors.items())
+          + f"; the whole state against the uninterrupted run's "
+          f"{whole:.2e}, the worst entry {worst} "
+          f"{state_errors[worst]:.2e} of its largest; tol {STEP_TOL:.0e}; "
+          f"launches over the {RESUME_STEPS} resumed steps "
+          f"{train_launches}, conv_stats by route {routes}")
+    _check_errors(errors, STEP_TOL,
+                  "resumed losses against the uninterrupted run")
+    _check_errors({"whole state": whole}, STEP_TOL,
+                  "resumed state against the uninterrupted run")
+    want_launches = dict(conv_stats=10 * RESUME_STEPS,
+                         normalize_clamp_peak=RESUME_STEPS, nt_matmul=0)
+    if train_launches != want_launches or routes != {
+            "tc": 10 * RESUME_STEPS}:
+        raise AssertionError(f"resume: launches {train_launches}, routes "
+                             f"{routes}, want {want_launches} on 'tc'")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with SolverSpy() as spy:
+        t0 = time.perf_counter()
+        test = solver._test_one_epoch()
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+    test_launches = ops.launch_counts()
+    want_launches = dict(conv_stats=0, normalize_clamp_peak=spy.forwards,
+                         nt_matmul=sum(spy.test_nt_matmul))
+    if test_launches != want_launches or test_launches["nt_matmul"] < 1 \
+            or not 0 <= test["wer"] <= 1:
+        raise AssertionError(f"resume test stage: {test}, launches "
+                             f"{test_launches}, want {want_launches}")
+    print(f"resumed test stage ({card_name}): {test} in {test_s:.2f} s; "
+          f"launches {test_launches}")
+    loader, n_test = solver.loaders["train"], len(solver.datasets.test)
+    del solver
+    torch.cuda.empty_cache()
+    return ({"resume_train": train_launches, "resume_test": test_launches},
+            loader, n_test)
+
+
+def run_predict(device: torch.device, card_name: str, work: Path) -> tuple:
+    """Phase 19 (b). On phase 11's XP (feature decoding over the word
+    features) by signature: ``SentenceFeatures.from_solver`` paints
+    PREDICT_SENTENCE, one ``Solver.predict`` of the test split's first
+    window (its MEG and features) against the same XP on the CPU at
+    REFERENCE_TOL (normalize once, no other kernel), and
+    ``attention_map`` (each row a distribution over the sensors with a
+    position). On phase 12's encode_simpleconv XP, whose estimate reads
+    the features: ``play.predict`` of the sentence painted for its
+    features over both recordings, without and with ``meg_init``
+    (normalize once a ``Solver.predict``, no other kernel), each finite
+    and not 0, and the two apart. Returns ({path: launch counts}, {path:
+    ``check_cli_shapes`` arguments})."""
+    from brainmagick_tpu_torch import ops, play
+    from brainmagick_tpu_torch.env import env
+    from brainmagick_tpu_torch.studies.api import INVALID_POSITION
+    from brainmagick_tpu_torch.train import parse_overrides
+
+    outputs = str(work / "outputs")
+    common = [f"cache={work}/cache_{KEPT_STUDY}", f"out_dir={outputs}"]
+    words_sig = parse_overrides([*WORDS_ARGS, *common,
+                                 *WORDS_FALLBACK]).sig
+    encode_sig = parse_overrides([*ENCODE_RUNS["encode_simpleconv"],
+                                  *ENCODE_COMMON, *common]).sig
+    kernels_none = dict(normalize_clamp_peak=0, conv_stats=0, nt_matmul=0)
+    with env.temporary(cache=work / f"cache_{KEPT_STUDY}",
+                       studies={KEPT_STUDY: work / KEPT_STUDY}):
+        solver = play.get_solver_from_sig(words_sig, out_dir=outputs)
+        t0 = time.perf_counter()
+        features = play.SentenceFeatures.from_solver(solver)(
+            PREDICT_SENTENCE).astype(np.float32)
+        paint_s = time.perf_counter() - t0
+        if features.shape[0] != solver.used_features.dimension:
+            raise AssertionError(f"predict: features {features.shape}")
+        item = solver.datasets.test[0]
+        window = dict(meg=item.meg, features=item.features,
+                      subject_index=int(item.subject_index),
+                      recording_index=int(item.recording_index))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        estimate = torch.from_numpy(solver.predict(**window))
+        one = ops.launch_counts()
+        ms = median_ms(lambda: solver.predict(**window), runs=5)
+        cpu = play.get_solver_from_sig(words_sig, out_dir=outputs,
+                                       override_args={"device": "cpu"})
+        reference = torch.from_numpy(cpu.predict(**window))
+        held = _against_cpu("estimate", estimate, reference, REFERENCE_TOL,
+                            False)
+        del cpu
+        t0 = time.perf_counter()
+        weights, positions = play.attention_map(solver)
+        attention_s = time.perf_counter() - t0
+        del solver
+        valid = ~(positions == INVALID_POSITION).all(-1)
+        sums = (weights * valid[:, None, :]).sum(-1)
+        if one != {**kernels_none, "normalize_clamp_peak": 1} \
+                or estimate.shape[0] != WORDS_OUTPUTS \
+                or not estimate.abs().max().item() > 0 \
+                or not np.allclose(sums, 1., rtol=0, atol=1e-5) \
+                or (weights.transpose(0, 2, 1)[~valid] != 0).any():
+            raise AssertionError(f"Solver.predict launches {one}, estimate "
+                                 f"{tuple(estimate.shape)}; attention rows "
+                                 f"sum to {sums.min()}..{sums.max()}")
+
+        encoder = play.get_solver_from_sig(encode_sig, out_dir=outputs)
+        sentence = play.SentenceFeatures.from_solver(encoder)(
+            PREDICT_SENTENCE).astype(np.float32)
+        calls = []
+        single = encoder.predict
+
+        def counted(**kwargs):
+            calls.append(kwargs["subject_index"])
+            return single(**kwargs)
+        encoder.predict = counted
+        evoked, predict_s, launches = {}, {}, dict(kernels_none)
+        for meg_init in (False, True):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            evoked[meg_init] = play.predict(encoder, sentence,
+                                            meg_init=meg_init)
+            torch.cuda.synchronize()
+            predict_s[meg_init] = time.perf_counter() - t0
+            launches = {k: v + launches[k]
+                        for k, v in ops.launch_counts().items()}
+        channels = encoder.datasets.train[0].meg.shape[0]
+        del encoder
+    want = {**kernels_none, "normalize_clamp_peak": len(calls)}
+    init_diff = np.abs(evoked[True] - evoked[False]).max()
+    if launches != want or len(calls) != 8 or not init_diff > 0 or any(
+            x.shape != evoked[False].shape or x.shape[0] != channels
+            or not np.isfinite(x).all() or not np.abs(x).max() > 0
+            for x in evoked.values()):
+        raise AssertionError(
+            f"play.predict: launches {launches}, want {want}; {len(calls)} "
+            f"calls; evoked " + ", ".join(
+                f"{x.shape} max|x| {np.abs(x).max()}"
+                for x in evoked.values())
+            + f", meg_init moves it by {init_diff}")
+    print(f"predict ({card_name}): {features.shape} features of "
+          f"{PREDICT_SENTENCE!r} painted in {paint_s:.3f} s; Solver.predict "
+          f"of a test window ({tuple(item.meg.shape)} MEG) {ms:.2f} ms "
+          f"(CUDA events, median of 5), against the CPU {held}; "
+          f"attention_map {weights.shape} in {attention_s:.3f} s, rows sum "
+          f"to 1 within {np.abs(sums - 1).max():.1e}; launches {one}")
+    print(f"play.predict ({card_name}) on encode_simpleconv over 2 "
+          f"recordings ({len(calls)} Solver.predict calls): "
+          + ", ".join(f"meg_init={k} [{x.shape[0]}, {x.shape[1]}] in "
+                      f"{predict_s[k]:.3f} s, max|x| {np.abs(x).max():.3e}"
+                      for k, x in evoked.items())
+          + f", meg_init moves it by {init_diff:.3e}; launches {launches}")
+    shape = dict(batch=1, n_test=0, n_mels=1, channels=channels,
+                 with_conv=False, with_matmul=False)
+    torch.cuda.empty_cache()
+    return ({"predict": one, "play_predict": launches},
+            {"predict": {**shape, "n_times": item.meg.shape[1]},
+             "play_predict": {**shape, "n_times": sentence.shape[1]}})
+
+
+def _plain_gathers():
+    """The plain gathers with the native ones' signatures (bf16 as torch's
+    round to nearest even of the plain float32 batch)."""
+    from brainmagick_tpu_torch import dataset
+
+    def cast(out, dtype):
+        return out if dtype in (None, "float32") else \
+            torch.from_numpy(out).to(torch.bfloat16)
+
+    def epochs(raw, starts, n_times, out_channels, baseline_len=0,
+               dtype=None):
+        return cast(dataset.gather_epochs(raw, starts, n_times,
+                                          out_channels, baseline_len), dtype)
+
+    def track(track, starts, n_times, dtype=None):
+        return cast(dataset.gather_track(track, starts, n_times), dtype)
+    return epochs, track
+
+
+def _loader_epoch_s(loader, dtype: tp.Optional[str]) -> tuple:
+    """One pass of a copy of `loader` (same dataset, batch, seed, workers,
+    device) assembling in `dtype`: (seconds, batches)."""
+    from brainmagick_tpu_torch.loader import Loader
+
+    copy_ = Loader(loader.dataset, batch_size=loader.batch_size,
+                   shuffle=loader.shuffle, seed=loader.seed,
+                   drop_last=loader.drop_last,
+                   num_workers=loader.num_workers, device=loader.device,
+                   assemble_dtype=dtype)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = sum(1 for _ in copy_)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, n
+
+
+def run_gather(card_name: str, loader, study_epoch_s: float) -> None:
+    """Phase 19 (c): the native gather at [256, 208, 361] from the
+    gwilliams2022 recording's memmap and its track, in fp32 and bf16, bit
+    for bit against the plain version (bf16: its round to nearest even),
+    timed against it (host clock, GATHER_RUNS runs) with its GB/s; then an
+    epoch of the resumed XP's train loader with the native gather and
+    with the plain one, in fp32 and bf16, beside phase 9's epoch
+    (`study_epoch_s`)."""
+    from brainmagick_tpu_torch import dataset, native
+
+    sub = loader.dataset.datasets[0]
+    raw = sub.raw.data
+    n_times, channels = sub._n_times, raw.shape[0]
+    baseline = sub.sample_rate.to_ind(sub.baseline[1] - sub.tmin) + 1
+    starts = np.random.RandomState(SEED + 19).randint(
+        0, raw.shape[1] - n_times + 1, TRAIN_B)
+    track = sub._get_track()[0][:-1]
+    if (n_times, channels) != (T, 208):
+        raise AssertionError(f"gather: {n_times} samples, {channels} sensors")
+    plain = dataset.gather_epochs(raw, starts, n_times, channels, baseline)
+    plain_track = dataset.gather_track(track, starts, n_times)
+    plain_epochs, _ = plain_gathers = _plain_gathers()
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        got = native.gather_epochs(raw, starts, n_times, channels, baseline,
+                                   dtype=dtype)
+        got_track = native.gather_track(track, starts, n_times, dtype=dtype)
+        for what, out, ref in (("epochs", got, plain),
+                               ("track", got_track, plain_track)):
+            ref = torch.from_numpy(ref)
+            out = torch.from_numpy(out) if isinstance(out, np.ndarray) \
+                else out
+            if dtype == "bfloat16":
+                ref = ref.to(torch.bfloat16)
+            bits = torch.int16 if dtype == "bfloat16" else torch.int32
+            if out.dtype != ref.dtype or not torch.isfinite(ref).all() \
+                    or not torch.equal(out.view(bits), ref.view(bits)):
+                raise AssertionError(f"native gather {what} {dtype} differs "
+                                     f"from the plain version")
+        # the library into one reused array: the batch's fresh array costs
+        # its page faults in the wrapper
+        reused = np.empty(plain.shape, dtype=np.uint16 if dtype == "bfloat16"
+                          else np.float32)
+        entry = getattr(native.gather.library(), "gather_epochs" + (
+            "_bf16" if dtype == "bfloat16" else ""))
+        rows_, st = np.ascontiguousarray(raw), np.ascontiguousarray(
+            starts, dtype=np.int64)
+        times = {}
+        for name, fn in (("native", lambda: native.gather_epochs(
+                raw, starts, n_times, channels, baseline, dtype=dtype)),
+                         ("reused", lambda: entry(
+                             rows_.ctypes.data, channels, rows_.shape[1],
+                             st.ctypes.data, len(st), n_times, channels,
+                             baseline, reused.ctypes.data, 0)),
+                         ("plain", lambda: plain_epochs(
+                             raw, starts, n_times, channels, baseline,
+                             dtype=dtype))):
+            fn()
+            runs = []
+            for _ in range(GATHER_RUNS):
+                t0 = time.perf_counter()
+                fn()
+                runs.append(time.perf_counter() - t0)
+            times[name] = statistics.median(runs) * 1e3
+        moved = plain.size * (4 + (2 if dtype == "bfloat16" else 4))
+        rows.append(f"{dtype}: native {times['native']:.2f} ms "
+                    f"({moved / times['native'] / 1e6:.2f} GB/s read + "
+                    f"written; into a reused array {times['reused']:.2f} ms, "
+                    f"{moved / times['reused'] / 1e6:.2f} GB/s), plain "
+                    f"{times['plain']:.2f} ms "
+                    f"({times['plain'] / times['native']:.1f}x)")
+    print(f"native gather [{TRAIN_B}, {channels}, {n_times}], baseline "
+          f"{baseline} samples, bit-equal to the plain version in fp32 and "
+          f"bf16, epochs and the {track.shape[0]}-row track; ms per batch "
+          f"(host clock, median of {GATHER_RUNS}, {card_name}'s host): "
+          + "; ".join(rows))
+    epochs = {}
+    for name, gathers in (("native", None), ("plain", plain_gathers)):
+        saved = native.gather_epochs, native.gather_track
+        if gathers is not None:
+            native.gather_epochs, native.gather_track = gathers
+        try:
+            for dtype in (None, "bfloat16"):
+                epochs[name, dtype or "float32"] = _loader_epoch_s(loader,
+                                                                   dtype)
+        finally:
+            native.gather_epochs, native.gather_track = saved
+    print(f"train loader epoch, B={loader.batch_size}, "
+          f"{loader.num_workers} workers, sent to the card (s, batches; "
+          f"{card_name}): " + ", ".join(
+              f"{name} {dtype} {s:.3f} s / {n}"
+              for (name, dtype), (s, n) in epochs.items())
+          + f"; phase 9's {KEPT_STUDY} epoch (train + valid, its steps "
+          f"included, bf16 assembly) "
+          f"{study_epoch_s:.2f} s")
+
+
+def run_resume_phase(device: torch.device, card_name: str, work: Path,
+                     study_epoch_s: float) -> tuple:
+    """Phase 19: ``run_resume``, ``run_predict``, ``run_gather`` (beside
+    phase 9's KEPT_STUDY epoch of `study_epoch_s`). Returns ({path:
+    launch counts}, {path: ``check_cli_shapes`` arguments})."""
+    with _studies_env(work):
+        launches, loader, n_test = run_resume(device, card_name, work)
+        run_gather(card_name, loader, study_epoch_s)
+        del loader
+    predict_launches, shapes = run_predict(device, card_name, work)
+    launches.update(predict_launches)
+    shapes["resume"] = dict(batch=TRAIN_B, n_test=n_test, n_mels=120,
+                            channels=208, with_conv=False)
+    return launches, shapes
+
+
+@contextlib.contextmanager
+def _studies_env(work: Path):
+    from brainmagick_tpu_torch.env import env
+
+    with env.temporary(studies={KEPT_STUDY: work / KEPT_STUDY}):
+        yield
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -5528,8 +6005,8 @@ def main() -> None:
                                                          card_name, work)
         phase_s["8"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        study_launches, study_shapes = run_study_phase(device, card_name,
-                                                       work)
+        study_launches, study_shapes, study_epochs = run_study_phase(
+            device, card_name, work)
         phase_s["9"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         deepmel_launches, deepmel_shapes = run_deepmel_phase(
@@ -5562,6 +6039,10 @@ def main() -> None:
         export_launches, export_shapes, registration = run_serve_phase(
             device, card_name, work, cli_xps)
         phase_s["17"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resume_launches, resume_shapes = run_resume_phase(
+            device, card_name, work, study_epochs[KEPT_STUDY])
+        phase_s["19"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     zoo_launches, zoo_shapes = run_zoo_phase(
         device, card_name, batch, eval_fp32, train_warm, recipe_train_warm)
@@ -5578,7 +6059,7 @@ def main() -> None:
                             **encode_shapes, **grid_shapes,
                             **parallel_shapes, **wav2vec_shapes,
                             **options_shapes, **export_shapes,
-                            **zoo_shapes}.items():
+                            **zoo_shapes, **resume_shapes}.items():
             for name, shapes in check_cli_shapes(
                     device, **shape, prefix=f"{path}: ").items():
                 cli_shapes[name].update(shapes)
@@ -5614,7 +6095,8 @@ def main() -> None:
                                                **wav2vec_launches,
                                                **options_launches,
                                                **export_launches,
-                                               **zoo_launches}.items()})
+                                               **zoo_launches,
+                                               **resume_launches}.items()})
         entry["other_shapes"].update(cli_shapes[entry["name"]])
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path

@@ -286,7 +286,8 @@ def test_no_import_of_the_jax_package():
             package / "paper_tables.py", package / "parallel.py",
             package / "models" / "wav2vec2.py",
             package / "features" / "audio.py",
-            package / "svd.py"} <= set(files)
+            package / "svd.py", package / "native" / "__init__.py",
+            package / "native" / "gather.py"} <= set(files)
     bad = {str(f.relative_to(REPO)): hits for f in files
            if (hits := _imports_of_the_jax_package(f.read_text()))}
     assert not bad

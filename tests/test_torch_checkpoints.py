@@ -316,7 +316,7 @@ def test_convert_cli_then_eval(tmp_path, cache):
 
 #: a process where jax, flax and optax cannot be imported: the JAX XP by
 #: signature (its forward on the batch file), then eval.main and
-#: serve.main on it, and the refusal to resume its training
+#: serve.main on it, and its training resumed with optax's Adam state
 JAX_FREE = """
 import json, sys, types
 for name in ("jax", "flax", "optax"):
@@ -335,15 +335,16 @@ with env.temporary(cache=cache):
     acc = port_eval.main([f"sig={sig}", f"out_dir={out_dir}", "device=cpu",
                           "n_negatives=30"])
     served = serve.main([f"sig={sig}", f"out_dir={out_dir}", "device=cpu"])
-    try:
-        play.get_solver_from_sig(sig, out_dir=out_dir, training=True,
-                                 override_args={"device": "cpu"})
-        refused = False
-    except NotImplementedError:
-        refused = True
+    trainer = play.get_solver_from_sig(sig, out_dir=out_dir, training=True,
+                                       override_args={"device": "cpu"})
+    resumed = sorted({float(st["step"])
+                      for st in trainer.optimizer.state.values()})
+    moments = len(trainer.optimizer.state)
 print(json.dumps(dict(
     epoch=solver.epoch, best_epoch=solver.best_epoch,
-    history=len(solver.history), acc=acc, refused=refused,
+    history=len(solver.history), acc=acc, resumed=resumed, moments=moments,
+    parameters=sum(1 for g in trainer.optimizer.param_groups
+                   for _ in g["params"]),
     forward=str(served["forward"]),
     imported=[m for m in ("jax", "flax", "optax") if sys.modules.get(m)])))
 """
@@ -354,8 +355,8 @@ def test_jax_checkpoint_reads_without_jax(tmp_path, cache):
     that cannot import jax, flax or optax reads it by signature (the
     JAX package's best state, history and counters), its forward within
     FORWARD_TOL of the JAX solver's, evaluates it (``eval.main``), exports
-    and self-checks it (``serve.main``), and refuses to resume its
-    training. The restricted unpickler refuses a class the checkpoint
+    and self-checks it (``serve.main``), and resumes its training (every
+    parameter's Adam moments, at optax's count). The restricted unpickler refuses a class the checkpoint
     does not hold, and an unreadable file names the reader."""
     out = tmp_path / "outputs"
     tokens = [*TINY, "optim.epochs=1", f"cache={cache}", f"out_dir={out}"]
@@ -381,7 +382,10 @@ def test_jax_checkpoint_reads_without_jax(tmp_path, cache):
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     with open(folder / "checkpoint.pkl", "rb") as f:
         payload = pickle.load(f)
-    assert report["imported"] == [] and report["refused"]
+    assert report["imported"] == []
+    assert report["resumed"] == [float(
+        payload["state"]["opt_state"][0].count)] and report["resumed"][0] > 0
+    assert report["moments"] == report["parameters"] > 0
     assert (report["epoch"], report["best_epoch"], report["history"]) == (
         payload["epoch"], payload["best_epoch"], len(payload["history"]))
     assert sorted(map(int, report["acc"])) == [1, 5, 10]

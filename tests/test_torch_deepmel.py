@@ -214,15 +214,20 @@ def test_epochs_match_jax_solver_and_checkpoint_round_trips(jax_solver):
     checkpoint.pkl): its best state holds the feature model's weights
     and running statistics, and both models carry the best state."""
     jsolver, state0, cache = jax_solver
-    with jenv.temporary(cache=cache):
-        jsolver.train()
     args = _port_args(cache, jsolver.args.out_dir, "optim.epochs=2", *CELL)
     assert args.xp_folder == jsolver.args.xp_folder
+    # the port's solver is built before the JAX run writes its
+    # checkpoint.pkl, which a port training run in the folder resumes
     with env.temporary(cache=cache):
         solver = train.get_solver(args)
         convert.load_jax_params(solver.model, state0["params"],
                                 state0["batch_stats"], solver.feature_model)
+    assert solver.history == [] and solver.epoch == 1
+    with jenv.temporary(cache=cache):
+        jsolver.train()
+    with env.temporary(cache=cache):
         solver.train()
+    assert len(solver.history) == len(jsolver.history) == 2
     assert [sorted(h) for h in solver.history] \
         == [sorted(h) for h in jsolver.history]
     for got, want in zip(solver.history, jsolver.history):

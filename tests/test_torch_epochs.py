@@ -97,13 +97,17 @@ def test_train_matches_jax_solver(tmp_path, variant):
     with jenv.temporary(cache=cache):
         jsolver = jtrain.get_solver(jargs)
         state = jax.device_get(jsolver.state)
-        jsolver.train()
     args = _port_args(cache, tmp_path / "j" / "outputs", "optim.epochs=2",
                       *extra)
     assert args.xp_folder == jargs.xp_folder
+    # the port's solver is built before the JAX run writes its
+    # checkpoint.pkl, which a port training run in the folder resumes
     with env.temporary(cache=cache):
         solver = train.get_solver(args)
         load_jax_params(solver.model, state["params"], state["batch_stats"])
+    with jenv.temporary(cache=cache):
+        jsolver.train()
+    with env.temporary(cache=cache):
         solver.train()
     assert [sorted(h) for h in solver.history] \
         == [sorted(h) for h in jsolver.history]

@@ -371,12 +371,18 @@ def test_epochs_match_jax_solver_and_cli(tmp_path):
     with jenv.temporary(cache=cache):
         jsolver = jtrain.get_solver(jargs)
         state = jax.device_get(jsolver.state)
-        jsolver.train()
+    # the port's solver is built before the JAX run writes its
+    # checkpoint.pkl, which a port training run in the folder resumes
     with env.temporary(cache=cache):
         solver = train.get_solver(args)
         convert.load_jax_params(solver.model, state["params"],
                                 state["batch_stats"])
+    assert solver.history == [] and solver.epoch == 1
+    with jenv.temporary(cache=cache):
+        jsolver.train()
+    with env.temporary(cache=cache):
         solver.train()
+    assert len(solver.history) == len(jsolver.history) == 2
     keys = {f"{kind}_{name}" for name in ("WordEmbedding", "Pitch")
             for kind in ("l2", "corr")} \
         | {"acc_PartOfSpeech", "acc_WordSegment"}

@@ -169,7 +169,7 @@ class _Planted:
     def __len__(self):
         return len(self.meg)
 
-    def get_batch(self, indices, with_events=False):
+    def get_batch(self, indices, with_events=False, dtype=None):
         indices = np.asarray(indices, dtype=np.int64)
         n = len(indices)
         return dataset.SegmentBatch(

@@ -163,3 +163,34 @@ def test_train_step_runs_without_tf32(tf32_on):
     with pytest.raises(ValueError, match="optimizer"):
         trainer.step(batch)
     assert _flags() == (True, True)
+
+
+def test_deterministic_cudnn_restores_the_flag():
+    previous = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    try:
+        with precision.deterministic_cudnn():
+            assert torch.backends.cudnn.deterministic
+        assert not torch.backends.cudnn.deterministic
+        with pytest.raises(RuntimeError, match="inside"):
+            with precision.deterministic_cudnn():
+                raise RuntimeError("inside")
+        assert not torch.backends.cudnn.deterministic
+    finally:
+        torch.backends.cudnn.deterministic = previous
+
+
+def test_train_step_backward_runs_deterministic_cudnn():
+    """Solver.step's backward (a tensor hook on a weight) sees cuDNN held
+    to deterministic algorithms, and the flag is back after the step."""
+    args, na, batch = _setup()
+    trainer = Trainer(args, C, F, 1, None, None, na, "cpu",
+                      generator=torch.Generator().manual_seed(0))
+    seen = []
+    weight = trainer.model.get_parameter("final.2.weight")
+    weight.register_hook(
+        lambda grad: seen.append(torch.backends.cudnn.deterministic))
+    previous = torch.backends.cudnn.deterministic
+    trainer.step(batch)
+    assert seen == [True]
+    assert torch.backends.cudnn.deterministic == previous

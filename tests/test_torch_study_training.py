@@ -93,12 +93,17 @@ def test_train_matches_jax_solver(tmp_path, study):
     with jenv.temporary(cache=cache, studies={study: root}):
         jsolver = jtrain.get_solver(jargs)
         state = jax.device_get(jsolver.state)
-        jsolver.train()
     args = train.parse_overrides(overrides + ["device=cpu"])
     assert args.sig == jargs.sig
+    # the port's solver is built before the JAX run writes its
+    # checkpoint.pkl, which a port training run in the folder resumes
     with env.temporary(cache=cache, studies={study: root}):
         solver = train.get_solver(args)
         load_jax_params(solver.model, state["params"], state["batch_stats"])
+    assert solver.history == [] and solver.epoch == 1
+    with jenv.temporary(cache=cache, studies={study: root}):
+        jsolver.train()
+    with env.temporary(cache=cache, studies={study: root}):
         solver.train()
     assert [len(s) for s in solver.datasets] \
         == [len(s) for s in jsolver.datasets]
