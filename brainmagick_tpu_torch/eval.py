@@ -37,7 +37,9 @@ probabilities are a softmax on the host, as
 in the JAX package. Under ``python -m torch.distributed.run
 --nproc_per_node=N``, ``eval sig=`` runs as N ranks of the solver's group
 (``Solver.set_group``): the forwards and the scoring split over the
-ranks, every rank gets every row, and rank 0 writes the files.
+ranks, every rank gets every row, and rank 0 writes the files. Under a
+launch over several hosts (``--nnodes``), each host evaluates its own rows
+and its first rank writes that host's files (``run_eval``).
 """
 
 from __future__ import annotations
@@ -174,7 +176,9 @@ def load_test_data(server: tp.Any,
     hash of the sequence hash and the word index), and per-prediction
     metadata, as numpy arrays. Without `batches`, `server` is a solver
     and the batches are its test split's (``solver_batches``, which
-    takes the other arguments)."""
+    takes the other arguments). A solver on several hosts gives its
+    host's rows (``Solver.local_rows``), and so its host's predictions and
+    candidates, as the JAX package gives a process's."""
     if batches is None:
         batches = solver_batches(server, n_recordings,
                                  test_study=test_study)
@@ -182,16 +186,22 @@ def load_test_data(server: tp.Any,
     check_at = check_index(args)
     outs: tp.Dict[str, list] = defaultdict(list)
     seen_segment_hashes: set = set()
+    local_rows = getattr(server, "local_rows", None)
     for batch in batches:
         extra_info, word_str, word_segs_str = _get_extra_info(
             batch, args.dset.sample_rate)
+        # forward_batch returns this host's rows: align the metadata
+        rows = slice(None) if local_rows is None \
+            else local_rows(len(batch.meg))
+        extra_info, word_str = extra_info[rows], word_str[rows]
+        word_segs_str = word_segs_str[rows]
         preds, trues, _, keep_t = server.forward_batch(
             batch, getattr(batch, "pad_weight", None))
         keep = host_array(keep_t)
         if not keep.any():
             continue
         if getattr(batch, "word_hash", None) is not None:
-            word_hash = np.asarray(batch.word_hash)
+            word_hash = np.asarray(batch.word_hash)[rows]
         else:
             word_hash = np.vectorize(stable_word_hash)(word_str)
         word_hash = word_hash[keep]
@@ -228,9 +238,9 @@ def load_test_data(server: tp.Any,
         outs["word_strings"].append(ws)
         outs["word_segment_strings"].append(wseg)
         outs["subject_id"].append(
-            np.asarray(batch.subject_index)[keep].astype(np.int64))
+            np.asarray(batch.subject_index)[rows][keep].astype(np.int64))
         outs["recording_id"].append(
-            np.asarray(batch.recording_index)[keep].astype(np.int64))
+            np.asarray(batch.recording_index)[rows][keep].astype(np.int64))
         outs["study"].append(np.array([batch.study] * int(keep.sum())))
     return {k: np.concatenate(v, 0) for k, v in outs.items()}
 
@@ -318,10 +328,15 @@ def run_eval(server: tp.Any, batches: tp.Optional[tp.Iterable[tp.Any]],
     vocab_segment.npy, metadata.csv, acc.csv and negative_stats.csv into
     `output_dir` (the CSV files as the JAX package's pandas writes them)
     and returns the top-1, 5 and 10 segment accuracies. A solver in a
-    group computes on every rank; rank 0 writes while the others wait."""
+    group computes on every rank; rank 0 writes while the others wait.
+    On several hosts each host evaluates its own rows against its own
+    candidates, as each of the JAX package's processes does, and each
+    host's first rank writes that host's files into `output_dir`, as each
+    process does there: one folder a host, or, in a folder the hosts
+    share, the files of the host that wrote last."""
     output_dir = Path(output_dir)
     group = getattr(server, "group", None)
-    lead = group is None or group.lead
+    lead = group is None or group.host.lead
     if lead:
         output_dir.mkdir(exist_ok=True, parents=True)
         with _write_and_rename(output_dir / "solver_config.yaml", "w") as f:

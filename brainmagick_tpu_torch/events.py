@@ -18,17 +18,22 @@ the same result, row order included:
     same sha256-seeded draw per block uid) and ``split_wav_as_block``
     (sound events cut at block boundaries, so that audio features cannot
     leak across splits);
-  * ``query`` takes the conditions the datasets use: ``kind=='word'``,
-    ``field==value``, and a conjunction of such terms joined by ``&``.
+  * ``query`` takes the subset of pandas' ``DataFrame.query`` that a
+    config string can hold (``dset.condition``, schoffelen2019's
+    ``events_filter``): comparisons, ``in`` lists, and ``and``/``or``/
+    ``not`` with pandas' ``&``/``|``/``~``, over column names and
+    literals, with pandas' rows.
 """
 
 from __future__ import annotations
 
 import ast
 import hashlib
+import io
 import math
+import operator
 import random
-import re
+import tokenize
 import typing as tp
 from dataclasses import asdict, dataclass, fields
 from pathlib import Path
@@ -224,11 +229,157 @@ def _column(values: tp.Sequence[tp.Any]) -> np.ndarray:
     return out
 
 
-#: one ``field==value`` term of a query, up to its ``&`` or the end (a
-#: quoted value may hold ``&``)
-_QUERY_TERM = re.compile(
-    r"""\s*(?P<name>\w+)\s*==\s*(?P<value>'[^']*'|"[^"]*"|[^&'"]*?)"""
-    r"""\s*(?=&|$)""")
+#: the comparison operators of a query, by ``ast`` node
+_COMPARE = {ast.Eq: operator.eq, ast.NotEq: operator.ne, ast.Lt: operator.lt,
+            ast.LtE: operator.le, ast.Gt: operator.gt, ast.GtE: operator.ge}
+
+
+class _Query:
+    """A query string's subset of pandas' ``DataFrame.query`` (see
+    ``EventTable.query``), evaluated over an ``EventTable``'s columns."""
+
+    def __init__(self, table: "EventTable", condition: str) -> None:
+        self.table = table
+        self.condition = condition
+
+    def refuse(self, what: str) -> NotImplementedError:
+        return NotImplementedError(
+            f"query {self.condition!r}: {what} is outside the subset of "
+            f"pandas' query that EventTable.query takes")
+
+    def parse(self) -> ast.expr:
+        """The condition with pandas' rewrite (``&`` as ``and``, ``|`` as
+        ``or``, so both bind looser than a comparison) as a Python
+        expression."""
+        tokens = []
+        try:
+            for tok in tokenize.generate_tokens(
+                    io.StringIO(self.condition).readline):
+                if tok.string == "@":
+                    raise self.refuse("an @ variable")
+                if tok.string == "`":
+                    raise self.refuse("a backtick-quoted name")
+                if tok.type == tokenize.OP and tok.string in ("&", "|"):
+                    tok = tok._replace(
+                        type=tokenize.NAME,
+                        string="and" if tok.string == "&" else "or")
+                tokens.append((tok.type, tok.string))
+            return ast.parse(tokenize.untokenize(tokens).strip(),
+                             mode="eval").body
+        except (tokenize.TokenError, SyntaxError) as error:
+            raise self.refuse("this syntax") from error
+
+    def mask(self) -> np.ndarray:
+        out = self.evaluate(self.parse())
+        if out[0] == "column":
+            out = ("mask", self.boolean(out))
+        if out[0] != "mask":
+            raise self.refuse("a condition that selects no rows by a "
+                              "column")
+        return out[1]
+
+    def boolean(self, operand: tuple) -> np.ndarray:
+        """A column of True and False as a mask (a bare column in a
+        condition)."""
+        if operand[0] == "mask":
+            return operand[1]
+        if operand[0] == "column" and all(
+                isinstance(v, (bool, np.bool_)) for v in operand[1]):
+            return np.array(operand[1], dtype=bool)
+        raise self.refuse("a value that is not a condition")
+
+    def evaluate(self, node: ast.expr) -> tuple:
+        """("mask", bool array), ("column", its values as a list, whether
+        it holds numbers) or ("literal", a value or a list of values)."""
+        if isinstance(node, ast.BoolOp):
+            masks = [self.boolean(self.evaluate(v)) for v in node.values]
+            combine = np.logical_and if isinstance(node.op, ast.And) \
+                else np.logical_or
+            return ("mask", combine.reduce(masks))
+        if isinstance(node, ast.UnaryOp):
+            if isinstance(node.op, (ast.Not, ast.Invert)):
+                return ("mask", ~self.boolean(self.evaluate(node.operand)))
+            if isinstance(node.op, (ast.USub, ast.UAdd)):
+                kind, value = self.evaluate(node.operand)[:2]
+                if kind == "literal" and isinstance(value, (int, float)) \
+                        and not isinstance(value, bool):
+                    return (kind, -value if isinstance(node.op, ast.USub)
+                            else value)
+            raise self.refuse("arithmetic")
+        if isinstance(node, ast.Compare):
+            mask = None
+            left = self.evaluate(node.left)
+            for op, right_node in zip(node.ops, node.comparators):
+                right = self.evaluate(right_node)
+                part = self.compare(op, left, right)
+                mask = part if mask is None else mask & part
+                left = right
+            return ("mask", mask)
+        if isinstance(node, ast.Name):
+            if node.id not in self.table._columns:
+                raise KeyError(f"query {self.condition!r}: no column "
+                               f"{node.id!r}")
+            column = self.table._columns[node.id]
+            return ("column", column.tolist(), column.dtype != object)
+        if isinstance(node, ast.Constant):
+            value = node.value
+            if value is None or isinstance(value, (bool, int, float, str)):
+                return ("literal", value)
+            raise self.refuse(f"the literal {value!r}")
+        if isinstance(node, (ast.List, ast.Tuple)):
+            values = [self.evaluate(v) for v in node.elts]
+            if any(v[0] != "literal" or isinstance(v[1], list)
+                   for v in values):
+                raise self.refuse("a list of anything but literals")
+            return ("literal", [v[1] for v in values])
+        if isinstance(node, ast.Attribute):
+            raise self.refuse("attribute access")
+        if isinstance(node, ast.Call):
+            raise self.refuse("a call")
+        if isinstance(node, ast.BinOp):
+            raise self.refuse("arithmetic")
+        raise self.refuse(f"{type(node).__name__}")
+
+    def compare(self, op: ast.cmpop, left: tuple, right: tuple
+                ) -> np.ndarray:
+        """One comparison as pandas makes it: a missing value (None or
+        NaN) fails ``==`` and the order comparisons and passes ``!=``;
+        ``in`` (and ``==`` with a list) is pandas' ``isin``, where a None
+        in the list matches a missing value of a text column only."""
+        is_list = right[0] == "literal" and isinstance(right[1], list)
+        if isinstance(op, (ast.In, ast.NotIn)) or (
+                is_list and isinstance(op, (ast.Eq, ast.NotEq))):
+            if left[0] != "column" or not is_list:
+                raise self.refuse("a membership test other than a column "
+                                  "in a list")
+            found = self.isin(left[1], right[1], numeric=left[2])
+            return ~found if isinstance(op, (ast.NotIn, ast.NotEq)) \
+                else found
+        if type(op) not in _COMPARE:
+            raise self.refuse(f"the operator {type(op).__name__}")
+        if "column" not in (left[0], right[0]):
+            raise self.refuse("a comparison that reads no column")
+        if "mask" in (left[0], right[0]) or is_list or (
+                left[0] == "literal" and isinstance(left[1], list)):
+            raise self.refuse("a comparison of a condition or a list")
+        fn = _COMPARE[type(op)]
+        n = self.table._length
+        a = left[1] if left[0] == "column" else [left[1]] * n
+        b = right[1] if right[0] == "column" else [right[1]] * n
+        missing_result = isinstance(op, ast.NotEq)
+        return np.array([missing_result if _missing(x) or _missing(y)
+                         else bool(fn(x, y)) for x, y in zip(a, b)],
+                        dtype=bool)
+
+    @staticmethod
+    def isin(values: tp.List[tp.Any], wanted: tp.List[tp.Any],
+             numeric: bool) -> np.ndarray:
+        """Which of a column's `values` are in `wanted` (`numeric`: a
+        column of numbers, whose NaN no None matches)."""
+        present = [v for v in wanted if not _missing(v)]
+        null = any(_missing(v) for v in wanted) and not numeric
+        return np.array([null if _missing(v) else v in present
+                         for v in values], dtype=bool)
 
 
 class EventTable:
@@ -317,33 +468,29 @@ class EventTable:
         return self[np.concatenate([order, index[nan]])]
 
     def query(self, condition: str) -> "EventTable":
-        """The rows where every ``field==value`` term of `condition` holds:
-        one term (``kind=='word'``) or a conjunction of them joined by
-        ``&`` (``kind=='word' & word_index==0``, where pandas' ``&`` binds
-        looser than ``==``); anything else raises."""
-        keep = np.ones(self._length, dtype=bool)
-        pos = 0
-        while True:
-            match = _QUERY_TERM.match(condition, pos)
-            if match is None:
-                raise NotImplementedError(
-                    f"query {condition!r}: only 'field==value' terms joined "
-                    f"by '&' are supported")
-            name, raw = match.group("name", "value")
-            try:
-                value = ast.literal_eval(raw)
-            except (ValueError, SyntaxError) as error:
-                raise NotImplementedError(
-                    f"query {condition!r}: the value must be a literal"
-                ) from error
-            if name not in self._columns:
-                raise KeyError(f"query {condition!r}: no column {name!r}")
-            keep &= np.array([v == value for v in
-                              self._columns[name].tolist()], dtype=bool)
-            pos = match.end()
-            if pos == len(condition):
-                return self[keep]
-            pos += 1                                # past the '&'
+        """The rows where `condition` holds: the subset of pandas'
+        ``DataFrame.query`` (python engine) that a config string holds,
+        with the same rows.
+
+        - Operands: column names (bare, no backticks) and literals: str,
+          int, float, True, False, None, and lists or tuples of them.
+        - Comparisons: ``==``, ``!=``, ``<``, ``<=``, ``>``, ``>=``,
+          chained (``0 < start < 5`` is both), ``in`` and ``not in`` a
+          list (``==`` and ``!=`` with a list too, as in pandas).
+        - Logic: ``and``, ``or``, ``not``, ``&``, ``|``, ``~`` and
+          parentheses. As pandas does, ``&`` and ``|`` are read as ``and``
+          and ``or``, so they bind looser than a comparison
+          (``kind=='word' & word_index==0``).
+        - Missing values (NaN, None) fail ``==`` and the order comparisons
+          and pass ``!=``; ``in`` is pandas' ``isin``, where a None in the
+          list matches the missing values of a text column and never a
+          missing number.
+
+        Anything else raises NotImplementedError naming the query:
+        attribute access, calls, ``@`` variables, arithmetic (a literal's
+        sign aside), a comparison that reads no column. A name that is no
+        column raises KeyError."""
+        return self[_Query(self, condition).mask()]
 
     # -- typed events ---------------------------------------------------------
 

@@ -757,10 +757,13 @@ def maybe_ring_scores(server: tp.Any, clip: ClipLoss, estimates: tp.Any,
     transform: the flattened contraction), no int8 pool (`use_int8`, as
     the JAX package declines it), non-empty operands, and each rank's
     share (its pool block, its estimate rows and its fp32 score rows)
-    within `budget_bytes`."""
+    within `budget_bytes`. Never across hosts: on several hosts each host
+    scores its own rows against its own pool, and the JAX package turns
+    ring scoring off with several processes."""
     group = getattr(server, "group", None)
     if not server.args.parallel.ring_scoring or group is None \
-            or group.size < 2 or use_int8 or not int8_retrieval_ok(clip):
+            or group.size < 2 or use_int8 or not int8_retrieval_ok(clip) \
+            or group.n_hosts > 1:
         return None
     if not len(estimates) or not len(pool):
         return None
@@ -784,8 +787,11 @@ def pool_scores(server: tp.Any, clip: ClipLoss, rows: tp.Any, pool: tp.Any,
     device; as a rank of a group (``server.group``), ``maybe_ring_scores``,
     or each rank's block of the rows (``DataGroup.split``) streamed against
     the whole pool and the blocks gathered, so that every rank has every
-    row's scores."""
+    row's scores. On several hosts, `rows` and `pool` are the host's and
+    the split runs over the host's ranks (``DataGroup.host``)."""
     group = getattr(server, "group", None)
+    if group is not None and group.n_hosts > 1:
+        group = group.host
     use_int8 = use_int8_pool(server.args, clip)
     if group is None or group.size == 1:
         return streamed_scores(clip, rows, pool, server.device, chunk=chunk,

@@ -105,18 +105,66 @@ def fourier_emb(positions: torch.Tensor, dimension: int = 256,
     return torch.cat([torch.cos(loc), torch.sin(loc)], dim=-1)
 
 
+class _SameConv(torch.autograd.Function):
+    """A stride-1, ungrouped conv1d with SAME padding whose input gradient
+    is the forward conv of the output's gradient with the weights'
+    channels swapped and their taps reversed, as ``ops.conv_bn``'s
+    backward computes it: the train step runs cuDNN's deterministic
+    algorithms only (``precision.deterministic_cudnn``), and among them
+    backward-data at the encoder's dilated shapes is an order of magnitude
+    slower than a forward conv. The weights' gradient is cuDNN's
+    backward-filter, the bias's the sum of the output's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, padding: int, dilation: int):
+        ctx.save_for_backward(x, w)
+        ctx.padding, ctx.dilation = padding, dilation
+        ctx.has_bias = b is not None
+        return F.conv1d(x, w, b, padding=padding, dilation=dilation)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        pad, d = ctx.padding, ctx.dilation
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = F.conv1d(dy, w.transpose(0, 1).flip(2), padding=pad,
+                          dilation=d)
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv1d_weight(x, w.shape, dy, padding=pad,
+                                             dilation=d)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = dy.sum(dim=(0, 2))
+        return dx, dw, db, None, None
+
+
 class Conv1d(nn.Conv1d):
     """``nn.Conv1d`` with flax ``nn.Conv``'s `compute_dtype` (``dtype=``):
     input, weight and bias cast to it at use, the result in it; with None,
     ``nn.Conv1d`` itself on an input of the weights' type, else flax's
     ``dtype=None`` rule: the input and the weights promoted to one type
     (a bf16 input meets fp32 weights in fp32). The parameters stay
-    fp32."""
+    fp32. A stride-1, ungrouped conv with an odd kernel and SAME padding
+    (the encoder's) runs through ``_SameConv`` where autograd records it,
+    so that its input gradient is a forward conv; every other conv, and
+    every conv without a gradient, is ``nn.Conv1d``'s."""
 
     def __init__(self, *args, compute_dtype: tp.Optional[torch.dtype] = None,
                  **kwargs) -> None:
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
+        k, = self.kernel_size
+        self._same = (self.stride == (1,) and self.groups == 1 and k % 2
+                      and self.padding_mode == "zeros"
+                      and self.padding == (self.dilation[0] * (k // 2),))
+
+    def _conv_forward(self, x: torch.Tensor, weight: torch.Tensor,
+                      bias: tp.Optional[torch.Tensor]) -> torch.Tensor:
+        if self._same and torch.is_grad_enabled() and (
+                x.requires_grad or weight.requires_grad):
+            return _SameConv.apply(x, weight, bias, self.padding[0],
+                                   self.dilation[0])
+        return super()._conv_forward(x, weight, bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype

@@ -1,10 +1,12 @@
-"""Data-parallel training and evaluation over the cards of one host.
+"""Data-parallel training and evaluation over the cards of one or more
+hosts.
 
 Port of ``brainmagick_tpu/parallel/__init__.py`` in PyTorch's idiom: one
 process a card, started by ``python -m torch.distributed.run
---nproc_per_node=N``, NCCL between the cards and gloo on the CPU. Where
-the JAX package's single-process mesh puts contiguous row blocks of one
-global batch on its devices, rank r keeps block r (``process_rows``):
+--nproc_per_node=N`` on each host (``--nnodes=H``), NCCL between the
+cards and gloo on the CPU. Where the JAX package's mesh puts contiguous
+row blocks of one global batch on its devices, rank r keeps block r
+(``process_rows``):
 
 - ``init_distributed`` joins the launcher's ranks, each on its own card;
 - ``replicate`` gives every rank rank 0's weights and buffers;
@@ -18,10 +20,26 @@ global batch on its devices, rank r keeps block r (``process_rows``):
   neighbour, whose backward passes the cotangents right, as the
   transpose of ``ppermute`` does).
 
+Hosts. A JAX process is a host that holds several chips; here a process
+is a card. ``DataGroup`` learns each rank's host from the launcher's
+environment (``GROUP_RANK``, the node rank; ``LOCAL_WORLD_SIZE``), gathered
+over the group so that every rank agrees (``HostLayout``). The launcher
+numbers ranks node by node, so a host's ranks hold adjacent row blocks,
+and ``DataGroup.host_rows`` is the block the JAX package's
+``process_rows`` gives process h; any other layout, and unequal ranks per
+host, raise. The train step is global (its loss, gradients and pools span
+every rank, as the JAX step spans every process), while evaluation runs
+per host as the JAX package's does per process: ``forward_batch`` gathers
+within the host (``DataGroup.host``), each host scores its rows against
+its own pool, and ``average_metrics_across_processes`` averages the scalar
+metrics over the hosts. ``lead_first`` orders the dataset build by host:
+each host's first rank fills that host's caches before its other ranks
+read them.
+
 ``make_mesh``, ``shard_array`` and ``shard_batch`` have no counterpart: a
 process holds one card. A gloo group carries a CUDA tensor through a host
 copy (gloo's own CUDA support stops at all-reduce and broadcast); that is
-how two ranks that share one card meet in ``chip_smoke.py``. Each
+how ranks that share one card meet in ``chip_smoke.py``. Each
 collective is a ``parallel.<name>`` range in ``torch.profiler``.
 """
 
@@ -37,9 +55,9 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
-#: how long a rank waits for the others in a collective: rank 0 builds
-#: the datasets (preprocessing included) while the others wait
-#: (``lead_first``)
+#: how long a rank waits for the others in a collective: each host's
+#: first rank builds the datasets (preprocessing included) while the
+#: host's other ranks wait (``lead_first``)
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=30)
 
 
@@ -55,7 +73,8 @@ def init_distributed(device: tp.Union[str, torch.device],
                      ) -> torch.device:
     """Join the launcher's process group as rank ``RANK`` of
     ``WORLD_SIZE`` and return this rank's device: ``cuda:LOCAL_RANK``
-    (made the current card) for a CUDA `device`, else the CPU. The
+    (made the current card) for a CUDA `device` without an index, the
+    card `device` names when it has one, else the CPU. The
     backend is NCCL for a CUDA device and gloo for the CPU unless
     `backend` says otherwise. A group the caller initialized already
     (with its own store) is kept when it has this rank and world size. A
@@ -70,7 +89,8 @@ def init_distributed(device: tp.Union[str, torch.device],
                            f"torch.distributed.run") from None
     local = int(os.environ.get("LOCAL_RANK", rank))
     if device.type == "cuda":
-        device = torch.device("cuda", local)
+        if device.index is None:
+            device = torch.device("cuda", local)
         torch.cuda.set_device(device)
     elif device.type != "cpu":
         raise ValueError(f"device {device}: 'cuda' or 'cpu'")
@@ -276,18 +296,111 @@ def ring_hop(block: torch.Tensor, weight: torch.Tensor, pool: Pool
     return _RingHop.apply(block, weight, pool)
 
 
+@dataclasses.dataclass(frozen=True)
+class HostLayout:
+    """The hosts of a run: each host's ranks, as positions in the run's
+    group, hosts in the order of their first rank."""
+    hosts: tp.Tuple[tp.Tuple[int, ...], ...]
+
+    @classmethod
+    def from_ranks(cls, nodes: tp.Sequence[tp.Tuple[int, int]]
+                   ) -> "HostLayout":
+        """The layout of ranks whose (node id, local world size) are
+        `nodes`, in rank order; a local world size below 0 is not known.
+        Raises ValueError unless every host's ranks are adjacent (the
+        launcher numbers ranks node by node), every host has as many
+        ranks, and each known local world size is its host's count."""
+        by_node: tp.Dict[int, tp.List[int]] = {}
+        for rank, (node, _) in enumerate(nodes):
+            by_node.setdefault(node, []).append(rank)
+        hosts = tuple(tuple(ranks) for ranks in by_node.values())
+        for node, ranks in by_node.items():
+            if ranks != list(range(ranks[0], ranks[0] + len(ranks))):
+                raise ValueError(
+                    f"the ranks of node {node} are {ranks}: a host's ranks "
+                    f"must be adjacent (node by node, as the launcher "
+                    f"numbers them), so that its rows are one block")
+        if len({len(ranks) for ranks in hosts}) > 1:
+            raise ValueError(
+                f"unequal ranks per host ({[len(r) for r in hosts]}): the "
+                f"batch splits into one equal block a host")
+        for rank, (node, local_world) in enumerate(nodes):
+            if local_world >= 0 and local_world != len(by_node[node]):
+                raise ValueError(
+                    f"rank {rank}: LOCAL_WORLD_SIZE={local_world}, but node "
+                    f"{node} has {len(by_node[node])} ranks in the group")
+        return cls(hosts)
+
+    @property
+    def size(self) -> int:
+        return len(self.hosts)
+
+    def host_of(self, rank: int) -> int:
+        return next(h for h, ranks in enumerate(self.hosts) if rank in ranks)
+
+    def host_rows(self, n_global: int, host: int) -> slice:
+        """Host `host`'s contiguous block of a global batch of `n_global`
+        rows: the JAX package's ``process_rows`` of process `host`, the
+        union of its ranks' ``process_rows``."""
+        return process_rows(n_global, host, self.size)
+
+
 class DataGroup:
     """The ranks of one data-parallel run (`group`, the whole launch when
     None), every one in it the same code path: rank r's rows, the pools of
-    candidates, and the collectives on the run's group."""
+    candidates, the collectives on the run's group, and the hosts the
+    ranks sit on (``HostLayout``, gathered from the launcher's
+    environment): ``n_hosts``, ``host_index``, ``host`` (the DataGroup of
+    this host's ranks, the run's own on one host) and ``host_rows``."""
 
-    def __init__(self, group: tp.Any = None) -> None:
+    def __init__(self, group: tp.Any = None,
+                 layout: tp.Optional[HostLayout] = None) -> None:
         self.group = dist.group.WORLD if group is None else group
         self.size = dist.get_world_size(self.group)
         self.rank = dist.get_rank(self.group)
         self.ranks = tuple(dist.get_process_group_ranks(self.group))
         self.backend = _backend(self.group)
         self._pools: tp.Dict[int, Pool] = {}
+        if layout is None:
+            layout = HostLayout.from_ranks(self._gather_nodes())
+        self.layout = layout
+        self.n_hosts = layout.size
+        self.host_index = layout.host_of(self.rank)
+        self.host = self if self.n_hosts == 1 else self._host_group()
+
+    @property
+    def collective_device(self) -> torch.device:
+        """Where this group's collectives take a new tensor: the current
+        card under NCCL, else the CPU."""
+        if self.backend == "nccl":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
+
+    def _gather_nodes(self) -> tp.List[tp.Tuple[int, int]]:
+        """Every rank's (node rank, local world size) from the launcher's
+        environment (``GROUP_RANK``, ``LOCAL_WORLD_SIZE``), in rank order:
+        node 0 where the launcher set none (one host), and the local world
+        size only for the launch's whole group, which it counts (-1, not
+        known, otherwise)."""
+        node = int(os.environ.get("GROUP_RANK", 0))
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", -1)) \
+            if self.group is dist.group.WORLD else -1
+        mine = torch.tensor([[node, local_world]], dtype=torch.int64,
+                            device=self.collective_device)
+        if self.size > 1:
+            mine = self.all_gather(mine)
+        return [tuple(row) for row in mine.tolist()]
+
+    def _host_group(self) -> "DataGroup":
+        """This host's ranks as a DataGroup. Every rank creates every
+        host's process group, in the same order."""
+        mine = None
+        for h, block in enumerate(self.layout.hosts):
+            group = dist.new_group([self.ranks[i] for i in block])
+            if h == self.host_index:
+                mine = DataGroup(group, HostLayout(
+                    (tuple(range(len(block))),)))
+        return mine
 
     @property
     def lead(self) -> bool:
@@ -296,6 +409,12 @@ class DataGroup:
 
     def rows(self, n_global: int) -> slice:
         return process_rows(n_global, self.rank, self.size)
+
+    def host_rows(self, n_global: int) -> slice:
+        """This host's contiguous block of a global batch of `n_global`
+        rows (``HostLayout.host_rows``), the union of its ranks'
+        ``rows``."""
+        return self.layout.host_rows(n_global, self.host_index)
 
     def pool(self, k: int) -> Pool:
         """This rank's contiguous group of `k` ranks (k divides the run's
@@ -350,6 +469,25 @@ class DataGroup:
         return slice(min(n, self.rank * per), min(n, (self.rank + 1) * per))
 
 
+def average_metrics_across_processes(metrics: tp.Dict[str, float],
+                                     group: tp.Optional[DataGroup]
+                                     ) -> tp.Dict[str, float]:
+    """The mean over the hosts of `group` of each scalar metric, in
+    float64, the keys sorted (the JAX package's function of the same name,
+    whose processes are hosts): every host holds its own rows' metrics,
+    and every rank gets the mean. Without a group or on one host,
+    `metrics` itself."""
+    if group is None or group.n_hosts == 1:
+        return metrics
+    keys = sorted(metrics)
+    values = torch.tensor([[float(metrics[k]) for k in keys]],
+                          dtype=torch.float64,
+                          device=group.collective_device)
+    every = group.all_gather(values).cpu().numpy()
+    leads = [ranks[0] for ranks in group.layout.hosts]
+    return dict(zip(keys, every[leads].mean(axis=0).tolist()))
+
+
 @torch.no_grad()
 def replicate(modules: tp.Iterable[tp.Optional[torch.nn.Module]],
               group: DataGroup) -> None:
@@ -363,13 +501,16 @@ def replicate(modules: tp.Iterable[tp.Optional[torch.nn.Module]],
 
 @contextlib.contextmanager
 def lead_first(group: tp.Optional[DataGroup]) -> tp.Iterator[None]:
-    """Run the block on rank 0 before the other ranks run it (rank 0 fills
-    the caches the others then read)."""
-    if group is None or group.size == 1:
+    """Run the block on each host's first rank before that host's other
+    ranks run it: the first rank fills the host's caches, which the others
+    then read. The hosts run it at the same time, each in its own
+    caches."""
+    host = None if group is None else group.host
+    if host is None or host.size == 1:
         yield
         return
-    if not group.lead:
-        group.barrier()
+    if not host.lead:
+        host.barrier()
     yield
-    if group.lead:
-        group.barrier()
+    if host.lead:
+        host.barrier()

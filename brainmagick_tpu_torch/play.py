@@ -31,6 +31,7 @@ from .config import MainConfig
 from .convert import JAX_CHECKPOINT, load_jax_checkpoint
 from .events import EventTable
 from .features import FeaturesBuilder
+from .parallel import average_metrics_across_processes
 from .studies.api import INVALID_POSITION
 from .utils import Frequency
 
@@ -90,9 +91,12 @@ def get_test_metrics(solver: tp.Any, trim_offset: int = 0,
     metric, then ``reduce`` over the recordings when `reduce`), the
     samples before `trim_offset` left out. As a rank of a group, every
     rank takes the recordings in rank 0's order, so that each batch's
-    forward (split over the ranks) meets the same batch on every rank, and
-    gets the one-card metrics (on one host the JAX package's average over
-    processes has nothing to average)."""
+    forward (split over the ranks) meets the same batch on every rank. On
+    one host every rank gets the one-card metrics. On several hosts, as
+    in the JAX package's processes, each host's metrics are its own rows'
+    (``Solver.forward_batch``); with `reduce` the scalar metrics are then
+    averaged over the hosts (``parallel.average_metrics_across_processes``),
+    while the per-recording arrays without `reduce` stay the host's."""
     test_datasets = datasets or solver.datasets.test.datasets
     order = list(range(len(test_datasets)))
     random.shuffle(order)
@@ -128,6 +132,10 @@ def get_test_metrics(solver: tp.Any, trim_offset: int = 0,
         assert all(v is not None for v in vals)
         results[metric.name] = metric.reduce(vals) if reduce \
             else np.stack(vals)
+    if reduce:
+        scalar = {k: float(v) for k, v in results.items()
+                  if np.isscalar(v) or getattr(v, "ndim", 1) == 0}
+        results.update(average_metrics_across_processes(scalar, group))
     return results
 
 

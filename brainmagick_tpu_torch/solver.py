@@ -581,16 +581,36 @@ class Solver:
         pool of ``negatives_group_size`` ranks, and the sampled negatives
         are the same on every rank (one pool, from every rank's targets);
         ``forward_batch`` splits a batch over the ranks and gives each
-        rank all its rows; the dropouts draw on each rank from its own
-        stream (``parallel.rank_seed``)."""
+        rank its host's rows; the dropouts draw on each rank from its own
+        stream (``parallel.rank_seed``). The ranks must have restored the
+        same checkpoint (the same epoch and history), which they read from
+        the XP folder: on several hosts that folder is one folder they
+        share."""
         self.group = group
         if group is not None:
             self._negatives_group_size()
+            self._check_same_restore(group)
             replicate(self._trained_modules(), group)
         for name, loader in getattr(self, "loaders", {}).items():
             if name in ("train", "valid"):
                 loader.rows = None if group is None else \
                     group.rows(loader.batch_size)
+
+    def _check_same_restore(self, group: DataGroup) -> None:
+        """Raise unless every rank of `group` restored the same epoch and
+        history (``restore``)."""
+        mine = torch.tensor([[getattr(self, "epoch", 1),
+                              len(getattr(self, "history", []))]],
+                            dtype=torch.int64,
+                            device=group.collective_device)
+        seen = group.all_gather(mine).tolist() if group.size > 1 \
+            else mine.tolist()
+        if any(row != seen[0] for row in seen):
+            raise RuntimeError(
+                f"the ranks restored different checkpoints (epoch, epochs "
+                f"of history by rank: {seen}): the XP folder "
+                f"{getattr(self, 'folder', None)} must be one folder that "
+                f"every host reads")
 
     def _negatives_group_size(self) -> int:
         """Ranks per CLIP candidate pool: ``negatives_group_size`` with 0
@@ -607,11 +627,13 @@ class Solver:
         return k
 
     def local_rows(self, n_global: int) -> slice:
-        """This rank's row block of a global batch of `n_global` rows (all
-        of them alone, or when they do not divide over the ranks)."""
+        """This host's row block of a global batch of `n_global` rows
+        (``DataGroup.host_rows``: all of them alone, on one host, or when
+        they do not divide over the ranks), the rows ``forward_batch``
+        returns; callers align the batch's host metadata with them."""
         if self.group is None or n_global % self.group.size:
             return slice(0, n_global)
-        return self.group.rows(n_global)
+        return self.group.host_rows(n_global)
 
     # -- the epoch loop ------------------------------------------------------
 
@@ -717,12 +739,17 @@ class Solver:
         sends them; only its train and valid steps cross in
         ``parallel.transfer_dtype``). `pad_weight` [B] (ones when None) is
         0 for the rows a loader adds to fill its last batch; those rows
-        are not kept."""
+        are not kept. As a rank of a group, a batch that divides over the
+        ranks is split over them, and each rank gets its host's rows
+        (``local_rows``), the whole batch on one host, as the JAX solver's
+        forward returns a process's rows."""
         n = len(batch.meg)
-        rows = self.local_rows(n)
-        split = rows != slice(0, n)
+        split = self.group is not None and self.group.size > 1 \
+            and n % self.group.size == 0
         if split:
-            # this rank's rows cross to the card; every rank gets all rows
+            # this rank's rows cross to the card; every rank of a host
+            # gets all the host's rows
+            rows = self.group.rows(n)
             batch = types.SimpleNamespace(**{
                 name: getattr(batch, name)[rows] for name in ARRAY_FIELDS})
         arrays = to_device(batch, self.device, transfer_dtype)
@@ -733,8 +760,8 @@ class Solver:
             pad_weight = _on(pad_weight[rows] if split else pad_weight,
                              self.device).float()
         out = self._forward(arrays, pad_weight)[:4]
-        if split:
-            out = [self.group.all_gather(t) for t in out]
+        if split and self.group.host.size > 1:
+            out = [self.group.host.all_gather(t) for t in out]
         estimate, output, mask, keep = out
         return estimate, output, mask, keep > 0.5
 

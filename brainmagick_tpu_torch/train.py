@@ -22,14 +22,31 @@ On N cards of one host, one rank a card, NCCL between them (gloo with
     python -m torch.distributed.run --standalone --nproc_per_node=N \
         -m brainmagick_tpu_torch.train preset=clip_conv_v5e8 ...
 
+On H hosts of N cards each, the same command on every host, host h with
+``--node_rank=h`` and a static rendezvous at host 0's address, or with
+the c10d rendezvous at any reachable host (then the node ranks come from
+the rendezvous):
+
+    python -m torch.distributed.run --nnodes=H --node_rank=h \
+        --nproc_per_node=N --master_addr=<host 0> --master_port=29500 \
+        -m brainmagick_tpu_torch.train ...
+    python -m torch.distributed.run --nnodes=H --nproc_per_node=N \
+        --rdzv_backend=c10d --rdzv_endpoint=<host>:29400 --rdzv_id=<run> \
+        -m brainmagick_tpu_torch.train ...
+
 Every rank draws the same seeded global batch of ``optim.batch_size``
 and trains on its block of it (``Solver.set_group``); the batch must
-divide over the ranks. A launch of several ranks always trains as one
+divide over all the ranks. A launch of several ranks always trains as one
 run: ``parallel.auto_mesh=false`` is refused there, and no rank falls
 back to training alone. ``parallel.distributed_init`` is accepted (the
-launcher's environment is always read). Rank 0 builds the datasets first
-(the others then read its caches) and alone writes the XP folder; a
-resume loads the checkpoint on every rank.
+launcher's environment is always read). Each host's first rank builds the
+datasets first (the host's other ranks then read its caches, which need
+not be shared between hosts), and rank 0 alone writes the XP folder. A
+resume loads the checkpoint on every rank, so on several hosts the XP
+folder (``out_dir``) is one folder that every host mounts; the ranks
+check that they restored the same epoch. The train step is global on any
+number of hosts; the test stage runs per host, as the JAX package's runs
+per process, and its metrics are averaged over the hosts.
 
 ``Trainer`` is the counterpart of ``get_solver`` for a caller that brings
 its own batches:
@@ -194,9 +211,10 @@ def join_launcher(args: tp.Any, check_batch: bool = True
     """Under ``python -m torch.distributed.run``: this process joins the
     launcher's ranks on its device (``parallel.init_distributed``: its
     own card over NCCL, or the CPU over gloo) and the run's
-    ``DataGroup`` is returned; without a launcher, None. With several
-    ranks, ``parallel.auto_mesh=false`` and (`check_batch`) an
-    ``optim.batch_size`` that does not divide over them raise: the
+    ``DataGroup`` is returned, with the hosts of a launch over several
+    nodes; without a launcher, None. With several ranks,
+    ``parallel.auto_mesh=false`` and (`check_batch`) an
+    ``optim.batch_size`` that does not divide over all of them raise: the
     launcher started one run."""
     if not parallel.launched():
         return None
@@ -266,8 +284,9 @@ def get_solver(args: tp.Any, training: bool = True,
     from a generator seeded with ``seed``), Adam over them when
     `training`, and
     the dataset-driven solver (``Solver.from_datasets``); with `group`
-    (``join_launcher``), built on rank 0 first and then on the others,
-    and a rank of that group (``Solver.set_group``)."""
+    (``join_launcher``), built on each host's first rank and then on the
+    host's other ranks (``parallel.lead_first``), and a rank of that group
+    (``Solver.set_group``)."""
     device = get_device(args)
     with parallel.lead_first(group):
         t0 = time.perf_counter()
@@ -309,8 +328,9 @@ def _run(args: tp.Any) -> float:
                         format=f"%(levelname)s {rank}%(name)s: %(message)s")
     solver = get_solver(args, group=group)
     if group is not None:
-        logger.info("Data-parallel run over %d rank(s) (%s); contrastive "
-                    "negative groups of %d", group.size, group.backend,
+        logger.info("Data-parallel run over %d rank(s) (%s) on %d host(s); "
+                    "contrastive negative groups of %d", group.size,
+                    group.backend, group.n_hosts,
                     solver._negatives_group_size())
     logger.info("Model hash: %s", model_hash(solver.model))
     if args.show:

@@ -12,8 +12,11 @@ error over samples and over the word vocabulary. The pool is scored by
 ``test.pool_int8`` int8 pools, and the own column through
 ``losses.own_scores_int8``), inside ``precision.exact_fp32``. As a rank
 of a data-parallel run, a solver's forwards split each batch over the
-ranks (``Solver.forward_batch``) and so does the scoring; every rank gets
-every row, and so the one-card metrics.
+ranks (``Solver.forward_batch``) and so does the scoring; on one host
+every rank gets every row, and so the one-card metrics. On several hosts,
+as in the JAX package's processes, each host ranks its own rows against
+negatives drawn from its own rows, and the metrics are averaged over the
+hosts (``parallel.average_metrics_across_processes``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from .eval import check_index, host_array, solver_batches
 from .losses import commit_rows, own_scores_int8, pool_scores, use_int8_pool
+from .parallel import average_metrics_across_processes
 from .precision import exact_fp32
 
 logger = logging.getLogger(__name__)
@@ -61,7 +65,8 @@ def test_batches(solver: tp.Any) -> tp.Iterator[types.SimpleNamespace]:
 def get_wer(server: tp.Any, batches: tp.Iterable[tp.Any],
             stats: tp.Optional[tp.Dict[str, int]] = None
             ) -> tp.Dict[str, float]:
-    """{"wer", "wer_vocab", "wer_n_vocab"} over the batches' kept rows.
+    """{"wer", "wer_vocab", "wer_n_vocab"} over the batches' kept rows
+    (a host's rows, then the mean over the hosts, on several hosts).
     `stats`, when given, gains the transfer counts of
     ``losses.streamed_scores`` (this rank's, under a group) and the
     own-output pass's commits."""
@@ -75,8 +80,12 @@ def get_wer(server: tp.Any, batches: tp.Iterable[tp.Any],
     device = server.device
 
     estimates_list, outputs_list, hashes_list = [], [], []
+    local_rows = getattr(server, "local_rows", None)
     for batch in batches:
         word_hash = np.asarray(batch.word_hash)
+        if local_rows is not None:
+            # forward_batch returns this host's rows
+            word_hash = word_hash[local_rows(len(word_hash))]
         estimate, output, _, keep_t = server.forward_batch(
             batch, getattr(batch, "pad_weight", None))
         keep = host_array(keep_t)
@@ -149,8 +158,10 @@ def get_wer(server: tp.Any, batches: tp.Iterable[tp.Any],
         correct_vocab += float((vocab[bests_vocab] == wh).any())
     correct /= n
     correct_vocab /= n
-    return {"wer": 1 - correct, "wer_vocab": 1 - correct_vocab,
-            # vocab top-k saturates when the pool has few unique words
-            # (wer_vocab -> 0 for topx >= vocab size); reported so that a
-            # 0.0 is distinguishable from a fault
-            "wer_n_vocab": float(len(vocab_f))}
+    metrics = {"wer": 1 - correct, "wer_vocab": 1 - correct_vocab,
+               # vocab top-k saturates when the pool has few unique words
+               # (wer_vocab -> 0 for topx >= vocab size); reported so that
+               # a 0.0 is distinguishable from a fault
+               "wer_n_vocab": float(len(vocab_f))}
+    return average_metrics_across_processes(
+        metrics, getattr(server, "group", None))

@@ -6,7 +6,8 @@ data-parallel training, the wav2vec 2.0 targets (random=True) with
 the planted-map rehearsal, the train step's remaining options, the
 serving export with the checkpoint readers, the rest of the model
 zoo with int8 evaluation pools, resuming training from the JAX package's
-checkpoint.pkl, the notebook helpers and the native batch gather.
+checkpoint.pkl, the notebook helpers, the native batch gather, and ranks
+on several hosts with the event query.
 
 Run from the repository root, with no arguments:
 
@@ -278,7 +279,23 @@ check raises, so the script exits non-zero and prints no result:
    the recording's memmap, bit for bit against its plain version in fp32
    and bf16, timed beside it, and the train loader's epoch with either;
    normalize and nt_matmul at these runs' shapes, added to their
-   other_shapes.
+   other_shapes;
+20. ranks on several hosts and the event query on the same tree
+   (``run_hosts_phase``): ``train.main`` of the clip_conv_tpu recipe at
+   the paper's width with fused_conv_bn, B=256 in one pool over HOSTS
+   hosts of HOSTS_RANKS ranks (64 a rank), four processes spawned on the
+   one card with a two-node launcher's environment, gloo between them,
+   a cache folder a host and the XP folder shared, HOSTS_BATCHES train
+   steps, the valid pass and the test stage (hosts_hosts: conv_stats 10
+   times a train step in bf16 on "tc", normalize once a forward, nt_matmul
+   in each host's test stage); the same four ranks as one host
+   (hosts_one_host), whose train and valid losses the hosts' must give
+   within LAUNCHER_TOL; each host's test-stage metrics against its rows
+   scored in this process (LAUNCHER_TOL), the reported ones their mean;
+   each rank's warm step device time, peak memory and dataset build;
+   HOSTS_QUERY as dset.condition builds the splits without pandas, the
+   test split's HOSTS_QUERY_SEGMENTS segments as on the CPU; each kernel
+   at a rank's shapes, added to its other_shapes.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it raises at once.
@@ -5943,6 +5960,370 @@ def run_resume_phase(device: torch.device, card_name: str, work: Path,
     return launches, shapes
 
 
+#: phase 20: ranks on several hosts, on phase 9's gwilliams2022 tree
+#: (KEPT_STUDY): the clip_conv_tpu recipe at the paper's width with
+#: fused_conv_bn, B=256 over HOSTS hosts of HOSTS_RANKS ranks (64 a rank),
+#: one candidate pool of the whole batch (the paper's 256 candidates,
+#: gathered across the hosts), HOSTS_BATCHES train batches (the tree's
+#: train split holds two), the valid pass and the test stage; four
+#: processes on the one card over gloo
+HOSTS, HOSTS_RANKS, HOSTS_BATCHES = 2, 2, 2
+HOSTS_ARGS = (f"preset={RECIPE}", "simpleconv.fused_conv_bn=True",
+              'dset.features=["MelSpectrum"]', "optim.batch_size=256",
+              "optim.epochs=1", "dset.n_recordings=2",
+              f"dset.selections=[{KEPT_STUDY!r}]",
+              f"optim.max_batches={HOSTS_BATCHES}",
+              "parallel.negatives_group_size=0", "device=cuda:0")
+#: a compound dset.condition (the test split takes it too), and the test
+#: split's segment count that the port's parser gives on the CPU on the
+#: same tree (tests/test_torch_query.py)
+HOSTS_QUERY = ("kind=='word' and duration > 0.1 and (start < 60 or "
+               "start > 180)")
+HOSTS_QUERY_SEGMENTS = 118
+
+
+def _hosts_rank_main(rank: int, per_host: int, port: int, argv: list,
+                     caches: list, studies: str, out: str) -> None:
+    """A spawned rank of phase 20: a launcher's environment of
+    `per_host` ranks a node (RANK, WORLD_SIZE, LOCAL_RANK,
+    LOCAL_WORLD_SIZE, GROUP_RANK), the card shared, gloo between the
+    ranks; ``train.main(argv)`` with its node's cache folder of `caches`
+    and every launch count set to 0 just before it, its steps timed (``SolverSpy``), its host's test-stage
+    metrics before the mean over the hosts and its scoring's shapes
+    recorded. Its result or its traceback is pickled into `out`.<rank>,
+    its log written to `out`.<rank>.log."""
+    import os
+    import pickle
+    import traceback
+
+    marks = {"started": time.time()}
+    world = HOSTS * HOSTS_RANKS
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank % per_host),
+                      LOCAL_WORLD_SIZE=str(per_host),
+                      GROUP_RANK=str(rank // per_host),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    log = os.open(f"{out}.{rank}.log", os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(log, 1)
+    os.dup2(log, 2)
+    torch.set_num_threads(2)
+    try:
+        from brainmagick_tpu_torch import ops, parallel, train, wer
+        from brainmagick_tpu_torch.env import env
+        from brainmagick_tpu_torch.ops import _build
+        _build.library()
+        parallel.init_distributed("cuda:0", backend="gloo")
+        marks["joined"] = time.time()
+        host_metrics, scored = [], []
+        get_solver = train.get_solver
+
+        def timed_get_solver(*args, **kwargs):
+            solver = get_solver(*args, **kwargs)
+            marks["solver"] = time.time()
+            return solver
+
+        train.get_solver = timed_get_solver
+        average, pool_scores = (wer.average_metrics_across_processes,
+                                wer.pool_scores)
+
+        def spied_average(metrics, group):
+            host_metrics.append(dict(metrics))
+            return average(metrics, group)
+
+        def spied_scores(server, clip, rows, pool, **kwargs):
+            scored.append((len(rows), len(pool)))
+            return pool_scores(server, clip, rows, pool, **kwargs)
+
+        wer.average_metrics_across_processes = spied_average
+        wer.pool_scores = spied_scores
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with SolverSpy() as spy, env.temporary(
+                studies={KEPT_STUDY: Path(studies)}):
+            t0 = time.perf_counter()
+            train.main([*argv, f"cache={caches[rank // per_host]}"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        marks["done"] = time.time()
+        solver = spy.solver
+        result = (True, dict(
+            rank=rank, host=solver.group.host_index,
+            n_hosts=solver.group.n_hosts, host_size=solver.group.host.size,
+            launches={k.__name__: k.launches for k in ops.KERNELS},
+            routes=dict(ops.conv_stats.launches_by_route),
+            by_dtype=dict(ops.conv_stats.launches_by_dtype),
+            trains=[t for t, _, _ in spy.events], forwards=spy.forwards,
+            test_nt_matmul=spy.test_nt_matmul, step_ms=spy.train_step_ms(),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9, wall=wall,
+            datasets_s=solver.build_timings["datasets"],
+            host_metrics=host_metrics, scored=scored, marks=marks,
+            n_mels=solver.used_features["MelSpectrum"].n_mels,
+            channels=solver.datasets.train[0].meg.shape[0]))
+    except BaseException:  # noqa: BLE001 - sent to the parent
+        result = (False, traceback.format_exc())
+    with open(f"{out}.{rank}.tmp", "wb") as f:
+        pickle.dump(result, f)
+    os.replace(f"{out}.{rank}.tmp", f"{out}.{rank}")
+
+
+def run_host_ranks(card_name: str, work: Path, name: str, per_host: int,
+                   argv: list, caches: list, timeout: float = 300.) -> list:
+    """HOSTS x HOSTS_RANKS spawned ranks of ``train.main(argv)`` sharing
+    the card, `per_host` ranks a node (HOSTS_RANKS: HOSTS hosts; all of
+    them: one host), node n's ranks with the cache folder `caches`[n];
+    their results, or AssertionError with a failing rank's traceback and
+    log. Every rank still running at `timeout` is killed."""
+    import pickle
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out = str(work / f"{name}_rank")
+    world = HOSTS * HOSTS_RANKS
+    ctx = mp.get_context("spawn")
+    spawned = time.time()
+    procs = [ctx.Process(target=_hosts_rank_main,
+                         args=(r, per_host, port, argv, caches,
+                               str(work / KEPT_STUDY), out))
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    end = time.monotonic() + timeout
+    try:
+        for proc in procs:
+            proc.join(max(0., end - time.monotonic()))
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    results = []
+    for r, proc in enumerate(procs):
+        path = Path(f"{out}.{r}")
+        ok, value = pickle.loads(path.read_bytes()) if path.exists() \
+            else (False, f"no result (exit code {proc.exitcode})")
+        if not ok:
+            print(_log_tail(Path(f"{out}.{r}.log"), 60))
+            raise AssertionError(f"phase 20 {name} rank {r} ({card_name}):"
+                                 f"\n{value}")
+        value["marks"]["spawned"] = spawned
+        results.append(value)
+    return results
+
+
+class HostView:
+    """One host's test stage in this process: ``forward_batch`` of a batch
+    that divides over the ranks forwards each of the host's ranks' row
+    blocks alone, as the ranks do, and returns the host's rows
+    (``local_rows``), which ``wer.get_wer`` then scores here."""
+
+    def __init__(self, solver, host: int, hosts: int, ranks: int) -> None:
+        self.solver, self.host, self.hosts, self.ranks = (solver, host,
+                                                          hosts, ranks)
+
+    def __getattr__(self, name):
+        return getattr(self.solver, name)
+
+    def local_rows(self, n: int) -> slice:
+        from brainmagick_tpu_torch.parallel import process_rows
+        return process_rows(n, self.host, self.hosts) \
+            if n % (self.hosts * self.ranks) == 0 else slice(0, n)
+
+    def forward_batch(self, batch, pad_weight=None):
+        from brainmagick_tpu_torch.dataset import ARRAY_FIELDS
+        from brainmagick_tpu_torch.parallel import process_rows
+        n = len(batch.meg)
+        world = self.hosts * self.ranks
+        if n % world:
+            return self.solver.forward_batch(batch, pad_weight)
+        outs = []
+        for r in range(self.host * self.ranks, (self.host + 1) * self.ranks):
+            rows = process_rows(n, r, world)
+            part = types.SimpleNamespace(**{
+                name: getattr(batch, name)[rows] for name in ARRAY_FIELDS})
+            outs.append(self.solver.forward_batch(
+                part, None if pad_weight is None else pad_weight[rows]))
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def _check_host_rank(result: dict, n_hosts: int) -> None:
+    """A rank of phase 20 knows its hosts and launched conv_stats 10 times
+    a train step in bf16 on "tc", normalize once a forward and nt_matmul
+    in its host's test stage."""
+    want = (n_hosts, result["rank"] // (HOSTS * HOSTS_RANKS // n_hosts),
+            HOSTS * HOSTS_RANKS // n_hosts)
+    if (result["n_hosts"], result["host"], result["host_size"]) != want:
+        raise AssertionError(f"rank {result['rank']}: hosts "
+                             f"{result['n_hosts']}, host {result['host']} "
+                             f"of {result['host_size']} ranks, want {want}")
+    spy = types.SimpleNamespace(
+        events=[(t, None, None) for t in result["trains"]],
+        forwards=result["forwards"], test_nt_matmul=result["test_nt_matmul"])
+    steps = _check_cli_launches(f"hosts rank {result['rank']}",
+                                result["launches"], result["routes"],
+                                result["by_dtype"], spy, "bfloat16")
+    if steps != HOSTS_BATCHES:
+        raise AssertionError(f"rank {result['rank']}: {steps} train steps")
+
+
+def run_hosts_phase(device: torch.device, card_name: str, work: Path
+                    ) -> tuple:
+    """Phase 20: ranks on several hosts and the event query.
+
+    1. HOSTS "hosts" of HOSTS_RANKS ranks, four processes spawned on the
+       one card with a two-node launcher's environment, gloo between
+       them, each host with its own cache folder (so that its first rank
+       fills it, ``parallel.lead_first``), the XP folder shared:
+       ``train.main`` of HOSTS_ARGS. Then the same four ranks as one host
+       (its cache read from host 0's). The train and valid losses of the
+       two launches within LAUNCHER_TOL: the train step is global on any
+       number of hosts.
+    2. Each host's test-stage metrics (its rows against its own pool)
+       against that host's rows scored in this process (``HostView``,
+       the best state restored by signature) within LAUNCHER_TOL, and the
+       reported metrics the mean of the two hosts'.
+    3. Each rank's launches (conv_stats 10 a train step, bf16 on "tc";
+       normalize once a forward; nt_matmul in its host's test stage),
+       warm step device time, peak memory and dataset build seconds.
+    4. HOSTS_QUERY as dset.condition (and the test split's) builds the
+       splits here: the test split holds HOSTS_QUERY_SEGMENTS segments.
+
+    Returns ({path: launch counts}, {path: ``check_cli_shapes``
+    arguments})."""
+    from brainmagick_tpu_torch import train, wer
+    from brainmagick_tpu_torch.env import env
+    from brainmagick_tpu_torch.play import get_solver_from_sig
+
+    t_phase = time.perf_counter()
+    caches = [f"{work}/hosts_cache{h}" for h in range(HOSTS)]
+    runs = {}
+    for name, per_host, folders in (
+            ("hosts", HOSTS_RANKS, caches),
+            ("one_host", HOSTS * HOSTS_RANKS, caches[:1])):
+        t0 = time.perf_counter()
+        runs[name] = run_host_ranks(card_name, work, name, per_host,
+                                    [*HOSTS_ARGS, f"out_dir={work}/{name}"],
+                                    folders)
+        print(f"hosts: the {name} run ({card_name}): "
+              f"{time.perf_counter() - t0:.1f} s, four processes on the "
+              f"one card (their start included)")
+    for name in runs:
+        for result in runs[name]:
+            warm = result["step_ms"][1:] or result["step_ms"]
+            marks = result["marks"]
+            print(f"hosts: {name} rank {result['rank']} (host "
+                  f"{result['host']} of {result['n_hosts']}) on the shared "
+                  f"card ({card_name}): train step device time "
+                  f"{[round(x, 2) for x in result['step_ms']]} ms (warm "
+                  f"median {statistics.median(warm):.2f}; four processes' "
+                  f"kernels interleave on one card), peak device memory "
+                  f"{result['peak_gb']:.2f} GB; seconds: to start "
+                  f"{marks['started'] - marks['spawned']:.1f}, to join "
+                  f"{marks['joined'] - marks['started']:.1f}, get_solver "
+                  f"{marks['solver'] - marks['joined']:.1f} (datasets "
+                  f"{result['datasets_s']:.2f}), the epoch, test stage and "
+                  f"files {marks['done'] - marks['solver']:.1f}; scored rows "
+                  f"x pool {result['scored']}; launches "
+                  f"{result['launches']} (conv_stats by type "
+                  f"{result['by_dtype']})")
+    for name, n_hosts in (("hosts", HOSTS), ("one_host", 1)):
+        for result in runs[name]:
+            _check_host_rank(result, n_hosts)
+    sig = train.parse_overrides(list(HOSTS_ARGS)).sig
+    histories = {name: _read_history(work / name / "xps" / sig, 1,
+                                     f"hosts {name}")[0] for name in runs}
+
+    # 1. the train step is global: the same losses on one host
+    diffs = {f"{stage} loss": abs(histories["hosts"][stage]["loss"]
+                                  - histories["one_host"][stage]["loss"])
+             / abs(histories["one_host"][stage]["loss"])
+             for stage in ("train", "valid")}
+    print(f"hosts: {HOSTS} hosts of {HOSTS_RANKS} ranks against one host of "
+          f"{HOSTS * HOSTS_RANKS} ({card_name}): history "
+          f"{histories['hosts']} against {histories['one_host']}; loss "
+          f"differences {diffs} (tol {LAUNCHER_TOL})")
+    if not all(d <= LAUNCHER_TOL for d in diffs.values()):
+        raise AssertionError(f"hosts: the losses on {HOSTS} hosts against "
+                             f"one host: {diffs}")
+
+    # 2. each host's test stage against its rows scored in this process
+    by_host = {}
+    for result in runs["hosts"]:
+        if len(result["host_metrics"]) != 1:
+            raise AssertionError(f"rank {result['rank']}: host metrics "
+                                 f"{result['host_metrics']}")
+        metrics = result["host_metrics"][0]
+        if by_host.setdefault(result["host"], metrics) != metrics:
+            raise AssertionError(f"hosts: host {result['host']}'s ranks "
+                                 f"report {by_host[result['host']]} and "
+                                 f"{metrics}")
+    reported = histories["hosts"]["test"]
+    mean_diff = max(abs(reported[k] - np.mean([by_host[h][k]
+                                               for h in range(HOSTS)]))
+                    for k in reported)
+    with _studies_env(work):
+        solver = get_solver_from_sig(
+            sig, out_dir=f"{work}/hosts",
+            override_args={"cache": caches[0], "device": str(device)})
+        alone = {h: wer.get_wer(HostView(solver, h, HOSTS, HOSTS_RANKS),
+                                wer.test_batches(solver))
+                 for h in range(HOSTS)}
+        n_test = len(solver.datasets.test)
+        del solver
+    torch.cuda.empty_cache()
+    host_diffs = {f"host {h} {k}": abs(by_host[h][k] - alone[h][k])
+                  for h in range(HOSTS) for k in alone[h]}
+    print(f"hosts: each host's test stage ({card_name}): {by_host}; its "
+          f"rows scored in this process {alone}; differences {host_diffs} "
+          f"(tol {LAUNCHER_TOL}); reported {reported}, the hosts' mean to "
+          f"{mean_diff:.1e}; one host reports {histories['one_host']['test']}"
+          f" over all {n_test} test segments")
+    if not all(d <= LAUNCHER_TOL for d in host_diffs.values()) \
+            or not mean_diff <= 1e-9:
+        raise AssertionError(f"hosts: the hosts' test stages {host_diffs}, "
+                             f"the reported mean off by {mean_diff}")
+    if by_host[0] == by_host[1]:
+        raise AssertionError(f"hosts: both hosts report {by_host[0]}")
+
+    # 3. the event query
+    t0 = time.perf_counter()
+    query_args = train.parse_overrides([
+        *HOSTS_ARGS, f"dset.condition={HOSTS_QUERY}",
+        "dset.test.condition=None", f"cache={caches[0]}",
+        f"device={device}"])
+    with _studies_env(work), env.temporary_from_args(query_args):
+        built = train.build_datasets(query_args)
+    sizes = {split: len(getattr(built, split))
+             for split in ("train", "valid", "test")}
+    print(f"hosts: dset.condition={HOSTS_QUERY!r} on the card's machine "
+          f"(no pandas) builds the splits {sizes} in "
+          f"{time.perf_counter() - t0:.2f} s; the test split's "
+          f"{HOSTS_QUERY_SEGMENTS} segments on the CPU, {n_test} with "
+          f"'word'")
+    if sizes["test"] != HOSTS_QUERY_SEGMENTS:
+        raise AssertionError(f"hosts: the query's test split holds "
+                             f"{sizes['test']} segments, the CPU's "
+                             f"{HOSTS_QUERY_SEGMENTS}")
+    del built
+
+    launches = {f"hosts_{name}": {
+        kernel: sum(r["launches"][kernel] for r in runs[name])
+        for kernel in runs[name][0]["launches"]} for name in runs}
+    lead = runs["hosts"][0]
+    rows, pool = lead["scored"][0]
+    batch = train.parse_overrides(list(HOSTS_ARGS)).optim.batch_size
+    shapes = {"hosts_ranks": dict(
+        batch=batch // (HOSTS * HOSTS_RANKS), n_test=-(-rows // HOSTS_RANKS),
+        n_cand=pool, n_mels=lead["n_mels"], channels=lead["channels"])}
+    print(f"hosts phase: {time.perf_counter() - t_phase:.1f} s "
+          f"({card_name})")
+    return launches, shapes
+
+
 @contextlib.contextmanager
 def _studies_env(work: Path):
     from brainmagick_tpu_torch.env import env
@@ -6043,6 +6424,10 @@ def main() -> None:
         resume_launches, resume_shapes = run_resume_phase(
             device, card_name, work, study_epochs[KEPT_STUDY])
         phase_s["19"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hosts_launches, hosts_shapes = run_hosts_phase(device, card_name,
+                                                       work)
+        phase_s["20"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     zoo_launches, zoo_shapes = run_zoo_phase(
         device, card_name, batch, eval_fp32, train_warm, recipe_train_warm)
@@ -6059,7 +6444,8 @@ def main() -> None:
                             **encode_shapes, **grid_shapes,
                             **parallel_shapes, **wav2vec_shapes,
                             **options_shapes, **export_shapes,
-                            **zoo_shapes, **resume_shapes}.items():
+                            **zoo_shapes, **resume_shapes,
+                            **hosts_shapes}.items():
             for name, shapes in check_cli_shapes(
                     device, **shape, prefix=f"{path}: ").items():
                 cli_shapes[name].update(shapes)
@@ -6096,7 +6482,8 @@ def main() -> None:
                                                **options_launches,
                                                **export_launches,
                                                **zoo_launches,
-                                               **resume_launches}.items()})
+                                               **resume_launches,
+                                               **hosts_launches}.items()})
         entry["other_shapes"].update(cli_shapes[entry["name"]])
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path

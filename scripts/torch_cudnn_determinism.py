@@ -7,17 +7,23 @@ cuDNN's own choice of algorithm ("free") or deterministic algorithms
 only (``precision.deterministic_cudnn``, "held", what ``Solver``
 runs), each with ``conv_stats``' dx as a forward conv of dY (what
 ``ops/conv_bn.py`` runs) or as cuDNN's backward-data
-(``torch.nn.grad.conv1d_input``, the earlier design). Each prints how
-many of the parameters' gradients differ between three
-``loss_and_grad`` calls from the same seeds, the warm step's device
-time (CUDA events, median of steps 2-6) and the three cuDNN kernels
-with the most device time in one profiled step.
+(``torch.nn.grad.conv1d_input``, the earlier design). Then the presets
+as a user gets them, with fused_conv_bn off (both presets' default):
+clip_conv_tpu, clip_conv and clip_conv + deep_mel (Table 2's DeepMel on
+120 mels), each free and held, with ``models.common.Conv1d``'s dx as a
+forward conv (``_SameConv``, what the models run) or autograd's
+backward-data (the earlier design). Each prints how many of the
+parameters' gradients differ between three ``loss_and_grad`` calls from
+the same seeds, the warm step's device time (CUDA events, median of
+steps 2-6) and the three cuDNN kernels with the most device time in one
+profiled step, and for the presets each held step's time against its
+free one.
 
 Run on a machine with a CUDA card, from the repository root:
 
     python3 scripts/torch_cudnn_determinism.py
 
-It needs about a minute.
+It needs about three minutes.
 """
 
 import statistics
@@ -31,12 +37,16 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as cs  # noqa: E402
 from brainmagick_tpu_torch import dataset, solver  # noqa: E402
+from brainmagick_tpu_torch.models import common  # noqa: E402
 from brainmagick_tpu_torch.ops import _build, conv_bn  # noqa: E402
 from brainmagick_tpu_torch.precision import exact_fp32  # noqa: E402
 
 HELD = solver.Solver.loss_and_grad
 FREE = exact_fp32()(HELD.__wrapped__.__wrapped__)
 FORWARD_DX = conv_bn._ConvStats.backward
+CONV_FORWARD_DX = common.Conv1d._conv_forward
+#: deep_mel's mel features (the default MelSpectrum's n_mels)
+MELS = 120
 
 
 def backward_data_dx(ctx, dy, ds, dss):
@@ -56,10 +66,41 @@ def backward_data_dx(ctx, dy, ds, dss):
     return dx, dw, None
 
 
-def run(device, batch, preset: str) -> str:
+def backward_data_conv(self, x, weight, bias):
+    """``Conv1d._conv_forward`` without ``_SameConv``: autograd's conv,
+    whose dx is cuDNN's backward-data."""
+    return torch.nn.Conv1d._conv_forward(self, x, weight, bias)
+
+
+def preset_trainer(device, preset: str):
+    """`preset` as the user gets it (fused_conv_bn off) at full width,
+    from chip_smoke's seeds; "deep_mel" is clip_conv + deep_mel over MELS
+    features."""
+    from brainmagick_tpu_torch.config import MainConfig, apply_preset
+    from brainmagick_tpu_torch.train import Trainer
+
+    norm_arrays, _ = cs.seeded_arrays()
+    args = apply_preset(MainConfig(), "clip_conv" if preset == "deep_mel"
+                        else preset)
+    width = cs.F
+    if preset == "deep_mel":
+        apply_preset(args, "deep_mel")
+        width = MELS
+        norm_arrays = dict(norm_arrays,
+                           feat_center=norm_arrays["feat_center"][:MELS],
+                           feat_scale=norm_arrays["feat_scale"][:MELS])
+    assert not args.simpleconv["fused_conv_bn"]
+    return Trainer(args, cs.C, width, cs.N_SUBJECTS, None, None,
+                   norm_arrays, device,
+                   generator=torch.Generator().manual_seed(cs.SEED))
+
+
+def run(device, batch, preset: str, build=None) -> tuple:
+    """(the line to print, the warm step's median ms)."""
+    build = build or cs.build_trainer
     grads = []
     for _ in range(3):
-        trainer = cs.build_trainer(device, preset)
+        trainer = build(device, preset)
         arrays = dataset.to_device(batch, device,
                                    trainer.args.parallel.transfer_dtype)
         trainer.solver.loss_and_grad(
@@ -85,8 +126,9 @@ def run(device, batch, preset: str) -> str:
                    key=lambda e: -e.device_time_total)[:3]
     top = "; ".join(f"{e.key[:60]} x{e.count} {e.device_time_total / 1e3:.2f}"
                     f" ms" for e in cudnn)
+    warm = statistics.median(ms[1:])
     return (f"{differ} of {len(grads[0])} gradients differ; warm step "
-            f"{statistics.median(ms[1:]):.2f} ms; {top}")
+            f"{warm:.2f} ms; {top}"), warm
 
 
 def main() -> None:
@@ -106,8 +148,32 @@ def main() -> None:
                 solver.Solver.loss_and_grad = loss_and_grad
                 conv_bn._ConvStats.backward = staticmethod(backward)
                 print(f"{preset}, cuDNN {cudnn_name}, dx by {dx_name}: "
-                      f"{run(device, batch, preset)}", flush=True)
+                      f"{run(device, batch, preset)[0]}", flush=True)
                 torch.cuda.empty_cache()
+    conv_bn._ConvStats.backward = staticmethod(FORWARD_DX)
+    mel_batch = cs.make_request(np.random.RandomState(cs.SEED), cs.TRAIN_B,
+                                norm_arrays["rec_positions"])
+    mel_batch.features = np.ascontiguousarray(mel_batch.features[:, :MELS])
+    for preset in (cs.RECIPE, "clip_conv", "deep_mel"):
+        for dx_name, conv in (("forward conv", CONV_FORWARD_DX),
+                              ("backward-data", backward_data_conv)):
+            common.Conv1d._conv_forward = conv
+            warm = {}
+            for cudnn_name, loss_and_grad in (("free", FREE), ("held", HELD)):
+                solver.Solver.loss_and_grad = loss_and_grad
+                line, warm[cudnn_name] = run(
+                    device, mel_batch if preset == "deep_mel" else batch,
+                    preset, preset_trainer)
+                print(f"{preset} as the preset gives it (fused_conv_bn "
+                      f"off), cuDNN {cudnn_name}, Conv1d's dx by {dx_name}: "
+                      f"{line}", flush=True)
+                torch.cuda.empty_cache()
+            print(f"{preset}, Conv1d's dx by {dx_name}: held "
+                  f"{warm['held']:.2f} ms against free {warm['free']:.2f} "
+                  f"ms, {100 * (warm['held'] / warm['free'] - 1):+.1f}% "
+                  f"({cs.card()})", flush=True)
+    common.Conv1d._conv_forward = CONV_FORWARD_DX
+    solver.Solver.loss_and_grad = HELD
 
 
 if __name__ == "__main__":

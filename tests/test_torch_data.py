@@ -148,12 +148,17 @@ def test_assign_blocks_refuses_a_thin_split():
 
 
 def test_query_supports_field_equals_value_only():
+    """``field==value`` terms select their rows; the query's wider subset
+    (comparisons, ``and``) is held to pandas in tests/test_torch_query.py,
+    and arithmetic stays refused."""
     table = fake.make_fake_events(total_duration=20, seed=1234)
     words = table.query("kind=='word'")
     assert len(words) == int(table.kind_mask("word").sum()) > 0
     assert len(table.query('word == "de"')) > 0
+    later = table.query("kind=='word' and start > 3")
+    assert 0 < len(later) < len(words) and (later["start"] > 3).all()
     with pytest.raises(NotImplementedError):
-        table.query("start > 3")
+        table.query("start + 1 > 3")
 
 
 def test_mock_wav_is_bit_equal(tmp_path):
