@@ -30,7 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import parallel
+from . import parallel, tracing
 from .models.common import lecun_normal_
 from .ops.matmul import nt_matmul
 from .precision import torch_dtype
@@ -503,8 +503,10 @@ def retrieval_scores(clip: ClipLoss, estimates: torch.Tensor,
     e2 = estimates.reshape(estimates.shape[0], -1).contiguous()
     c2 = candidates.reshape(candidates.shape[0], -1).contiguous()
     if inv_norms is None:
-        inv_norms = block_inv_norms(c2)
-    return nt_matmul(e2, c2) * inv_norms[None, :]
+        with tracing.span("inv_norms"):
+            inv_norms = block_inv_norms(c2)
+    with tracing.span("nt_matmul"):
+        return nt_matmul(e2, c2) * inv_norms[None, :]
 
 
 #: candidates per block in the evaluation's streamed scoring

@@ -40,7 +40,9 @@ read them.
 process holds one card. A gloo group carries a CUDA tensor through a host
 copy (gloo's own CUDA support stops at all-reduce and broadcast); that is
 how ranks that share one card meet in ``chip_smoke.py``. Each
-collective is a ``parallel.<name>`` range in ``torch.profiler``.
+collective is a span (``tracing.span``): under ``torch.profiler`` the
+range ``bm.<name>`` (``bm.all_reduce``, ``bm.all_gather``,
+``bm.broadcast``, ``bm.exchange``, ``bm.reduce_scatter``).
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ import typing as tp
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
+
+from . import tracing
 
 #: how long a rank waits for the others in a collective: each host's
 #: first rank builds the datasets (preprocessing included) while the
@@ -161,7 +164,7 @@ def _wire(tensor: torch.Tensor) -> torch.Tensor:
     return tensor.view(torch.uint8) if tensor.dtype == torch.bool else tensor
 
 
-@record_function("parallel.all_reduce")
+@tracing.span("all_reduce")
 def all_reduce(tensor: torch.Tensor, group: tp.Any) -> torch.Tensor:
     """Sum `tensor` over `group`'s ranks, in place; returns it."""
     backend = _backend(group)
@@ -173,7 +176,7 @@ def all_reduce(tensor: torch.Tensor, group: tp.Any) -> torch.Tensor:
     return tensor
 
 
-@record_function("parallel.all_gather")
+@tracing.span("all_gather")
 def all_gather(tensor: torch.Tensor, group: tp.Any) -> torch.Tensor:
     """Every rank's `tensor` (the same shape on each) concatenated along
     the first dimension in rank order, on every rank."""
@@ -193,7 +196,7 @@ def all_gather(tensor: torch.Tensor, group: tp.Any) -> torch.Tensor:
     return out.view(torch.bool) if tensor.dtype == torch.bool else out
 
 
-@record_function("parallel.broadcast")
+@tracing.span("broadcast")
 def broadcast(tensor: torch.Tensor, src: int, group: tp.Any) -> torch.Tensor:
     """Global rank `src`'s `tensor` on every rank of `group`, in place."""
     backend = _backend(group)
@@ -205,7 +208,7 @@ def broadcast(tensor: torch.Tensor, src: int, group: tp.Any) -> torch.Tensor:
     return tensor
 
 
-@record_function("parallel.exchange")
+@tracing.span("exchange")
 def exchange(tensors: tp.Sequence[torch.Tensor], send_to: int,
              recv_from: int, backend: str) -> tp.List[torch.Tensor]:
     """Send `tensors` to global rank `send_to` and receive as many of the
@@ -259,7 +262,7 @@ class _GatherRows(torch.autograd.Function):
         b = grad.shape[0] // pool.size
         if pool.backend == "nccl":
             out = grad.new_empty((b,) + grad.shape[1:])
-            with record_function("parallel.reduce_scatter"):
+            with tracing.span("reduce_scatter"):
                 dist.reduce_scatter_tensor(out, grad, group=pool.group)
             return out, None
         total = all_reduce(grad.clone(), pool.group)

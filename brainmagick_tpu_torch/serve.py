@@ -73,6 +73,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import tracing
 from .precision import exact_fp32
 from .utils import as_tensor, transfer, write_and_rename
 
@@ -98,8 +99,9 @@ def _probabilities(clip: tp.Any, estimates: torch.Tensor,
                    ) -> torch.Tensor:
     """Softmax over candidates of ``losses.retrieval_scores``."""
     from .losses import retrieval_scores
-    return torch.softmax(retrieval_scores(clip, estimates, candidates,
-                                          inv_norms), dim=1)
+    scores = retrieval_scores(clip, estimates, candidates, inv_norms)
+    with tracing.span("softmax"):
+        return torch.softmax(scores, dim=1)
 
 
 class _Forward(torch.nn.Module):
@@ -450,6 +452,7 @@ class Server:
         return self.solver.forward_batch(batch, pad_weight,
                                          self.args.parallel.transfer_dtype)
 
+    @tracing.span("scoring")
     @torch.no_grad()
     @exact_fp32()
     def probabilities(self, estimates: torch.Tensor,

@@ -35,8 +35,8 @@ import typing as tp
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from . import tracing
 from .cache import Cache, tagged
 from .convert import (FM_PREFIX, JAX_CHECKPOINT, LOSS_PREFIX,
                       load_jax_checkpoint, load_jax_optimizer_state,
@@ -58,6 +58,21 @@ from .svd import svd_penalty
 from .utils import write_and_rename
 
 logger = logging.getLogger(__name__)
+
+
+def _waited(batches: tp.Iterable) -> tp.Iterator:
+    """`batches`' items, the host's wait on each added to the counter
+    ``loader.wait_us``."""
+    items = iter(batches)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            item = next(items)
+        except StopIteration:
+            return
+        tracing.count("loader.wait_us", (time.perf_counter() - t0) * 1e6)
+        yield item
+
 
 class _AlwaysApply:
     """The SVD penalty's stand-in RNG: the step always applies it, as the
@@ -240,6 +255,7 @@ class Solver:
         return dict(meg=meg * prompt, features=features), meg_gt, \
             features_mask
 
+    @tracing.span("forward")
     def _forward(self, arrays: tp.Mapping[str, torch.Tensor],
                  pad_weight: torch.Tensor, train: bool = False,
                  norm_arrays: tp.Optional[
@@ -434,26 +450,28 @@ class Solver:
         weights [B], the targets [B, F, T'])."""
         estimate, output, mask, keep, penalty = self._forward(
             arrays, pad_weight, train)
-        k = self._negatives_group_size()
-        negs = dict(negatives=negatives, negative_weight=negative_weight)
-        if self.clip_loss is not None and k > 1:
-            pool = self.group.pool(k)
-            if self.args.parallel.ring_negatives:
-                loss = self._ring_clip_loss(estimate, output, keep, pool,
-                                            train, **negs)
-            else:
-                loss = self._gathered_clip_loss(estimate, output, keep, pool,
+        with tracing.span("loss"):
+            k = self._negatives_group_size()
+            negs = dict(negatives=negatives, negative_weight=negative_weight)
+            if self.clip_loss is not None and k > 1:
+                pool = self.group.pool(k)
+                if self.args.parallel.ring_negatives:
+                    loss = self._ring_clip_loss(estimate, output, keep, pool,
                                                 train, **negs)
-        else:
-            loss = self._loss_value(estimate, output, mask, keep, train,
-                                    **negs)
-        if train:
-            loss = loss + penalty
-            if self.args.optim.svd:
-                # always applied, as the JAX step applies it (_AlwaysApply)
-                with record_function("solver.svd_penalty"):
-                    loss = loss + self.args.optim.svd * svd_penalty(
-                        self.model, rng=_ALWAYS)
+                else:
+                    loss = self._gathered_clip_loss(estimate, output, keep,
+                                                    pool, train, **negs)
+            else:
+                loss = self._loss_value(estimate, output, mask, keep, train,
+                                        **negs)
+            if train:
+                loss = loss + penalty
+                if self.args.optim.svd:
+                    # always applied, as the JAX step applies it
+                    # (_AlwaysApply)
+                    with tracing.span("svd_penalty"):
+                        loss = loss + self.args.optim.svd * svd_penalty(
+                            self.model, rng=_ALWAYS)
         return loss, keep, output
 
     def _trained_modules(self) -> tp.List[torch.nn.Module]:
@@ -527,7 +545,8 @@ class Solver:
             module.zero_grad(set_to_none=True)
         loss, keep, output = self._loss_and_aux(
             arrays, pad_weight, train, negatives, negative_weight)
-        loss.backward()
+        with tracing.span("backward"):
+            loss.backward()
         metrics = self._synchronize(loss.detach(), keep.sum(),
                                     pad_weight.sum(), grads=True,
                                     stats=train)
@@ -535,6 +554,7 @@ class Solver:
             metrics["output"] = output.detach()
         return metrics
 
+    @tracing.span("step")
     @exact_fp32()
     def step(self, arrays: tp.Mapping[str, torch.Tensor],
              pad_weight: torch.Tensor, train: bool,
@@ -556,7 +576,8 @@ class Solver:
                 raise ValueError("a training step needs an optimizer")
             metrics = self.loss_and_grad(arrays, pad_weight, True, negatives,
                                          negative_weight, return_output)
-            self.optimizer.step()
+            with tracing.span("optimizer"):
+                self.optimizer.step()
             return metrics
         with torch.no_grad():
             loss, keep, output = self._loss_and_aux(
@@ -818,7 +839,7 @@ class Solver:
                 (args.seed * 9176 + self.epoch * 2 + int(not training))
                 % (2 ** 31))
         losses, keeps, counts = [], [], []
-        for idx, (batch, pad_weight) in enumerate(loader):
+        for idx, (batch, pad_weight) in enumerate(_waited(loader)):
             if idx >= total:
                 break
             arrays = to_device(batch, self.device,
@@ -870,7 +891,7 @@ class Solver:
         shape = (n_extra, self._output_dim(feat_shape[1]),
                  target_length(self.args, feat_shape[-1]))
         buf = self.negative_pool[phase]
-        with record_function("solver.sample_negatives"):
+        with tracing.span("sample_negatives"):
             negatives = np.zeros(shape, dtype=np.float32)
             weight = np.zeros(n_extra, dtype=np.float32)
             if buf is not None and len(buf) and n_extra:
@@ -888,7 +909,7 @@ class Solver:
         ``negative_pool_size``; under a group every rank's rows, gathered
         in rank order (the global batch's), so that every rank keeps the
         same pool. A tensor's rows come to the host (a synchronization)."""
-        with record_function("solver.negative_pool"):
+        with tracing.span("negative_pool"):
             if isinstance(outputs, torch.Tensor):
                 if self.group is not None:
                     outputs = self.group.all_gather(outputs)
@@ -926,6 +947,7 @@ class Solver:
                         len(self.history))
         for epoch in range(self.epoch, args.optim.epochs + 1):
             self.epoch = epoch
+            counted = tracing.counters()
             stages: tp.Dict[str, tp.Dict[str, float]] = {}
             seconds: tp.Dict[str, float] = {}
             for name, fn in (("train", lambda: self._run_one_epoch(True)),
@@ -953,12 +975,17 @@ class Solver:
                     self._load_params(saved)
                 self.last_test_epoch = epoch
                 seconds["test"] = time.perf_counter() - t0
+            change = {k: v - counted.get(k, 0)
+                      for k, v in tracing.counters().items()}
             logger.info(
-                "Epoch %d | %s | reject %.3f%% | %s", epoch,
+                "Epoch %d | %s | reject %.3f%% | %s | loader wait %.1fs | "
+                "h2d %.3f GB", epoch,
                 " | ".join(f"{k} loss {v['loss']:.4f}" if "loss" in v
                            else f"{k} {v}" for k, v in stages.items()),
                 100 * self.rejection_rate,
-                " ".join(f"{k} {v:.1f}s" for k, v in seconds.items()))
+                " ".join(f"{k} {v:.1f}s" for k, v in seconds.items()),
+                change.get("loader.wait_us", 0) / 1e6,
+                change.get("h2d.bytes", 0) / 1e9)
             self.history.append(stages)
             self.stage_seconds.append(seconds)
             self.metric_sinks.log(epoch, stages)

@@ -338,7 +338,7 @@ def _run(args: tp.Any) -> float:
         logger.info("Size: %.1f MB", n_params * 4 / 2 ** 20)
         return 0.0
     best = solver.train()
-    logger.info("Kernel launches: %s", json.dumps(ops.launch_counts()))
+    logger.info("Program counters: %s", json.dumps(ops.launch_counts()))
     return best
 
 

@@ -24,6 +24,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import tracing
+
 X = tp.TypeVar("X")
 
 
@@ -252,7 +254,8 @@ def transfer(value: tp.Any, device: torch.device,
     into page-locked memory, casting as it goes, and the transfer is
     non-blocking on the current stream; `buffers` (by `name`) holds the
     page-locked buffer to reuse, which the caller must not touch again
-    before that transfer has finished."""
+    before that transfer has finished. Each copy to the card adds to the
+    counters ``h2d.copies`` and ``h2d.bytes`` (``tracing.count``)."""
     tensor = as_tensor(value)
     dtype = dtype or tensor.dtype
     if device.type != "cuda" or tensor.device.type == "cuda":
@@ -263,4 +266,6 @@ def transfer(value: tp.Any, device: torch.device,
         pinned = torch.empty(tensor.shape, dtype=dtype, pin_memory=True)
         if buffers is not None:
             buffers[name] = pinned
+    tracing.count("h2d.copies")
+    tracing.count("h2d.bytes", pinned.numel() * pinned.element_size())
     return pinned.copy_(tensor).to(device, non_blocking=True)

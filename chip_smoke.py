@@ -455,6 +455,13 @@ def bound(n_bytes: float, flops: float = 0., rate: float = TF32_FLOPS
                                                             "operations")
 
 
+def kernel_launches(counts: dict) -> dict:
+    """{kernel: launches} of the program's counters (``ops.launch_counts()``
+    or the train CLI's ``Program counters`` line), its dotted counters
+    (``h2d.bytes``, ``loader.wait_us``, ...) left out."""
+    return {k: v for k, v in counts.items() if "." not in k}
+
+
 def median_ms(fn, runs: int = 10, warmup: int = 2) -> float:
     """Median device time of `fn` over `runs` launches (CUDA events)."""
     for _ in range(warmup):
@@ -3500,6 +3507,9 @@ PARALLEL_RANK_B = 128
 PARALLEL_STEPS = 2
 #: the ranks' ring scoring: estimates x candidates, at SCORE_K
 PARALLEL_RING = (64, 256)
+#: the collectives' ranges in torch.profiler (``parallel``'s spans)
+COLLECTIVES = ("bm.all_reduce", "bm.all_gather", "bm.broadcast",
+               "bm.exchange", "bm.reduce_scatter")
 
 
 def _rank_run(device, group, arrays, weight, out: dict, **parallel) -> dict:
@@ -3546,7 +3556,7 @@ def _rank_run(device, group, arrays, weight, out: dict, **parallel) -> dict:
 def _rank_body(device_type: str) -> dict:
     """One rank of phase 14's two ranks on the card: the k=0 eval-mode
     loss and gradients, the gathered and the ring train steps, one warm
-    gathered step in torch.profiler (the collectives' ``parallel.*``
+    gathered step in torch.profiler (the collectives' ``bm.*``
     ranges), and the ring scoring of PARALLEL_RING; the launch counts of
     all but the profiled step."""
     from brainmagick_tpu_torch import dataset, losses, ops, parallel
@@ -3572,7 +3582,7 @@ def _rank_body(device_type: str) -> dict:
     est, pool = (torch.randn((n, SCORE_K), generator=gen).numpy()
                  for n in PARALLEL_RING)
     scores = losses.ring_scores(group, est, pool, torch.bfloat16, device)
-    out["launches"] = ops.launch_counts()
+    out["launches"] = kernel_launches(ops.launch_counts())
     out["routes"] = dict(ops.conv_stats.launches_by_route)
     out["by_dtype"] = dict(ops.conv_stats.launches_by_dtype)
     if group.lead:
@@ -3599,7 +3609,7 @@ def _rank_body(device_type: str) -> dict:
     # a range's CUDA-side annotation has the same key and no host time
     ranges: dict = {}
     for event in prof.key_averages():
-        if event.key.startswith("parallel."):
+        if event.key in COLLECTIVES:
             ranges[event.key] = max(ranges.get(event.key, 0.),
                                     event.cpu_time_total / 1e3)
     out.update(runs=runs, profiled_step_ms=step_s * 1e3,
@@ -3713,13 +3723,13 @@ def _launcher_run(device: torch.device, card_name: str, work: Path,
     wall = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     backend = "nccl" if device.type == "cuda" else "gloo"
-    found = re.findall(r"Kernel launches: (\{.*\})", log)
+    found = re.findall(r"Program counters: (\{.*\})", log)
     if proc.returncode or not found or \
             f"Data-parallel run over 1 rank(s) ({backend})" not in log:
         print(log[-6000:])
         raise AssertionError(f"the launcher's run exited {proc.returncode}"
                              f" ({card_name})")
-    return json.loads(found[-1]), log, wall
+    return kernel_launches(json.loads(found[-1])), log, wall
 
 
 def run_parallel_phase(device: torch.device, card_name: str, work: Path,
@@ -4455,9 +4465,8 @@ def _options_profile(solver, batch, calls: int = 3) -> dict:
     after a warm one. Host ms a step with and without the pool's work
     (synchronized), the SVD penalty's forward and backward alone (ms), and
     in torch.profiler the device time of a step, of the device-to-host
-    copies, of the SVD penalty's forward (``solver.svd_penalty``), and the
-    host time of ``solver.negative_pool`` and
-    ``solver.sample_negatives``."""
+    copies, of the SVD penalty's forward (``bm.svd_penalty``), and the
+    host time of ``bm.negative_pool`` and ``bm.sample_negatives``."""
     from torch.profiler import ProfilerActivity, profile
 
     from brainmagick_tpu_torch import svd
@@ -4518,9 +4527,9 @@ def _options_profile(solver, batch, calls: int = 3) -> dict:
         h2d_ms=sum(device_us(e) for e in device if "HtoD" in e.key)
         / calls / 1e3,
         svd_forward_ms=sum(device_us(e, own=False) for e in events
-                           if e.key == "solver.svd_penalty") / calls / 1e3,
-        pool_host_ms=host_ms("solver.negative_pool"),
-        sample_host_ms=host_ms("solver.sample_negatives"))
+                           if e.key == "bm.svd_penalty") / calls / 1e3,
+        pool_host_ms=host_ms("bm.negative_pool"),
+        sample_host_ms=host_ms("bm.sample_negatives"))
 
 
 def run_options_phase(device: torch.device, card_name: str, work: Path
@@ -4726,7 +4735,8 @@ def counted(launches, name, fn):
     result = fn()
     if cuda:
         torch.cuda.synchronize()
-    launches[name] = ops.launch_counts()
+    launches[name] = {k: v for k, v in ops.launch_counts().items()
+                      if "." not in k}
     return result
 
 
@@ -4806,7 +4816,7 @@ def export_xp(device: torch.device, card_name: str, work: Path, xp: dict,
                              f"device={device}"])
         synchronize(device)
         main_s = time.perf_counter() - t0
-        launches = ops.launch_counts()
+        launches = kernel_launches(ops.launch_counts())
         solver = play.get_solver_from_sig(
             xp["sig"], out_dir=xp["out_dir"],
             override_args={"device": str(device)})
@@ -5639,7 +5649,7 @@ def run_resume(device: torch.device, card_name: str, work: Path) -> tuple:
     ops.reset_launch_counts()
     losses = _resume_steps(solver, batches[RESUME_STEPS:], RESUME_STEPS)
     torch.cuda.synchronize()
-    train_launches = ops.launch_counts()
+    train_launches = kernel_launches(ops.launch_counts())
     routes = dict(ops.conv_stats.launches_by_route)
     errors = {f"loss of step {RESUME_STEPS + 1 + i}": abs(a - b) / abs(b)
               for i, (a, b) in enumerate(zip(losses,
@@ -5676,7 +5686,7 @@ def run_resume(device: torch.device, card_name: str, work: Path) -> tuple:
         test = solver._test_one_epoch()
         torch.cuda.synchronize()
         test_s = time.perf_counter() - t0
-    test_launches = ops.launch_counts()
+    test_launches = kernel_launches(ops.launch_counts())
     want_launches = dict(conv_stats=0, normalize_clamp_peak=spy.forwards,
                          nt_matmul=sum(spy.test_nt_matmul))
     if test_launches != want_launches or test_launches["nt_matmul"] < 1 \
@@ -5733,7 +5743,7 @@ def run_predict(device: torch.device, card_name: str, work: Path) -> tuple:
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         estimate = torch.from_numpy(solver.predict(**window))
-        one = ops.launch_counts()
+        one = kernel_launches(ops.launch_counts())
         ms = median_ms(lambda: solver.predict(**window), runs=5)
         cpu = play.get_solver_from_sig(words_sig, out_dir=outputs,
                                        override_args={"device": "cpu"})
@@ -5776,7 +5786,8 @@ def run_predict(device: torch.device, card_name: str, work: Path) -> tuple:
             torch.cuda.synchronize()
             predict_s[meg_init] = time.perf_counter() - t0
             launches = {k: v + launches[k]
-                        for k, v in ops.launch_counts().items()}
+                        for k, v in kernel_launches(
+                            ops.launch_counts()).items()}
         channels = encoder.datasets.train[0].meg.shape[0]
         del encoder
     want = {**kernels_none, "normalize_clamp_peak": len(calls)}

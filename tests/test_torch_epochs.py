@@ -6,6 +6,7 @@ loop's own rules are in tests/test_torch_loop.py."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -166,7 +167,8 @@ def test_cli_writes_its_xp_folder_and_resumes(tmp_path):
     and done-torch.json, and no untagged done.json or history.json (those
     are the JAX package's, and its grid runner skips an XP that has a
     done.json). A rerun with optim.epochs=3 and continue_sig resumes the
-    whole state and trains one epoch more; a rerun of the finished XP
+    whole state and trains one epoch more, its epoch line ending with the
+    loader's wait and the bytes to the card; a rerun of the finished XP
     trains nothing."""
     (tmp_path / "fake_cache").mkdir()
     _cli(tmp_path, "optim.epochs=2")
@@ -190,6 +192,11 @@ def test_cli_writes_its_xp_folder_and_resumes(tmp_path):
     log = _cli(tmp_path, "optim.epochs=3", f"continue_sig={args.sig}",
                "continue_best=False")
     assert "Epoch 3 |" in log and "Epoch 1 |" not in log
+    # the epoch's loader wait and bytes to the card (none on the CPU), and
+    # the run's counters beside the kernels' launches
+    assert re.search(r"Epoch 3 \|.* \| loader wait [0-9.]+s \| h2d 0\.000 GB",
+                     log), log[-2000:]
+    assert re.search(r'Program counters: \{.*"loader\.wait_us"', log)
     args3 = _port_args(tmp_path / "fake_cache", tmp_path / "outputs",
                        "optim.epochs=3", f"continue_sig={args.sig}",
                        "continue_best=False")
