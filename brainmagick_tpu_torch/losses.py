@@ -32,6 +32,7 @@ from torch import nn
 
 from . import parallel, tracing
 from .models.common import lecun_normal_
+from .ops.inv_norms import inv_norms as row_inv_norms
 from .ops.matmul import nt_matmul
 from .precision import torch_dtype
 
@@ -152,11 +153,13 @@ class FeatureDecodingLoss:
 
 def block_inv_norms(block: torch.Tensor) -> torch.Tensor:
     """Per-candidate inverse norms of a (possibly bf16) candidate block,
-    accumulated in fp32. The JAX package's values; the gradient of an
-    all-zero candidate's norm is 0 here, where the JAX package's square
-    root at 0 makes it NaN (the zero-weight padding of the sampled
-    negatives through ``clip.linear``'s projection, at its zero initial
-    bias, then turns the projection's gradients into NaN there)."""
+    accumulated in fp32: the training loss's differentiable version. The
+    JAX package's values; the gradient of an all-zero candidate's norm is
+    0 here, where the JAX package's square root at 0 makes it NaN (the
+    zero-weight padding of the sampled negatives through ``clip.linear``'s
+    projection, at its zero initial bias, then turns the projection's
+    gradients into NaN there). The no-grad scoring sites take the same
+    values from the one-pass kernel, ``ops.inv_norms``."""
     cf = block.reshape(block.shape[0], -1).float()
     squares = torch.sum(cf * cf, dim=1)
     positive = squares > 0
@@ -451,11 +454,11 @@ def retrieval_scores_int8(estimates: tp.Any, cand_q: tp.Any,
     s_e)`` pair, ``EstimateCache``), the int32 partial sums
     (``int8_partial_sums``) added in fp32 in K order, then ``acc *
     s_e[:, None] * inv_norms[None, :]`` with the candidates' inverse norms
-    of their int8 values (``block_inv_norms``)."""
+    of their int8 values (``ops.inv_norms``)."""
     if not isinstance(cand_q, Int8Rows):
         cand_q = cand_q.reshape(cand_q.shape[0], -1)
         if inv_norms is None:
-            inv_norms = block_inv_norms(cand_q)
+            inv_norms = row_inv_norms(cand_q)
     elif inv_norms is None:
         raise ValueError("laid-out candidates need their inverse norms")
     if isinstance(estimates, tuple):
@@ -491,7 +494,7 @@ def retrieval_scores(clip: ClipLoss, estimates: torch.Tensor,
     ``clip.get_scores``, with the flattened contraction
     run by ``nt_matmul``. A trim/transform configuration goes through
     ``clip.get_scores``. `inv_norms` are precomputed candidate inverse
-    norms (``block_inv_norms``) for the fast path."""
+    norms (``ops.inv_norms``) for the fast path."""
     if not int8_retrieval_ok(clip):
         if inv_norms is not None:
             raise ValueError("precomputed norms apply to the fast path only")
@@ -504,7 +507,7 @@ def retrieval_scores(clip: ClipLoss, estimates: torch.Tensor,
     c2 = candidates.reshape(candidates.shape[0], -1).contiguous()
     if inv_norms is None:
         with tracing.span("inv_norms"):
-            inv_norms = block_inv_norms(c2)
+            inv_norms = row_inv_norms(c2)
     with tracing.span("nt_matmul"):
         return nt_matmul(e2, c2) * inv_norms[None, :]
 
@@ -685,7 +688,7 @@ def streamed_scores(clip: ClipLoss, rows: tp.Any, pool: tp.Any,
         pool_bytes += sum(block.nbytes for block in dev_group)
         # candidate norms once per transferred block, not per chunk, and
         # int8 blocks laid out for the int8 GEMM once
-        norms = [block_inv_norms(b) if fast else None for b in dev_group]
+        norms = [row_inv_norms(b) if fast else None for b in dev_group]
         if use_int8:
             dev_group = [int8_rows(b.reshape(len(b), -1)) for b in dev_group]
         for lo in range(0, n, chunk):
@@ -735,7 +738,7 @@ def ring_scores(group: tp.Any, estimates: tp.Any, pool: tp.Any,
             else part.contiguous()
 
     e_loc, c_cur = block(est, n_loc), block(cand, p_loc)
-    inv = block_inv_norms(c_cur)
+    inv = row_inv_norms(c_cur)
     out = torch.empty((n_loc, size * p_loc), dtype=torch.float32,
                       device=device)
     pool_group = group.pool(size)

@@ -1,16 +1,18 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
-``normalize_clamp_peak`` and ``nt_matmul`` are registered custom ops of
-the ``brainmagick`` namespace (``torch.ops.brainmagick.*``), which
-``torch.export`` artifacts name: importing this package registers them."""
+``normalize_clamp_peak``, ``nt_matmul`` and ``inv_norms`` are registered
+custom ops of the ``brainmagick`` namespace (``torch.ops.brainmagick.*``),
+which ``torch.export`` artifacts name: importing this package registers
+them."""
 
 from .. import tracing
 from .conv_bn import conv_stats  # noqa
+from .inv_norms import inv_norms  # noqa
 from .matmul import nt_matmul  # noqa
 from .norm import normalize_clamp_peak  # noqa
 
 #: every kernel wrapper of the port (each carries `.launches`)
-KERNELS = (normalize_clamp_peak, nt_matmul, conv_stats)
+KERNELS = (normalize_clamp_peak, nt_matmul, conv_stats, inv_norms)
 
 
 def launch_counts() -> dict:

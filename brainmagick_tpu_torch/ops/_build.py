@@ -51,6 +51,9 @@ SIGNATURES = {
                                  _I64, _I64, _I64, ctypes.c_float,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_uint,
                                  ctypes.c_int, _P), ctypes.c_int),
+    # (x, type, partial, out, N, K, splits, stream)
+    "bm_inv_norms": ((_P, ctypes.c_int, _P, _P, _I64, _I64, ctypes.c_int,
+                      _P), ctypes.c_int),
 }
 
 

@@ -35,7 +35,12 @@ check raises, so the script exits non-zero and prints no result:
    forward and backward in fp32 and bf16, both on the tensor-core route,
    at every edge of that route, k = 9 and 11 included, and at every
    encoder layer shape, two calls of each type bit-equal, each type timed
-   beside cuDNN's conv in that type);
+   beside cuDNN's conv in that type; inv_norms within 1e-5 of the plain
+   version in fp32, bf16 and int8 at ragged shapes, rows off 16 bytes and
+   an all-zero row, then at the retrieval bank's, the evaluation's and a
+   test stage's shapes, two calls bit-equal, timed beside the plain
+   version and torch.linalg.vector_norm, and one launch a
+   losses.retrieval_scores call);
 4. the serving slice at the clip_conv preset's full width (273 sensors,
    361 samples, 1024 features, random seeded weights): four requests
    through Server.forward_batch and Server.probabilities against a bank of
@@ -305,6 +310,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import importlib
 import json
 import math
 import shutil
@@ -411,6 +417,13 @@ NORM_RECORDINGS = 4
 RAGGED_M = (1, 7, 9, 65, 255, 257)
 RAGGED_N = (1, 129, 2047)
 RAGGED_K = (1, 7, 33, 1000, 4099)
+#: inv_norms: max |kernel - plain| / plain, both summing in fp32 in other
+#: orders
+INV_NORMS_TOL = 1e-5
+#: inv_norms beyond the path's shapes, (N, K): one row, K below a vector,
+#: K not a multiple of any vector width, rows split over blocks, K = 0
+RAGGED_INV_NORMS = ((1, 1), (3, 7), (5, 1001), (1, 351_233), (129, 4099),
+                    (2, 0))
 #: the evaluation phase: EVAL_BATCHES batches of REQUESTS[0] rows over
 #: EVAL_SEGMENTS (sequence, word index) segments of EVAL_SEQUENCES stories
 #: and EVAL_WORDS words; the rows past EVAL_SEGMENTS repeat segments
@@ -780,6 +793,123 @@ def check_nt_matmul(device: torch.device) -> dict:
     return dict(name="nt_matmul", route="cuda",
                 source="brainmagick_tpu_torch/csrc/nt_matmul.cu",
                 replaces="brainmagick_tpu/ops/pallas_matmul.py:53",
+                **summary, other_shapes=shapes)
+
+
+def inv_norms_entry(x: torch.Tensor, what: str) -> dict:
+    """inv_norms of the [N, K] block `x` on the card against its plain
+    version (max error over the plain value within INV_NORMS_TOL; an
+    all-zero row's 1e8 exactly), called twice (the same bits both times),
+    timed beside the plain version, one library call (the fp32 norm alone,
+    ``torch.linalg.vector_norm``, which takes no int8) and the bound (`x`
+    read once, the [N] fp32 result written once)."""
+    inv_norms = importlib.import_module("brainmagick_tpu_torch.ops.inv_norms")
+
+    got = inv_norms.inv_norms(x)
+    again = inv_norms.inv_norms(x)
+    want = inv_norms._reference_impl(x)
+    torch.cuda.synchronize()
+    err = ((got - want).abs() / want).max().item() if len(x) else 0.
+    if not err <= INV_NORMS_TOL or not torch.equal(got, again) \
+            or not torch.equal(want == 1e8, got == 1e8):
+        raise AssertionError(f"inv_norms {what}: max|diff|/plain {err} (tol "
+                             f"{INV_NORMS_TOL}), two calls equal "
+                             f"{torch.equal(got, again)}")
+    entry = dict(
+        ms=median_ms(lambda: inv_norms.inv_norms(x)),
+        plain_ms=median_ms(lambda: inv_norms._reference_impl(x)),
+        library_ms=None if x.dtype == torch.int8 else median_ms(
+            lambda: torch.linalg.vector_norm(x, dim=1, dtype=torch.float32)),
+        max_rel_err=err, max_abs_err=(got - want).abs().max().item())
+    entry.update(zip(("bound_ms", "bound_by"),
+                     bound(x.element_size() * x.numel() + 4 * len(x))))
+    return entry
+
+
+def check_inv_norms(device: torch.device) -> dict:
+    """inv_norms against the plain version: ragged shapes in fp32, bf16 and
+    int8 (a row start off 16 bytes too, and an all-zero row), then the
+    retrieval cell's bank [2048, 351,232] bf16, the evaluation's 2048-row
+    blocks in fp32 and bf16 and int8, and a test stage's [200, 41,160]
+    (its rows split over blocks), each timed; the bank's device activities
+    in torch.profiler; and one ``losses.retrieval_scores`` call launches it
+    once."""
+    from brainmagick_tpu_torch import losses, ops
+
+    inv_norms = importlib.import_module("brainmagick_tpu_torch.ops.inv_norms")
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    types_ = (torch.float32, torch.bfloat16, torch.int8)
+
+    def block(n, k, dtype, offset=0):
+        if dtype == torch.int8:
+            flat = torch.randint(-127, 128, (n * k + offset,), generator=gen,
+                                 device=device, dtype=torch.int8)
+        else:
+            flat = torch.randn(n * k + offset, generator=gen,
+                               device=device).to(dtype)
+        return flat[offset:].view(n, k)
+
+    ragged = 0
+    for n, k in RAGGED_INV_NORMS:
+        for dtype in types_:
+            for offset in (0, 1):
+                x = block(n, k, dtype, offset)
+                if n > 1:
+                    x[n // 2] = 0
+                inv_norms_entry(x, f"[{n}, {k}] {_type_name(dtype)} offset "
+                                f"{offset}")
+                ragged += 1
+    print(f"inv_norms ragged: {ragged} blocks within {INV_NORMS_TOL} of the "
+          f"plain version, an all-zero row 1e8, two calls bit-equal")
+
+    summary, shapes = {}, {}
+    for (n, k), dtype in (((N_CANDIDATES, SCORE_K), torch.bfloat16),
+                          ((EVAL_CHUNK, SCORE_K), torch.float32),
+                          ((EVAL_CHUNK, SCORE_K), torch.int8),
+                          ((200, 41_160), torch.float32),
+                          ((200, 41_160), torch.bfloat16)):
+        x = block(n, k, dtype)
+        label = f"{n}x{k} {_type_name(dtype)}"
+        entry = inv_norms_entry(x, label)
+        splits = inv_norms.plan_splits(
+            n, k, x.element_size(),
+            torch.cuda.get_device_properties(device).multi_processor_count)
+        if dtype == torch.bfloat16 and n == N_CANDIDATES:
+            activities = device_rows(lambda: inv_norms.inv_norms(x), 5)
+            entry["device_ms"] = sum(us for _, _, us in activities) / 1e3
+            for key, count, us in activities:
+                print(f"  {us:9.2f} us  {count:g}x  {key[:100]}")
+            summary = entry
+        else:
+            shapes[label] = entry
+        print(f"inv_norms [{n}, {k}] {_type_name(dtype)} ({splits} blocks a "
+              f"row): max|diff|/plain {entry['max_rel_err']:.3e}, two calls "
+              f"bit-equal; kernel {entry['ms']:.4f} ms"
+              + (f" (device {entry['device_ms']:.4f})" if "device_ms" in entry
+                 else "")
+              + f", plain {entry['plain_ms']:.4f} ms, vector_norm "
+              + ("none" if entry["library_ms"] is None
+                 else f"{entry['library_ms']:.4f} ms")
+              + f", bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+        del x
+    # the scoring path: one launch a retrieval_scores call
+    bank = block(N_CANDIDATES, SCORE_K, torch.bfloat16)
+    est = torch.randn((REQUESTS[0], SCORE_K), generator=gen, device=device)
+    clip = losses.ClipLoss(compute_dtype="bfloat16")
+    before = {k.__name__: k.launches for k in ops.KERNELS}
+    scores = losses.retrieval_scores(clip, est, bank)
+    torch.cuda.synchronize()
+    moved = {k.__name__: k.launches - before[k.__name__] for k in ops.KERNELS}
+    if moved["inv_norms"] != 1 or moved["nt_matmul"] != 1 \
+            or not torch.isfinite(scores).all():
+        raise AssertionError(f"retrieval_scores launched {moved}")
+    print(f"retrieval_scores [{REQUESTS[0]}] x [{N_CANDIDATES}] bf16: "
+          f"launches {moved}")
+    del bank, est, scores
+    return dict(name="inv_norms", route="cuda",
+                source="brainmagick_tpu_torch/csrc/inv_norms.cu",
+                replaces="none (brainmagick_tpu/losses.py block_inv_norms is "
+                         "plain jnp)",
                 **summary, other_shapes=shapes)
 
 
@@ -1174,9 +1304,9 @@ def run_slice(device: torch.device, card_name: str,
     _check_fused_head(fused_calls,
                       len(REQUESTS) + STEADY_RUNS if recipe else 0,
                       f"the {preset} serving path")
+    scorings = len(REQUESTS) + STEADY_RUNS * (1 if recipe else 2)
     want = dict(normalize_clamp_peak=len(REQUESTS) + STEADY_RUNS,
-                nt_matmul=len(REQUESTS) + STEADY_RUNS * (1 if recipe else 2),
-                conv_stats=0)
+                nt_matmul=scorings, conv_stats=0, inv_norms=scorings)
     for name, count in want.items():
         if launches[name] != count:
             raise AssertionError(f"the {preset} serving path launched {name} "
@@ -1274,7 +1404,8 @@ def run_train(device: torch.device, card_name: str, batch,
                              f"and the last below the first")
     _check_fused_head(fused_calls, steps if fused_head else 0,
                       f"the {label} train steps")
-    want = dict(conv_stats=n_fused * steps, normalize_clamp_peak=steps)
+    want = dict(conv_stats=n_fused * steps, normalize_clamp_peak=steps,
+                inv_norms=0)
     for name, count in want.items():
         if launches[name] != count:
             raise AssertionError(f"{label} train path launched {name} "
@@ -1476,6 +1607,11 @@ def scoring_calls(n_rows: int, n_candidates: int) -> int:
                                                       / EVAL_CHUNK)
 
 
+def norm_calls(n_candidates: int) -> int:
+    """inv_norms launches of one streamed scoring: one a candidate block."""
+    return math.ceil(n_candidates / EVAL_CHUNK)
+
+
 def _check_eval_probs(probs: np.ndarray, shape: tuple, what: str) -> None:
     if probs.shape != shape:
         raise AssertionError(f"{what}: probabilities {probs.shape}, want "
@@ -1503,7 +1639,7 @@ def run_eval_phase(device: torch.device, card_name: str) -> tuple:
     t_out = T - server.solver._offsets()[0]
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    want = dict(normalize_clamp_peak=0, nt_matmul=0)
+    want = dict(normalize_clamp_peak=0, nt_matmul=0, inv_norms=0)
     times, transfers, peaks = {}, {}, {}
 
     def timed(name, fn, forwards=True, scorings=()):
@@ -1521,6 +1657,7 @@ def run_eval_phase(device: torch.device, card_name: str) -> tuple:
         transfers[name] = stats
         want["normalize_clamp_peak"] += EVAL_BATCHES if forwards else 0
         want["nt_matmul"] += sum(scoring_calls(*s) for s in scorings)
+        want["inv_norms"] += sum(norm_calls(n) for _, n in scorings)
         print(f"eval {name}: {times[name]:.2f} s (host clock, synchronized), "
               f"peak device memory {peaks[name]:.2f} GB, transfers {stats} "
               f"({card_name})")
@@ -1596,6 +1733,7 @@ def run_eval_phase(device: torch.device, card_name: str) -> tuple:
     trues = data["trues"][:HELD_CANDIDATES]
     probs = port_eval.build_probs(server, preds, trues)
     want["nt_matmul"] += scoring_calls(HELD_PREDS, HELD_CANDIDATES)
+    want["inv_norms"] += norm_calls(HELD_CANDIDATES)
     launches = {k.__name__: k.launches for k in ops.KERNELS}
     reference, _ = build_server("cpu")
     probs_ref = port_eval.build_probs(reference, preds, trues)
@@ -1628,9 +1766,9 @@ PREPROCESS_TOL = 1e-5
 
 class SolverSpy:
     """While installed: times each Solver.step with CUDA events (read after
-    the run), counts the forwards (Solver._forward) and the nt_matmul
-    launches of each test stage, keeps the dtypes of the meg the loaders
-    send to the card and the last solver seen."""
+    the run), counts the forwards (Solver._forward) and the nt_matmul and
+    inv_norms launches of each test stage, keeps the dtypes of the meg the
+    loaders send to the card and the last solver seen."""
 
     def __init__(self) -> None:
         from brainmagick_tpu_torch import loader, solver
@@ -1641,6 +1779,7 @@ class SolverSpy:
         self.events: list = []
         self.forwards = 0
         self.test_nt_matmul: list = []
+        self.test_inv_norms: list = []
         self.sent_dtypes: set = set()
         self.solver = None
 
@@ -1664,9 +1803,10 @@ class SolverSpy:
             return forward(solver, *args, **kwargs)
 
         def counted_test(solver):
-            before = ops.nt_matmul.launches
+            before = ops.nt_matmul.launches, ops.inv_norms.launches
             out = test(solver)
-            spy.test_nt_matmul.append(ops.nt_matmul.launches - before)
+            spy.test_nt_matmul.append(ops.nt_matmul.launches - before[0])
+            spy.test_inv_norms.append(ops.inv_norms.launches - before[1])
             return out
 
         def seen_send(staging, *args, **kwargs):
@@ -1720,14 +1860,16 @@ def _check_cli_launches(what: str, launches: dict, routes: dict,
                         fused: int = 10) -> int:
     """conv_stats `fused` times a train step (the fused encoder layers),
     every launch `dtype` on the tensor-core route; normalize once a
-    forward; nt_matmul in every test stage (`scored`: a CLIP test stage
-    scores its estimates; else never) and nowhere else, and (`tested`) a
-    test stage ran. Returns the train steps."""
+    forward; nt_matmul and inv_norms in every test stage (`scored`: a CLIP
+    test stage scores its estimates; else never) and nowhere else, and
+    (`tested`) a test stage ran. Returns the train steps."""
     steps = sum(1 for train, _, _ in spy.events if train)
     want = dict(conv_stats=fused * steps, normalize_clamp_peak=spy.forwards,
-                nt_matmul=sum(spy.test_nt_matmul) if scored else 0)
+                nt_matmul=sum(spy.test_nt_matmul) if scored else 0,
+                inv_norms=sum(spy.test_inv_norms) if scored else 0)
     if steps == 0 or (tested and not spy.test_nt_matmul) \
-            or (scored and min(spy.test_nt_matmul, default=1) < 1):
+            or (scored and min(spy.test_nt_matmul + spy.test_inv_norms,
+                               default=1) < 1):
         raise AssertionError(f"cli {what}: {steps} train steps, nt_matmul "
                              f"launches by test stage {spy.test_nt_matmul}")
     for name, count in want.items():
@@ -1827,7 +1969,7 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
 
     gen = torch.Generator(device=device).manual_seed(SEED + 8)
     out: dict = {"normalize_clamp_peak": {}, "nt_matmul": {},
-                 "conv_stats": {}}
+                 "conv_stats": {}, "inv_norms": {}}
     conv_shapes = (convs or ((batch, 270, 320, T - 18, 1, 3),
                              (batch, 320, 320, T - 18, 2, 3))
                    ) if with_conv else ()
@@ -1855,7 +1997,7 @@ def check_cli_shapes(device: torch.device, batch: int, n_test: int,
 
         if with_matmul:
             check_matmul_shape(device, gen, dtype, n_test, n_mels, n_cand,
-                               prefix, out["nt_matmul"])
+                               prefix, out)
 
         for conv in conv_shapes:
             _, Cin, O, Tc, d, k = conv
@@ -1905,7 +2047,8 @@ def check_matmul_shape(device: torch.device, gen: torch.Generator, dtype,
     """nt_matmul against its plain version at a test stage's `n_test`
     estimates against the other `n_test - 1` outputs (`n_cand` when
     given), K = n_mels x T', timed beside its plain version, cuBLAS and
-    its bound; the entry goes into `out`."""
+    its bound, and inv_norms over those outputs; the entries go into
+    `out` under their kernels."""
     from brainmagick_tpu_torch.ops import matmul
 
     name = _type_name(dtype)
@@ -1930,7 +2073,9 @@ def check_matmul_shape(device: torch.device, gen: torch.Generator, dtype,
         + 4 * a.shape[0] * b.shape[0],
         *((3 * flop, TF32_FLOPS) if dtype == torch.float32
           else (flop, BF16_FLOPS)))))
-    out[f"{prefix}{n_test}x{n_b}x{depth} {name}"] = entry
+    out["nt_matmul"][f"{prefix}{n_test}x{n_b}x{depth} {name}"] = entry
+    out["inv_norms"][f"{prefix}{n_b}x{depth} {name}"] = inv_norms_entry(
+        b, f"{prefix}{n_b}x{depth} {name}")
 
 
 def run_cli_phase(device: torch.device, card_name: str, work: Path
@@ -2579,7 +2724,8 @@ def eval_by_sig(xp: dict, what: str, card_name: str,
     `studies`) in the env: the six files in ``eval/<sig>-torch`` and none
     in the JAX package's ``eval/<sig>``, finite probability rows, top-1,
     5 and 10 in [0, 1], normalize once a forward, nt_matmul as often as
-    build_probs' loop implies (never without `kernel_scoring`: a scorer
+    build_probs' loop implies and inv_norms once a candidate block (both
+    never without `kernel_scoring`: a scorer
     that transforms its operands, such as clip.linear's projection,
     scores through ``ClipLoss.get_scores``) and conv_stats never. Returns
     the launch counts, the top-1, 5 and 10 accuracies, the probabilities
@@ -2634,6 +2780,8 @@ def eval_by_sig(xp: dict, what: str, card_name: str,
         raise AssertionError(f"eval {what}: accuracies {acc}")
     want = dict(normalize_clamp_peak=spy.forwards, conv_stats=0,
                 nt_matmul=scoring_calls(*probs.shape) if kernel_scoring
+                else 0,
+                inv_norms=norm_calls(probs.shape[1]) if kernel_scoring
                 else 0)
     if spy.forwards < 1 or any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"eval {what} launched {launches}, want {want}")
@@ -3387,7 +3535,8 @@ def run_grid_phase(device: torch.device, card_name: str, work: Path
                               f"eval grid {name}")
         acc = accs[sigs["base"]]
         want = dict(normalize_clamp_peak=forwards, conv_stats=0,
-                    nt_matmul=scoring_calls(*probs["base"].shape))
+                    nt_matmul=scoring_calls(*probs["base"].shape),
+                    inv_norms=norm_calls(probs["base"].shape[1]))
         if forwards < 1 or any(launches[k] != v for k, v in want.items()) \
                 or not all(0 <= v <= 1 for v in acc.values()):
             raise AssertionError(f"eval grid base: launches {launches}, "
@@ -3443,7 +3592,7 @@ def run_grid_phase(device: torch.device, card_name: str, work: Path
         launches, routes, by_dtype = counts()
         sub_gb = torch.cuda.max_memory_allocated() / 1e9
         want = dict(normalize_clamp_peak=GRID_STEPS, nt_matmul=0,
-                    conv_stats=fused * GRID_STEPS)
+                    conv_stats=fused * GRID_STEPS, inv_norms=0)
         if launches != want or routes != {"tc": fused * GRID_STEPS} \
                 or by_dtype["bfloat16"] != fused * GRID_STEPS \
                 or not torch.isfinite(loss):
@@ -3644,10 +3793,11 @@ def _rank_main(rank: int, world: int, port: int, device_type: str,
 def _check_rank_launches(result: dict) -> None:
     """A rank of phase 14 launched normalize once a forward, conv_stats
     once a fused layer a train step, all bf16 on "tc" (none in the
-    eval-mode step), and nt_matmul once a ring hop."""
+    eval-mode step), nt_matmul once a ring hop and inv_norms once (the
+    rank's block of the pool)."""
     convs = result["fused"] * 2 * PARALLEL_STEPS
     want = dict(conv_stats=convs, normalize_clamp_peak=1 + 2 * PARALLEL_STEPS,
-                nt_matmul=2)
+                nt_matmul=2, inv_norms=1)
     if result["launches"] != want or result["routes"] != {"tc": convs} \
             or result["by_dtype"]["bfloat16"] != convs:
         raise AssertionError(f"rank {result['rank']} launched "
@@ -4800,11 +4950,11 @@ def _sum_counts(*counts: dict) -> dict:
 def export_xp(device: torch.device, card_name: str, work: Path, xp: dict,
               what: str) -> dict:
     """``serve.main`` on the XP `xp` in this process (export, save, reload,
-    self-check at B=2 and 5: normalize 5 launches, nt_matmul 4 on the fast
-    route, conv_stats none), and EXPORT_BATCHES of its data written for
-    the artifact's process. Returns the job: the artifacts, the batches'
-    and output files, the solver, its batches, serve.main's launches and
-    whether its scorer takes the fast route."""
+    self-check at B=2 and 5: normalize 5 launches, nt_matmul and inv_norms 4
+    each on the fast route, conv_stats none), and EXPORT_BATCHES of its
+    data written for the artifact's process. Returns the job: the
+    artifacts, the batches' and output files, the solver, its batches,
+    serve.main's launches and whether its scorer takes the fast route."""
     from brainmagick_tpu_torch import losses, ops, play, serve
     from brainmagick_tpu_torch.env import env
 
@@ -4825,7 +4975,7 @@ def export_xp(device: torch.device, card_name: str, work: Path, xp: dict,
     # the artifact's and the solver's forward, the artifact's and the
     # eager scorer
     want = dict(normalize_clamp_peak=5, nt_matmul=4 if fast else 0,
-                conv_stats=0)
+                conv_stats=0, inv_norms=4 if fast else 0)
     if launches != want:
         raise AssertionError(f"serve.main {what} launched {launches}, "
                              f"want {want}")
@@ -4881,9 +5031,10 @@ def run_artifacts(card_name: str, work: Path, exported: dict) -> dict:
             counts = rep["launches"][f"forward {b}"], \
                 rep["launches"][f"scores {b}"]
             if counts != (dict(normalize_clamp_peak=1, nt_matmul=0,
-                               conv_stats=0),
+                               conv_stats=0, inv_norms=0),
                           dict(normalize_clamp_peak=0,
-                               nt_matmul=int(e["fast"]), conv_stats=0)):
+                               nt_matmul=int(e["fast"]), conv_stats=0,
+                               inv_norms=int(e["fast"]))):
                 raise AssertionError(f"{what} artifacts at B={b} launched "
                                      f"{counts}")
             calls += counts
@@ -5369,8 +5520,12 @@ def run_int8_eval(device: torch.device, card_name: str, fp32: dict) -> dict:
         probs = np.load(Path(out_dir) / "probs_segment.npy")
         _check_eval_probs(probs, (n_preds, EVAL_SEGMENTS), "int8 run_eval")
     launches = {k.__name__: k.launches for k in ops.KERNELS}
+    # inv_norms once an int8 candidate block: run_eval's pool of segments,
+    # get_wer's fixed negatives
+    n_fixed = min(n_preds, server.args.test.wer_negatives) - 1
     want = dict(normalize_clamp_peak=2 * EVAL_BATCHES, nt_matmul=0,
-                conv_stats=0)
+                conv_stats=0,
+                inv_norms=norm_calls(EVAL_SEGMENTS) + norm_calls(n_fixed))
     print(f"int8 evaluation: kernel launches {launches}, want {want}")
     if launches != want:
         raise AssertionError(f"the int8 evaluation launched {launches}, "
@@ -5674,7 +5829,8 @@ def run_resume(device: torch.device, card_name: str, work: Path) -> tuple:
     _check_errors({"whole state": whole}, STEP_TOL,
                   "resumed state against the uninterrupted run")
     want_launches = dict(conv_stats=10 * RESUME_STEPS,
-                         normalize_clamp_peak=RESUME_STEPS, nt_matmul=0)
+                         normalize_clamp_peak=RESUME_STEPS, nt_matmul=0,
+                         inv_norms=0)
     if train_launches != want_launches or routes != {
             "tc": 10 * RESUME_STEPS}:
         raise AssertionError(f"resume: launches {train_launches}, routes "
@@ -5688,7 +5844,8 @@ def run_resume(device: torch.device, card_name: str, work: Path) -> tuple:
         test_s = time.perf_counter() - t0
     test_launches = kernel_launches(ops.launch_counts())
     want_launches = dict(conv_stats=0, normalize_clamp_peak=spy.forwards,
-                         nt_matmul=sum(spy.test_nt_matmul))
+                         nt_matmul=sum(spy.test_nt_matmul),
+                         inv_norms=sum(spy.test_inv_norms))
     if test_launches != want_launches or test_launches["nt_matmul"] < 1 \
             or not 0 <= test["wer"] <= 1:
         raise AssertionError(f"resume test stage: {test}, launches "
@@ -5726,7 +5883,8 @@ def run_predict(device: torch.device, card_name: str, work: Path) -> tuple:
                                  *WORDS_FALLBACK]).sig
     encode_sig = parse_overrides([*ENCODE_RUNS["encode_simpleconv"],
                                   *ENCODE_COMMON, *common]).sig
-    kernels_none = dict(normalize_clamp_peak=0, conv_stats=0, nt_matmul=0)
+    kernels_none = dict(normalize_clamp_peak=0, conv_stats=0, nt_matmul=0,
+                        inv_norms=0)
     with env.temporary(cache=work / f"cache_{KEPT_STUDY}",
                        studies={KEPT_STUDY: work / KEPT_STUDY}):
         solver = play.get_solver_from_sig(words_sig, out_dir=outputs)
@@ -6065,7 +6223,8 @@ def _hosts_rank_main(rank: int, per_host: int, port: int, argv: list,
             routes=dict(ops.conv_stats.launches_by_route),
             by_dtype=dict(ops.conv_stats.launches_by_dtype),
             trains=[t for t, _, _ in spy.events], forwards=spy.forwards,
-            test_nt_matmul=spy.test_nt_matmul, step_ms=spy.train_step_ms(),
+            test_nt_matmul=spy.test_nt_matmul,
+            test_inv_norms=spy.test_inv_norms, step_ms=spy.train_step_ms(),
             peak_gb=torch.cuda.max_memory_allocated() / 1e9, wall=wall,
             datasets_s=solver.build_timings["datasets"],
             host_metrics=host_metrics, scored=scored, marks=marks,
@@ -6173,7 +6332,8 @@ def _check_host_rank(result: dict, n_hosts: int) -> None:
                              f"of {result['host_size']} ranks, want {want}")
     spy = types.SimpleNamespace(
         events=[(t, None, None) for t in result["trains"]],
-        forwards=result["forwards"], test_nt_matmul=result["test_nt_matmul"])
+        forwards=result["forwards"], test_nt_matmul=result["test_nt_matmul"],
+        test_inv_norms=result["test_inv_norms"])
     steps = _check_cli_launches(f"hosts rank {result['rank']}",
                                 result["launches"], result["routes"],
                                 result["by_dtype"], spy, "bfloat16")
@@ -6372,7 +6532,7 @@ def main() -> None:
     t0 = time.perf_counter()
     with exact_fp32():
         kernels = [check_normalize(device), check_nt_matmul(device),
-                   check_conv_stats(device)]
+                   check_conv_stats(device), check_inv_norms(device)]
     phase_s["3"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     serve_launches, batch, serve_warm = run_slice(device, card_name)

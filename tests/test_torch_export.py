@@ -25,8 +25,8 @@ from test_torch_epochs import TINY
 from brainmagick_tpu import train as bm_train
 from brainmagick_tpu.dataset import SegmentBatch
 from brainmagick_tpu.env import env as jenv
-from brainmagick_tpu_torch import (convert, dataset, losses, play, serve,
-                                   train)
+from brainmagick_tpu_torch import (convert, dataset, losses, ops, play,
+                                   serve, train)
 from brainmagick_tpu_torch.env import env
 from brainmagick_tpu_torch.ops import matmul, norm
 from brainmagick_tpu_torch.solver import Solver, build_clip_loss
@@ -163,8 +163,9 @@ def test_exported_scorer_matches_jax(server, batch, jax_solver, route):
         solver, jclip, params = _linear_solver(server, jax_solver, 8, length)
     exported = serve.export_scores(solver, example=batch)
     targets = {node.target for node in exported.graph.nodes}
-    assert (torch.ops.brainmagick.nt_matmul.default in targets) \
-        == (route == "fast")
+    for op in (torch.ops.brainmagick.nt_matmul.default,
+               torch.ops.brainmagick.inv_norms.default):
+        assert (op in targets) == (route == "fast")
     rng = np.random.RandomState(5)
     for rows, n in ((2, 5), (3, 7)):
         e = rng.randn(rows, features, length).astype(np.float32)
@@ -226,6 +227,41 @@ def test_custom_ops_fake_shapes_under_a_symbolic_batch():
         out, peak, scores = Ops()(fakes[0].to(torch.bfloat16), *fakes[1:])
     assert (out.shape, peak.shape, scores.shape) == ((6, 5, 7), (6,), (2, 3))
     assert {out.dtype, peak.dtype, scores.dtype} == {torch.float32}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_inv_norms_fake_shape_under_a_symbolic_batch(dtype):
+    """The inv_norms op keeps its place in a graph exported with Dim("n")
+    with a symbolic [n] fp32 output, the artifact equals the wrapper at
+    other sizes, and under a FakeTensorMode the wrapper gives [N] fp32."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    class Norms(torch.nn.Module):
+        def forward(self, block):
+            return ops.inv_norms(block)
+
+    rng = np.random.RandomState(1)
+
+    def block(n):
+        return torch.from_numpy(rng.randn(n, 5, 7).astype(np.float32) * 9
+                                ).to(dtype)
+
+    exported = torch.export.export(
+        Norms(), (block(3),), strict=False,
+        dynamic_shapes=({0: torch.export.Dim("n", min=1)},))
+    found = [node.meta["val"] for node in exported.graph.nodes
+             if node.target == torch.ops.brainmagick.inv_norms.default]
+    assert len(found) == 1
+    assert isinstance(found[0].shape[0], torch.SymInt)
+    assert found[0].dtype == torch.float32
+    for n in (1, 4):
+        x = block(n)
+        torch.testing.assert_close(exported.module()(x), Norms()(x), rtol=0,
+                                   atol=0)
+    with FakeTensorMode() as mode:
+        got = ops.inv_norms(mode.from_tensor(block(6)))
+    assert got.shape == (6,) and got.dtype == torch.float32
 
 
 @pytest.fixture(scope="module")

@@ -1,6 +1,9 @@
 """The PyTorch port's kernel modules (their plain CPU path) against the JAX
-package: normalize_clamp_peak, nt_matmul and the retrieval scorer built on
-it. Inputs come from numpy seeds and go through both frameworks."""
+package: normalize_clamp_peak, nt_matmul, inv_norms and the retrieval
+scorer built on them. Inputs come from numpy seeds and go through both
+frameworks."""
+
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +15,9 @@ from brainmagick_tpu import losses as jlosses
 from brainmagick_tpu.ops import pallas_matmul, pallas_norm
 from brainmagick_tpu_torch import losses
 from brainmagick_tpu_torch.ops import matmul, norm
+
+# the module; ``ops.inv_norms`` is its wrapper
+inv_norms = importlib.import_module("brainmagick_tpu_torch.ops.inv_norms")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -299,3 +305,52 @@ def test_block_inv_norms_matches_jax(dtype):
                                  .to(getattr(torch, dtype)))
     want = jlosses.block_inv_norms(jnp.asarray(block).astype(dtype))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape,zero_row", [
+    ((9, 6, 11), False), ((4, 13), True), ((1, 37), False),
+    ((3, 2053), False)], ids=["block", "zero_row", "one_row", "small_n"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_inv_norms_plain_matches_block_inv_norms_and_jax(dtype, shape,
+                                                         zero_row):
+    """The one-pass kernel's plain version (its CPU path) gives
+    block_inv_norms' values and the JAX package's, over fp32, bf16 and int8
+    blocks, an all-zero row (1e8), K not a multiple of 8 and one row."""
+    rng = np.random.RandomState(4)
+    block = (rng.randint(-127, 128, shape).astype(np.int8) if dtype == "int8"
+             else rng.randn(*shape).astype(np.float32))
+    if zero_row:
+        block[1] = 0
+    t = torch.from_numpy(block)
+    if dtype == "bfloat16":
+        t = t.to(torch.bfloat16)
+    got = inv_norms.inv_norms(t)
+    assert got.shape == (shape[0],) and got.dtype == torch.float32
+    torch.testing.assert_close(got, losses.block_inv_norms(t), rtol=0,
+                               atol=0)
+    want = jlosses.block_inv_norms(jnp.asarray(block).astype(dtype))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    if zero_row:
+        assert got[1].item() == pytest.approx(1e8)
+
+
+@pytest.mark.parametrize("n,k,elem_bytes", [
+    (2048, 351_232, 2), (2048, 351_232, 4), (200, 41_160, 4),
+    (15, 41_160, 2), (1, 351_232, 1), (3, 7, 4), (1000, 0, 2)])
+def test_inv_norms_plan_fills_the_card(n, k, elem_bytes):
+    """One block a row once the rows fill 132 SMs; fewer rows split, each
+    block keeping at least MIN_SPLIT_BYTES of its row."""
+    splits = inv_norms.plan_splits(n, k, elem_bytes, 132)
+    assert splits >= 1
+    if n >= 132 * inv_norms.RESIDENT_BLOCKS:
+        assert splits == 1
+    if splits > 1:
+        assert k * elem_bytes // splits >= inv_norms.MIN_SPLIT_BYTES
+        assert n * (splits - 1) < 132 * inv_norms.RESIDENT_BLOCKS
+
+
+def test_inv_norms_rejects_bad_inputs():
+    with pytest.raises(TypeError):
+        inv_norms.inv_norms(torch.zeros(2, 3, dtype=torch.float64))
+    with pytest.raises(ValueError):  # neither cpu nor cuda: no plain path
+        inv_norms.inv_norms(torch.zeros(2, 3, device="meta"))
