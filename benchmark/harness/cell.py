@@ -54,6 +54,12 @@ class Record:
     host_s: tp.Dict[str, float]     # host seconds inside each span
     cuda_ms: tp.Dict[str, tp.List[float]]   # CUDA-event ms a request
     launches: tp.Dict[str, int]     # the program's kernel launches
+    #: the plain reference's FLOPs of the window's units, summed by the
+    #: loop from each unit's shapes; None where every unit does the same
+    #: work, ``unit_flops`` of the loop
+    flops: tp.Optional[int] = None
+    #: each unit's shapes, in order, where units differ
+    shapes: tp.Optional[tp.List[dict]] = None
 
     @property
     def model(self) -> dict:
@@ -148,7 +154,8 @@ def run(root: tp.Any, workload: str, seed: int, seconds: float, trace: bool,
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
            "kind": (torch.cuda.get_device_name(device)
                     if device.type == "cuda" else "cpu"),
-           "count": 1, "memory_peak_bytes": out["memory_peak_bytes"]}
+           "count": cell.chips,
+           "memory_peak_bytes": out["memory_peak_bytes"]}
     result = {"correct": correct and out["failed"] == 0,
               "attempted": out["attempted"], "failed": out["failed"],
               "metrics": metrics, "device": dev}

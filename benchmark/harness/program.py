@@ -1,7 +1,10 @@
 """The system under test: ``brainmagick_tpu_torch``'s ``train.Trainer``
 and ``serve.Server`` built from a configuration's presets and overrides,
 their port-initialized weights replaced by the run's seeded ones. This is
-the only module of the benchmark that imports the program."""
+the program entry of every configuration that names none
+(``spec.program_entry``). It and the entries under
+``benchmark/programs/`` are the only modules of the benchmark that import
+the program; each loads its seeded weights through ``load``."""
 
 from __future__ import annotations
 
@@ -25,11 +28,12 @@ def port_args(config: dict) -> tp.Any:
                             config.get("overrides", {}).items()], args)
 
 
-def _load(module: torch.nn.Module, params: Tensors, stats: Tensors,
-          prefix: str = "") -> None:
+def load(module: torch.nn.Module, params: Tensors, stats: Tensors,
+         prefix: str = "") -> None:
     """`module`'s state from the seeded `params` and `stats` (names under
     `prefix`): every parameter and running statistic must be given, and
-    nothing else; BatchNorm's step counters are kept."""
+    nothing else, each in the program's shape; BatchNorm's step counters
+    are kept."""
     state = module.state_dict()
     given = {k[len(prefix):]: v for k, v in {**params, **stats}.items()
              if k.startswith(prefix) and (prefix or not k.startswith("fm."))}
@@ -58,9 +62,9 @@ def trainer(config: dict, params: Tensors, stats: Tensors, norm: Tensors,
     gen = torch.Generator()
     out = Trainer(port_args(config), m["sensors"], m["features"],
                   m["subjects"], None, None, norm, device, generator=gen)
-    _load(out.model, params, stats)
+    load(out.model, params, stats)
     if out.feature_model is not None:
-        _load(out.feature_model, params, stats, "fm.")
+        load(out.feature_model, params, stats, "fm.")
     gen.manual_seed(dropout_seed)
     return out
 
@@ -73,7 +77,7 @@ def server(config: dict, params: Tensors, stats: Tensors, norm: Tensors,
     m = config["model"]
     out = Server(port_args(config), m["sensors"], m["features"],
                  m["subjects"], None, None, norm, device)
-    _load(out.model, params, stats)
+    load(out.model, params, stats)
     return out
 
 

@@ -2,11 +2,20 @@
 root, each configuration's file, each traffic mix's file
 (``benchmark/traffic/<traffic>.json``), the loop its ``loop`` key names
 (``benchmark/loops/<loop>.py``), the plain reference its configuration's
-``reference`` key names (``benchmark/reference/<reference>.py``), each
-cell's limits (``benchmark/limits/<workload>.json``) and each per-layer
-metric's reader (``benchmark/metrics/<quantity>.py``, the metric's name
-up to its first dot). A cell, a mix, a loop, a reference or a metric is
-added by adding files and entries; nothing here names one."""
+``reference`` key names (``benchmark/reference/<reference>.py``), the
+program entry its configuration's ``program`` key names
+(``benchmark/programs/<program>.py``; ``harness/program.py`` for a
+configuration without the key), each cell's limits
+(``benchmark/limits/<workload>.json``) and each per-layer metric's reader
+(``benchmark/metrics/<quantity>.py``, the metric's name up to its first
+dot). A cell, a mix, a loop, a reference, a program entry or a metric is
+added by adding files and entries; nothing here names one.
+
+A program entry builds the program's objects for the loops that use it
+and loads the run's seeded weights into them (``harness/program.load``).
+It is loaded from its path, so an entry that starts processes gives them
+a target importable by name: the port's own entry point, or a
+``python3 -m`` command."""
 
 from __future__ import annotations
 
@@ -34,6 +43,10 @@ class Cell:
     loop: tp.Any
     #: the configuration's plain reference (``reference/<reference>.py``)
     reference: tp.Any
+    #: the configuration's program entry (``program_entry``)
+    program: tp.Any
+    #: the cards the cell asks for
+    chips: int
 
 
 def _read(path: Path) -> dict:
@@ -83,7 +96,19 @@ def load_cell(root: tp.Union[str, Path], workload: str,
                  if _reports(m, workload) and m["moves"] in moved]
     return Cell(workload, config, traffic, limits, end_to_end, per_layer,
                 module("loops", traffic["loop"], bench_dir),
-                module("reference", config["reference"], bench_dir))
+                module("reference", config["reference"], bench_dir),
+                program_entry(config, bench_dir), entry["chips"])
+
+
+def program_entry(config: dict, bench_dir: tp.Optional[Path] = None
+                  ) -> tp.Any:
+    """The module that builds the program for `config`:
+    ``programs/<program>.py`` where the configuration has a ``program``
+    key, else ``harness/program.py``."""
+    if "program" in config:
+        return module("programs", config["program"], bench_dir)
+    from . import program
+    return program
 
 
 _MODULES: tp.Dict[Path, tp.Any] = {}

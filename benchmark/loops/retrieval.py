@@ -1,8 +1,9 @@
 """The ``retrieval`` loop: closed loop, one client. Each request is
 ``Server.forward_batch`` of a resident pool batch and
-``Server.probabilities`` against the resident bank of candidates, and
-ends in a synchronize; its latency runs from its start to that
-synchronize. A unit is one request.
+``Server.probabilities`` against the resident bank of candidates, on the
+server that the cell's program entry's ``server`` builds, and ends in a
+synchronize; its latency runs from its start to that synchronize. A unit
+is one request.
 
 The mix's keys: ``rows`` (windows a request), ``pool_batches`` (distinct
 seeded request batches resident on the card in the wire dtype, rotated
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from benchmark.harness import cell as harness
-from benchmark.harness import check, flops, program, seeded, spec
+from benchmark.harness import check, flops, seeded, spec
 from benchmark.harness import trace as tracing
 
 
@@ -83,7 +84,7 @@ def window(c: spec.Cell, seed: int, seconds: float, trace: bool,
     params, stats, norm, pool, bank = _inputs(c, seed, device)
     harness.sync(device)
     phases.mark("inputs")
-    server = program.server(c.config, params, stats, norm, device)
+    server = c.program.server(c.config, params, stats, norm, device)
     phases.mark("program")
     requests = [types.SimpleNamespace(**b) for b in pool]
     sample = Sample(seed, mix["sample_requests"])
@@ -98,7 +99,7 @@ def window(c: spec.Cell, seed: int, seconds: float, trace: bool,
     latencies: tp.List[float] = []
     enqueue: tp.List[float] = []
     events: tp.List[tuple] = []
-    launches = program.launch_counts()
+    launches = c.program.launch_counts()
     with tracing.profiled(trace) as prof:
         with harness.span(tracing.WINDOW, trace):
             t0 = time.perf_counter()
@@ -130,7 +131,7 @@ def window(c: spec.Cell, seed: int, seconds: float, trace: bool,
             t1 = time.perf_counter()
     harness.check_modules()
     peak = harness.peak(device)
-    launches = harness.delta(program.launch_counts(), launches)
+    launches = harness.delta(c.program.launch_counts(), launches)
     cuda_ms = {"forward": [a.elapsed_time(b) for a, b, _ in events],
                "scoring": [b.elapsed_time(c) for _, b, c in events]}
     kept = sample.kept()
@@ -162,6 +163,11 @@ def window(c: spec.Cell, seed: int, seconds: float, trace: bool,
     if trace:
         result["record"] = harness.Record(c, tracing.reduce(prof), n, rows,
                                           {}, cuda_ms, launches)
+        # the harness's own CUDA events around each call, beside the
+        # program's spans that the readers take
+        result["diagnostics"].update(
+            {f"{part}_event_median_ms": statistics.median(times)
+             for part, times in cuda_ms.items() if times})
     return result
 
 
@@ -178,7 +184,7 @@ def readings(c: spec.Cell, seed: int, device: torch.device,
     params, stats, norm, pool, bank = _inputs(c, seed, device)
     truth = [_reference(ref, params, stats, m, b, norm, bank) for b in pool]
     if "program" in what:
-        server = program.server(c.config, params, stats, norm, device)
+        server = c.program.server(c.config, params, stats, norm, device)
         got = []
         for batch in pool:
             est = server.forward_batch(types.SimpleNamespace(**batch))[0]

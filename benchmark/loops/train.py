@@ -1,9 +1,10 @@
 """The ``train`` loop: closed loop, one host thread. Set-up builds the
-program's trainer, drives it through the mix's ``check_steps`` (the steps
-the reference follows) and ``warm_steps``, and hands that same object to
-the window, which dispatches ``Solver.step`` back to back over the pool
-of batches with no synchronize until it closes. A unit is one step of the
-configuration's batch.
+program's trainer (the cell's program entry's ``trainer``), drives it
+through the mix's ``check_steps`` (the steps the reference follows) and
+``warm_steps``, and hands that same object to the window, which
+dispatches ``Solver.step`` back to back over the pool of batches with no
+synchronize until it closes. A unit is one step of the configuration's
+batch.
 
 The mix's keys: ``pool_batches`` (distinct seeded batches resident on the
 card in the wire dtype, rotated each step), ``check_steps``,
@@ -18,19 +19,21 @@ from unittest import mock
 import torch
 
 from benchmark.harness import cell as harness
-from benchmark.harness import check, flops, program, seeded, spec
+from benchmark.harness import check, flops, seeded, spec
 from benchmark.harness import trace as tracing
 
 
-def program_readings(trainer: tp.Any, pool: tp.Sequence[dict],
-                     weights: dict, steps: int) -> dict:
+def program_readings(entry: tp.Any, trainer: tp.Any,
+                     pool: tp.Sequence[dict], weights: dict, steps: int
+                     ) -> dict:
     """The program's first `steps` train steps on pool batches 0, 1, ...
     through ``Solver.step``, in the reference's ``train_steps`` layout:
     each step's loss, the first gradient's norm per leaf as Adam received
     it (its first moment after one step over 1 - beta1) and each leaf's
-    change from `weights` after the last step."""
+    change from `weights` after the last step; `entry` is the program
+    entry that built `trainer`."""
     solver = trainer.solver
-    leaves = program.trained_leaves(trainer)
+    leaves = entry.trained_leaves(trainer)
     rows = pool[0]["meg"].shape[0]
     ones = torch.ones(rows, dtype=torch.float32, device=pool[0]["meg"].device)
     losses, out = [], {}
@@ -72,12 +75,12 @@ def window(c: spec.Cell, seed: int, seconds: float, trace: bool,
                           wire)
     harness.sync(device)
     phases.mark("inputs")
-    trainer = program.trainer(c.config, params, stats, norm, device,
-                              seeded.stream(seed, seeded.DROPOUT))
+    trainer = c.program.trainer(c.config, params, stats, norm, device,
+                                seeded.stream(seed, seeded.DROPOUT))
     solver = trainer.solver
     phases.mark("program")
     ones = torch.ones(rows, dtype=torch.float32, device=device)
-    prog = program_readings(trainer, pool, params, n_check)
+    prog = program_readings(c.program, trainer, pool, params, n_check)
     phases.mark("checked_steps")
     at = n_check
     for _ in range(mix["warm_steps"]):
@@ -87,7 +90,7 @@ def window(c: spec.Cell, seed: int, seconds: float, trace: bool,
     setup_s = phases.mark("warm_steps") - t_start
 
     losses, dispatch = [], 0.
-    launches = program.launch_counts()
+    launches = c.program.launch_counts()
     with tracing.profiled(trace) as prof:
         with harness.span(tracing.WINDOW, trace):
             t0 = time.perf_counter()
@@ -104,7 +107,7 @@ def window(c: spec.Cell, seed: int, seconds: float, trace: bool,
     steps = len(losses)
     peak = harness.peak(device)
     failed = int((~torch.isfinite(torch.stack(losses).float())).sum())
-    launches = harness.delta(program.launch_counts(), launches)
+    launches = harness.delta(c.program.launch_counts(), launches)
     del trainer, solver, out, losses
     harness.free(device)
 
@@ -158,9 +161,9 @@ def readings(c: spec.Cell, seed: int, device: torch.device,
     truth = reference_readings(ref, m, params, stats, pool, norm, seed,
                                steps)
     if "program" in what:
-        trainer = program.trainer(c.config, params, stats, norm, device,
-                                  seeded.stream(seed, seeded.DROPOUT))
-        got = program_readings(trainer, pool, params, steps)
+        trainer = c.program.trainer(c.config, params, stats, norm, device,
+                                    seeded.stream(seed, seeded.DROPOUT))
+        got = program_readings(c.program, trainer, pool, params, steps)
         del trainer
         harness.free(device)
         yield "program", check.train_numbers(got, truth)

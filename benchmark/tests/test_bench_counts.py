@@ -111,3 +111,28 @@ def test_nt_matmul_roofline_bound():
     least, by = reader.least_seconds(256, 2048, 351_232, "float32")
     assert by == "operations" and least * 1e3 == pytest.approx(2.232,
                                                               abs=1e-3)
+
+
+@pytest.mark.parametrize("workload", ["simpleconv_recipe.train",
+                                      "simpleconv_recipe.retrieval"])
+def test_mfu_reads_the_window_s_flops(workload):
+    """``mfu``: without ``Record.flops`` one unit's FLOPs at the cell's
+    shapes times the units, as before the loops could sum them; with it,
+    the units' own sum (requests of different lengths)."""
+    from benchmark.harness import cell
+    from benchmark.harness import trace as tracing
+
+    c = spec.load_cell(REPO, workload)
+    window = tracing.Trace(0, 2_500_000_000, [], [])
+    peak = peaks.FLOPS[c.config["peak"]]
+    rec = cell.Record(c, window, 7, 256, {}, {}, {})
+    assert rec.flops is None and rec.shapes is None
+    per_unit = c.loop.unit_flops(c)
+    reader = spec.reader(f"mfu.{workload.split('.')[1]}")
+    assert reader.read(rec) == 100 * per_unit * 7 / 2.5 / peak
+    shapes = [{"frames": t} for t in (1500, 4000, 9000)]
+    flops = [3 * 10 ** 12, 9 * 10 ** 12, 14 * 10 ** 12]
+    rec = cell.Record(c, window, 3, 1, {}, {}, {}, sum(flops), shapes)
+    assert reader.read(rec) == pytest.approx(100 * 26e12 / 2.5 / peak,
+                                             rel=1e-15)
+    assert reader.read(cell.Record(c, window, 0, 1, {}, {}, {})) is None

@@ -1,8 +1,10 @@
 """What the harness may import and where it may run: no file of the
 benchmark imports ``jax``, ``jaxlib``, ``flax``, ``optax`` or the JAX
 package (top-level names compared whole, so the port's
-``brainmagick_tpu_torch`` is allowed); the reference imports nothing of
-the program; a run refuses a process holding one of them; and the
+``brainmagick_tpu_torch`` is allowed); only the program entries
+(``harness/program.py``, ``programs/*.py``) name the port, and none of
+them reaches the reference; the reference and the readers reach no
+program entry; a run refuses a process holding one of them; and the
 command exits non-zero, printing no result, without a card."""
 
 from __future__ import annotations
@@ -39,17 +41,95 @@ def test_no_file_imports_jax_or_the_jax_package():
         assert not found, (path, found)
 
 
+PORT = "brainmagick_tpu_torch"
+
+
+def _reached(tree: ast.AST, package: list) -> set:
+    """The dotted names of what the module `tree` of `package` imports
+    (relative imports resolved) and of the benchmark's modules it loads
+    by path (``spec.module(kind, name)``: ``benchmark.<kind>.<name>``)."""
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1] \
+                if node.level else []
+            base = ".".join(base + ([node.module] if node.module else []))
+            names.update(f"{base}.{a.name}" for a in node.names)
+        elif (isinstance(node, ast.Call) and node.args
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              == "module"):
+            words = [a.value for a in node.args[:2]
+                     if isinstance(a, ast.Constant)]
+            names.add(".".join(["benchmark", *map(str, words)]))
+    return names
+
+
+def _isolation_faults(bench: Path) -> list:
+    """Each file under `bench` (its tests aside) that breaks the rule,
+    with the reason: only the program entries name the port; no entry
+    reaches the reference; the reference and the readers reach no entry,
+    by import, by path or through a cell's ``program``."""
+    entries = {bench / "harness" / "program.py",
+               *(bench / "programs").glob("*.py")}
+    faults = []
+    for path in sorted(bench.rglob("*.py")):
+        where = path.relative_to(bench)
+        if where.parts[0] == "tests":
+            continue
+        text = path.read_text()
+        tree = ast.parse(text)
+        reached = _reached(tree, ["benchmark", *where.parts[:-1]])
+        if path in entries:
+            if any(n.startswith("benchmark.reference") for n in reached):
+                faults.append((str(where), "an entry reaches the reference"))
+        elif PORT in text:
+            faults.append((str(where), "names the port"))
+        if where.parts[0] in ("reference", "metrics"):
+            if any({"program", "programs"} & set(n.split("."))
+                   for n in reached) or any(
+                    isinstance(node, ast.Attribute) and node.attr
+                    == "program" for node in ast.walk(tree)):
+                faults.append((str(where), "reaches a program entry"))
+    return faults
+
+
 def test_reference_and_yardstick_import_nothing_of_the_program():
-    """The reference and the readers import nothing of the program; the
-    harness and the loops reach it only through ``harness/program.py``."""
-    for sub in ("reference", "metrics"):
-        for path in (BENCH / sub).rglob("*.py"):
-            assert "brainmagick_tpu_torch" not in _imports(path), path
-    for path in [*(BENCH / "harness").glob("*.py"),
-                 *(BENCH / "loops").glob("*.py")]:
-        if path.name != "program.py":
-            text = path.read_text()
-            assert "brainmagick_tpu_torch" not in text, path
+    """The reference and the readers reach nothing of the program; the
+    harness, the loops and the rest name the port nowhere and reach it
+    only through a cell's program entry; no entry reaches the reference,
+    so that it stays independent of what it judges."""
+    assert (BENCH / "harness" / "program.py").exists()
+    assert _isolation_faults(BENCH) == []
+
+
+@pytest.mark.parametrize("planted, text, reason", [
+    ("loops/leaky.py", f"from {PORT} import serve\n", "names the port"),
+    ("harness/leaky.py", f"import {PORT}.ops\n", "names the port"),
+    ("programs/peek.py", "from benchmark.reference import model\n",
+     "an entry reaches the reference"),
+    ("programs/peek_by_path.py",
+     "from benchmark.harness import spec\n"
+     "MODEL = spec.module('reference', 'model')\n",
+     "an entry reaches the reference"),
+    ("reference/peek.py", "from ..harness import program\n",
+     "reaches a program entry"),
+    ("metrics/peek.py",
+     "def read(rec):\n    return rec.cell.program.launch_counts()\n",
+     "reaches a program entry"),
+])
+def test_the_isolation_scan_bites(tmp_path, planted, text, reason):
+    """A copy of the benchmark with one file planted that breaks the rule:
+    the scan names that file and the reason, and nothing else."""
+    import shutil
+
+    bench = tmp_path / "benchmark"
+    shutil.copytree(BENCH, bench,
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    (bench / planted).parent.mkdir(exist_ok=True)
+    (bench / planted).write_text(text)
+    assert _isolation_faults(bench) == [(planted, reason)]
 
 
 def test_top_level_names_are_compared_whole(monkeypatch):
